@@ -1,0 +1,586 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py [--layers N] [--skip-timed]
+
+Phases; any failure raises and the script exits non-zero:
+  1. card and build: the card's name and power limit, then both CUDA
+     kernels built from src/repro_torch/csrc with nvcc for sm_90a;
+  2. kernels against their plain PyTorch versions on the card: the shape
+     sweeps of the tests, the presliced bit-identity, every llama3-8b
+     projection at each rank's offset for TP 1/2/4/8 at decode and prefill
+     widths, and decode attention at the engine's shape; each kernel timed
+     at the decode shapes beside its bound, its plain version and one
+     PyTorch library call;
+  3. the serving engine at llama3-8b width in f32 (check_engine at full
+     width): 10 requests served at fixed TP 1 and under a TP switch
+     schedule must give identical greedy trajectories, launch both
+     kernels, and rebind without moving a weight; plus a tiny model
+     served on the card against the same model on the CPU;
+  4. the engine in bf16, timed on the host clock with repeats (median and
+     spread): TTFT per bucket, decode step per TP level, tokens/s, the
+     switch's binding lookup, the bind per TP level made at install, and
+     migrate; then, last, decode at TP 1 and 8 under torch.profiler.
+The full record goes to chiprun_out/chip_smoke.json. The last lines are the
+kernels line, the card line and the contract line.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # FMA f32; dense bf16 tensor cores
+TPU_SOURCES = {
+    "tp_shard_matmul": "src/repro/kernels/tp_shard_matmul/kernel.py:41",
+    "paged_decode_attention": "src/repro/kernels/paged_attention/kernel.py:74",
+}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
+    """Median device time of one call, from CUDA events around each call;
+    ``flush`` (a large buffer) is overwritten before each call so the call
+    finds the 50 MB L2 cold, as it does inside a forward pass. A spin of
+    ~0.2 ms queued before the start event keeps the card busy while the host
+    issues the call, so the host's launch cost is not counted."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(400_000)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against plain versions
+# ---------------------------------------------------------------------------
+def check_matmul_sweeps(torch, dev, log):
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def grid(*shape):  # multiples of 1/8: every sum exact, so kernel == plain bit for bit
+        return torch.randint(-8, 9, shape, generator=g, device=dev).float() / 8
+
+    worst = 0.0
+    cases = [("col", 64, 128, 512, 128, 0), ("col", 64, 128, 512, 128, 3), ("col", 128, 256, 256, 64, 2),
+             ("col", 32, 64, 576, 144, 1), ("col", 256, 512, 1024, 512, 1),
+             ("row", 64, 512, 128, 128, 0), ("row", 64, 512, 128, 128, 2), ("row", 32, 256, 64, 96, 1),
+             # decode widths (M <= 8), ragged and misaligned (scalar loads at offset 70)
+             ("col", 8, 128, 512, 128, 3), ("col", 3, 72, 576, 144, 1), ("col", 6, 96, 210, 70, 1),
+             ("row", 7, 256, 64, 96, 1), ("row", 8, 3000, 1000, 520, 2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode, m, a, b, c, shard in cases:
+            if mode == "col":  # (m, k, n_store, n_out)
+                x, w, off, n_out = grid(m, a).to(dtype), grid(a, b).to(dtype), shard * c, c
+            else:  # (m, k_store, k, n)
+                x, w, off, n_out = grid(m, b).to(dtype), grid(a, c).to(dtype), shard * b, c
+            got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+            err = (got.float() - tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out).float()).abs().max().item()
+            check(err <= (2e-5 if dtype == torch.float32 else 2e-2), f"tp_shard_matmul {mode} {dtype} err {err}")
+            worst = max(worst, err)
+    # the paper's invariant: a shard read in place equals the pre-sliced weight, bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, 4096, generator=g, device=dev).to(dtype)
+        w = torch.randn(4096, 4096, generator=g, device=dev).to(dtype)
+        wr = torch.randn(4096, 1024, generator=g, device=dev).to(dtype)
+        for tp in (1, 2, 4, 8):
+            n = 4096 // tp
+            for s in range(tp):
+                col = tp_shard_matmul(x, w, s * n, n_out=n, mode="col")
+                check(torch.equal(col, tp_shard_matmul(x, w[:, s * n:(s + 1) * n].contiguous(), 0, n_out=n, mode="col")),
+                      f"presliced col tp={tp} shard={s} {dtype}")
+                row = tp_shard_matmul(x[:, :n].contiguous(), wr, s * n, n_out=1024, mode="row")
+                check(torch.equal(row, tp_shard_matmul(x[:, :n].contiguous(), wr[s * n:(s + 1) * n].contiguous(), 0,
+                                                       n_out=1024, mode="row")), f"presliced row tp={tp} shard={s}")
+    log(f"tp_shard_matmul: sweeps (exact inputs) max |err| {worst:.3g} (tol f32 2e-5, bf16 2e-2); "
+        f"presliced bit-identity holds at tp 1/2/4/8, col and row, f32 and bf16")
+    return worst
+
+
+def check_paged_sweeps(torch, dev, log):
+    import numpy as np
+
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(2, 2, 4, 32, 8, 4, None), (1, 1, 8, 64, 16, 2, None), (4, 4, 1, 16, 4, 8, None),
+             (2, 2, 2, 16, 8, 2, 20.0), (3, 2, 3, 16, 4, 4, None), (3, 2, 4, 128, 8, 3, None)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, KV, G, hd, page, n_pages, cap) in enumerate(cases):
+            rng = np.random.RandomState(B * 31 + n_pages + i)
+            P = B * n_pages + 2
+            q = torch.randn(B, KV, G, hd, generator=g, device=dev).to(dtype)
+            kp = torch.randn(P, page, KV, hd, generator=g, device=dev).to(dtype)
+            vp = torch.randn(P, page, KV, hd, generator=g, device=dev).to(dtype)
+            tables = torch.from_numpy(rng.permutation(P)[: B * n_pages].reshape(B, n_pages).astype(np.int32)).to(dev)
+            lens = torch.from_numpy(rng.randint(1, page * n_pages + 1, size=(B,)).astype(np.int32)).to(dev)
+            got = paged_decode_attention(q, kp, vp, tables, lens, softcap=cap).float()
+            want = paged_decode_attention_ref(q, kp, vp, tables, lens, softcap=cap).float()
+            tol = 2e-5 if dtype == torch.float32 else 3e-2
+            err = ((got - want).abs() - tol * want.abs()).max().item()
+            check(err <= tol, f"paged_decode_attention case {i} {dtype}: err {err}")
+            worst[dtype] = max(worst[dtype], (got - want).abs().max().item())
+    log(f"paged_decode_attention: sweeps (permuted tables, softcap) max |err| f32 {worst[torch.float32]:.3g} "
+        f"(tol 2e-5), bf16 {worst[torch.bfloat16]:.3g} (tol 3e-2)")
+
+
+def check_matmul_main_shapes(torch, dev, cfg, log):
+    """Every projection of llama3-8b as the engine calls it: each rank's
+    shard at its offset, TP 1/2/4/8, M = 8 (decode) and 32/64/128 (the
+    prefill buckets, where the tiled path and split-K run), f32 and bf16.
+    Each shard is held to tol x max|plain| of that shard."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+    d, ff, hd, H, KV, V = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.vocab_padded
+    # (name, mode, stored weight shape, units along the sharded axis, unit width)
+    projections = [("wq", "col", (d, H * hd), H, hd), ("wk/wv", "col", (d, KV * hd), KV, hd),
+                   ("wo", "row", (H * hd, d), H, hd), ("w_gate/w_in", "col", (d, ff), ff, 1),
+                   ("w_out", "row", (ff, d), ff, 1), ("lm_head", "col", (d, V), V, 1)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst, n_cases = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        for name, mode, (k_store, n_store), n, unit in projections:
+            w = (torch.randn(k_store, n_store, generator=g, device=dev) / math.sqrt(k_store)).to(dtype)
+            x_all = torch.randn(128, k_store, generator=g, device=dev).to(dtype)
+            out_dtype = torch.float32 if name == "lm_head" else dtype
+            for tp in (1, 2, 4, 8):
+                width = max(n // tp, 1) * unit
+                for r in range(tp):
+                    off = (r * n) // tp * unit  # weight_store's per-rank offset, storage_tp 1
+                    for m in (8, 32, 64, 128):
+                        if mode == "col":
+                            x, n_out = x_all[:m], width
+                        else:
+                            x, n_out = x_all[:m, off:off + width].contiguous(), n_store
+                        got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode, out_dtype=out_dtype).float()
+                        want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out, out_dtype=out_dtype).float()
+                        ratio = (got - want).abs().max().item() / want.abs().max().item()
+                        check(ratio <= tol, f"tp_shard_matmul {name} {dtype} tp={tp} rank={r} M={m}: "
+                                            f"err {ratio:.3g} x max|plain| > {tol}")
+                        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), ratio)
+                        n_cases += 1
+            del w, x_all
+    log(f"tp_shard_matmul: every llama3-8b projection, each rank's shard at TP 1/2/4/8, M 8/32/64/128: "
+        f"{n_cases} cases, worst max|err| / max|plain| f32 {worst['torch.float32']:.3g} (tol 1e-5), "
+        f"bf16 {worst['torch.bfloat16']:.3g} (tol 1e-2)")
+    return {"cases": n_cases, "worst_err_over_max_plain": worst}
+
+
+def measure_matmul(torch, dev, cfg, flush, log):
+    """Every distinct decode projection of llama3-8b at TP 1 (M = 8 slots),
+    in bf16 and f32: kernel vs plain vs torch.matmul on the pre-sliced weight."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    shapes = [("wq/wo col", "col", d, d), ("wk/wv col", "col", d, cfg.num_kv_heads * hd), ("w_gate/w_in col", "col", d, ff),
+              ("w_out row", "row", ff, d), ("lm_head col f32-out", "col", d, cfg.vocab_padded)]
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for name, mode, k, n in shapes:
+            m = 8
+            x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+            w = torch.randn(k, n, generator=g, device=dev).to(dtype) * (1 / math.sqrt(k))
+            out_dtype = torch.float32 if name.startswith("lm_head") else dtype
+            run = lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode, out_dtype=out_dtype)  # noqa: E731
+            got, want = run(), tp_shard_matmul_ref(x, w, 0, mode=mode, n_out=n, out_dtype=out_dtype)
+            scale = want.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            check(err <= tol * scale, f"tp_shard_matmul {name} {dname}: err {err} > {tol} x {scale}")
+            es, eo = x.element_size(), torch.finfo(out_dtype).bits // 8
+            b_ms, b_by = bound_ms(es * (m * k + k * n) + eo * m * n, 2.0 * m * k * n, dname)
+            row = {
+                "shape": f"{name} {dname} M={m} K={k} N={n}", "max_abs_err": err, "tol": f"{tol} x max|plain| = {tol * scale:.3g}",
+                "ms": time_ms(torch, run, flush=flush),
+                "plain_ms": time_ms(torch, lambda: tp_shard_matmul_ref(x, w, 0, mode=mode, n_out=n, out_dtype=out_dtype), flush=flush),
+                "library_ms": time_ms(torch, lambda: torch.matmul(x, w), flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            rows.append(row)
+            log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}), plain {row['plain_ms']:.4f}, "
+                f"torch.matmul {row['library_ms']:.4f}, err {err:.3g} (tol {row['tol']})")
+    return rows
+
+
+def measure_paged(torch, dev, cfg, flush, log):
+    """Decode attention of llama3-8b at the engine's layout: 8 slots, 8 KV
+    heads, G = 4, hd = 128, pages of 16 over max_len 256."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+
+    B, S, page = 8, 256, 16
+    KV, hd, G = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    n_pages = S // page
+    lens_np = np.random.RandomState(0).randint(5, 145, size=B).astype(np.int32)  # prompts 4..120 + up to 24 tokens
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q = torch.randn(B, KV, G, hd, generator=g, device=dev).to(dtype)
+        kc = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+        vc = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+        kp, vp = kc.view(B * n_pages, page, KV, hd), vc.view(B * n_pages, page, KV, hd)
+        tables = torch.arange(B * n_pages, dtype=torch.int32, device=dev).view(B, n_pages)
+        lens = torch.from_numpy(lens_np).to(dev)
+        run = lambda: paged_decode_attention(q, kp, vp, tables, lens)  # noqa: E731
+        got, want = run().float(), paged_decode_attention_ref(q, kp, vp, tables, lens).float()
+        err = (got - want).abs().max().item()
+        # both sum in f32 and round once: bf16 within ~2 ulp of |plain|
+        rel, atol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 1e-3)
+        check(((got - want).abs() - rel * want.abs()).max().item() <= atol, f"paged main shape {dname}: err {err}")
+        tol = f"{atol} abs + {rel} x |plain|"
+        # yardstick: SDPA over the densified cache, heads grouped as in the kernel
+        qs = q.reshape(B, KV * G, 1, hd)
+        ks, vs = kc.permute(0, 2, 1, 3).contiguous(), vc.permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None].long())[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        live = int(lens_np.sum())
+        es = q.element_size()
+        nbytes = es * (2 * q.numel() + 2 * live * KV * hd) + 4 * (tables.numel() + B)
+        b_ms, b_by = bound_ms(nbytes, 4.0 * live * KV * G * hd, dname)
+        row = {"shape": f"{dname} B={B} KV={KV} G={G} hd={hd} page={page} n_pages={n_pages} live_tokens={live}",
+               "max_abs_err": err, "tol": tol, "ms": time_ms(torch, run, flush=flush),
+               "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(q, kp, vp, tables, lens), flush=flush),
+               "library_ms": time_ms(torch, lib, flush=flush), "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}), plain {row['plain_ms']:.4f}, "
+            f"SDPA {row['library_ms']:.4f}, err {err:.3g} (tol {row['tol']})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the serving engine
+# ---------------------------------------------------------------------------
+def make_requests(cfg, n=10, new_tokens=24):
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+
+    rng = np.random.RandomState(0)
+    return [Request(i, "strict", rng.randint(0, cfg.vocab_size, size=rng.randint(4, 121)).astype(np.int32), new_tokens)
+            for i in range(n)]
+
+
+def storage_ptrs(eng):
+    from repro_torch.models.params import tree_leaves_with_path
+
+    return sorted(t.data_ptr() for _, per_pos in tree_leaves_with_path(eng.storage) for t in per_pos)
+
+
+def engine_f32(torch, dev, cfg, log):
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.models import init_params, model_param_defs
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    econf = EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128),
+                         dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"engine f32: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    schedule = {3: 2, 7: 4, 13: 8, 19: 1}
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0
+    eng = ServingEngine(cfg, params, econf, device=dev)
+    warm = eng.warmup()
+    t0 = time.perf_counter()
+    base = {r.req_id: list(r.generated) for r in eng.run(make_requests(cfg))}
+    t_a = time.perf_counter() - t0
+    eng_b = ServingEngine(cfg, params, econf, device=dev)
+    ptrs = storage_ptrs(eng_b)
+    t0 = time.perf_counter()
+    done = eng_b.run(make_requests(cfg), switch_schedule=schedule)
+    t_b = time.perf_counter() - t0
+    launches = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+    check(len(base) == 10 and len(done) == 10, "all 10 requests served")
+    check(all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v) for v in base.values()), "24 valid tokens each")
+    changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
+    check(not changed, f"trajectories changed across TP switches for requests {changed}")
+    check(eng_b.stats.switches == 4, f"4 switches, got {eng_b.stats.switches}")
+    check(storage_ptrs(eng_b) == ptrs, "rebind kept every storage data_ptr")
+    check(all(n > 0 for n in launches.values()), f"both kernels launched on the main path: {launches}")
+    st = eng_b.stats
+    log(f"engine f32: warmup {warm:.1f} s; fixed TP 1 run {t_a:.1f} s, {eng.stats.steps} steps; switch run "
+        f"{t_b:.1f} s, {st.steps} steps, {st.switches} switches ({schedule}); trajectories identical; "
+        f"launches {launches}")
+    log(f"engine f32: first request's tokens {base[0]}")
+    del eng, eng_b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a, "switch_run_s": t_b,
+                      "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s}
+
+
+def engine_tiny_vs_cpu(torch, dev, log):
+    """A small model on the card against the same model on the CPU (plain
+    versions), which the CPU tests hold to the reference engine."""
+    import numpy as np
+
+    from repro_torch.configs.base import AttnSpec, ModelConfig
+    from repro_torch.models import init_params, model_param_defs
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
+
+    cfg = ModelConfig(name="tiny-serve", family="dense", num_layers=2, d_model=64, num_heads=8, num_kv_heads=8,
+                      head_dim=16, d_ff=128, vocab_size=256, attn=AttnSpec(kind="full"))
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator().manual_seed(0))
+    econf = EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96, prefill_buckets=(16, 32))
+
+    def reqs():
+        rng = np.random.RandomState(0)
+        return [Request(i, "strict", rng.randint(0, 256, size=rng.randint(4, 30)).astype(np.int32), 24) for i in range(10)]
+
+    cpu = {r.req_id: r.generated for r in ServingEngine(cfg, params, econf, device="cpu").run(reqs())}
+    gpu = {r.req_id: r.generated for r in ServingEngine(cfg, params, econf, device=dev).run(reqs(), switch_schedule={3: 2, 7: 4, 13: 1, 19: 2})}
+    check(cpu == gpu, "tiny-serve on the card (kernels, TP switches) equals the CPU plain path")
+    log("engine tiny-serve: card with TP switches == CPU plain path, token for token")
+
+
+def engine_bf16_timed(torch, dev, cfg, log):
+    import numpy as np
+
+    from repro_torch.models import init_params, model_param_defs
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.request import Request
+
+    econf = EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128),
+                         dtype=torch.bfloat16)
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0),
+                         torch.bfloat16)
+    eng = ServingEngine(cfg, params, econf, device=dev)
+    eng.warmup()
+    rng = np.random.RandomState(1)
+    out = {"ttft_ms": {}, "decode_step_ms": {}, "rebind_lookup_us": [], "migrate_ms": []}
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def spread(xs):
+        return {"median": median(xs), "min": min(xs), "max": max(xs), "n": len(xs)}
+
+    def fill_slots(base_id):
+        for i in range(econf.n_slots):
+            eng.admit(Request(base_id + i, "strict", rng.randint(0, cfg.vocab_size, size=64).astype(np.int32), 10_000))
+
+    def empty_slots():
+        for slot, req in enumerate(eng.slot_req):
+            if req is not None:
+                eng.slot_req[slot] = None
+                eng.slots.release(slot)
+
+    # every host-clock timing first; the profiler runs last, on its own
+    for L in econf.prefill_buckets:  # a prompt that fills the bucket, TP 1, empty engine
+        times = []
+        for i in range(5):
+            req = Request(100 + i, "strict", rng.randint(0, cfg.vocab_size, size=L).astype(np.int32), 1)
+            t0 = time.perf_counter()
+            eng.admit(req)
+            times.append((time.perf_counter() - t0) * 1e3)
+            eng.slot_req[req.slot] = None
+            eng.slots.release(req.slot)
+        out["ttft_ms"][str(L)] = spread(times)
+    fill_slots(200)  # every slot busy; decode steps at each TP, three rounds of 1 -> 2 -> 4 -> 8
+    rounds = {tp: [] for tp in econf.candidate_tps}
+    for _ in range(3):
+        for tp in econf.candidate_tps:
+            sw = eng.switch_tp(tp)
+            if sw["rebind_s"] or sw["migrate_s"]:
+                out["rebind_lookup_us"].append(sw["rebind_s"] * 1e6)
+                out["migrate_ms"].append(sw["migrate_s"] * 1e3)
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                eng.step()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rounds[tp].append(median(times))
+    for tp, meds in rounds.items():  # median of the three rounds' medians, and their spread
+        out["decode_step_ms"][str(tp)] = spread(meds)
+    eng.switch_tp(1)
+    empty_slots()
+    runs = []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        done = eng.run(make_requests(cfg))
+        dt = time.perf_counter() - t0
+        n_tok = sum(len(r.generated) for r in done)
+        runs.append(n_tok / dt)
+    out["tokens_per_s"] = spread(runs)
+    out["workload"] = f"10 requests, prompts 4-120, 24 new tokens, TP 1: {n_tok} tokens per run, 3 runs"
+    out["bind_ms_per_tp"] = {str(tp): s * 1e3 for tp, s in eng.ctl.bind_s.items()}
+
+    def device_share(n=3):
+        """Decode steps under torch.profiler (CUDA activity only): the
+        card's busy share of the traced wall time and the kernels that fill it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ev = [(e.key, getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+              for e in prof.key_averages()]
+        dev_us = sum(t for _, t in ev)
+        if dev_us == 0:
+            return {"busy_share": "not measured (the profiler saw no device time)"}
+        top = sorted(ev, key=lambda kv: -kv[1])[:6]
+        return {"traced_step_ms": wall_us / n / 1e3, "device_ms_per_step": dev_us / n / 1e3,
+                "busy_share": dev_us / wall_us, "top_ms_per_step": {k[:80]: t / n / 1e3 for k, t in top}}
+
+    fill_slots(300)
+    out["profile"] = {}
+    for tp in (1, 8):
+        eng.switch_tp(tp)
+        out["profile"][str(tp)] = device_share()
+    log(f"engine bf16 (host clock, before any profiler): TTFT ms per bucket {json.dumps(out['ttft_ms'])}; "
+        f"decode step ms per TP (3 rounds of 6 steps) {json.dumps(out['decode_step_ms'])}; "
+        f"tokens/s {json.dumps(out['tokens_per_s'])} ({out['workload']})")
+    log(f"engine bf16: TP switch = lookup of a binding made at install: lookup us "
+        f"{[round(x, 2) for x in out['rebind_lookup_us']]}; bind ms per TP level (once, at install) "
+        f"{json.dumps({k: round(v, 2) for k, v in out['bind_ms_per_tp'].items()})}; "
+        f"migrate ms {[round(x, 3) for x in out['migrate_ms']]}")
+    for tp, prof in out["profile"].items():
+        log(f"engine bf16: decode at TP {tp} under the profiler: {json.dumps(prof)}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
+    ap.add_argument("--skip-timed", action="store_true", help="leave out phase 4 (a quicker check)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 oracle runs in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    record = {}
+
+    def log(msg):
+        print(msg, flush=True)
+
+    # ---- phase 1: card and build ----
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    built = _build.build_all(ptxas_verbose=True)
+    log(f"build: both kernels in {time.perf_counter() - t0:.1f} s wall "
+        + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
+    for name, b in built.items():
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    record["build_s"] = {k: v["seconds"] for k, v in built.items()}
+
+    cfg = get_config("llama3-8b")
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    log(f"model: {cfg.name} at full width, {cfg.num_layers} of 32 layers")
+
+    # ---- phase 2: kernels against plain versions ----
+    check_matmul_sweeps(torch, dev, log)
+    record["tp_shard_matmul_main_shapes"] = check_matmul_main_shapes(torch, dev, cfg, log)
+    check_paged_sweeps(torch, dev, log)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    log("tp_shard_matmul at the main path's decode shapes:")
+    mm_rows = measure_matmul(torch, dev, cfg, flush, log)
+    log("paged_decode_attention at the main path's shape:")
+    pa_rows = measure_paged(torch, dev, cfg, flush, log)
+    del flush
+    record["tp_shard_matmul"], record["paged_decode_attention"] = mm_rows, pa_rows
+
+    # ---- phase 3: the engine in f32 (counts reset just before, read just after) ----
+    launches, record["engine_f32"] = engine_f32(torch, dev, cfg, log)
+    engine_tiny_vs_cpu(torch, dev, log)
+
+    # ---- phase 4: the engine in bf16, timed ----
+    if not args.skip_timed:
+        record["engine_bf16"] = engine_bf16_timed(torch, dev, cfg, log)
+
+    # main-path entries: the bf16 decode shapes that take the most time per step
+    main_mm = next(r for r in mm_rows if r["shape"].startswith("w_gate/w_in col bfloat16"))
+    main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
+    kernels = []
+    for name, route_src, row in (("tp_shard_matmul", "src/repro_torch/csrc/tp_shard_matmul.cu", main_mm),
+                                 ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu", main_pa)):
+        kernels.append({"name": name, "route": "cuda", "source": route_src, "replaces": TPU_SOURCES[name],
+                        "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"], "tol": row["tol"], "shape": row["shape"]})
+    record.update(card=card, layers=cfg.num_layers, kernels=kernels)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
+``build/kernels/lib<name>-<hash>.so`` at the repository root, the hash
+covering the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded. Nothing is built or loaded at import time:
+the first call of a kernel's wrapper builds it, and ``build_all`` builds
+every kernel at once, one nvcc process per source, in parallel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNELS = ("tp_shard_matmul", "paged_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    return path
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_all(names: Sequence[str] = KERNELS, ptxas_verbose: bool = False) -> Dict[str, dict]:
+    """Compile every missing library, one nvcc per source, all at once.
+
+    Returns {name: {"seconds": wall time of its nvcc (0.0 if it was already
+    built), "log": nvcc's stderr}}. Raises if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out = {}
+    for name in names:
+        target = lib_path(name)
+        if target.exists() and not ptxas_verbose:
+            out[name] = {"seconds": 0.0, "log": ""}
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if ptxas_verbose else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                       time.perf_counter(), tmp, target)
+    failed = []
+    for name, (proc, t0, tmp, target) in procs.items():
+        _, err = proc.communicate()
+        out[name] = {"seconds": time.perf_counter() - t0, "log": err}
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{err}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        target = lib_path(name)
+        if not target.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(target))
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} ({lib.error_string(rc).decode()})")

@@ -1,0 +1,91 @@
+"""Wrapper of the TP-shard-selecting matmul (csrc/tp_shard_matmul.cu).
+
+CPU tensors take the plain version in ref.py; CUDA tensors launch the
+kernel or raise. ``tp_shard_matmul.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("tp_shard_matmul")
+    fn = lib.tp_shard_matmul
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.tp_shard_matmul_workspace.argtypes = [i, i, i, i]
+        lib.tp_shard_matmul_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def tp_shard_matmul(
+    x: torch.Tensor,
+    w_store: torch.Tensor,
+    offset: int,
+    *,
+    n_out: int,
+    mode: str = "col",
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """y = x @ (the shard of w_store selected at ``offset``).
+
+    x: (M, K). col: w_store (K, N_store), takes columns offset..offset+n_out.
+    row: w_store (K_store, n_out), takes rows offset..offset+K. Sums in f32;
+    the output is ``out_dtype``, x's dtype by default (f32 for logits).
+    """
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 2 or w_store.dim() != 2:
+        raise ValueError(f"x and w_store must be 2-D, got {tuple(x.shape)} and {tuple(w_store.shape)}")
+    if x.dtype not in _DTYPES or w_store.dtype != x.dtype:
+        raise TypeError(f"x and w_store must share a dtype in {list(_DTYPES)}, got {x.dtype}, {w_store.dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be {x.dtype} or float32, got {out_dtype}")
+    m, k = x.shape
+    k_store, n_store = w_store.shape
+    if mode == "col":
+        if k_store != k or not 0 <= offset <= n_store - n_out:
+            raise ValueError(f"col: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
+        base = offset
+    elif mode == "row":
+        if n_store != n_out or not 0 <= offset <= k_store - k:
+            raise ValueError(f"row: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
+        base = offset * n_store
+    else:
+        raise ValueError(f"mode must be 'col' or 'row', got {mode!r}")
+
+    if x.device.type == "cpu" and w_store.device.type == "cpu":
+        return tp_shard_matmul_ref(x, w_store, offset, mode=mode, n_out=n_out, out_dtype=out_dtype)
+    if x.device.type != "cuda" or w_store.device != x.device:
+        raise ValueError(f"x and w_store must lie on one CUDA device, got {x.device} and {w_store.device}")
+    if not (x.is_contiguous() and w_store.is_contiguous()):
+        raise ValueError("x and w_store must be contiguous")
+
+    y = torch.empty((m, n_out), dtype=out_dtype, device=x.device)
+    if y.numel() == 0 or k == 0:
+        return y.zero_()
+    lib = _lib()
+    # f32 partial sums of the kernel's split-K; the split depends on the shapes only
+    ws_bytes = lib.tp_shard_matmul_workspace(m, n_out, k, _DTYPES[x.dtype])
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
+    w_ptr = w_store.data_ptr() + base * w_store.element_size()
+    rc = lib.tp_shard_matmul(
+        x.data_ptr(), w_ptr, y.data_ptr(), ws.data_ptr() if ws is not None else None, m, n_out, k, n_store,
+        _DTYPES[x.dtype], int(out_dtype == torch.float32 and x.dtype != torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "tp_shard_matmul")
+    tp_shard_matmul.launches += 1
+    return y
+
+
+tp_shard_matmul.launches = 0

@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain versions on the card, and the
+engine through them. Marked ``gpu``: each test skips where there is no CUDA
+device. This file imports neither JAX nor the reference, so it runs on a
+machine that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import AttnSpec, ModelConfig  # noqa: E402
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref  # noqa: E402
+from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul  # noqa: E402
+from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref  # noqa: E402
+from repro_torch.models import init_params, model_param_defs  # noqa: E402
+from repro_torch.parallel.sharding import make_exec_config  # noqa: E402
+from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
+from repro_torch.serving.request import Request  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,m,k,store,n_out,off", [
+    ("col", 8, 4096, 14336, 1792, 3 * 1792), ("col", 32, 64, 576, 144, 144),
+    ("row", 8, 1792, 14336, 4096, 5 * 1792), ("row", 33, 100, 300, 70, 200),
+])
+def test_tp_shard_matmul_kernel_matches_plain(cuda, dtype, mode, m, k, store, n_out, off):
+    """store: the stored width (col) or the stored rows (row) of the weight."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w_shape = (k, store) if mode == "col" else (store, n_out)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = torch.randn(*w_shape, generator=g, device=cuda).to(dtype)
+    got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+    want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
+    scale = want.float().abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def test_tp_shard_matmul_kernel_equals_presliced(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(8, 512, generator=g, device=cuda)
+    w = torch.randn(512, 1024, generator=g, device=cuda)
+    for tp in (1, 2, 4, 8):
+        n = 1024 // tp
+        for s in range(tp):
+            got = tp_shard_matmul(x, w, s * n, n_out=n, mode="col")
+            assert torch.equal(got, tp_shard_matmul(x, w[:, s * n:(s + 1) * n].contiguous(), 0, n_out=n, mode="col"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KV,G,hd,page,n_pages,cap", [
+    (2, 2, 4, 32, 8, 4, None), (1, 1, 8, 64, 16, 2, None), (4, 4, 1, 16, 4, 8, None),
+    (8, 8, 4, 128, 16, 16, None), (2, 2, 2, 16, 8, 2, 20.0),
+])
+def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, B, KV, G, hd, page, n_pages, cap):
+    rng = np.random.RandomState(B * 31 + n_pages)
+    P = B * n_pages + 2
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(B, KV, G, hd, generator=g, device=cuda).to(dtype)
+    kp = torch.randn(P, page, KV, hd, generator=g, device=cuda).to(dtype)
+    vp = torch.randn(P, page, KV, hd, generator=g, device=cuda).to(dtype)
+    tables = torch.from_numpy(rng.permutation(P)[: B * n_pages].reshape(B, n_pages).astype(np.int32)).to(cuda)
+    lens = torch.from_numpy(rng.randint(1, page * n_pages + 1, size=(B,)).astype(np.int32)).to(cuda)
+    got = paged_decode_attention(q, kp, vp, tables, lens, softcap=cap)
+    want = paged_decode_attention_ref(q, kp, vp, tables, lens, softcap=cap)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_engine_on_card_matches_cpu_and_launches_kernels(cuda):
+    cfg = ModelConfig(name="tiny-serve", family="dense", num_layers=2, d_model=64, num_heads=8,
+                      num_kv_heads=8, head_dim=16, d_ff=128, vocab_size=256, attn=AttnSpec(kind="full"))
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator().manual_seed(0))
+    econf = EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96, prefill_buckets=(16, 32))
+
+    def requests():
+        rng = np.random.RandomState(0)
+        return [Request(i, "strict", rng.randint(0, 256, size=rng.randint(4, 30)).astype(np.int32), 24)
+                for i in range(10)]
+
+    base = {r.req_id: r.generated for r in ServingEngine(cfg, params, econf, device="cpu").run(requests())}
+    before = (tp_shard_matmul.launches, paged_decode_attention.launches)
+    eng = ServingEngine(cfg, params, econf, device=cuda)
+    done = eng.run(requests(), switch_schedule={3: 2, 7: 4, 13: 1, 19: 2})
+    assert {r.req_id: r.generated for r in done} == base
+    assert tp_shard_matmul.launches > before[0] and paged_decode_attention.launches > before[1]
