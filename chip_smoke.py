@@ -4,25 +4,37 @@
     python3 chip_smoke.py [--layers N] [--skip-timed]
 
 Phases; any failure raises and the script exits non-zero:
-  1. card and build: the card's name and power limit, then both CUDA
-     kernels built from src/repro_torch/csrc with nvcc for sm_90a;
+  1. card and build: the card's name and power limit, then every CUDA
+     kernel (tp_shard_matmul, paged_attention, kv_gather) built from
+     src/repro_torch/csrc with nvcc for sm_90a, one nvcc per source;
   2. kernels against their plain PyTorch versions on the card: the shape
      sweeps of the tests, the presliced bit-identity, every llama3-8b
      projection at each rank's offset for TP 1/2/4/8 at decode and prefill
-     widths, and decode attention at the engine's shape; each kernel timed
-     at the decode shapes beside its bound, its plain version and one
-     PyTorch library call;
-  3. the serving engine at llama3-8b width in f32 (check_engine at full
+     widths, decode attention at the engine's shape, and kv_gather /
+     kv_scatter bit for bit (sweeps, a llama3-8b page row, round trip in
+     place, both misaligned cases); matmul and attention timed at the
+     decode shapes beside their bound, their plain version and one PyTorch
+     library call;
+  3. paged KV migration at llama3-8b's page geometry: a bf16 PagedPool
+     fragmented by interleaved growth (16 sequences of 256 and of 2048
+     tokens, 0.537 and 4.295 GB) moved by migrate_pages into a fresh pool;
+     pages and decode attention over every layer must be bit-identical
+     before and after; kv_gather / kv_scatter timed per launch beside
+     their bound, plain version and library call; migrate_pages timed; and
+     Fig. 7's pair: one copy per page against the aggregated gathers;
+  4. the serving engine at llama3-8b width in f32 (check_engine at full
      width): 10 requests served at fixed TP 1 and under a TP switch
-     schedule must give identical greedy trajectories, launch both
-     kernels, and rebind without moving a weight; plus a tiny model
-     served on the card against the same model on the CPU;
-  4. the engine in bf16, timed on the host clock with repeats (median and
+     schedule must give identical greedy trajectories, launch the matmul
+     and attention kernels, and rebind without moving a weight; plus a
+     tiny model served on the card against the same model on the CPU;
+  5. the engine in bf16, timed on the host clock with repeats (median and
      spread): TTFT per bucket, decode step per TP level, tokens/s, the
      switch's binding lookup, the bind per TP level made at install, and
      migrate; then, last, decode at TP 1 and 8 under torch.profiler.
-The full record goes to chiprun_out/chip_smoke.json. The last lines are the
-kernels line, the card line and the contract line.
+Each kernel's launch count is set to 0 just before the path that runs it
+(phase 3 for kv_gather / kv_scatter, phase 4 for the others) and read just
+after. The full record goes to chiprun_out/chip_smoke.json. The last lines
+are the kernels line, the card line and the contract line.
 """
 from __future__ import annotations
 
@@ -43,6 +55,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # FMA f32; dense bf16 tenso
 TPU_SOURCES = {
     "tp_shard_matmul": "src/repro/kernels/tp_shard_matmul/kernel.py:41",
     "paged_decode_attention": "src/repro/kernels/paged_attention/kernel.py:74",
+    "kv_gather": "src/repro/kernels/kv_gather/kernel.py:29",
+    "kv_scatter": "src/repro/kernels/kv_gather/kernel.py:51",
 }
 
 
@@ -57,19 +71,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
+def time_ms(torch, fn, iters: int = 20, flush=None, spin: int = 400_000) -> float:
     """Median device time of one call, from CUDA events around each call;
     ``flush`` (a large buffer) is overwritten before each call so the call
     finds the 50 MB L2 cold, as it does inside a forward pass. A spin of
-    ~0.2 ms queued before the start event keeps the card busy while the host
-    issues the call, so the host's launch cost is not counted."""
+    ``spin`` cycles (~0.2 ms by default) queued before the start event keeps
+    the card busy while the host issues the call, so the host's launch cost
+    is not counted."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(400_000)
+        torch.cuda._sleep(spin)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -294,8 +309,219 @@ def measure_paged(torch, dev, cfg, flush, log):
     return rows
 
 
+def check_kv_sweeps(torch, dev, cfg, log):
+    """kv_gather / kv_scatter bit for bit against their plain versions: the
+    reference test shapes in f32 and bf16, a llama3-8b page row (F = 16384,
+    bf16) with permuted ids, the in-place round trip, rows not named left
+    untouched, and the byte path (odd row bytes; a base 2 bytes off a
+    16-byte boundary)."""
+    import numpy as np
+
+    from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter
+    from repro_torch.kernels.kv_gather.ref import kv_gather_ref, kv_scatter_ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    F_page = 16 * cfg.num_kv_heads * cfg.head_dim
+    cases = [(P, F, n, dt) for dt in (torch.float32, torch.bfloat16) for P, F, n in ((16, 128, 4), (64, 256, 64), (8, 512, 1))]
+    cases += [(512, F_page, 300, torch.bfloat16), (16, 129, 7, torch.uint8)]
+    n_checks = 0
+    for P, F, n, dt in cases:
+        if dt == torch.uint8:
+            pool = torch.randint(0, 256, (P, F), generator=g, device=dev, dtype=torch.uint8)
+        else:
+            pool = torch.randn(P, F, generator=g, device=dev).to(dt)
+        ids = np.random.RandomState(P + n).permutation(P)[:n]
+        staged = kv_gather(pool, ids)
+        check(torch.equal(staged, kv_gather_ref(pool, ids)), f"kv_gather ({P},{F},{n}) {dt} bit for bit")
+        ptr, orig = pool.data_ptr(), pool.clone()
+        check(kv_scatter(pool, staged, ids) is pool and pool.data_ptr() == ptr and torch.equal(pool, orig),
+              f"scatter(gather(pool, ids), ids) leaves pool ({P},{F},{n}) {dt} unchanged, in place")
+        other = staged.flip(0).contiguous() if n > 1 else staged + 1
+        want = kv_scatter_ref(pool.clone(), other, ids)
+        kv_scatter(pool, other, ids)
+        rest = torch.from_numpy(np.setdiff1d(np.arange(P), ids)).to(dev)
+        check(torch.equal(pool, want) and torch.equal(pool[rest], orig[rest]),
+              f"kv_scatter ({P},{F},{n}) {dt} bit for bit, rows not named untouched")
+        n_checks += 1
+    buf = torch.randn(33 * 256 + 1, generator=g, device=dev).to(torch.bfloat16)
+    pool, head = buf[1:].view(33, 256), buf[:1].clone()
+    check(pool.data_ptr() % 16 == 2, "misaligned base")
+    ids = np.random.RandomState(0).permutation(33)[:9]
+    staged = kv_gather(pool, ids)
+    check(torch.equal(staged, kv_gather_ref(pool, ids)), "kv_gather at a misaligned base")
+    want = kv_scatter_ref(pool.clone(), staged * 2, ids)
+    kv_scatter(pool, staged * 2, ids)
+    check(torch.equal(pool, want) and torch.equal(buf[:1], head), "kv_scatter at a misaligned base")
+    torch.cuda.synchronize()
+    log(f"kv_gather/kv_scatter: {n_checks} shapes (reference sweeps f32/bf16, llama3-8b row F={F_page} bf16, "
+        f"odd rows uint8) plus a misaligned base: bit for bit, round trip in place, rows not named untouched")
+
+
+def fragmented_pool(torch, dev, cfg, ctx, n_seqs, seed):
+    """benchmarks/fig7_kv_migration.py's fragmentation at llama3-8b's page
+    geometry: n_seqs sequences grown a page at a time, interleaved, in a
+    bf16 pool of 9/8 the pages they need, filled from a seeded generator."""
+    from repro_torch.serving.kv_cache import PagedPool
+
+    page = 16
+    need = n_seqs * ctx // page
+    pool = PagedPool(num_pages=need * 9 // 8, page_size=page, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                     n_layers=cfg.num_layers, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool.k_pages.normal_(generator=g)
+    pool.v_pages.normal_(generator=g)
+    for s in range(n_seqs):
+        pool.alloc_seq(s, page)
+    for _ in range(ctx // page - 1):
+        for s in range(n_seqs):
+            pool.extend_seq(s, page)
+    return pool
+
+
+def migration_phase(torch, dev, cfg, flush, log):
+    """Paged KV migration at llama3-8b's page geometry, at two payloads.
+    Returns (launches of the kv kernels in the larger migrate_pages call,
+    per-size records)."""
+    import numpy as np
+
+    from repro_torch.core.migration import kv_migration_bytes, migrate_pages
+    from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter
+    from repro_torch.kernels.kv_gather.ref import kv_gather_ref, kv_scatter_ref
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.serving.kv_cache import PagedPool
+
+    n_seqs, G = 16, cfg.num_heads // cfg.num_kv_heads
+    seqs = list(range(n_seqs))
+    records, launches = {}, None
+    for ctx in (256, 2048):
+        src = fragmented_pool(torch, dev, cfg, ctx, n_seqs, seed=10 + ctx)
+        dst = PagedPool(num_pages=src.num_pages, page_size=src.page_size, kv_heads=src.kv_heads,
+                        head_dim=src.head_dim, n_layers=src.n_layers, dtype=src.dtype, device=dev)
+        F = src.page_rows("k").shape[1]
+        row_bytes = F * src.k_pages.element_size()
+        kv_gather.launches = kv_scatter.launches = 0
+        tables, first_s = migrate_pages(src, dst, seqs)
+        counts = {"kv_gather": kv_gather.launches, "kv_scatter": kv_scatter.launches}
+        check(counts == {"kv_gather": 2, "kv_scatter": 2}, f"migrate_pages launched 2 gathers and 2 scatters: {counts}")
+        launches = counts
+        for s in seqs:  # every page of every layer, bit for bit
+            for kind in ("k_pages", "v_pages"):
+                a, b = getattr(dst, kind)[:, dst.tables[s]], getattr(src, kind)[:, src.tables[s]]
+                check(torch.equal(a, b), f"ctx {ctx}: sequence {s} {kind} equal after migration")
+        g = torch.Generator(device=dev).manual_seed(20 + ctx)
+        lens = torch.tensor([src.seq_lens[s] for s in seqs], dtype=torch.int32, device=dev)
+        t_dst = torch.from_numpy(tables).to(dev)
+        t_src = torch.from_numpy(src.block_table_array(seqs)).to(dev)
+        for layer in range(cfg.num_layers):
+            q = torch.randn(n_seqs, cfg.num_kv_heads, G, cfg.head_dim, generator=g, device=dev).to(torch.bfloat16)
+            a = paged_decode_attention(q, dst.k_pages[layer], dst.v_pages[layer], t_dst, lens)
+            b = paged_decode_attention(q, src.k_pages[layer], src.v_pages[layer], t_src, lens)
+            check(torch.equal(a, b), f"ctx {ctx}: decode attention over dst == over src, layer {layer}")
+        moved = 2 * cfg.num_layers * n_seqs * (ctx // 16) * row_bytes
+        rec = {"tokens_per_seq": ctx, "n_seqs": n_seqs, "pages_per_layer": src.num_pages, "bytes_moved": moved,
+               "page_rows": 2 * cfg.num_layers * n_seqs * (ctx // 16),
+               "fragmentation_src": src.fragmentation(), "fragmentation_dst": dst.fragmentation(),
+               "kv_migration_bytes_tp1_to_tp8": kv_migration_bytes(cfg, n_seqs, ctx, 1, 8),
+               "first_migrate_s": first_s}
+        log(f"migration ctx {ctx}: {moved / 1e9:.3f} GB moved ({rec['page_rows']} page rows of {row_bytes} B, "
+            f"{n_seqs} sequences x {cfg.num_layers} layers x K/V), pages {src.num_pages}/layer; fragmentation src "
+            f"{rec['fragmentation_src']:.3f} -> dst {rec['fragmentation_dst']:.3f}; kv_migration_bytes(TP 1 -> 8) "
+            f"{rec['kv_migration_bytes_tp1_to_tp8'] / 1e9:.3f} GB; pages and attention on all {cfg.num_layers} layers "
+            f"bit-identical; launches {counts}")
+
+        # per-launch times of the K kind (V is the same shape)
+        src_k, dst_k = src.page_rows("k"), dst.page_rows("k")
+        src_rows = src.row_ids(src.migration_page_ids(seqs))
+        dst_rows = dst.row_ids(dst.migration_page_ids(seqs))
+        src_ids = torch.from_numpy(src_rows).to(dev)
+        dst_ids = torch.from_numpy(dst_rows).to(dev)
+        n = src_rows.size
+        staged = kv_gather(src_k, src_rows)
+        plain = kv_gather_ref(src_k, src_ids)
+        g_err = 0.0 if torch.equal(staged, plain) else float("inf")
+        check(g_err == 0.0, f"kv_gather at ctx {ctx} equals its plain version")
+        del plain
+        d_kernel = kv_scatter(dst_k.clone(), staged, dst_rows)
+        s_err = 0.0 if torch.equal(d_kernel, kv_scatter_ref(dst_k.clone(), staged, dst_ids)) else float("inf")
+        check(s_err == 0.0, f"kv_scatter at ctx {ctx} equals its plain version")
+        del d_kernel
+        b_ms, b_by = bound_ms(2 * n * row_bytes + 4 * n, 0.0, "bfloat16")
+        spin = 4_000_000  # ~2 ms: covers the wrapper's host-side id checks
+        shape = f"bfloat16 K rows n={n} F={F} ({n * row_bytes / 1e9:.3f} GB) of a ({src_k.shape[0]}, {F}) pool, ctx {ctx}"
+        rows = []
+        for name, err, run, ref, lib in (
+            ("kv_gather", g_err, lambda: kv_gather(src_k, src_rows), lambda: kv_gather_ref(src_k, src_ids),
+             lambda: torch.index_select(src_k, 0, src_ids)),
+            ("kv_scatter", s_err, lambda: kv_scatter(dst_k, staged, dst_rows), lambda: kv_scatter_ref(dst_k, staged, dst_ids),
+             lambda: dst_k.index_copy_(0, dst_ids, staged)),
+        ):
+            row = {"name": name, "shape": shape, "max_abs_err": err, "tol": "0 (bit for bit)",
+                   "ms": time_ms(torch, run, flush=flush, spin=spin),
+                   "plain_ms": time_ms(torch, ref, flush=flush, spin=spin),
+                   "library_ms": time_ms(torch, lib, flush=flush, spin=spin), "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(f"  {name} {shape}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                f"{b_ms / row['ms']:.2f} of it), plain {row['plain_ms']:.4f}, "
+                f"{'index_select' if name == 'kv_gather' else 'index_copy_'} {row['library_ms']:.4f}")
+        rec["kernels"] = rows
+        del staged
+
+        walls = []  # migrate_pages again into the same pool, its sequences released first
+        for _ in range(3):
+            for s in seqs:
+                dst.release_seq(s)
+            _, sec = migrate_pages(src, dst, seqs)
+            walls.append(sec * 1e3)
+        walls.sort()
+        rec["migrate_pages_ms"] = {"median": walls[1], "min": walls[0], "max": walls[2], "n": 3}
+        log(f"  migrate_pages ctx {ctx}: {walls[1]:.3f} ms median of 3 ({walls[0]:.3f}-{walls[2]:.3f}), "
+            f"first call {first_s * 1e3:.3f} ms; {moved / 1e9:.3f} GB over {walls[1]:.3f} ms = "
+            f"{2 * moved / (walls[1] / 1e3) / 1e12:.2f} TB/s read+write")
+
+        if ctx == 256:  # Fig. 7's measured pair: one copy per page row against the aggregated gathers
+            all_rows = [(kind, r) for kind in ("k", "v") for r in src_rows]
+            out = {kind: torch.empty(n, F, dtype=src.dtype, device=dev) for kind in ("k", "v")}
+            pools = {kind: src.page_rows(kind) for kind in ("k", "v")}
+
+            def per_page():
+                for j, (kind, r) in enumerate(all_rows):
+                    out[kind][j % n].copy_(pools[kind][int(r)])
+
+            def aggregated():
+                return [kv_gather(pools[kind], src_rows) for kind in ("k", "v")]
+
+            def wall(fn):
+                fn()
+                torch.cuda.synchronize()
+                ts = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                return sorted(ts)
+
+            pp, ag = wall(per_page), wall(aggregated)
+            agg = aggregated()
+            check(torch.equal(out["k"], agg[0]) and torch.equal(out["v"], agg[1]), "per-page copies == aggregated gathers")
+            del agg
+            rec["fig7"] = {"page_rows": len(all_rows), "bytes": len(all_rows) * row_bytes,
+                           "per_page_copy_ms": {"median": pp[1], "min": pp[0], "max": pp[2]},
+                           "aggregated_gather_ms": {"median": ag[1], "min": ag[0], "max": ag[2]},
+                           "ratio": pp[1] / ag[1]}
+            log(f"  Fig. 7 pair at {len(all_rows) * row_bytes / 1e9:.3f} GB: {len(all_rows)} per-page copy_ "
+                f"{pp[1]:.2f} ms ({pp[0]:.2f}-{pp[2]:.2f}) vs 2 aggregated kv_gather {ag[1]:.3f} ms "
+                f"({ag[0]:.3f}-{ag[2]:.3f}), host clock to a sync: {pp[1] / ag[1]:.1f}x")
+            del out, pools
+        records[str(ctx)] = rec
+        del src, dst, src_k, dst_k, src_ids, dst_ids
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, records
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the serving engine
+# phases 4 and 5: the serving engine
 # ---------------------------------------------------------------------------
 def make_requests(cfg, n=10, new_tokens=24):
     import numpy as np
@@ -528,7 +754,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     built = _build.build_all(ptxas_verbose=True)
-    log(f"build: both kernels in {time.perf_counter() - t0:.1f} s wall "
+    log(f"build: {len(built)} kernel sources ({', '.join(built)}) in {time.perf_counter() - t0:.1f} s wall: "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
     for name, b in built.items():
         for line in b["log"].splitlines():
@@ -550,23 +776,32 @@ def main() -> int:
     mm_rows = measure_matmul(torch, dev, cfg, flush, log)
     log("paged_decode_attention at the main path's shape:")
     pa_rows = measure_paged(torch, dev, cfg, flush, log)
-    del flush
     record["tp_shard_matmul"], record["paged_decode_attention"] = mm_rows, pa_rows
+    check_kv_sweeps(torch, dev, cfg, log)
 
-    # ---- phase 3: the engine in f32 (counts reset just before, read just after) ----
+    # ---- phase 3: paged KV migration (kv counts reset just before each migrate_pages, read just after) ----
+    kv_launches, record["migration"] = migration_phase(torch, dev, cfg, flush, log)
+    del flush
+
+    # ---- phase 4: the engine in f32 (counts reset just before, read just after) ----
     launches, record["engine_f32"] = engine_f32(torch, dev, cfg, log)
+    launches.update(kv_launches)
     engine_tiny_vs_cpu(torch, dev, log)
 
-    # ---- phase 4: the engine in bf16, timed ----
+    # ---- phase 5: the engine in bf16, timed ----
     if not args.skip_timed:
         record["engine_bf16"] = engine_bf16_timed(torch, dev, cfg, log)
 
     # main-path entries: the bf16 decode shapes that take the most time per step
     main_mm = next(r for r in mm_rows if r["shape"].startswith("w_gate/w_in col bfloat16"))
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
+    # the kv kernels at the larger payload (4.295 GB at full depth), K rows
+    main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}
     kernels = []
     for name, route_src, row in (("tp_shard_matmul", "src/repro_torch/csrc/tp_shard_matmul.cu", main_mm),
-                                 ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu", main_pa)):
+                                 ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu", main_pa),
+                                 ("kv_gather", "src/repro_torch/csrc/kv_gather.cu", main_kv["kv_gather"]),
+                                 ("kv_scatter", "src/repro_torch/csrc/kv_gather.cu", main_kv["kv_scatter"])):
         kernels.append({"name": name, "route": "cuda", "source": route_src, "replaces": TPU_SOURCES[name],
                         "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

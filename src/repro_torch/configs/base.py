@@ -66,6 +66,11 @@ class ModelConfig:
             raise ValueError(f"{self.name}: {self.num_layers} layers do not fill periods of {p}")
         return self.num_layers // p
 
+    @property
+    def n_attn_layers(self) -> int:
+        per = sum(1 for t in self.layer_pattern if t.mixer.startswith("attn"))
+        return per * self.num_periods
+
 
 def ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

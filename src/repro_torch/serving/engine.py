@@ -38,6 +38,7 @@ class EngineConfig:
     max_len: int = 256
     prefill_buckets: Sequence[int] = (32, 64, 128)
     dtype: torch.dtype = torch.float32  # KV cache dtype
+    record_logits: bool = False
 
 
 @dataclass
@@ -74,6 +75,7 @@ class ServingEngine:
         self.slot_req: List[Optional[Request]] = [None] * econf.n_slots
         self.next_tokens = np.zeros(econf.n_slots, np.int64)
         self.stats = StepStats()
+        self.logit_trace: Dict[int, list] = {}  # req_id -> per-step logits (record_logits)
 
     @property
     def tp(self) -> int:
@@ -87,13 +89,14 @@ class ServingEngine:
     def _prefill(self, params: dict, tokens: torch.Tensor, true_len: int):
         h, kv = forward(params, self.cfg, self.ec, tokens=tokens, mode="prefill", block_q=64, block_k=64)
         logits = logits_for(params, self.cfg, h[:, true_len - 1:true_len])[:, 0, : self.cfg.vocab_size]
-        return logits.argmax(-1), kv
+        return logits.argmax(-1), logits, kv
 
     def _decode(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor):
         tables, lens = self.slots.page_tables(positions)
         h, _ = forward(params, self.cfg, self.ec, tokens=tokens, positions=positions,
                        cache=self.slots.layers, block_tables=tables, seq_lens=lens, mode="decode")
-        return logits_for(params, self.cfg, h)[:, 0, : self.cfg.vocab_size].argmax(-1)
+        logits = logits_for(params, self.cfg, h)[:, 0, : self.cfg.vocab_size]
+        return logits.argmax(-1), logits
 
     def warmup(self) -> float:
         """Run one decode step and one prefill per (TP level, bucket), the
@@ -147,7 +150,7 @@ class ServingEngine:
         L = self._bucket(req.prompt_len)
         tokens = torch.zeros((1, L), dtype=torch.int64)
         tokens[0, : req.prompt_len] = torch.from_numpy(np.asarray(req.prompt, np.int64))
-        nxt, kv = self._prefill(self.ctl.params, tokens.to(self.device), req.prompt_len)
+        nxt, logits, kv = self._prefill(self.ctl.params, tokens.to(self.device), req.prompt_len)
         # insert in place: the slot's first L rows take the prompt's K/V
         for layer, c in zip(self.slots.layers, kv):
             layer["k"][slot, :L] = c["k"][0]
@@ -160,13 +163,18 @@ class ServingEngine:
         self.slot_req[slot] = req
         self.slots.lengths[slot] = req.prompt_len
         self.next_tokens[slot] = tok
+        if self.econf.record_logits:
+            self.logit_trace.setdefault(req.req_id, []).append(logits[0].cpu().numpy())
         return True
 
     def step(self) -> List[Request]:
         """One decode iteration over all slots; returns the finished requests."""
         tokens = torch.from_numpy(self.next_tokens).to(self.device).view(-1, 1)
         positions = torch.from_numpy(self.slots.lengths).to(self.device)
-        nxt = self._decode(self.ctl.params, tokens, positions).cpu().numpy()
+        nxt, logits = self._decode(self.ctl.params, tokens, positions)
+        nxt = nxt.cpu().numpy()
+        if self.econf.record_logits:
+            logits = logits.cpu().numpy()
         self.stats.steps += 1
         finished = []
         for slot, req in enumerate(self.slot_req):
@@ -176,6 +184,8 @@ class ServingEngine:
             tok = int(nxt[slot])
             req.generated.append(tok)
             self.next_tokens[slot] = tok
+            if self.econf.record_logits:
+                self.logit_trace[req.req_id].append(logits[slot])
             if req.done or self.slots.lengths[slot] + 1 >= self.econf.max_len:
                 req.state = RequestState.DONE
                 req.finish_s = time.perf_counter()

@@ -1,23 +1,26 @@
-"""Dense slot KV cache of the serving engine (mirrors ``SlotCache`` of
-repro/serving/kv_cache.py), one K and one V tensor per layer.
+"""KV cache management (mirrors repro/serving/kv_cache.py). Two layouts:
 
-Decode reads it through the paged-attention kernel: ``page_tables`` gives
-identity block tables of ``max_len / PAGE_SIZE`` pages per slot, and
-``models.attention.decode_attention`` views each layer's cache as those
-pages, which gives exactly the reference's dense masked decode attention. The
-``PagedPool`` with free-list allocation comes with the paged-pool
-migration slice.
+  * SlotCache - the serving engine's dense slot cache, one K and one V
+    tensor per layer. Decode reads it through the paged-attention kernel:
+    ``page_tables`` gives identity block tables of ``max_len / PAGE_SIZE``
+    pages per slot, and ``models.attention.decode_attention`` views each
+    layer's cache as those pages, which gives exactly the reference's dense
+    masked decode attention.
+  * PagedPool - PagedAttention-style paged pool with free-list allocation
+    and block tables; the layout the migration kernels (kv_gather /
+    kv_scatter) aggregate from, driven by ``core.migration.migrate_pages``.
 """
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
-from typing import Deque, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.model import init_cache_defs
 from repro_torch.parallel.sharding import ExecConfig
 
@@ -59,3 +62,101 @@ class SlotCache:
     def release(self, slot: int) -> None:
         self.lengths[slot] = 0
         self.free.append(slot)
+
+
+# ---------------------------------------------------------------------------
+# Paged pool + block tables
+# ---------------------------------------------------------------------------
+@dataclass
+class PagedPool:
+    """Per-layer paged KV pool with free-list allocation.
+
+    The bookkeeping (free list, tables, lengths) is the reference's, op for
+    op; the pages are torch tensors on ``device`` (CUDA unless the caller
+    names one).
+    """
+
+    num_pages: int
+    page_size: int
+    kv_heads: int
+    head_dim: int
+    n_layers: int
+    dtype: torch.dtype = torch.float32
+    device: Optional[Union[str, torch.device]] = None
+
+    k_pages: torch.Tensor = None  # (L, P, page, KV, hd)
+    v_pages: torch.Tensor = None
+    free_pages: Deque[int] = field(default_factory=deque)
+    tables: Dict[int, List[int]] = field(default_factory=dict)  # seq -> pages
+    seq_lens: Dict[int, int] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        shape = (self.n_layers, self.num_pages, self.page_size, self.kv_heads, self.head_dim)
+        if self.k_pages is None:
+            self.k_pages = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            self.v_pages = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if not self.free_pages:  # as in the reference, an empty free list is refilled
+            self.free_pages = deque(range(self.num_pages))
+        elif not isinstance(self.free_pages, deque):
+            self.free_pages = deque(self.free_pages)
+
+    def page_rows(self, kind: str) -> torch.Tensor:
+        """Kind "k" or "v" as a (L * P, F) row view, no copy: layer l's page
+        p is row l * P + p, so one gather or scatter covers every layer."""
+        pages = {"k": self.k_pages, "v": self.v_pages}[kind]
+        return pages.view(self.n_layers * self.num_pages, -1)
+
+    def row_ids(self, page_ids: np.ndarray) -> np.ndarray:
+        """The rows of ``page_rows`` that hold these pages in every layer,
+        layer-major: l * P + page for l = 0 .. L-1."""
+        layers = np.arange(self.n_layers, dtype=np.int64)[:, None] * self.num_pages
+        return (layers + np.asarray(page_ids, np.int64)[None, :]).reshape(-1)
+
+    def alloc_seq(self, seq_id: int, n_tokens: int) -> bool:
+        need = -(-n_tokens // self.page_size)
+        if len(self.free_pages) < need:
+            return False
+        self.tables[seq_id] = [self.free_pages.popleft() for _ in range(need)]
+        self.seq_lens[seq_id] = n_tokens
+        return True
+
+    def extend_seq(self, seq_id: int, n_new: int = 1) -> bool:
+        cur = self.seq_lens[seq_id]
+        new = cur + n_new
+        need = -(-new // self.page_size) - len(self.tables[seq_id])
+        if need > len(self.free_pages):
+            return False
+        for _ in range(need):
+            self.tables[seq_id].append(self.free_pages.popleft())
+        self.seq_lens[seq_id] = new
+        return True
+
+    def release_seq(self, seq_id: int) -> None:
+        self.free_pages.extend(self.tables.pop(seq_id))
+        self.seq_lens.pop(seq_id)
+
+    def fragmentation(self) -> float:
+        """Fraction of live pages that are non-contiguous with their
+        predecessor: the quantity the paper's aggregation attacks."""
+        frag = tot = 0
+        for pages in self.tables.values():
+            for a, b in zip(pages, pages[1:]):
+                tot += 1
+                frag += b != a + 1
+        return frag / tot if tot else 0.0
+
+    def block_table_array(self, seq_ids: List[int]) -> np.ndarray:
+        width = max((len(self.tables[s]) for s in seq_ids), default=0)
+        out = np.zeros((len(seq_ids), width), np.int32)
+        for i, s in enumerate(seq_ids):
+            pg = self.tables[s]
+            out[i, : len(pg)] = pg
+        return out
+
+    def migration_page_ids(self, seq_ids: List[int]) -> np.ndarray:
+        """All pages that must be aggregated to migrate these sequences."""
+        out: List[int] = []
+        for s in seq_ids:
+            out.extend(self.tables[s])
+        return np.asarray(out, np.int32)

@@ -49,12 +49,19 @@ def jax_params():
 
 
 @pytest.fixture(scope="module")
-def reference_trajectories(jax_params):
-    """The reference engine on one CPU device (TP 1)."""
+def reference_engine(jax_params):
+    """The reference engine on one CPU device (TP 1), recording logits."""
     jcfg = JModelConfig(**_SERVE, attn=JAttnSpec(kind="full"))
-    econf = JEngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96, prefill_buckets=(16, 32), dtype=jnp.float32)
+    econf = JEngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96, prefill_buckets=(16, 32), dtype=jnp.float32,
+                          record_logits=True)
     eng = JServingEngine(jcfg, jax_params, devices=jax.devices()[:1], econf=econf)
-    return {r.req_id: list(r.generated) for r in eng.run(_requests(JRequest))}
+    done = eng.run(_requests(JRequest))
+    return {r.req_id: list(r.generated) for r in done}, eng.logit_trace
+
+
+@pytest.fixture(scope="module")
+def reference_trajectories(reference_engine):
+    return reference_engine[0]
 
 
 @pytest.fixture(scope="module")
@@ -77,6 +84,23 @@ def test_engine_switch_schedule_keeps_trajectories(params, reference_trajectorie
     assert eng.stats.switches == 4 and eng.tp == 2
     assert {r.req_id: r.generated for r in done} == reference_trajectories
     assert sorted(t.data_ptr() for _, per_pos in tree_leaves_with_path(eng.storage) for t in per_pos) == ptrs
+
+
+@pytest.mark.parametrize("schedule", [None, SCHEDULE], ids=["fixed_tp1", "switch_schedule"])
+def test_engine_logits_match_reference(params, reference_engine, schedule):
+    """Every step's logits (prefill, then each decode step) of every request
+    within 2e-4 of the reference engine's, as its engine tests hold them."""
+    econf = EngineConfig(**{**ECONF.__dict__, "record_logits": True})
+    eng = ServingEngine(CFG, params, econf, device="cpu")
+    done = eng.run(_requests(Request), switch_schedule=schedule)
+    want = reference_engine[1]
+    assert sorted(eng.logit_trace) == sorted(want) == sorted(r.req_id for r in done)
+    for rid, steps in want.items():
+        got = eng.logit_trace[rid]
+        assert len(got) == len(steps) == 24
+        for g, w in zip(got, steps):
+            assert g.shape == (CFG.vocab_size,)
+            np.testing.assert_allclose(g, np.asarray(w), rtol=2e-4, atol=2e-4)
 
 
 def test_rebind_is_zero_copy(params):

@@ -11,6 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import AttnSpec, ModelConfig  # noqa: E402
+from repro_torch.core.migration import migrate_pages  # noqa: E402
+from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter  # noqa: E402
+from repro_torch.kernels.kv_gather.ref import kv_gather_ref, kv_scatter_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref  # noqa: E402
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul  # noqa: E402
@@ -18,6 +21,7 @@ from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref  # noqa:
 from repro_torch.models import init_params, model_param_defs  # noqa: E402
 from repro_torch.parallel.sharding import make_exec_config  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
+from repro_torch.serving.kv_cache import PagedPool  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -97,3 +101,72 @@ def test_engine_on_card_matches_cpu_and_launches_kernels(cuda):
     done = eng.run(requests(), switch_schedule={3: 2, 7: 4, 13: 1, 19: 2})
     assert {r.req_id: r.generated for r in done} == base
     assert tp_shard_matmul.launches > before[0] and paged_decode_attention.launches > before[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("P,F,n", [(16, 128, 4), (64, 256, 64), (8, 512, 1), (512, 16384, 300), (16, 129, 7)])
+def test_kv_gather_scatter_kernels_equal_plain(cuda, dtype, P, F, n):
+    """Bit for bit against the plain versions; F = 129 in uint8 (odd rows)
+    takes the byte path, the rest the 16-byte path."""
+    g = torch.Generator(device=cuda).manual_seed(P + F)
+    pool = torch.randint(0, 255, (P, F), generator=g, device=cuda, dtype=torch.uint8)
+    if dtype != torch.uint8:
+        pool = torch.randn(P, F, generator=g, device=cuda).to(dtype)
+    ids = np.random.RandomState(n).permutation(P)[:n]
+    before = (kv_gather.launches, kv_scatter.launches)
+    staged = kv_gather(pool, ids)
+    assert torch.equal(staged, kv_gather_ref(pool, ids))
+    other = staged.flip(0).contiguous()
+    want = kv_scatter_ref(pool.clone(), other, ids)
+    ptr = pool.data_ptr()
+    assert kv_scatter(pool, other, ids) is pool and pool.data_ptr() == ptr
+    assert torch.equal(pool, want)  # named rows written, the rest untouched
+    kv_scatter(pool, staged, ids)
+    assert torch.equal(kv_gather(pool, ids), staged)
+    torch.cuda.synchronize()
+    assert (kv_gather.launches - before[0], kv_scatter.launches - before[1]) == (2, 2)
+
+
+def test_kv_gather_scatter_misaligned_base(cuda):
+    """A pool that starts 2 bytes past a 16-byte boundary takes the byte path."""
+    buf = torch.randn(33 * 256 + 1, device=cuda).to(torch.bfloat16)
+    pool = buf[1:].view(33, 256)
+    assert pool.data_ptr() % 16 == 2
+    head = buf[0].clone()
+    ids = np.random.RandomState(0).permutation(33)[:9]
+    staged = kv_gather(pool, ids)
+    assert torch.equal(staged, kv_gather_ref(pool, ids))
+    want = kv_scatter_ref(pool.clone(), staged * 2, ids)
+    kv_scatter(pool, staged * 2, ids)
+    assert torch.equal(pool, want) and torch.equal(buf[0], head)
+
+
+def test_migrate_pages_on_card_keeps_attention_bitwise(cuda):
+    """llama3-8b's page geometry, 4 layers: dst pages equal src pages and
+    decode attention over dst equals attention over src, bit for bit."""
+    geom = dict(num_pages=160, page_size=16, kv_heads=8, head_dim=128, n_layers=4, dtype=torch.bfloat16)
+    src, dst = PagedPool(**geom, device=cuda), PagedPool(**geom, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    src.k_pages.normal_(generator=g)
+    src.v_pages.normal_(generator=g)
+    lens = [100, 37, 256, 1, 64, 200, 17, 129]
+    for s in range(8):
+        src.alloc_seq(s, 1)
+    for _ in range(256):
+        for s, n in enumerate(lens):
+            if src.seq_lens[s] < n:
+                src.extend_seq(s, 1)
+    before = (kv_gather.launches, kv_scatter.launches)
+    tables, _ = migrate_pages(src, dst, list(range(8)))
+    assert (kv_gather.launches - before[0], kv_scatter.launches - before[1]) == (2, 2)
+    for s in range(8):
+        assert torch.equal(dst.k_pages[:, dst.tables[s]], src.k_pages[:, src.tables[s]])
+        assert torch.equal(dst.v_pages[:, dst.tables[s]], src.v_pages[:, src.tables[s]])
+    q = torch.randn(8, 8, 4, 128, generator=g, device=cuda).to(torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    t_dst = torch.from_numpy(tables).to(cuda)
+    t_src = torch.from_numpy(src.block_table_array(list(range(8)))).to(cuda)
+    for layer in range(4):
+        a = paged_decode_attention(q, dst.k_pages[layer], dst.v_pages[layer], t_dst, lens_t)
+        b = paged_decode_attention(q, src.k_pages[layer], src.v_pages[layer], t_src, lens_t)
+        assert torch.equal(a, b)
