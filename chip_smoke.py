@@ -2,19 +2,24 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py [--layers N] [--skip-timed]
+    python3 chip_smoke.py --timings-of build/parent/src   # host cost + phase 5 only, of another tree
 
 Phases; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit, then every CUDA
      kernel (tp_shard_matmul, paged_attention, kv_gather) built from
      src/repro_torch/csrc with nvcc for sm_90a, one nvcc per source;
   2. kernels against their plain PyTorch versions on the card: the shape
-     sweeps of the tests, the presliced bit-identity, every llama3-8b
-     projection at each rank's offset for TP 1/2/4/8 at decode and prefill
-     widths, decode attention at the engine's shape, and kv_gather /
-     kv_scatter bit for bit (sweeps, a llama3-8b page row, round trip in
-     place, both misaligned cases); matmul and attention timed at the
-     decode shapes beside their bound, their plain version and one PyTorch
-     library call;
+     sweeps of the tests, the presliced bit-identity (in bf16 also with
+     misaligned storage, the producer warp's loads against TMA), NaN around
+     a shard kept out of the output, repeated calls bitwise equal, every
+     llama3-8b projection at each rank's offset for TP 1/2/4/8 at decode
+     and prefill widths, decode attention at the engine's shape, and
+     kv_gather / kv_scatter bit for bit (sweeps, a llama3-8b page row,
+     round trip in place, both misaligned cases); one bf16 matmul call
+     launching one kernel under torch.profiler; matmul timed at the decode
+     shapes, the prefill buckets and TP 8's shards, and attention at the
+     decode shape, beside their bound, their plain version and one PyTorch
+     library call; the host's cost per matmul wrapper call;
   3. paged KV migration at llama3-8b's page geometry: a bf16 PagedPool
      fragmented by interleaved growth (16 sequences of 256 and of 2048
      tokens, 0.537 and 4.295 GB) moved by migrate_pages into a fresh pool;
@@ -30,9 +35,12 @@ Phases; any failure raises and the script exits non-zero:
   5. the engine in bf16, timed on the host clock with repeats (median and
      spread): TTFT per bucket, decode step per TP level, tokens/s, the
      switch's binding lookup, the bind per TP level made at install, and
-     migrate; then, last, decode at TP 1 and 8 under torch.profiler.
+     migrate; then, last, one prefill per bucket and decode at TP 1 and 8
+     under torch.profiler (device ms, busy share, ms per kernel).
 Each kernel's launch count is set to 0 just before the path that runs it
-(phase 3 for kv_gather / kv_scatter, phase 4 for the others) and read just
+(phase 3 for kv_gather / kv_scatter; phase 4 in f32 and phase 5's bf16
+serving runs for the others, the kernels line reporting phase 5's counts,
+or phase 4's when phase 5 is skipped) and read just
 after. The full record goes to chiprun_out/chip_smoke.json. The last lines
 are the kernels line, the card line and the contract line.
 """
@@ -143,8 +151,47 @@ def check_matmul_sweeps(torch, dev, log):
                 row = tp_shard_matmul(x[:, :n].contiguous(), wr, s * n, n_out=1024, mode="row")
                 check(torch.equal(row, tp_shard_matmul(x[:, :n].contiguous(), wr[s * n:(s + 1) * n].contiguous(), 0,
                                                        n_out=1024, mode="row")), f"presliced row tp={tp} shard={s}")
+    # bf16 again with the storage 2 bytes past a 16-byte boundary: in place
+    # the producer warp loads the tiles, the pre-sliced copy goes through TMA
+    bf = torch.bfloat16
+    x = torch.randn(8, 4096, generator=g, device=dev).to(bf)
+    buf = torch.randn(4096 * 4096 + 1, generator=g, device=dev).to(bf)
+    for mode in ("col", "row"):
+        w = buf[1:].view(4096, 4096) if mode == "col" else buf[1:1 + 4096 * 1024].view(4096, 1024)
+        check(w.data_ptr() % 16 == 2, "misaligned storage")
+        for tp in (1, 2, 4, 8):
+            n = 4096 // tp
+            for s in range(tp):
+                if mode == "col":
+                    got = tp_shard_matmul(x, w, s * n, n_out=n, mode="col")
+                    want = tp_shard_matmul(x, w[:, s * n:(s + 1) * n].contiguous(), 0, n_out=n, mode="col")
+                else:
+                    xs = x[:, :n].contiguous()
+                    got = tp_shard_matmul(xs, w, s * n, n_out=1024, mode="row")
+                    want = tp_shard_matmul(xs, w[s * n:(s + 1) * n].contiguous(), 0, n_out=1024, mode="row")
+                check(torch.equal(got, want), f"presliced {mode} tp={tp} shard={s} bf16, misaligned storage")
+    # NaN around the shard never reaches the output; two calls agree bit for bit
+    n_poison = 0
+    for mode, m, k, store, n_out, off in (("col", 8, 4096, 14336, 1792, 3 * 1792), ("row", 8, 1792, 14336, 4096, 5 * 1792),
+                                          ("col", 3, 96, 210, 70, 70), ("row", 33, 100, 300, 70, 200),
+                                          ("col", 128, 4096, 4096, 512, 1024), ("row", 100, 1000, 3000, 516, 1000)):
+        x = torch.randn(m, k, generator=g, device=dev).to(bf)
+        w = (torch.randn(*((k, store) if mode == "col" else (store, n_out)), generator=g, device=dev) / math.sqrt(k)).to(bf)
+        if mode == "col":
+            w[:, :off] = w[:, off + n_out:] = float("nan")
+        else:
+            w[:off] = w[off + k:] = float("nan")
+        got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+        want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
+        err = (got.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and err <= 1e-2 * want.float().abs().max().item(),
+              f"NaN past the {mode} shard (M={m}, K={k}, N={n_out}): finite {bool(torch.isfinite(got).all())}, err {err}")
+        check(torch.equal(tp_shard_matmul(x, w, off, n_out=n_out, mode=mode), got), f"repeat bitwise {mode} M={m}")
+        n_poison += 1
     log(f"tp_shard_matmul: sweeps (exact inputs) max |err| {worst:.3g} (tol f32 2e-5, bf16 2e-2); "
-        f"presliced bit-identity holds at tp 1/2/4/8, col and row, f32 and bf16")
+        f"presliced bit-identity holds at tp 1/2/4/8, col and row, f32 and bf16, and in bf16 with misaligned "
+        f"storage (producer-warp loads in place vs TMA pre-sliced); NaN around the shard stays out and a "
+        f"second call is bitwise equal in {n_poison} bf16 cases")
     return worst
 
 
@@ -222,42 +269,121 @@ def check_matmul_main_shapes(torch, dev, cfg, log):
 
 
 def measure_matmul(torch, dev, cfg, flush, log):
-    """Every distinct decode projection of llama3-8b at TP 1 (M = 8 slots),
-    in bf16 and f32: kernel vs plain vs torch.matmul on the pre-sliced weight."""
+    """The projections of llama3-8b as the main path runs them: at TP 1 at
+    decode (M = 8 slots) in bf16 and f32, and in bf16 at the prefill buckets
+    (M = 32/64/128) and at decode on a TP 8 rank's shard (rank 1's offset
+    into the full storage). Kernel vs plain vs torch.matmul on the
+    pre-sliced shard; the bound counts the shard's bytes."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
 
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     shapes = [("wq/wo col", "col", d, d), ("wk/wv col", "col", d, cfg.num_kv_heads * hd), ("w_gate/w_in col", "col", d, ff),
               ("w_out row", "row", ff, d), ("lm_head col f32-out", "col", d, cfg.vocab_padded)]
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(s, 8, dt, 1) for dt in (bf, f32) for s in shapes]
+    cases += [(s, m, bf, 1) for m in (32, 64, 128) for s in shapes]
+    cases += [(s, 8, bf, 8) for s in shapes]
     g = torch.Generator(device=dev).manual_seed(3)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for (name, mode, k_store, n_store), m, dtype, tp in cases:
         dname = str(dtype).split(".")[1]
-        for name, mode, k, n in shapes:
-            m = 8
-            x = torch.randn(m, k, generator=g, device=dev).to(dtype)
-            w = torch.randn(k, n, generator=g, device=dev).to(dtype) * (1 / math.sqrt(k))
-            out_dtype = torch.float32 if name.startswith("lm_head") else dtype
-            run = lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode, out_dtype=out_dtype)  # noqa: E731
-            got, want = run(), tp_shard_matmul_ref(x, w, 0, mode=mode, n_out=n, out_dtype=out_dtype)
-            scale = want.float().abs().max().item()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = 1e-5 if dtype == torch.float32 else 1e-2
-            check(err <= tol * scale, f"tp_shard_matmul {name} {dname}: err {err} > {tol} x {scale}")
-            es, eo = x.element_size(), torch.finfo(out_dtype).bits // 8
-            b_ms, b_by = bound_ms(es * (m * k + k * n) + eo * m * n, 2.0 * m * k * n, dname)
-            row = {
-                "shape": f"{name} {dname} M={m} K={k} N={n}", "max_abs_err": err, "tol": f"{tol} x max|plain| = {tol * scale:.3g}",
-                "ms": time_ms(torch, run, flush=flush),
-                "plain_ms": time_ms(torch, lambda: tp_shard_matmul_ref(x, w, 0, mode=mode, n_out=n, out_dtype=out_dtype), flush=flush),
-                "library_ms": time_ms(torch, lambda: torch.matmul(x, w), flush=flush),
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            rows.append(row)
-            log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}), plain {row['plain_ms']:.4f}, "
-                f"torch.matmul {row['library_ms']:.4f}, err {err:.3g} (tol {row['tol']})")
+        w = (torch.randn(k_store, n_store, generator=g, device=dev) / math.sqrt(k_store)).to(dtype)
+        if mode == "col":  # rank 1's columns at TP 8
+            k, n = k_store, n_store // tp
+            off = n if tp > 1 else 0
+            sliced = w[:, off:off + n].contiguous()
+        else:  # rank 1's rows at TP 8
+            k, n = k_store // tp, n_store
+            off = k if tp > 1 else 0
+            sliced = w[off:off + k].contiguous()
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        out_dtype = f32 if name.startswith("lm_head") else dtype
+        run = lambda: tp_shard_matmul(x, w, off, n_out=n, mode=mode, out_dtype=out_dtype)  # noqa: E731
+        got, want = run(), tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n, out_dtype=out_dtype)
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 1e-5 if dtype == f32 else 1e-2
+        check(err <= tol * scale, f"tp_shard_matmul {name} {dname} M={m} TP {tp}: err {err} > {tol} x {scale}")
+        es, eo = x.element_size(), torch.finfo(out_dtype).bits // 8
+        b_ms, b_by = bound_ms(es * (m * k + k * n) + eo * m * n, 2.0 * m * k * n, dname)
+        shape = f"{name} {dname} M={m} K={k} N={n}" + (f" (TP {tp} rank 1 shard)" if tp > 1 else "")
+        row = {
+            "name": name, "dtype": dname, "m": m, "tp": tp,
+            "shape": shape, "max_abs_err": err, "tol": f"{tol} x max|plain| = {tol * scale:.3g}",
+            "ms": time_ms(torch, run, flush=flush),
+            "plain_ms": time_ms(torch, lambda: tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n, out_dtype=out_dtype), flush=flush),
+            "library_ms": time_ms(torch, lambda: torch.matmul(x, sliced), flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        rows.append(row)
+        log(f"  {shape}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of it), "
+            f"plain {row['plain_ms']:.4f}, torch.matmul {row['library_ms']:.4f}, err {err:.3g} (tol {row['tol']})")
+        del w, sliced, x
     return rows
+
+
+def host_us_per_call(torch, dev, cfg, log, tp_shard_matmul, n_calls=400):
+    """Host time of one wrapper call, in us: n_calls calls queued back to
+    back behind a spin that keeps the card busy, so the host never waits
+    for the card; the wall time of the loop over n_calls. At TP 8 decode
+    shapes (bf16 and f32): the shapes whose device time is shortest."""
+    d, hd = cfg.d_model, cfg.head_dim
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, mode, k, n_store, n in (("wk/wv TP 8 shard", "col", d, cfg.num_kv_heads * hd, hd),
+                                          ("w_gate TP 8 shard", "col", d, cfg.d_ff, cfg.d_ff // 8)):
+            w = torch.randn(k, n_store, device=dev).to(dtype)
+            x = torch.randn(8, k, device=dev).to(dtype)
+            for _ in range(20):
+                tp_shard_matmul(x, w, n, n_out=n, mode="col")
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(5):
+                torch.cuda._sleep(200_000_000)  # ~0.1 s of spin: the queue never drains while the host enqueues the calls
+                t0 = time.perf_counter()
+                for _ in range(n_calls):
+                    tp_shard_matmul(x, w, n, n_out=n, mode="col")
+                walls.append((time.perf_counter() - t0) / n_calls * 1e6)
+                torch.cuda.synchronize()
+            walls.sort()
+            key = f"{name} {str(dtype).split('.')[1]} M=8"
+            out[key] = {"median": walls[2], "min": walls[0], "max": walls[4], "n": 5}
+            log(f"  host us per tp_shard_matmul call, {key}: {walls[2]:.2f} (min {walls[0]:.2f}, max {walls[4]:.2f}, "
+                f"5 loops of {n_calls})")
+            del w, x
+    return out
+
+
+def check_one_launch(torch, dev, log):
+    """Under torch.profiler, one bf16 call at a split-K shape launches one
+    kernel and no splitk_reduce; the f32 call at the same shape launches its
+    kernel and the reduce. None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    seen = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(8, 4096, device=dev).to(dtype)
+        w = torch.randn(4096, 14336, device=dev).to(dtype)
+        tp_shard_matmul(x, w, 0, n_out=14336, mode="col")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tp_shard_matmul(x, w, 0, n_out=14336, mode="col")
+            torch.cuda.synchronize()
+        kernels = {e.key[:60]: e.count for e in prof.key_averages()
+                   if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
+        seen[str(dtype).split(".")[1]] = kernels
+        del x, w
+    if not seen["float32"]:
+        log("tp_shard_matmul: launches per call not checked: the profiler saw no device time")
+        return None
+    bf = seen["bfloat16"]
+    check(sum(bf.values()) == 1 and not any("splitk_reduce" in k for k in bf),
+          f"one bf16 tp_shard_matmul call launches one kernel, no splitk_reduce: {bf}")
+    log(f"tp_shard_matmul: one call at w_gate M=8 under torch.profiler launches bf16 {bf}; f32 {seen['float32']}")
+    return seen
 
 
 def measure_paged(torch, dev, cfg, flush, log):
@@ -614,6 +740,8 @@ def engine_tiny_vs_cpu(torch, dev, log):
 def engine_bf16_timed(torch, dev, cfg, log):
     import numpy as np
 
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models import init_params, model_param_defs
     from repro_torch.parallel.sharding import make_exec_config
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -674,6 +802,7 @@ def engine_bf16_timed(torch, dev, cfg, log):
     eng.switch_tp(1)
     empty_slots()
     runs = []
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0
     for rep in range(3):
         t0 = time.perf_counter()
         done = eng.run(make_requests(cfg))
@@ -681,6 +810,9 @@ def engine_bf16_timed(torch, dev, cfg, log):
         n_tok = sum(len(r.generated) for r in done)
         runs.append(n_tok / dt)
     out["tokens_per_s"] = spread(runs)
+    out["launches"] = {"tp_shard_matmul": tp_shard_matmul.launches,
+                       "paged_decode_attention": paged_decode_attention.launches}
+    check(all(n > 0 for n in out["launches"].values()), f"both kernels launched serving in bf16: {out['launches']}")
     out["workload"] = f"10 requests, prompts 4-120, 24 new tokens, TP 1: {n_tok} tokens per run, 3 runs"
     out["bind_ms_per_tp"] = {str(tp): s * 1e3 for tp, s in eng.ctl.bind_s.items()}
 
@@ -703,8 +835,38 @@ def engine_bf16_timed(torch, dev, cfg, log):
             return {"busy_share": "not measured (the profiler saw no device time)"}
         top = sorted(ev, key=lambda kv: -kv[1])[:6]
         return {"traced_step_ms": wall_us / n / 1e3, "device_ms_per_step": dev_us / n / 1e3,
-                "busy_share": dev_us / wall_us, "top_ms_per_step": {k[:80]: t / n / 1e3 for k, t in top}}
+                "busy_share": dev_us / wall_us, "top_ms_per_step": {k[:80]: t / n / 1e3 for k, t in top},
+                "kernel_ms_per_step": by_kernel(ev, n)}
 
+    def by_kernel(ev, n):
+        """Device ms per step (or per call) of the port's kernels, by name."""
+        names = ("wgmma_mm", "skinny_mm", "tiled_mm", "splitk_reduce", "paged_decode")
+        return {k: sum(t for key, t in ev if k in key) / n / 1e3 for k in names}
+
+    def prefill_profile(L):
+        """One prompt that fills bucket L, admitted at TP 1 under torch.profiler:
+        its device ms, and the port's kernels' share of it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        req = Request(400 + L, "strict", rng.randint(0, cfg.vocab_size, size=L).astype(np.int32), 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.admit(req)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        eng.slot_req[req.slot] = None
+        eng.slots.release(req.slot)
+        ev = [(e.key, getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+              for e in prof.key_averages()]
+        dev_us = sum(t for _, t in ev)
+        if dev_us == 0:
+            return {"device_ms": "not measured (the profiler saw no device time)"}
+        return {"traced_ttft_ms": wall_ms, "device_ms": dev_us / 1e3, "kernel_ms": by_kernel(ev, 1)}
+
+    eng.switch_tp(1)
+    empty_slots()
+    out["prefill_profile"] = {str(L): prefill_profile(L) for L in econf.prefill_buckets}
     fill_slots(300)
     out["profile"] = {}
     for tp in (1, 8):
@@ -712,13 +874,16 @@ def engine_bf16_timed(torch, dev, cfg, log):
         out["profile"][str(tp)] = device_share()
     log(f"engine bf16 (host clock, before any profiler): TTFT ms per bucket {json.dumps(out['ttft_ms'])}; "
         f"decode step ms per TP (3 rounds of 6 steps) {json.dumps(out['decode_step_ms'])}; "
-        f"tokens/s {json.dumps(out['tokens_per_s'])} ({out['workload']})")
+        f"tokens/s {json.dumps(out['tokens_per_s'])} ({out['workload']}); launches over those runs "
+        f"{json.dumps(out['launches'])}")
     log(f"engine bf16: TP switch = lookup of a binding made at install: lookup us "
         f"{[round(x, 2) for x in out['rebind_lookup_us']]}; bind ms per TP level (once, at install) "
         f"{json.dumps({k: round(v, 2) for k, v in out['bind_ms_per_tp'].items()})}; "
         f"migrate ms {[round(x, 3) for x in out['migrate_ms']]}")
     for tp, prof in out["profile"].items():
         log(f"engine bf16: decode at TP {tp} under the profiler: {json.dumps(prof)}")
+    for L, prof in out["prefill_profile"].items():
+        log(f"engine bf16: prefill of {L} tokens at TP 1 under the profiler: {json.dumps(prof)}")
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -728,7 +893,11 @@ def engine_bf16_timed(torch, dev, cfg, log):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
-    ap.add_argument("--skip-timed", action="store_true", help="leave out phase 4 (a quicker check)")
+    ap.add_argument("--skip-timed", action="store_true", help="leave out phase 5 (a quicker check)")
+    ap.add_argument("--timings-of", metavar="SRC", default=None,
+                    help="only take the host cost of tp_shard_matmul calls and phase 5's bf16 engine timings and "
+                         "profiles, importing repro_torch from SRC (e.g. the src/ of an unpacked earlier commit, "
+                         "to compare two commits in one call); print them as one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -738,8 +907,19 @@ def main() -> int:
         return 1
     import dataclasses
 
+    if args.timings_of is not None:
+        sys.path.insert(0, str(Path(args.timings_of).resolve()))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    if args.timings_of is not None:
+        dev, cfg = torch.device("cuda", 0), get_config("llama3-8b")
+        print(card_line())
+        us = host_us_per_call(torch, dev, cfg, print, tp_shard_matmul)
+        print(json.dumps({"src": args.timings_of, "card": card_line(), "host_us_per_call": us,
+                          "engine_bf16": engine_bf16_timed(torch, dev, cfg, print)}))
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 oracle runs in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -772,8 +952,10 @@ def main() -> int:
     record["tp_shard_matmul_main_shapes"] = check_matmul_main_shapes(torch, dev, cfg, log)
     check_paged_sweeps(torch, dev, log)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    log("tp_shard_matmul at the main path's decode shapes:")
+    record["tp_shard_matmul_launches_per_call"] = check_one_launch(torch, dev, log)
+    log("tp_shard_matmul at the main path's shapes (decode TP 1, prefill buckets, decode TP 8 shards):")
     mm_rows = measure_matmul(torch, dev, cfg, flush, log)
+    record["tp_shard_matmul_host_us"] = host_us_per_call(torch, dev, cfg, log, tp_shard_matmul)
     log("paged_decode_attention at the main path's shape:")
     pa_rows = measure_paged(torch, dev, cfg, flush, log)
     record["tp_shard_matmul"], record["paged_decode_attention"] = mm_rows, pa_rows
@@ -789,11 +971,12 @@ def main() -> int:
     engine_tiny_vs_cpu(torch, dev, log)
 
     # ---- phase 5: the engine in bf16, timed ----
-    if not args.skip_timed:
+    if not args.skip_timed:  # the kernels line times bf16, so it takes the bf16 run's counts
         record["engine_bf16"] = engine_bf16_timed(torch, dev, cfg, log)
+        launches.update(record["engine_bf16"]["launches"])
 
     # main-path entries: the bf16 decode shapes that take the most time per step
-    main_mm = next(r for r in mm_rows if r["shape"].startswith("w_gate/w_in col bfloat16"))
+    main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}

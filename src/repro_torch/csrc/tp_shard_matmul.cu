@@ -7,50 +7,87 @@
 // w + off * N_store), with the storage row length as the leading dimension.
 // No weight byte is copied to select a shard.
 //
-//   y[M, N] = x[M, K] @ W,   W[k][n] = w[k * ldw + n]
+//   y[M, N] = x[M, K] @ W,   W[k][n] = w[k * ldw + n],   sums in f32
 //
-// What bounds it on an H100: at decode (M = the slot count, 8 on the main
-// path) every weight byte is used M times, far below the ~295 operations
-// per byte where the tensor cores would become the limit, so reading the
-// weight from device memory bounds it. At prefill (M = 32..128) f32 is
-// bounded by the 67 TFLOP/s of the FMA units.
+// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 on the tensor
+// cores, 67 TFLOP/s f32 on the FMA units):
+//  * decode, M = 8 slots: every weight byte is used 8 times, far below the
+//    ~295 operations per byte where the tensor cores become the limit, so
+//    reading the weight bounds it (w_gate 4096 x 14336: 117 MB, 35 us).
+//  * prefill, M = 32..128: still bytes on the tensor cores (w_gate at
+//    M = 128: 122 MB = 36 us against 15.0 GFLOP = 15 us), but 0.224 ms
+//    on the FMA units, so bf16 has to run on the tensor cores.
 //
-// Design. The TPU kernel walked its K grid axis in order with an f32 VMEM
-// accumulator; Hopper blocks run in no order, so K is split over blocks
-// (split-K) and the partial sums are added in a second, fixed-order pass.
-// Two block shapes, chosen from M:
-//  * M <= 8 (decode): a block of 8 warps covers 32 * VEC columns; each
-//    lane streams VEC contiguous weight columns with 16-byte loads, 4 (f32)
-//    or 8 (bf16, kept packed until used) rows in flight, and keeps all 8
-//    rows' sums in registers; x for the block's K range is staged in shared
-//    memory; the 8 warps take interleaved rows of that range and add their
-//    sums in warp order through shared memory. The grid has enough K
-//    splits for ~2 blocks per SM, so a TP-8 shard of a few hundred columns
-//    still spreads over the card.
+// bf16 (x and w bf16; y bf16, or f32 for the LM head's logits): one kernel,
+// wgmma_mm, for every M.
+//  * Swap A and B: y^T = W^T x^T. The weight's columns run along wgmma's
+//    64-row M and the tokens along its N (NT = 8, 16, 32, 64 or 128, M
+//    rounded up with zero rows; at most 64 or 32 for a weight that fits in
+//    L2, so that a small projection still fills the card at prefill
+//    without a long split-K reduce), so at decode the weight fills the tensor
+//    core instead of 8 of its 64 rows. A block owns 128 weight columns
+//    (two 64-column sub-tiles, one m64nNTk16 each per K step of 16) and
+//    NT tokens. A is the weight tile, N contiguous (MN-major, wgmma's
+//    transpose bit); B is the x tile, K-major.
+//  * A ring of 6 (NT = 128) to 8 stages in 192 KiB of dynamic shared memory
+//    (each stage 64 K rows of both weight sub-tiles and NT rows of x,
+//    128-byte swizzle), one block per SM. One producer warp keeps TMA
+//    loads (cp.async.bulk.tensor) in flight; they complete on an mbarrier
+//    per stage. One consumer warpgroup runs wgmma on the stages that have
+//    arrived, one stage's products in flight, and frees each stage on a
+//    second mbarrier. Weight bytes go from device memory to shared memory
+//    without passing through registers.
+//  * The TMA descriptors are cut at the shard: the weight's extent is
+//    (K rows, N columns) from the folded base with row stride ldw * 2
+//    bytes, so a ragged last tile is zero-filled by TMA and never reads the
+//    next rank's rows or columns; x is cut at M and K the same way. The
+//    weight's descriptor is encoded once per (pointer, shape, stride) and
+//    cached: WeightStore's pointers do not change.
+//  * TMA needs 16-byte-aligned bases and row strides. Where x or the
+//    weight misses that, the producer warp writes the same swizzled tiles,
+//    zeros past the edges, with ordinary loads and feeds the same wgmma
+//    sequence: the loader differs, the arithmetic does not. So a shard read
+//    in place is bit-identical to the pre-sliced weight at any offset.
+//  * Split-K in the same launch: blocks along K write f32 partial tiles to
+//    a workspace, __threadfence(), and take a ticket on a per-tile counter;
+//    the last block adds the S partials in split order 0..S-1, writes y and
+//    resets the counter. No atomics on values, so two calls on the same
+//    inputs agree bit for bit. S depends on (M, N, K) only: enough splits
+//    to give each SM one block, each of at least 8 K tiles (so the partial
+//    tiles stay small beside the weight bytes). Workspace and counters come
+//    from the caller.
+//  What is left: persistent blocks that overlap one tile's epilogue with
+//  the next tile's loads, clusters with TMA multicast of x, fp8 weights.
+//
+// f32 (the full-depth trajectory check) stays on the FMA units, without
+// TF32 (its tolerance is 1e-5). Two block shapes, chosen from M:
+//  * M <= 8 (decode): a block of 8 warps covers 128 columns; each lane
+//    streams 4 contiguous weight columns with 16-byte loads, 4 rows in
+//    flight, and keeps all 8 rows' sums in registers; x for the block's K
+//    range is staged in shared memory; the 8 warps take interleaved rows of
+//    that range and add their sums in warp order through shared memory.
 //  * M > 8 (prefill): a plain 64x64 SIMT tile, 256 threads with 4x4
 //    register tiles, the next K step's loads issued before the current
-//    step's FMAs, plus split-K over blocks when the tile grid is small.
-// Every output is then a sum in an order fixed by (M, N, K) alone: the
-// split count depends only on the shapes, and the vector/scalar choice of
-// a load changes no arithmetic. So the result at a shard offset is
-// bit-identical to the same call on the pre-sliced contiguous weight, and
-// two calls on the same inputs agree bit for bit (no atomics). f32 runs on
-// the FMA units (no TF32); bf16 is widened to f32 on load. Known limits,
-// for later work: no tensor cores (wgmma) and no TMA.
+//    step's FMAs.
+// Both split K over blocks when the grid is small and add the partial sums
+// in a second, fixed-order pass (splitk_reduce). Every f32 output is then
+// a sum in an order fixed by (M, N, K) alone, with the same properties.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
+#include <unordered_map>
 
 namespace {
 
 constexpr int SMS = 132;               // H100 SXM
-constexpr int TARGET_BLOCKS = 2 * SMS;  // split K until the grid has ~2 blocks per SM
+constexpr int TARGET_BLOCKS = 2 * SMS;  // f32: split K until the grid has ~2 blocks per SM
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename O> __device__ __forceinline__ O from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -59,38 +96,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
+__device__ __forceinline__ int dceil_div(int a, int b) { return (a + b - 1) / b; }
 // ---------------------------------------------------------------------------
-// Skinny path, M <= 8
+// f32, skinny path, M <= 8
 // ---------------------------------------------------------------------------
 constexpr int SK_M = 8, SK_WARPS = 8, SK_THREADS = SK_WARPS * 32, SK_ALIGN = 32;
 constexpr int SK_MAX_KS = 1024;  // rows of x staged in shared memory per block
 
-// A 16-byte vector of T, and how many rows each lane keeps in flight: bf16
-// rows stay packed in registers until used, so a bf16 lane can hold twice
-// as many.
+// A 16-byte vector of T, and how many rows each lane keeps in flight.
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int N = 4, UNROLL = 4;
   using U = float4;
 };
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8, UNROLL = 8;
-  using U = uint4;
-};
 
 __device__ __forceinline__ void unpack(const float4& u, float (&out)[4]) {
   out[0] = u.x, out[1] = u.y, out[2] = u.z, out[3] = u.w;
-}
-
-// bf16 -> f32 is exact: the bf16 bits are the high half of the f32's
-__device__ __forceinline__ void unpack(const uint4& u, float (&out)[8]) {
-  const unsigned int h[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(h[i] << 16);
-    out[2 * i + 1] = __uint_as_float(h[i] & 0xffff0000u);
-  }
 }
 
 // Element by element, zero past column N: the same values as a vector load.
@@ -101,17 +122,6 @@ __device__ __forceinline__ float4 load_scalar(const float* row, int c, int N) {
   return make_float4(e[0], e[1], e[2], e[3]);
 }
 
-__device__ __forceinline__ uint4 load_scalar(const __nv_bfloat16* row, int c, int N) {
-  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
-  unsigned int h[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned int lo = c + 2 * i < N ? r[c + 2 * i] : 0u;
-    const unsigned int hi = c + 2 * i + 1 < N ? r[c + 2 * i + 1] : 0u;
-    h[i] = lo | (hi << 16);
-  }
-  return make_uint4(h[0], h[1], h[2], h[3]);
-}
 
 // VEC contiguous weight values of one row from column c: one 16-byte load
 // when aligned and in range, else element by element.
@@ -194,7 +204,7 @@ skinny_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled path, M > 8
+// f32, tiled path, M > 8
 // ---------------------------------------------------------------------------
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, THREADS = 256;
 
@@ -281,28 +291,27 @@ tiled_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
 }
 
 // y = sum over splits s = 0..S-1 of part[s], in that order
-template <typename O>
-__global__ void splitk_reduce(const float* __restrict__ part, O* __restrict__ y, int S, int64_t MN) {
+__global__ void splitk_reduce(const float* __restrict__ part, float* __restrict__ y, int S, int64_t MN) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MN) return;
   float s = part[i];
   for (int z = 1; z < S; ++z) s += part[z * MN + i];
-  y[i] = from_f32<O>(s);
+  y[i] = s;
 }
 
-// How a call is split: S blocks along K of KS rows each. Depends on the
-// shapes and the dtype only.
+// How an f32 call is split: S blocks along K of KS rows each. Depends on
+// the shapes only.
 struct Plan {
   bool skinny;
   int S, KS;
 };
 
-Plan plan(int M, int N, int K, int dtype) {
+Plan plan_f32(int M, int N, int K) {
   Plan p;
   p.skinny = M <= SK_M;
   int tiles, max_ks, align;
   if (p.skinny) {
-    tiles = ceil_div(N, 32 * (dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N));
+    tiles = ceil_div(N, 32 * Vec<float>::N);
     max_ks = SK_MAX_KS;
     align = SK_ALIGN;
   } else {
@@ -319,52 +328,523 @@ Plan plan(int M, int N, int K, int dtype) {
   return p;
 }
 
-template <typename T, typename O>
-int run(const void* xv, const void* wv, void* yv, float* ws, int M, int N, int K, int64_t ldw,
-        cudaStream_t s) {
-  const T* x = static_cast<const T*>(xv);
-  const T* w = static_cast<const T*>(wv);
-  O* y = static_cast<O*>(yv);
-  const Plan p = plan(M, N, K, sizeof(T) == 4 ? 0 : 1);
+int run_f32(const float* x, const float* w, float* y, float* ws, int M, int N, int K, int64_t ldw,
+            cudaStream_t s) {
+  const Plan p = plan_f32(M, N, K);
   float* part = p.S > 1 ? ws : nullptr;
-  if (p.S > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (p.skinny) {
-    const bool vec_ok = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * sizeof(T)) % 16 == 0;
-    const dim3 grid(ceil_div(N, 32 * Vec<T>::N), p.S);
-    skinny_mm<T, O><<<grid, SK_THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS, vec_ok);
+    const bool vec_ok = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * sizeof(float)) % 16 == 0;
+    const dim3 grid(ceil_div(N, 32 * Vec<float>::N), p.S);
+    skinny_mm<float, float><<<grid, SK_THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS, vec_ok);
   } else {
     const dim3 grid(ceil_div(N, BN), ceil_div(M, BM), p.S);
-    tiled_mm<T, O><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
+    tiled_mm<float, float><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.S == 1) return static_cast<int>(e);
   const int64_t mn = (int64_t)M * N;
-  splitk_reduce<O><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(part, y, p.S, mn);
+  splitk_reduce<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(part, y, p.S, mn);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16: TMA-fed wgmma, swap-AB, split-K reduced in the same launch
+// ---------------------------------------------------------------------------
+constexpr int WG_BN = 128;        // weight columns per block: two 64-column sub-tiles
+constexpr int WG_BK = 64;         // K rows per stage: 128 bytes of bf16, one swizzle row
+constexpr int WG_THREADS = 160;   // consumer warpgroup (warps 0-3) + producer warp (warp 4)
+constexpr int SUB_BYTES = 64 * WG_BK * 2;  // one 64-column weight sub-tile, 8 KiB
+constexpr int RING_BUDGET = 192 * 1024;    // shared memory for the ring: one block per SM
+
+template <int NT> struct Ring {
+  static constexpr int X_BYTES = NT * WG_BK * 2;
+  static constexpr int STAGE_BYTES = 2 * SUB_BYTES + X_BYTES;  // a multiple of 1024
+  static constexpr int FIT = RING_BUDGET / STAGE_BYTES;
+  static constexpr int STAGES = FIT > 8 ? 8 : FIT;  // 6 (NT = 128) to 8 stages
+  // the ring, one full and one empty mbarrier per stage, and slack to align the ring to 1024 bytes
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+};
+
+// wgmma m64nNk16, f32 += bf16 x bf16: A (the weight tile) MN-major from
+// shared memory (transpose bit set), B (the x tile) K-major from shared memory.
+template <int N> struct Wgmma;
+template <> struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive and expect `bytes` of TMA traffic before the phase can complete
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one 2-D TMA tile load (c0: inner coordinate, c1: outer) that completes on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (128B swizzle).
+// Both operands' 8-row groups lie 1024 bytes apart (SBO). The weight tile is
+// MN-major and exactly one swizzle atom (64 columns) wide, so its LBO (the
+// step to a next 64-column atom) is never taken; the x tile is K-major, for
+// which LBO is ignored.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma's fence and wait
+template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A (rows x 64) bf16 tile in the layout TMA's 128-byte swizzle gives it:
+// element (r, c) at byte r * 128 + ((c / 8) ^ (r % 8)) * 16 + (c % 8) * 2.
+// src[r * ld + c] where r < rows and c < cols, zero elsewhere. Written by the
+// 32 lanes of the producer warp, for operands TMA cannot take.
+__device__ __forceinline__ void fill_tile(uint8_t* dst, const uint16_t* src, int64_t ld, int rows, int cols,
+                                          int R, int lane) {
+  for (int e = lane; e < R * 64; e += 32) {
+    const int r = e >> 6, c = e & 63;
+    const uint16_t v = r < rows && c < cols ? src[r * ld + c] : uint16_t(0);
+    *reinterpret_cast<uint16_t*>(dst + r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1))) = v;
+  }
+}
+
+struct WgArgs {
+  const uint16_t* x;  // bf16 bits
+  const uint16_t* w;
+  void* y;
+  float* ws;       // f32 partial tiles, S per output tile
+  int* counters;   // arrivals per output tile; 0 between calls
+  int M, N, K;
+  int64_t ldw;
+  int S, kts;      // splits along K, K tiles (of WG_BK) per split
+  int tma;         // 1: TMA loads; 0: the producer warp's own loads
+};
+
+// grid (N tiles of 128, S, M tiles of NT); WG_THREADS threads
+template <int NT, typename O>
+__global__ void __launch_bounds__(WG_THREADS)
+wgmma_mm(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap, const WgArgs a) {
+  using RG = Ring<NT>;
+  constexpr int R = NT / 2;  // accumulators per thread per 64-column sub-tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + RG::STAGES * RG::STAGE_BYTES);
+  uint64_t* empty = full + RG::STAGES;
+  __shared__ int last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * WG_BN, split = blockIdx.y, m0 = blockIdx.z * NT;
+  const int kt0 = split * a.kts, nkt = min(a.kts, dceil_div(a.K, WG_BK) - kt0);
+
+  if (tid == 0) {
+    for (int s = 0; s < RG::STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's one arrival (plus the TMA bytes)
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: fill the ring
+    for (int i = 0; i < nkt; ++i) {
+      const int s = i % RG::STAGES;
+      mbar_wait(&empty[s], ((i / RG::STAGES) & 1) ^ 1);
+      uint8_t* st = ring + s * RG::STAGE_BYTES;
+      const int k0 = (kt0 + i) * WG_BK;
+      if (a.tma) {
+        if (lane == 0) {  // boxes past the shard's edge (even wholly) arrive zero-filled
+          mbar_expect_tx(&full[s], RG::STAGE_BYTES);
+          tma_load(st, &wmap, &full[s], n0, k0);
+          tma_load(st + SUB_BYTES, &wmap, &full[s], n0 + 64, k0);
+          tma_load(st + 2 * SUB_BYTES, &xmap, &full[s], k0, m0);
+        }
+      } else {
+        const uint16_t* wk = a.w + k0 * a.ldw + n0;
+        fill_tile(st, wk, a.ldw, a.K - k0, a.N - n0, 64, lane);
+        fill_tile(st + SUB_BYTES, wk + 64, a.ldw, a.K - k0, a.N - n0 - 64, 64, lane);
+        fill_tile(st + 2 * SUB_BYTES, a.x + (int64_t)m0 * a.K + k0, a.K, a.M - m0, a.K - k0, NT, lane);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes -> wgmma reads
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup
+  float acc0[R], acc1[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc0[r] = acc1[r] = 0.f;
+  const uint32_t ring_addr = smem_u32(ring);
+  fence_regs(acc0);
+  fence_regs(acc1);
+  for (int i = 0; i < nkt; ++i) {
+    const int s = i % RG::STAGES;
+    mbar_wait(&full[s], (i / RG::STAGES) & 1);
+    const uint32_t st = ring_addr + s * RG::STAGE_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < WG_BK / 16; ++j) {
+      const uint64_t b = sw128_desc(st + 2 * SUB_BYTES + j * 32);  // 16 K values = 32 bytes along a row
+      Wgmma<NT>::mma(acc0, sw128_desc(st + j * 2048), b);         // 16 K rows of 128 bytes
+      Wgmma<NT>::mma(acc1, sw128_desc(st + SUB_BYTES + j * 2048), b);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // keep this stage's products in flight; the previous stage's are done, so free its tiles
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % RG::STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(acc0);
+  fence_regs(acc1);
+
+  // Accumulator r of sub-tile h holds weight column n0 + 64 h + row(r) and
+  // token m0 + col(r) (wgmma's D fragment: rows by warp and lane / 4, columns
+  // by lane % 4 and r).
+  O* y = static_cast<O*>(a.y);
+  auto out = [&](int h, int r, float v) {
+    const int n = n0 + 64 * h + warp * 16 + (lane >> 2) + 8 * ((r >> 1) & 1);
+    const int m = m0 + (r >> 2) * 8 + (lane & 3) * 2 + (r & 1);
+    if (n < a.N && m < a.M) y[(int64_t)m * a.N + n] = from_f32<O>(v);
+  };
+  auto out_all = [&]() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      out(0, r, acc0[r]);
+      out(1, r, acc1[r]);
+    }
+  };
+  if (a.S == 1) {
+    out_all();
+    return;
+  }
+
+  // split-K: this split's partial tile as float4s of the fragment, in
+  // [float4][tid] order (coalesced over tid); F4 float4s per thread
+  constexpr int F4 = 2 * R / 4, H4 = F4 / 2;  // H4 per sub-tile
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  float4* parts = reinterpret_cast<float4*>(a.ws) + (int64_t)tile * a.S * (F4 * 128);
+  float4* mine = parts + (int64_t)split * (F4 * 128);
+#pragma unroll
+  for (int f = 0; f < H4; ++f) {
+    mine[f * 128 + tid] = make_float4(acc0[4 * f], acc0[4 * f + 1], acc0[4 * f + 2], acc0[4 * f + 3]);
+    mine[(H4 + f) * 128 + tid] = make_float4(acc1[4 * f], acc1[4 * f + 1], acc1[4 * f + 2], acc1[4 * f + 3]);
+  }
+  __threadfence();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warpgroup only
+  if (tid == 0) last = atomicAdd(&a.counters[tile], 1) == a.S - 1;
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  if (!last) return;
+  __threadfence();
+  // The last block to arrive adds the S partials in split order 0..S-1. They
+  // stream through the idle ring with cp.async (L2 only), ZC splits at a
+  // time, so that many bytes are in flight; each thread copies and then adds
+  // only its own float4s, so no barrier is needed between copy and add.
+  constexpr int ZC = RG::STAGES * RG::STAGE_BYTES / (F4 * 16 * 128);
+  float4* held = reinterpret_cast<float4*>(ring);
+  for (int z0 = 0; z0 < a.S; z0 += ZC) {
+    const int nz = min(ZC, a.S - z0);
+    for (int zz = 0; zz < nz; ++zz) {
+#pragma unroll
+      for (int f = 0; f < F4; ++f) {
+        const int i = (zz * F4 + f) * 128 + tid;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(held + i)),
+                     "l"(parts + (int64_t)(z0 + zz) * (F4 * 128) + f * 128 + tid)
+                     : "memory");
+      }
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    for (int zz = 0; zz < nz; ++zz) {
+      const bool first = z0 + zz == 0;
+#pragma unroll
+      for (int f = 0; f < H4; ++f) {
+        const float4 u = held[(zz * F4 + f) * 128 + tid], v = held[(zz * F4 + H4 + f) * 128 + tid];
+        const float us[4] = {u.x, u.y, u.z, u.w}, vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc0[4 * f + c] = first ? us[c] : acc0[4 * f + c] + us[c];
+          acc1[4 * f + c] = first ? vs[c] : acc1[4 * f + c] + vs[c];
+        }
+      }
+    }
+  }
+  out_all();
+  if (tid == 0) a.counters[tile] = 0;  // ready for the next call on this stream
+}
+
+// How a bf16 call is cut: tokens per block (NT), N and M tiles, and S splits
+// along K of kts K tiles each. Depends on the shapes only.
+struct WgPlan {
+  int NT, tiles_n, tiles_m, S, kts;
+};
+
+WgPlan plan_bf16(int M, int N, int K) {
+  WgPlan p;
+  p.NT = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 128;
+  // A weight that fits in L2 (<= 32 MiB, <= 8 MiB) makes few tiles: there,
+  // narrower token tiles, which read it again from L2, fill the SMs at less
+  // split-K than wide ones would need.
+  const long long wtiles = (long long)ceil_div(N, WG_BN) * ceil_div(K, WG_BK);
+  p.NT = std::min(p.NT, wtiles <= 512 ? 32 : wtiles <= 2048 ? 64 : 128);
+  p.tiles_n = ceil_div(N, WG_BN);
+  p.tiles_m = ceil_div(M, p.NT);
+  const int kt = ceil_div(K, WG_BK);
+  // as many splits as fill the SMs with one block each, each of at least 8 K tiles
+  const int S = std::max(1, std::min(SMS / (p.tiles_n * p.tiles_m), kt / 8));
+  p.kts = ceil_div(kt, S);
+  p.S = ceil_div(kt, p.kts);
+  return p;
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 2-D bf16 tensor map with 128-byte swizzle: `inner` x `outer` elements
+// from `base`, rows `row_bytes` apart, boxes of 64 x box_outer.
+bool encode(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer, uint64_t row_bytes,
+            uint32_t box_outer) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {64, box_outer}, elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The weight's map, encoded once per (base, shard shape, row length): the
+// weights of a WeightStore keep their pointers, so the engine's calls find it here.
+struct MapKey {
+  uintptr_t base;
+  int N, K;
+  int64_t ldw;
+  bool operator==(const MapKey& o) const { return base == o.base && N == o.N && K == o.K && ldw == o.ldw; }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    return std::hash<uintptr_t>()(k.base) ^ (std::hash<int64_t>()(k.ldw) * 31 + k.N * 131 + k.K);
+  }
+};
+
+bool weight_map(CUtensorMap* map, const void* w, int N, int K, int64_t ldw) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{reinterpret_cast<uintptr_t>(w), N, K, ldw};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!encode(map, w, N, K, ldw * 2, WG_BK)) return false;
+  if (cache.size() >= (1u << 16)) cache.clear();
+  cache.emplace(key, *map);
+  return true;
+}
+
+template <int NT, typename O>
+cudaError_t launch_wgmma(const WgPlan& p, const CUtensorMap& wmap, const CUtensorMap& xmap, const WgArgs& a,
+                         cudaStream_t s) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(wgmma_mm<NT, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<NT>::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(p.tiles_n, p.S, p.tiles_m);
+  wgmma_mm<NT, O><<<grid, WG_THREADS, Ring<NT>::SMEM, s>>>(wmap, xmap, a);
+  return cudaGetLastError();
+}
+
+template <typename O>
+cudaError_t launch_wgmma(const WgPlan& p, const CUtensorMap& wmap, const CUtensorMap& xmap, const WgArgs& a,
+                         cudaStream_t s) {
+  switch (p.NT) {
+    case 8: return launch_wgmma<8, O>(p, wmap, xmap, a, s);
+    case 16: return launch_wgmma<16, O>(p, wmap, xmap, a, s);
+    case 32: return launch_wgmma<32, O>(p, wmap, xmap, a, s);
+    case 64: return launch_wgmma<64, O>(p, wmap, xmap, a, s);
+    default: return launch_wgmma<128, O>(p, wmap, xmap, a, s);
+  }
+}
+
+int run_bf16(const void* x, const void* w, void* y, float* ws, int* counters, int M, int N, int K, int64_t ldw,
+             bool out_f32, cudaStream_t s) {
+  const WgPlan p = plan_bf16(M, N, K);
+  WgArgs a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), y, ws, counters, M, N, K, ldw,
+           p.S, p.kts, 0};
+  // TMA takes 16-byte-aligned bases and row strides; else the producer warp loads the tiles itself
+  a.tma = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * 2) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0 && (static_cast<int64_t>(K) * 2) % 16 == 0;
+  CUtensorMap wmap{}, xmap{};
+  if (a.tma && !(weight_map(&wmap, w, N, K, ldw) && encode(&xmap, x, K, M, (uint64_t)K * 2, p.NT)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(out_f32 ? launch_wgmma<float>(p, wmap, xmap, a, s)
+                                  : launch_wgmma<__nv_bfloat16>(p, wmap, xmap, a, s));
+}
+
+// Scratch a call needs: f32 partial sums (bytes) and bf16 arrival counters (ints).
+void scratch_need(int M, int N, int K, int dtype, long long* ws_bytes, long long* n_counters) {
+  *ws_bytes = *n_counters = 0;
+  if (dtype == 0) {
+    const Plan p = plan_f32(M, N, K);
+    if (p.S > 1) *ws_bytes = (long long)p.S * M * N * sizeof(float);
+  } else {
+    const WgPlan p = plan_bf16(M, N, K);
+    if (p.S > 1) {
+      *n_counters = (long long)p.tiles_n * p.tiles_m;
+      *ws_bytes = *n_counters * p.S * p.NT * WG_BN * (long long)sizeof(float);
+    }
+  }
+}
+
+constexpr int SCRATCH_TOO_SMALL = -1;
+
 }  // namespace
 
-// Bytes of f32 workspace a call needs for its split-K partial sums (0: none).
-extern "C" long long tp_shard_matmul_workspace(int M, int N, int K, int dtype) {
-  const Plan p = plan(M, N, K, dtype);
-  return p.S > 1 ? (long long)p.S * M * N * sizeof(float) : 0;
+extern "C" void tp_shard_matmul_scratch(int M, int N, int K, int dtype, long long* ws_bytes, long long* n_counters) {
+  scratch_need(M, N, K, dtype, ws_bytes, n_counters);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x and w). out_f32: write f32 whatever
-// the input type (the LM head's f32 logits). ws: the workspace sized by
-// tp_shard_matmul_workspace. Returns cudaGetLastError().
-extern "C" int tp_shard_matmul(const void* x, const void* w, void* y, void* ws, int M, int N, int K,
-                               long long ldw, int dtype, int out_f32, void* stream) {
+// the input type (the LM head's f32 logits). ws / counters: the caller's
+// scratch, of ws_bytes bytes and n_counters zeroed ints; -1 (launching
+// nothing) when that is less than tp_shard_matmul_scratch asks for. Else
+// returns cudaGetLastError().
+extern "C" int tp_shard_matmul(const void* x, const void* w, void* y, void* ws, long long ws_bytes, void* counters,
+                               long long n_counters, int M, int N, int K, long long ldw, int dtype, int out_f32,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(ws);
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return run<float, float>(x, w, y, part, M, N, K, ldw, s);
-  if (dtype == 1 && out_f32) return run<__nv_bfloat16, float>(x, w, y, part, M, N, K, ldw, s);
-  if (dtype == 1) return run<__nv_bfloat16, __nv_bfloat16>(x, w, y, part, M, N, K, ldw, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0 || K <= 0 || dtype < 0 || dtype > 1) return static_cast<int>(cudaErrorInvalidValue);
+  long long need_ws, need_counters;
+  scratch_need(M, N, K, dtype, &need_ws, &need_counters);
+  if (ws_bytes < need_ws || n_counters < need_counters) return SCRATCH_TOO_SMALL;
+  if (dtype == 0)
+    return run_f32(static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y),
+                   static_cast<float*>(ws), M, N, K, ldw, s);
+  return run_bf16(x, w, y, static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, ldw, out_f32 != 0, s);
 }
 
 extern "C" const char* error_string(int e) {
+  if (e == SCRATCH_TOO_SMALL) return "scratch smaller than tp_shard_matmul_scratch asks for";
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

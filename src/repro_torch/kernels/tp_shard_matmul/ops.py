@@ -1,12 +1,14 @@
 """Wrapper of the TP-shard-selecting matmul (csrc/tp_shard_matmul.cu).
 
 CPU tensors take the plain version in ref.py; CUDA tensors launch the
-kernel or raise. ``tp_shard_matmul.launches`` counts kernel launches.
+kernel or raise. ``tp_shard_matmul.launches`` counts wrapper calls that
+launched: one kernel for bf16 (split-K reduced in the same launch), the
+kernel and its split-K pass for f32.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,12 +22,37 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("tp_shard_matmul")
     fn = lib.tp_shard_matmul
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.tp_shard_matmul_workspace.argtypes = [i, i, i, i]
-        lib.tp_shard_matmul_workspace.restype = ctypes.c_longlong
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, ll, p, ll, i, i, i, ll, i, i, p]
+        fn.restype = i
+        lib.tp_shard_matmul_scratch.argtypes = [i, i, i, i, ctypes.POINTER(ll), ctypes.POINTER(ll)]
+        lib.tp_shard_matmul_scratch.restype = None
     return lib
+
+
+_SCRATCH_TOO_SMALL = -1
+# (device index, stream) -> (f32 workspace as bytes, int32 arrival counters)
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(lib, device: torch.device, stream: int, m: int, n: int, k: int, dtype: int):
+    """The split-K workspace and the per-tile arrival counters of calls on
+    one stream, grown to what this call needs. Reuse is safe: calls on one
+    stream run in order, so a call's workspace is not touched again until
+    the call before it has ended, and the last block of each tile resets its
+    counter to 0 on the way out. A buffer given up by growing goes back to
+    PyTorch's allocator, which hands it out again only to work queued after
+    it on the same stream."""
+    need_ws, need_cnt = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.tp_shard_matmul_scratch(m, n, k, dtype, ctypes.byref(need_ws), ctypes.byref(need_cnt))
+    key = (device.index, stream)
+    ws, cnt = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < need_ws.value:
+        ws = torch.empty(max(need_ws.value, 1), dtype=torch.uint8, device=device)
+    if cnt is None or cnt.numel() < need_cnt.value:
+        cnt = torch.zeros(max(need_cnt.value, 1), dtype=torch.int32, device=device)
+    _SCRATCH[key] = (ws, cnt)
+    return ws, cnt
 
 
 def tp_shard_matmul(
@@ -74,15 +101,18 @@ def tp_shard_matmul(
     if y.numel() == 0 or k == 0:
         return y.zero_()
     lib = _lib()
-    # f32 partial sums of the kernel's split-K; the split depends on the shapes only
-    ws_bytes = lib.tp_shard_matmul_workspace(m, n_out, k, _DTYPES[x.dtype])
-    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
+    dt = _DTYPES[x.dtype]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws, cnt = _SCRATCH.get((x.device.index, stream), (None, None))
     w_ptr = w_store.data_ptr() + base * w_store.element_size()
-    rc = lib.tp_shard_matmul(
-        x.data_ptr(), w_ptr, y.data_ptr(), ws.data_ptr() if ws is not None else None, m, n_out, k, n_store,
-        _DTYPES[x.dtype], int(out_dtype == torch.float32 and x.dtype != torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    args = (x.data_ptr(), w_ptr, y.data_ptr())
+    tail = (m, n_out, k, n_store, dt, int(out_dtype == torch.float32 and x.dtype != torch.float32), stream)
+    rc = _SCRATCH_TOO_SMALL
+    if ws is not None:
+        rc = lib.tp_shard_matmul(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
+    if rc == _SCRATCH_TOO_SMALL:
+        ws, cnt = _scratch(lib, x.device, stream, m, n_out, k, dt)
+        rc = lib.tp_shard_matmul(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
     _build.check(lib, rc, "tp_shard_matmul")
     tp_shard_matmul.launches += 1
     return y

@@ -64,6 +64,83 @@ def test_tp_shard_matmul_kernel_equals_presliced(cuda):
             assert torch.equal(got, tp_shard_matmul(x, w[:, s * n:(s + 1) * n].contiguous(), 0, n_out=n, mode="col"))
 
 
+# bf16 runs on the tensor cores (wgmma), fed by TMA where x and the weight
+# are 16-byte aligned and by the producer warp's own loads where not.
+# (mode, k, store, n_out, off): the last two of each mode are misaligned
+# (a row stride or an offset that is not a multiple of 16 bytes).
+_BF16_SHAPES = [
+    ("col", 4096, 14336, 1792, 3 * 1792), ("row", 1792, 14336, 4096, 5 * 1792),
+    ("col", 96, 210, 70, 70), ("col", 576, 1024, 144, 3),
+    ("row", 100, 300, 70, 200), ("row", 1000, 3000, 516, 1000),
+]
+
+
+def _bf16_case(cuda, seed, mode, m, k, store, n_out):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w_shape = (k, store) if mode == "col" else (store, n_out)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(*w_shape, generator=g, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("m", [1, 3, 7, 8, 9, 32, 64, 100, 128])
+@pytest.mark.parametrize("mode,k,store,n_out,off", _BF16_SHAPES)
+def test_tp_shard_matmul_bf16_matches_plain_at_every_m(cuda, m, mode, k, store, n_out, off):
+    x, w = _bf16_case(cuda, m, mode, m, k, store, n_out)
+    got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+    want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
+    scale = want.float().abs().max().item()
+    assert got.dtype == torch.bfloat16 and (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
+    logits = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode, out_dtype=torch.float32)  # f32 out, not rounded
+    want32 = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out, out_dtype=torch.float32)
+    assert logits.dtype == torch.float32 and (logits - want32).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(tp_shard_matmul(x, w, off, n_out=n_out, mode=mode), got)  # a second call, bit for bit
+
+
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("mode", ["col", "row"])
+def test_tp_shard_matmul_bf16_in_place_equals_presliced(cuda, m, mode):
+    """Each rank's shard at TP 1/2/4/8 read in place equals the same call on
+    the pre-sliced contiguous weight, bit for bit. The second pass puts the
+    storage 2 bytes past a 16-byte boundary: the producer warp's own loads
+    in place, against TMA on the (aligned) pre-sliced copy."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(m, 4096, generator=g, device=cuda).to(torch.bfloat16)
+    shape = (4096, 4104) if mode == "col" else (4104, 1024)
+    buf = torch.randn(shape[0] * shape[1] + 1, generator=g, device=cuda).to(torch.bfloat16)
+    for lead in (0, 1):
+        store = buf[lead:lead + shape[0] * shape[1]].view(shape)
+        assert store.data_ptr() % 16 == 2 * lead
+        for tp in (1, 2, 4, 8):
+            n = 4096 // tp
+            for s in range(tp):
+                off = s * n
+                if mode == "col":
+                    got = tp_shard_matmul(x, store, off, n_out=n, mode="col")
+                    want = tp_shard_matmul(x, store[:, off:off + n].contiguous(), 0, n_out=n, mode="col")
+                else:
+                    xs = x[:, :n].contiguous()
+                    got = tp_shard_matmul(xs, store, off, n_out=1024, mode="row")
+                    want = tp_shard_matmul(xs, store[off:off + n].contiguous(), 0, n_out=1024, mode="row")
+                assert torch.equal(got, want), (lead, tp, s)
+
+
+@pytest.mark.parametrize("m", [3, 8, 100])
+@pytest.mark.parametrize("mode,k,store,n_out,off", _BF16_SHAPES)
+def test_tp_shard_matmul_bf16_nan_past_the_shard_stays_out(cuda, m, mode, k, store, n_out, off):
+    """Rows around a row-mode shard and columns around a col-mode shard hold
+    NaN: the output is finite and equals the plain version."""
+    x, w = _bf16_case(cuda, 100 + m, mode, m, k, store, n_out)
+    if mode == "col":
+        w[:, :off] = w[:, off + n_out:] = float("nan")
+    else:
+        w[:off] = w[off + k:] = float("nan")
+    got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+    want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,KV,G,hd,page,n_pages,cap", [
     (2, 2, 4, 32, 8, 4, None), (1, 1, 8, 64, 16, 2, None), (4, 4, 1, 16, 4, 8, None),
