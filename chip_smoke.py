@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py [--layers N] [--skip-timed]
-    python3 chip_smoke.py --timings-of build/parent/src   # host cost + phase 5 only, of another tree
+    python3 chip_smoke.py --timings-of build/parent/src   # host cost, attention timings + phase 5, of another tree
 
 Phases; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit, then every CUDA
@@ -15,18 +15,22 @@ Phases; any failure raises and the script exits non-zero:
      llama3-8b projection at each rank's offset for TP 1/2/4/8 at decode
      and prefill widths, decode attention at the engine's shape, and
      kv_gather / kv_scatter bit for bit (sweeps, a llama3-8b page row,
-     round trip in place, both misaligned cases); one bf16 matmul call
-     launching one kernel under torch.profiler; matmul timed at the decode
-     shapes, the prefill buckets and TP 8's shards, and attention at the
-     decode shape, beside their bound, their plain version and one PyTorch
-     library call; the host's cost per matmul wrapper call;
+     round trip in place, both misaligned cases); one bf16 matmul call and
+     one attention call (rows of 1 to 4 splits) each launching one kernel
+     under torch.profiler; matmul timed at the decode shapes, the prefill
+     buckets and TP 8's shards, and attention at the decode shape and over
+     16 x 2048 tokens of a fragmented pool, beside their bound, their plain
+     version and one PyTorch library call; attention timed with every row
+     at one length, 1 and 32 to 256 (fixed cost, cost per token); the
+     host's cost per matmul wrapper call;
   3. paged KV migration at llama3-8b's page geometry: a bf16 PagedPool
      fragmented by interleaved growth (16 sequences of 256 and of 2048
      tokens, 0.537 and 4.295 GB) moved by migrate_pages into a fresh pool;
      pages and decode attention over every layer must be bit-identical
      before and after; kv_gather / kv_scatter timed per launch beside
-     their bound, plain version and library call; migrate_pages timed; and
-     Fig. 7's pair: one copy per page against the aggregated gathers;
+     their bound, plain version and library call (kv_gather also against
+     index_select in turns at 0.537 GB); migrate_pages timed; and Fig. 7's
+     pair: one copy per page against the aggregated gathers;
   4. the serving engine at llama3-8b width in f32 (check_engine at full
      width): 10 requests served at fixed TP 1 and under a TP switch
      schedule must give identical greedy trajectories, launch the matmul
@@ -101,6 +105,20 @@ def time_ms(torch, fn, iters: int = 20, flush=None, spin: int = 400_000) -> floa
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+class ReadFlush:
+    """A flush for time_ms that reads a 64 MB buffer: the call finds the L2
+    cold, as after zero_, but holding no dirty lines, where zero_ leaves
+    ~50 MB of them to be written back inside the timed call."""
+
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.buf = torch.ones(64 * 2**20, dtype=torch.uint8, device=dev)
+        self.out = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def zero_(self):
+        self.torch.sum(self.buf, dim=0, dtype=self.torch.int64, out=self.out)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -393,7 +411,7 @@ def measure_paged(torch, dev, cfg, flush, log):
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-    from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+    from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref, paged_decode_attention_split_ref
 
     B, S, page = 8, 256, 16
     KV, hd, G = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
@@ -411,10 +429,12 @@ def measure_paged(torch, dev, cfg, flush, log):
         lens = torch.from_numpy(lens_np).to(dev)
         run = lambda: paged_decode_attention(q, kp, vp, tables, lens)  # noqa: E731
         got, want = run().float(), paged_decode_attention_ref(q, kp, vp, tables, lens).float()
-        err = (got - want).abs().max().item()
+        split = paged_decode_attention_split_ref(q, kp, vp, tables, lens).float()
+        err, err_split = (got - want).abs().max().item(), (got - split).abs().max().item()
         # both sum in f32 and round once: bf16 within ~2 ulp of |plain|
         rel, atol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 1e-3)
         check(((got - want).abs() - rel * want.abs()).max().item() <= atol, f"paged main shape {dname}: err {err}")
+        check(((got - split).abs() - rel * split.abs()).max().item() <= atol, f"paged main shape {dname}: split err {err_split}")
         tol = f"{atol} abs + {rel} x |plain|"
         # yardstick: SDPA over the densified cache, heads grouped as in the kernel
         qs = q.reshape(B, KV * G, 1, hd)
@@ -426,13 +446,126 @@ def measure_paged(torch, dev, cfg, flush, log):
         nbytes = es * (2 * q.numel() + 2 * live * KV * hd) + 4 * (tables.numel() + B)
         b_ms, b_by = bound_ms(nbytes, 4.0 * live * KV * G * hd, dname)
         row = {"shape": f"{dname} B={B} KV={KV} G={G} hd={hd} page={page} n_pages={n_pages} live_tokens={live}",
-               "max_abs_err": err, "tol": tol, "ms": time_ms(torch, run, flush=flush),
+               "max_abs_err": err, "max_abs_err_vs_split": err_split, "tol": tol, "ms": time_ms(torch, run, flush=flush),
                "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(q, kp, vp, tables, lens), flush=flush),
                "library_ms": time_ms(torch, lib, flush=flush), "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}), plain {row['plain_ms']:.4f}, "
-            f"SDPA {row['library_ms']:.4f}, err {err:.3g} (tol {row['tol']})")
+            f"SDPA {row['library_ms']:.4f}, err {err:.3g}, vs the split version {err_split:.3g} (tol {row['tol']})")
     return rows
+
+
+def measure_paged_long(torch, dev, cfg, flush, log, paged_decode_attention, check_plain=True):
+    """Decode attention over 16 sequences x 2048 tokens of llama3-8b KV in
+    the phase-3 fragmented pool (one layer of it), bf16, page 16: the kernel
+    against its plain versions, beside its byte bound and SDPA over the
+    densified cache. ``check_plain=False`` only times the kernel (for
+    --timings-of, whose tree may lack the split version)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+
+    n_seqs, ctx = 16, 2048
+    KV, hd, G = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    pool = fragmented_pool(torch, dev, dataclasses.replace(cfg, num_layers=1), ctx, n_seqs, seed=30)
+    seqs = list(range(n_seqs))
+    tables = torch.from_numpy(pool.block_table_array(seqs)).to(dev)
+    lens = torch.tensor([pool.seq_lens[s] for s in seqs], dtype=torch.int32, device=dev)
+    kp, vp = pool.k_pages[0], pool.v_pages[0]
+    q = torch.randn(n_seqs, KV, G, hd, generator=torch.Generator(device=dev).manual_seed(31), device=dev)
+    q = q.to(torch.bfloat16)
+    run = lambda: paged_decode_attention(q, kp, vp, tables, lens)  # noqa: E731
+    live = int(lens.sum().item())
+    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * (tables.numel() + n_seqs)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * live * KV * G * hd, "bfloat16")
+    shape = (f"bfloat16 B={n_seqs} KV={KV} G={G} hd={hd} page={pool.page_size} {ctx} tokens each, "
+             f"fragmented pool of {pool.num_pages} pages")
+    clean = ReadFlush(torch, dev)
+    row = {"shape": shape, "ms": time_ms(torch, run, flush=flush), "ms_clean_l2": time_ms(torch, run, flush=clean),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if check_plain:
+        from repro_torch.kernels.paged_attention.ref import paged_decode_attention_split_ref
+
+        got = run().float()
+        worst = {}
+        for name, fn in (("dense", paged_decode_attention_ref), ("split", paged_decode_attention_split_ref)):
+            want = fn(q, kp, vp, tables, lens).float()
+            worst[name] = (got - want).abs().max().item()
+            check(((got - want).abs() - 8e-3 * want.abs()).max().item() <= 1e-3,
+                  f"paged long context vs the {name} plain version: err {worst[name]}")
+        dense = kp[tables.long()].reshape(n_seqs, ctx, KV, hd), vp[tables.long()].reshape(n_seqs, ctx, KV, hd)
+        ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in dense)
+        del dense
+        qs = q.reshape(n_seqs, KV * G, 1, hd)  # every token live: no mask
+        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)  # noqa: E731
+        want = lib().reshape(q.shape).float()
+        check(((got - want).abs() - 8e-3 * want.abs()).max().item() <= 1e-3, "paged long context vs SDPA")
+        row.update(max_abs_err=worst["dense"], max_abs_err_vs_split=worst["split"],
+                   tol="0.001 abs + 0.008 x |plain|",
+                   plain_ms=time_ms(torch, lambda: paged_decode_attention_ref(q, kp, vp, tables, lens), flush=flush),
+                   library_ms=time_ms(torch, lib, flush=flush), library_ms_clean_l2=time_ms(torch, lib, flush=clean))
+        del ks, vs
+    log(f"  {shape}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of it; "
+        f"{row['ms_clean_l2']:.4f} after a read-only flush)"
+        + (f", plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f} ({row['library_ms_clean_l2']:.4f} after a "
+           f"read-only flush), err {row['max_abs_err']:.3g}, vs the split version {row['max_abs_err_vs_split']:.3g} "
+           f"(tol {row['tol']})" if check_plain else ""))
+    del pool, clean
+    return row
+
+
+def paged_breakdown(torch, dev, cfg, flush, log, paged_decode_attention):
+    """Device ms of one call at the engine's layout (8 slots, 8 KV heads,
+    G 4, hd 128, pages of 16 over max_len 256, identity tables), bf16, every
+    row at one length: seq_len 1 gives the fixed cost, 32 to 256 the cost of
+    the tokens. The wrapper is an argument, so --timings-of times the
+    kernel of another tree."""
+    B, S, page = 8, 256, 16
+    KV, hd, G = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(B, KV, G, hd, generator=g, device=dev).to(torch.bfloat16)
+    kp = torch.randn(B * S // page, page, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn(B * S // page, page, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    tables = torch.arange(B * S // page, dtype=torch.int32, device=dev).view(B, S // page)
+    out = {}
+    for L in (1, 32, 64, 96, 128, 160, 192, 224, 256):
+        lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+        out[str(L)] = time_ms(torch, lambda: paged_decode_attention(q, kp, vp, tables, lens), flush=flush)
+    log(f"  paged_decode_attention breakdown, bf16, B={B} KV={KV} G={G} hd={hd} page={page}, every row at "
+        f"seq_len L: ms by L {json.dumps({k: round(v, 5) for k, v in out.items()})}")
+    return out
+
+
+def check_paged_one_launch(torch, dev, cfg, log):
+    """Under torch.profiler, one call launches one kernel: at the engine's
+    layout with rows of one, two and three splits (merged in the launch).
+    None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+
+    KV, hd, G = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    q = torch.randn(8, KV, G, hd, device=dev).to(torch.bfloat16)
+    kp = torch.randn(128, 16, KV, hd, device=dev).to(torch.bfloat16)
+    vp = torch.randn_like(kp)
+    tables = torch.arange(128, dtype=torch.int32, device=dev).view(8, 16)
+    lens = torch.tensor([1, 64, 65, 100, 128, 129, 192, 256], dtype=torch.int32, device=dev)
+    paged_decode_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        paged_decode_attention(q, kp, vp, tables, lens)
+        torch.cuda.synchronize()
+    kernels = {e.key[:60]: e.count for e in prof.key_averages()
+               if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
+    if not kernels:
+        log("paged_decode_attention: launches per call not checked: the profiler saw no device time")
+        return None
+    check(sum(kernels.values()) == 1 and all("paged_decode" in k for k in kernels),
+          f"one paged_decode_attention call launches one kernel: {kernels}")
+    log(f"paged_decode_attention: one call (rows of 1 to 4 splits) under torch.profiler launches {kernels}")
+    return kernels
 
 
 def check_kv_sweeps(torch, dev, cfg, log):
@@ -590,6 +723,14 @@ def migration_phase(torch, dev, cfg, flush, log):
                 f"{b_ms / row['ms']:.2f} of it), plain {row['plain_ms']:.4f}, "
                 f"{'index_select' if name == 'kv_gather' else 'index_copy_'} {row['library_ms']:.4f}")
         rec["kernels"] = rows
+        if ctx == 256:  # kv_gather against index_select in turns: kernel, library, library, kernel, twice
+            turns = {"kv_gather": [], "index_select": []}
+            for name in ("kv_gather", "index_select", "index_select", "kv_gather") * 2:
+                fn = (lambda: kv_gather(src_k, src_rows)) if name == "kv_gather" else (
+                    lambda: torch.index_select(src_k, 0, src_ids))
+                turns[name].append(time_ms(torch, fn, flush=flush, spin=spin))
+            rec["gather_in_turns_ms"] = turns
+            log(f"  kv_gather vs index_select in turns (K, L, L, K, twice), ms: {json.dumps(turns)}")
         del staged
 
         walls = []  # migrate_pages again into the same pool, its sequences released first
@@ -914,11 +1055,18 @@ def main() -> int:
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 
     if args.timings_of is not None:
+        from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+
         dev, cfg = torch.device("cuda", 0), get_config("llama3-8b")
         print(card_line())
         us = host_us_per_call(torch, dev, cfg, print, tp_shard_matmul)
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        paged = {"breakdown_ms": paged_breakdown(torch, dev, cfg, flush, print, paged_decode_attention),
+                 "long_context": measure_paged_long(torch, dev, cfg, flush, print, paged_decode_attention,
+                                                    check_plain=False)}
+        del flush
         print(json.dumps({"src": args.timings_of, "card": card_line(), "host_us_per_call": us,
-                          "engine_bf16": engine_bf16_timed(torch, dev, cfg, print)}))
+                          "paged_decode_attention": paged, "engine_bf16": engine_bf16_timed(torch, dev, cfg, print)}))
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 oracle runs in full f32
@@ -956,8 +1104,13 @@ def main() -> int:
     log("tp_shard_matmul at the main path's shapes (decode TP 1, prefill buckets, decode TP 8 shards):")
     mm_rows = measure_matmul(torch, dev, cfg, flush, log)
     record["tp_shard_matmul_host_us"] = host_us_per_call(torch, dev, cfg, log, tp_shard_matmul)
-    log("paged_decode_attention at the main path's shape:")
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+
+    record["paged_decode_attention_launches_per_call"] = check_paged_one_launch(torch, dev, cfg, log)
+    log("paged_decode_attention at the main path's shape, at a long context, and by sequence length:")
     pa_rows = measure_paged(torch, dev, cfg, flush, log)
+    record["paged_decode_attention_long_context"] = measure_paged_long(torch, dev, cfg, flush, log, paged_decode_attention)
+    record["paged_decode_attention_breakdown_ms"] = paged_breakdown(torch, dev, cfg, flush, log, paged_decode_attention)
     record["tp_shard_matmul"], record["paged_decode_attention"] = mm_rows, pa_rows
     check_kv_sweeps(torch, dev, cfg, log)
 

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 covering the source and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing is built or loaded at import time:
 the first call of a kernel's wrapper builds it, and ``build_all`` builds
-every kernel at once, one nvcc process per source, in parallel.
+every kernel at once, one nvcc process per source, in parallel. ``scratch``
+keeps the per-stream workspaces of kernels that reduce across blocks.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -92,3 +95,29 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} ({lib.error_string(rc).decode()})")
+
+
+# (kernel, device index, stream) -> (workspace, int32 arrival counters)
+_SCRATCH: Dict[Tuple[str, int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def scratch(kernel: str, device: torch.device, stream: int, grow_to: Optional[Tuple[int, torch.dtype, int]] = None):
+    """The workspace and arrival counters of a kernel that reduces across
+    blocks in one launch, for calls on one stream: (None, None) before the
+    first call, else grown to ``grow_to`` = (workspace elements, workspace
+    dtype, counters) when given. Reuse is safe: calls on one stream run in
+    order, so a call's workspace is not touched again until the call before
+    it has ended, and the block that finishes a reduction resets its counter
+    to 0 on the way out. A buffer given up by growing goes back to PyTorch's
+    allocator, which hands it out again only to work queued after it on the
+    same stream."""
+    key = (kernel, device.index, stream)
+    ws, cnt = _SCRATCH.get(key, (None, None))
+    if grow_to is not None:
+        n_ws, dtype, n_cnt = grow_to
+        if ws is None or ws.numel() < n_ws:
+            ws = torch.empty(max(n_ws, 1), dtype=dtype, device=device)
+        if cnt is None or cnt.numel() < n_cnt:
+            cnt = torch.zeros(max(n_cnt, 1), dtype=torch.int32, device=device)
+        _SCRATCH[key] = (ws, cnt)
+    return ws, cnt

@@ -1,17 +1,18 @@
 """Wrapper of paged flash-decode (csrc/paged_attention.cu).
 
 CPU tensors take the plain version in ref.py; CUDA tensors launch the
-kernel or raise. ``paged_decode_attention.launches`` counts kernel launches.
+kernel or raise. ``paged_decode_attention.launches`` counts kernel launches:
+one per call, the splits of a sequence merged in the same launch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.paged_attention.ref import T_SPLIT, paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -22,10 +23,25 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.paged_decode_t_split.restype = i
+        if lib.paged_decode_t_split() != T_SPLIT:
+            raise RuntimeError(f"paged_attention.cu splits at {lib.paged_decode_t_split()} tokens, ref.py at {T_SPLIT}")
+        lib.paged_decode_scratch.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ll), ctypes.POINTER(ll)]
+        lib.paged_decode_scratch.restype = None
+        fn.argtypes = [p, p, p, p, p, p, p, ll, p, ll, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
     return lib
+
+
+_SCRATCH_TOO_SMALL = -1
+
+
+def _grow_scratch(lib, device: torch.device, stream: int, dims: Tuple[int, ...]):
+    """The splits' f32 workspace and per-(sequence, KV head) counters, grown to this call's need."""
+    need_ws, need_cnt = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.paged_decode_scratch(*dims, ctypes.byref(need_ws), ctypes.byref(need_cnt))
+    return _build.scratch("paged_attention", device, stream, (need_ws.value, torch.float32, need_cnt.value))
 
 
 def paged_decode_attention(
@@ -71,12 +87,18 @@ def paged_decode_attention(
     if B == 0:
         return out
     lib = _lib()
-    rc = lib.paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, KV, G, hd, k_pages.shape[1],
-        block_tables.shape[1], _DTYPES[q.dtype], float(softcap or 0.0),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dims = (B, KV, G, hd, k_pages.shape[1], block_tables.shape[1])
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr())
+    tail = (*dims, _DTYPES[q.dtype], float(softcap or 0.0), stream)
+    ws, cnt = _build.scratch("paged_attention", dev, stream)
+    rc = _SCRATCH_TOO_SMALL
+    if ws is not None:
+        rc = lib.paged_decode_attention(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
+    if rc == _SCRATCH_TOO_SMALL:
+        ws, cnt = _grow_scratch(lib, dev, stream, dims)
+        rc = lib.paged_decode_attention(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
     _build.check(lib, rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -8,7 +8,7 @@ kernel and its split-K pass for f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -31,28 +31,13 @@ def _lib() -> ctypes.CDLL:
 
 
 _SCRATCH_TOO_SMALL = -1
-# (device index, stream) -> (f32 workspace as bytes, int32 arrival counters)
-_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _scratch(lib, device: torch.device, stream: int, m: int, n: int, k: int, dtype: int):
-    """The split-K workspace and the per-tile arrival counters of calls on
-    one stream, grown to what this call needs. Reuse is safe: calls on one
-    stream run in order, so a call's workspace is not touched again until
-    the call before it has ended, and the last block of each tile resets its
-    counter to 0 on the way out. A buffer given up by growing goes back to
-    PyTorch's allocator, which hands it out again only to work queued after
-    it on the same stream."""
+def _grow_scratch(lib, device: torch.device, stream: int, m: int, n: int, k: int, dtype: int):
+    """The split-K workspace (bytes) and per-tile counters, grown to this call's need."""
     need_ws, need_cnt = ctypes.c_longlong(), ctypes.c_longlong()
     lib.tp_shard_matmul_scratch(m, n, k, dtype, ctypes.byref(need_ws), ctypes.byref(need_cnt))
-    key = (device.index, stream)
-    ws, cnt = _SCRATCH.get(key, (None, None))
-    if ws is None or ws.numel() < need_ws.value:
-        ws = torch.empty(max(need_ws.value, 1), dtype=torch.uint8, device=device)
-    if cnt is None or cnt.numel() < need_cnt.value:
-        cnt = torch.zeros(max(need_cnt.value, 1), dtype=torch.int32, device=device)
-    _SCRATCH[key] = (ws, cnt)
-    return ws, cnt
+    return _build.scratch("tp_shard_matmul", device, stream, (need_ws.value, torch.uint8, need_cnt.value))
 
 
 def tp_shard_matmul(
@@ -103,7 +88,7 @@ def tp_shard_matmul(
     lib = _lib()
     dt = _DTYPES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ws, cnt = _SCRATCH.get((x.device.index, stream), (None, None))
+    ws, cnt = _build.scratch("tp_shard_matmul", x.device, stream)
     w_ptr = w_store.data_ptr() + base * w_store.element_size()
     args = (x.data_ptr(), w_ptr, y.data_ptr())
     tail = (m, n_out, k, n_store, dt, int(out_dtype == torch.float32 and x.dtype != torch.float32), stream)
@@ -111,7 +96,7 @@ def tp_shard_matmul(
     if ws is not None:
         rc = lib.tp_shard_matmul(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
     if rc == _SCRATCH_TOO_SMALL:
-        ws, cnt = _scratch(lib, x.device, stream, m, n_out, k, dt)
+        ws, cnt = _grow_scratch(lib, x.device, stream, m, n_out, k, dt)
         rc = lib.tp_shard_matmul(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
     _build.check(lib, rc, "tp_shard_matmul")
     tp_shard_matmul.launches += 1

@@ -15,7 +15,9 @@ from repro_torch.core.migration import migrate_pages  # noqa: E402
 from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter  # noqa: E402
 from repro_torch.kernels.kv_gather.ref import kv_gather_ref, kv_scatter_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    T_SPLIT, paged_decode_attention_ref, paged_decode_attention_split_ref,
+)
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul  # noqa: E402
 from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref  # noqa: E402
 from repro_torch.models import init_params, model_param_defs  # noqa: E402
@@ -159,6 +161,119 @@ def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, B, KV, G, hd, 
     want = paged_decode_attention_ref(q, kp, vp, tables, lens, softcap=cap)
     tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# The split-KV kernel: splits of T_SPLIT tokens merged by log-sum-exp in
+# the same launch. f32 is held to the plain split version (the kernel's own
+# arithmetic) at 5e-6 and to the dense plain version at 2e-5; bf16 to both at
+# 1e-3 + 8e-3 x |plain| (both sum in f32 and round once to bf16).
+_TOL_SPLIT_F32, _TOL_DENSE_F32 = 5e-6, 2e-5
+
+
+def _assert_paged_close(got, want, tol_f32):
+    got, want = got.float(), want.float()
+    if tol_f32 is None:  # bf16
+        assert ((got - want).abs() - 8e-3 * want.abs()).max().item() <= 1e-3
+    else:
+        torch.testing.assert_close(got, want, rtol=tol_f32, atol=tol_f32)
+
+
+def _paged_case(cuda, dtype, lens, KV, G, hd, page, n_pages, seed):
+    """B = len(lens) rows over a permuted block table of n_pages pages each."""
+    B = len(lens)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    P = B * n_pages + 3
+    q = torch.randn(B, KV, G, hd, generator=g, device=cuda).to(dtype)
+    kp = torch.randn(P, page, KV, hd, generator=g, device=cuda).to(dtype)
+    vp = torch.randn(P, page, KV, hd, generator=g, device=cuda).to(dtype)
+    perm = np.random.RandomState(seed).permutation(P)[: B * n_pages]
+    tables = torch.from_numpy(perm.reshape(B, n_pages).astype(np.int32)).to(cuda)
+    return q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8, 64])
+@pytest.mark.parametrize("page", [4, 8, 16])
+def test_paged_split_kernel_at_split_boundaries(cuda, dtype, page, G, hd):
+    """One row at each length where a split begins or ends, the table's last
+    token among them (3 T_SPLIT tokens in the table)."""
+    n_pages = 3 * T_SPLIT // page
+    lens = [1, T_SPLIT - 1, T_SPLIT, T_SPLIT + 1, 2 * T_SPLIT, 2 * T_SPLIT + 1, 3 * T_SPLIT - 1, 3 * T_SPLIT]
+    args = _paged_case(cuda, dtype, lens, 2, G, hd, page, n_pages, seed=page * G + hd)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args)
+    assert paged_decode_attention.launches == before + 1 and got.dtype == dtype
+    f32 = dtype == torch.float32
+    _assert_paged_close(got, paged_decode_attention_split_ref(*args), _TOL_SPLIT_F32 if f32 else None)
+    _assert_paged_close(got, paged_decode_attention_ref(*args), _TOL_DENSE_F32 if f32 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_split_kernel_4096_token_sequence(cuda, dtype):
+    """8 KV heads over a 4096-token table: enough splits that a block walks
+    several of them through its ring."""
+    args = _paged_case(cuda, dtype, [4096, 4001, 1], 8, 4, 128, 16, 256, seed=3)
+    got = paged_decode_attention(*args)
+    f32 = dtype == torch.float32
+    _assert_paged_close(got, paged_decode_attention_split_ref(*args), _TOL_SPLIT_F32 if f32 else None)
+    _assert_paged_close(got, paged_decode_attention_ref(*args), _TOL_DENSE_F32 if f32 else None)
+
+
+def _poison_past_seq_len(pages, tables, lens):
+    """A copy of pages with NaN at every position past seq_len that the
+    table names: whole pages and the last page's tail."""
+    page = pages.shape[1]
+    pos = torch.arange(tables.shape[1] * page, device=pages.device).view(1, -1, page)
+    dead = pos >= lens.long().view(-1, 1, 1)
+    slots = tables.long()[:, :, None] * page + torch.arange(page, device=pages.device)
+    out = pages.clone()
+    out.view(-1, *pages.shape[2:])[slots[dead]] = float("nan")
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("B,KV,n_tokens", [(5, 2, 3 * T_SPLIT), (8, 8, 1024)])
+def test_paged_split_kernel_never_reads_past_seq_len(cuda, dtype, page, B, KV, n_tokens):
+    """NaN in every page named past seq_len and in the last page's tail: the
+    output is finite, equals the plain split version, and equals the kernel
+    over the clean pages bit for bit (the wider case walks several splits
+    per block)."""
+    lens = [1, 5, T_SPLIT, T_SPLIT + 3, 2 * T_SPLIT + 7, n_tokens, n_tokens - 1, 300][:B]
+    q, kp, vp, tables, lens_t = _paged_case(cuda, dtype, lens, KV, 4, 64, page, n_tokens // page, seed=17)
+    clean = paged_decode_attention(q, kp, vp, tables, lens_t)
+    kn, vn = _poison_past_seq_len(kp, tables, lens_t), _poison_past_seq_len(vp, tables, lens_t)
+    assert torch.isnan(kn).any() and torch.isnan(vn).any()
+    got = paged_decode_attention(q, kn, vn, tables, lens_t)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clean)
+    want = paged_decode_attention_split_ref(q, kn, vn, tables, lens_t)
+    _assert_paged_close(got, want, _TOL_SPLIT_F32 if dtype == torch.float32 else None)
+
+
+@pytest.mark.parametrize("dtype,G,hd", [
+    (torch.bfloat16, 4, 128), (torch.float32, 4, 128), (torch.bfloat16, 1, 16), (torch.bfloat16, 64, 64),
+    (torch.float32, 8, 32),
+])
+def test_paged_split_kernel_batch_invariant_and_repeatable(cuda, dtype, G, hd):
+    """A row computed alone equals the same row in a batch of 8, bit for bit:
+    split boundaries depend on the position alone, and alone a block takes
+    one split where in the batch it walks several through its ring. A wider
+    table over the same tokens, and the same call twice, give equal results."""
+    lens = [2000, 1, 64, 65, 129, 37, 2048, 700]
+    q, kp, vp, tables, lens_t = _paged_case(cuda, dtype, lens, 8, G, hd, 16, 128, seed=23)
+    batch = paged_decode_attention(q, kp, vp, tables, lens_t)
+    assert torch.equal(paged_decode_attention(q, kp, vp, tables, lens_t), batch)
+    for b in range(8):
+        alone = paged_decode_attention(q[b:b + 1].contiguous(), kp, vp, tables[b:b + 1].contiguous(),
+                                       lens_t[b:b + 1].contiguous())
+        assert torch.equal(alone[0], batch[b]), b
+    wide = torch.cat([tables, tables], dim=1)
+    assert torch.equal(paged_decode_attention(q, kp, vp, wide, lens_t), batch)
+    f32 = dtype == torch.float32
+    _assert_paged_close(batch, paged_decode_attention_split_ref(q, kp, vp, tables, lens_t),
+                        _TOL_SPLIT_F32 if f32 else None)
 
 
 def test_engine_on_card_matches_cpu_and_launches_kernels(cuda):

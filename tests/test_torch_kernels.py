@@ -14,6 +14,7 @@ from repro.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref as j_mm_ref  #
 from repro.models.attention import decode_attention as j_decode_attention  # noqa: E402
 
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import T_SPLIT, paged_decode_attention_split_ref  # noqa: E402
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul  # noqa: E402
 from repro_torch.models.attention import decode_attention  # noqa: E402
 
@@ -183,6 +184,69 @@ def test_paged_attention_any_block_table_permutation(seed):
     B, G, page, n_pages = 1 + seed % 3, 1 + seed, (4, 8)[seed % 2], 1 + seed
     got, _, oracle = _run_paged(*_paged_inputs(B, 2, G, 16, page, n_pages, seed, extra_pages=0), "float32")
     np.testing.assert_allclose(got, oracle, rtol=1e-4, atol=1e-4)
+
+
+# The CUDA kernel's arithmetic (splits of T_SPLIT tokens merged by
+# log-sum-exp, in plain PyTorch) against the Pallas kernel and the jnp
+# oracle, in f32 at 2e-5, at the lengths where a split begins or ends.
+_SPLIT_LENGTHS = {
+    "seq_len 1": 1, "T_SPLIT": T_SPLIT, "T_SPLIT + 1": T_SPLIT + 1,
+    "a multiple of the page": 48, "the table's last token": 2 * T_SPLIT + 32,
+}
+
+
+def _run_split(q, kp, vp, tables, lens, softcap=None):
+    got = paged_decode_attention_split_ref(torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+                                           torch.from_numpy(tables), torch.from_numpy(lens), softcap=softcap)
+    jq, jk, jv, jt, jl = (jnp.asarray(a) for a in (q, kp, vp, tables, lens))
+    return got.numpy(), _f32(j_paged(jq, jk, jv, jt, jl, softcap=softcap)), _f32(j_paged_ref(jq, jk, jv, jt, jl, softcap=softcap))
+
+
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("length", list(_SPLIT_LENGTHS))
+def test_split_merge_version_matches_reference(length, page):
+    """Row 0 has the named length; the table holds 2 T_SPLIT + 32 tokens, so
+    its last token ends a third, partial split."""
+    n_pages = (2 * T_SPLIT + 32) // page
+    q, kp, vp, tables, lens = _paged_inputs(3, 2, 4, 32, page, n_pages, seed=len(length) + page)
+    lens[0] = _SPLIT_LENGTHS[length]
+    got, kernel, oracle = _run_split(q, kp, vp, tables, lens)
+    np.testing.assert_allclose(got, kernel, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, oracle, rtol=2e-5, atol=2e-5)
+
+
+def test_split_merge_version_softcap():
+    q, kp, vp, tables, _ = _paged_inputs(2, 2, 2, 16, 16, 8, seed=5)
+    lens = np.array([T_SPLIT + 1, 2 * T_SPLIT + 13], np.int32)
+    got, kernel, oracle = _run_split(q * 8, kp, vp, tables, lens, softcap=20.0)  # scores large enough to cap
+    np.testing.assert_allclose(got, kernel, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, oracle, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("t_split", [1, 5, 16, 4096])
+def test_split_merge_version_any_split_equals_dense(t_split):
+    """The merge is exact arithmetic up to rounding at any split width, one
+    token to the whole table."""
+    q, kp, vp, tables, lens = _paged_inputs(4, 2, 3, 16, 4, 10, seed=t_split)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tables, lens)]
+    got = paged_decode_attention_split_ref(*args, t_split=t_split)
+    np.testing.assert_allclose(got.numpy(), paged_decode_attention(*args).numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_split_merge_version_never_reads_past_seq_len():
+    """NaN in every page named past seq_len and in the last page's tail does
+    not reach the output."""
+    q, kp, vp, tables, _ = _paged_inputs(2, 2, 4, 16, 8, 12, seed=9, extra_pages=0)
+    lens = np.array([T_SPLIT + 3, 21], np.int32)
+    clean = [torch.from_numpy(a) for a in (q, kp, vp, tables, lens)]
+    kn, vn = kp.copy(), vp.copy()
+    for b, n in enumerate(lens):
+        for j, pid in enumerate(tables[b]):
+            kn[pid, max(0, n - j * 8):] = np.nan
+            vn[pid, max(0, n - j * 8):] = np.nan
+    got = paged_decode_attention_split_ref(clean[0], torch.from_numpy(kn), torch.from_numpy(vn), *clean[3:])
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, paged_decode_attention_split_ref(*clean))
 
 
 @pytest.mark.parametrize("page", [4, 8, 16])
