@@ -22,7 +22,17 @@ Phases; any failure raises and the script exits non-zero:
      16 x 2048 tokens of a fragmented pool, beside their bound, their plain
      version and one PyTorch library call; attention timed with every row
      at one length, 1 and 32 to 256 (fixed cost, cost per token); the
-     host's cost per matmul wrapper call;
+     host's cost per matmul wrapper call; and the windowed models' new
+     instances: decode attention at hd 80 (h2o-danube-1.8b) and 256
+     (gemma2-2b, softcap 50), f32 and bf16, at split boundaries and over 8
+     full-window rows of 4096 tokens (more splits than a wave; f32 hd 256 on
+     one ring slot), a full-window row alone equal to it in the batch; the
+     tied head (tp_shard_matmul's col_t mode) at gemma2's 256000 x 2304
+     embedding for each rank's vocab rows at TP 1/2/4, bit-identical to the
+     pre-sliced rows, also from misaligned storage; one kernel per call of
+     each under torch.profiler; attention timed at each model's engine
+     shape and full window against SDPA, the tied head against
+     torch.matmul(x, w.t());
   3. paged KV migration at llama3-8b's page geometry: a bf16 PagedPool
      fragmented by interleaved growth (16 sequences of 256 and of 2048
      tokens, 0.537 and 4.295 GB) moved by migrate_pages into a fresh pool;
@@ -40,13 +50,27 @@ Phases; any failure raises and the script exits non-zero:
      spread): TTFT per bucket, decode step per TP level, tokens/s, the
      switch's binding lookup, the bind per TP level made at install, and
      migrate; then, last, one prefill per bucket and decode at TP 1 and 8
-     under torch.profiler (device ms, busy share, ms per kernel).
+     under torch.profiler (device ms, busy share, ms per kernel);
+  6. the windowed models at full width and depth: gemma2-2b (alternating
+     4096-token local and global layers, both softcaps, tied embeddings:
+     the head is col_t over the embedding) and h2o-danube-1.8b (sliding
+     window 4096, hd 80), max_len 4224, buckets 32/64/128/4096/4160, 8
+     slots, 10 requests of 24 new tokens (one prompt of 4160 tokens, so
+     prefill builds the rotating buffer, one of 4090, which wraps it after
+     6 decode steps, short ones shorter than their bucket); in f32 at fixed
+     TP 1 and under a switch schedule over TP 1/2/4 (gemma2) or 1/2/4/8
+     (danube): identical trajectories, both kernels launched, no weight
+     moved by a rebind; then in bf16 TTFT at buckets 128 and 4096, the
+     decode step per TP level and one torch.profiler pass. Each model is
+     freed before the next.
 Each kernel's launch count is set to 0 just before the path that runs it
-(phase 3 for kv_gather / kv_scatter; phase 4 in f32 and phase 5's bf16
-serving runs for the others, the kernels line reporting phase 5's counts,
-or phase 4's when phase 5 is skipped) and read just
-after. The full record goes to chiprun_out/chip_smoke.json. The last lines
-are the kernels line, the card line and the contract line.
+(phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
+serving runs and each model's f32 runs in phase 6 for the others) and read
+just after. The kernels line's ``launches`` adds phase 5's counts (phase
+4's when phase 5 is skipped) and phase 6's f32 runs', with the split in
+``launches_by_path``; ``instances`` holds the new instances' rows. The full
+record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
+line, the card line and the contract line.
 """
 from __future__ import annotations
 
@@ -124,6 +148,58 @@ class ReadFlush:
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def profiled(torch, fn):
+    """Run fn once under torch.profiler (CUDA activity only), ending in a
+    sync: [(event key, self device us)] and the wall us of the traced run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = [(e.key, getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+          for e in prof.key_averages()]
+    return ev, wall_us
+
+
+def kernels_in_one_call(torch, fn):
+    """{kernel name: count} of one call under torch.profiler (after one
+    untraced call), or None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {e.key[:60]: e.count for e in prof.key_averages()
+               if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
+    return kernels or None
+
+
+PORT_KERNELS = ("wgmma_mm", "skinny_mm", "skinny_t_mm", "tiled_mm", "splitk_reduce", "paged_decode")
+
+
+def kernel_ms(ev, n):
+    """Device ms per step (or per call) of the port's kernels, by name."""
+    return {k: sum(t for key, t in ev if k in key) / n / 1e3 for k in PORT_KERNELS}
+
+
+def decode_profile(torch, eng, n=3):
+    """n decode steps under torch.profiler: the card's busy share of the
+    traced wall time and the kernels that fill it."""
+    ev, wall_us = profiled(torch, lambda: [eng.step() for _ in range(n)])
+    dev_us = sum(t for _, t in ev)
+    if dev_us == 0:
+        return {"busy_share": "not measured (the profiler saw no device time)"}
+    top = sorted(ev, key=lambda kv: -kv[1])[:6]
+    return {"traced_step_ms": wall_us / n / 1e3, "device_ms_per_step": dev_us / n / 1e3,
+            "busy_share": dev_us / wall_us, "top_ms_per_step": {k[:80]: t / n / 1e3 for k, t in top},
+            "kernel_ms_per_step": kernel_ms(ev, n)}
 
 
 # ---------------------------------------------------------------------------
@@ -377,22 +453,13 @@ def check_one_launch(torch, dev, log):
     """Under torch.profiler, one bf16 call at a split-K shape launches one
     kernel and no splitk_reduce; the f32 call at the same shape launches its
     kernel and the reduce. None when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 
     seen = {}
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(8, 4096, device=dev).to(dtype)
         w = torch.randn(4096, 14336, device=dev).to(dtype)
-        tp_shard_matmul(x, w, 0, n_out=14336, mode="col")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tp_shard_matmul(x, w, 0, n_out=14336, mode="col")
-            torch.cuda.synchronize()
-        kernels = {e.key[:60]: e.count for e in prof.key_averages()
-                   if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
-        seen[str(dtype).split(".")[1]] = kernels
+        seen[str(dtype).split(".")[1]] = kernels_in_one_call(torch, lambda: tp_shard_matmul(x, w, 0, n_out=14336, mode="col"))
         del x, w
     if not seen["float32"]:
         log("tp_shard_matmul: launches per call not checked: the profiler saw no device time")
@@ -542,8 +609,6 @@ def check_paged_one_launch(torch, dev, cfg, log):
     """Under torch.profiler, one call launches one kernel: at the engine's
     layout with rows of one, two and three splits (merged in the launch).
     None when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 
     KV, hd, G = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
@@ -552,13 +617,7 @@ def check_paged_one_launch(torch, dev, cfg, log):
     vp = torch.randn_like(kp)
     tables = torch.arange(128, dtype=torch.int32, device=dev).view(8, 16)
     lens = torch.tensor([1, 64, 65, 100, 128, 129, 192, 256], dtype=torch.int32, device=dev)
-    paged_decode_attention(q, kp, vp, tables, lens)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        paged_decode_attention(q, kp, vp, tables, lens)
-        torch.cuda.synchronize()
-    kernels = {e.key[:60]: e.count for e in prof.key_averages()
-               if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
+    kernels = kernels_in_one_call(torch, lambda: paged_decode_attention(q, kp, vp, tables, lens))
     if not kernels:
         log("paged_decode_attention: launches per call not checked: the profiler saw no device time")
         return None
@@ -566,6 +625,256 @@ def check_paged_one_launch(torch, dev, cfg, log):
           f"one paged_decode_attention call launches one kernel: {kernels}")
     log(f"paged_decode_attention: one call (rows of 1 to 4 splits) under torch.profiler launches {kernels}")
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the windowed models' new instances: decode attention at hd 80
+# (h2o-danube-1.8b) and 256 (gemma2-2b), and the tied head (col_t)
+# ---------------------------------------------------------------------------
+WINDOWED = ("h2o-danube-1.8b", "gemma2-2b")
+
+
+def attention_geometry(cfg):
+    """(KV heads, G, hd, softcap) of a model's decode attention."""
+    return cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, cfg.attn.logit_softcap
+
+
+def paged_close(torch, got, want, dtype, f32_tol):
+    """f32: |got - want| <= f32_tol (abs and x |want|); bf16: 1e-3 + 8e-3 x |want|."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        return ((got - want).abs() - f32_tol * want.abs()).max().item() <= f32_tol
+    return ((got - want).abs() - 8e-3 * want.abs()).max().item() <= 1e-3
+
+
+def dense_window_case(torch, dev, dtype, KV, G, hd, lens, Sc, seed, page=16):
+    """The engine's layout: a dense (8, Sc, KV, hd) slot cache viewed as
+    pages of 16 with identity tables, rows of ``lens`` live tokens."""
+    B = len(lens)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, KV, G, hd, generator=g, device=dev).to(dtype)
+    kc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(dtype)
+    vc = torch.randn(B, Sc, KV, hd, generator=g, device=dev).to(dtype)
+    tables = torch.arange(B * Sc // page, dtype=torch.int32, device=dev).view(B, Sc // page)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, kc.view(-1, page, KV, hd), vc.view(-1, page, KV, hd), tables, lens_t
+
+
+def check_paged_windowed(torch, dev, log):
+    """hd 80 and 256, f32 and bf16, against the dense and split plain
+    versions: rows at every split boundary over a permuted table, and 8
+    full-window rows (8 x 4096 tokens, seq_len = Sc: a wrapped buffer; more
+    splits than a wave holds, so blocks walk several; f32 at hd 256 on one
+    ring slot) with the model's softcap; a full-window row alone equals it
+    in the batch, bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import (
+        T_SPLIT, paged_decode_attention_ref, paged_decode_attention_split_ref,
+    )
+
+    worst = {}
+    for name in WINDOWED:
+        KV, G, hd, cap = attention_geometry(get_config(name))
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            g = torch.Generator(device=dev).manual_seed(hd)
+            lens = [1, T_SPLIT - 1, T_SPLIT, T_SPLIT + 1, 2 * T_SPLIT, 2 * T_SPLIT + 1, 3 * T_SPLIT - 1, 3 * T_SPLIT]
+            n_pages, P = 3 * T_SPLIT // 16, 8 * 3 * T_SPLIT // 16 + 3
+            perm = np.random.RandomState(hd).permutation(P)[: 8 * n_pages].reshape(8, n_pages).astype(np.int32)
+            q = torch.randn(8, KV, G, hd, generator=g, device=dev).to(dtype)
+            kp = torch.randn(P, 16, KV, hd, generator=g, device=dev).to(dtype)
+            vp = torch.randn(P, 16, KV, hd, generator=g, device=dev).to(dtype)
+            cases = {"split boundaries": (q, kp, vp, torch.from_numpy(perm).to(dev),
+                                          torch.tensor(lens, dtype=torch.int32, device=dev))}
+            full = dense_window_case(torch, dev, dtype, KV, G, hd, [4096] * 7 + [4000], 4096, seed=hd + 1)
+            cases["8 x 4096 full window"] = (full[0],) + full[3:]
+            for case, args in cases.items():
+                got = paged_decode_attention(*args, softcap=cap)
+                for ref_name, fn, tol in (("dense", paged_decode_attention_ref, 2e-5),
+                                          ("split", paged_decode_attention_split_ref, 5e-6)):
+                    want = fn(*args, softcap=cap)
+                    err = (got.float() - want.float()).abs().max().item()
+                    check(paged_close(torch, got, want, dtype, tol), f"paged {name} hd {hd} {dname} {case} vs {ref_name}: "
+                                                                      f"err {err}")
+                    key = f"{name} hd {hd} {dname} vs {ref_name}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+            q, _, _, kp, vp, tables, lens_t = full
+            batch = paged_decode_attention(q, kp, vp, tables, lens_t, softcap=cap)
+            alone = paged_decode_attention(q[7:].contiguous(), kp, vp, tables[7:].contiguous(), lens_t[7:].contiguous(),
+                                           softcap=cap)
+            check(torch.equal(alone[0], batch[7]), f"paged {name} hd {hd} {dname}: a row alone equals it in the batch")
+            del full, kp, vp, cases, args, got, want
+    log(f"paged_decode_attention hd 80 / 256 (split boundaries; 8 x 4096 full window, softcap as the model; "
+        f"tol f32 2e-5 dense, 5e-6 split; bf16 1e-3 + 8e-3 |plain|): max |err| {json.dumps(worst)}; "
+        f"a full-window row alone equals it in the batch")
+    return worst
+
+
+def check_col_t(torch, dev, log):
+    """The tied head: gemma2-2b's (256000, 2304) embedding read transposed
+    in place, f32 logits, against the plain version at each rank's vocab
+    offset for TP 1/2/4, M = 8 (decode) and 1 (prefill's last token), f32
+    and bf16; bit-identical to the pre-sliced rows; again with the storage
+    2 (bf16) or 4 (f32) bytes past a 16-byte boundary (32768 rows: the
+    producer warp's or scalar loads in place against TMA or vector loads on
+    the pre-sliced copy); NaN in the rows around a shard stays out."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+    cfg = get_config("gemma2-2b")
+    V, d, f32 = cfg.vocab_padded, cfg.d_model, torch.float32
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst, n_cases = {}, 0
+
+    def head(x, w, off, n):
+        return tp_shard_matmul(x, w, off, n_out=n, mode="col_t", out_dtype=f32)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        w = (torch.randn(V, d, generator=g, device=dev) / math.sqrt(d)).to(dtype)
+        x8 = torch.randn(8, d, generator=g, device=dev).to(dtype)
+        for tp in (1, 2, 4):
+            n = V // tp
+            for r in range(tp):
+                sliced = w[r * n:(r + 1) * n].contiguous()
+                for x in (x8, x8[:1].contiguous()):
+                    got = head(x, w, r * n, n)
+                    want = tp_shard_matmul_ref(x, w, r * n, mode="col_t", n_out=n, out_dtype=f32)
+                    ratio = (got - want).abs().max().item() / want.abs().max().item()
+                    check(ratio <= 1e-5, f"col_t {dname} tp={tp} rank={r} M={x.shape[0]}: err {ratio:.3g} x max|plain|")
+                    worst[dname] = max(worst.get(dname, 0.0), ratio)
+                    check(torch.equal(got, head(x, sliced, 0, n)), f"col_t {dname} tp={tp} rank={r}: presliced")
+                    n_cases += 1
+                del sliced
+        Vm = min(32768, V)
+        buf = (torch.randn(Vm * d + 1, generator=g, device=dev) / math.sqrt(d)).to(dtype)
+        store = buf[1:].view(Vm, d)
+        check(store.data_ptr() % 16 != 0, "misaligned storage")
+        for tp in (1, 2, 4):
+            n = Vm // tp
+            for r in range(tp):
+                check(torch.equal(head(x8, store, r * n, n), head(x8, store[r * n:(r + 1) * n].contiguous(), 0, n)),
+                      f"col_t {dname} misaligned storage tp={tp} rank={r}: presliced")
+        poisoned = w[:Vm].clone()
+        poisoned[:Vm // 4] = poisoned[Vm // 2:] = float("nan")
+        got = head(x8, poisoned, Vm // 4, Vm // 4)
+        want = tp_shard_matmul_ref(x8, poisoned, Vm // 4, mode="col_t", n_out=Vm // 4, out_dtype=f32)
+        check(bool(torch.isfinite(got).all()) and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item(),
+              f"col_t {dname}: NaN around the shard stays out")
+        del w, buf, store, poisoned
+    log(f"tp_shard_matmul col_t (tied head, gemma2-2b's 256000 x 2304 embedding in place): {n_cases} shard cases at "
+        f"TP 1/2/4, M 8 and 1, worst max|err| / max|plain| {json.dumps(worst)} (tol 1e-5); in place bit-identical "
+        f"to the pre-sliced rows, also from misaligned storage; NaN around the shard stays out")
+    return {"cases": n_cases, "worst_err_over_max_plain": worst}
+
+
+def check_windowed_one_launch(torch, dev, log):
+    """Each new instance, one call under torch.profiler, launches one
+    kernel: attention at hd 80 and 256 (f32 and bf16; f32 hd 256 on one
+    ring slot) over 8 full-window rows, and col_t at gemma2's head (bf16
+    and f32, M = 8)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    seen = {}
+    for name, dtype in ((n, dt) for n in WINDOWED for dt in (torch.bfloat16, torch.float32)):
+        KV, G, hd, cap = attention_geometry(get_config(name))
+        q, _, _, kp, vp, tables, lens = dense_window_case(torch, dev, dtype, KV, G, hd, [4096] * 8, 4096, seed=2)
+        seen[f"paged_decode_attention hd {hd} {str(dtype).split('.')[1]}"] = kernels_in_one_call(
+            torch, lambda: paged_decode_attention(q, kp, vp, tables, lens, softcap=cap))
+        del q, kp, vp
+    cfg = get_config("gemma2-2b")
+    for dtype in (torch.bfloat16, torch.float32):
+        w = torch.randn(cfg.vocab_padded, cfg.d_model, device=dev).to(dtype)
+        x = torch.randn(8, cfg.d_model, device=dev).to(dtype)
+        seen[f"tp_shard_matmul col_t {str(dtype).split('.')[1]}"] = kernels_in_one_call(
+            torch, lambda: tp_shard_matmul(x, w, 0, n_out=cfg.vocab_padded, mode="col_t", out_dtype=torch.float32))
+        del w, x
+    if any(v is None for v in seen.values()):
+        log(f"new instances: launches per call not checked: the profiler saw no device time ({seen})")
+        return None
+    for key, kernels in seen.items():
+        check(sum(kernels.values()) == 1, f"one {key} call launches one kernel: {kernels}")
+    log(f"new instances under torch.profiler, one kernel per call: {json.dumps(seen)}")
+    return seen
+
+
+def measure_windowed(torch, dev, flush, log):
+    """Decode attention of each windowed model at its engine shape (8 slots
+    of phase 6's decode mix, 12 steps in, over the 4096-row window cache of
+    a local or sliding layer) and over 8 full-window rows, f32 and bf16,
+    against the kernel's bound, its plain version and SDPA over the dense
+    cache; and the tied head at decode (x (8, 2304) against gemma2's
+    256000 x 2304 embedding, f32 logits) against torch.matmul(x, w.t())."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+    att, heads = [], []
+    engine_lens = [min(n + 12, 4096) for n in WINDOWED_PROMPTS[:8]]
+    for name in WINDOWED:
+        KV, G, hd, cap = attention_geometry(get_config(name))
+        for label, lens in (("engine shape", engine_lens), ("8 x 4096 full window", [4096] * 8)):
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).split(".")[1]
+                q, kc, vc, kp, vp, tables, lens_t = dense_window_case(torch, dev, dtype, KV, G, hd, lens, 4096, seed=5)
+                run = lambda: paged_decode_attention(q, kp, vp, tables, lens_t, softcap=cap)  # noqa: E731
+                plain = lambda: paged_decode_attention_ref(q, kp, vp, tables, lens_t, softcap=cap)  # noqa: E731
+                got, want = run(), plain()
+                err = (got.float() - want.float()).abs().max().item()
+                check(paged_close(torch, got, want, dtype, 2e-5), f"paged {name} {label} {dname}: err {err}")
+                qs, ks, vs = q.reshape(8, KV * G, 1, hd), kc.permute(0, 2, 1, 3).contiguous(), vc.permute(0, 2, 1, 3).contiguous()
+                mask = (torch.arange(4096, device=dev)[None] < lens_t[:, None].long())[:, None, None, :]
+                lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)  # noqa: E731
+                live = sum(lens)
+                es = q.element_size()
+                b_ms, b_by = bound_ms(es * (2 * q.numel() + 2 * live * KV * hd) + 4 * (tables.numel() + 8),
+                                      4.0 * live * KV * G * hd, dname)
+                row = {"model": name, "shape": f"{name} {label} {dname} B=8 KV={KV} G={G} hd={hd} page=16 Sc=4096 "
+                                                f"live_tokens={live}" + (f" softcap {cap}" if cap else ""),
+                       "max_abs_err": err, "tol": "2e-5 (f32) or 1e-3 + 8e-3 |plain| (bf16)",
+                       "ms": time_ms(torch, run, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
+                       "library_ms": time_ms(torch, lib, flush=flush), "bound_ms": b_ms, "bound_by": b_by}
+                att.append(row)
+                log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of it), "
+                    f"plain {row['plain_ms']:.4f}, SDPA (softcap not applied) {row['library_ms']:.4f}, err {err:.3g}")
+                del q, kc, vc, kp, vp, ks, vs
+    cfg = get_config("gemma2-2b")
+    V, d = cfg.vocab_padded, cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(12)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        w = (torch.randn(V, d, generator=g, device=dev) / math.sqrt(d)).to(dtype)
+        x = torch.randn(8, d, generator=g, device=dev).to(dtype)
+        for tp in (1, 4):
+            n, off = V // tp, (V // tp if tp > 1 else 0)  # TP 4: rank 1's vocab rows
+            sliced = w[off:off + n]
+            run = lambda: tp_shard_matmul(x, w, off, n_out=n, mode="col_t", out_dtype=torch.float32)  # noqa: E731
+            plain = lambda: tp_shard_matmul_ref(x, w, off, mode="col_t", n_out=n, out_dtype=torch.float32)  # noqa: E731
+            got, want = run(), plain()
+            err = (got - want).abs().max().item()
+            check(err <= 1e-5 * want.abs().max().item(), f"col_t {dname} TP {tp}: err {err}")
+            es = x.element_size()
+            b_ms, b_by = bound_ms(es * (8 * d + n * d) + 4 * 8 * n, 2.0 * 8 * d * n, dname)
+            row = {"shape": f"col_t tied head {dname} M=8 K={d} N={n}" + (f" (TP {tp} rank 1 rows)" if tp > 1 else ""),
+                   "max_abs_err": err, "tol": f"1e-5 x max|plain| = {1e-5 * want.abs().max().item():.3g}",
+                   "ms": time_ms(torch, run, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
+                   "library_ms": time_ms(torch, lambda: torch.matmul(x, sliced.t()).float(), flush=flush),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            heads.append(row)
+            log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of it), "
+                f"plain {row['plain_ms']:.4f}, torch.matmul(x, w.t()).float() {row['library_ms']:.4f}, err {err:.3g}")
+        del w, x, sliced
+    return att, heads
 
 
 def check_kv_sweeps(torch, dev, cfg, log):
@@ -957,53 +1266,17 @@ def engine_bf16_timed(torch, dev, cfg, log):
     out["workload"] = f"10 requests, prompts 4-120, 24 new tokens, TP 1: {n_tok} tokens per run, 3 runs"
     out["bind_ms_per_tp"] = {str(tp): s * 1e3 for tp, s in eng.ctl.bind_s.items()}
 
-    def device_share(n=3):
-        """Decode steps under torch.profiler (CUDA activity only): the
-        card's busy share of the traced wall time and the kernels that fill it."""
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                eng.step()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        ev = [(e.key, getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
-              for e in prof.key_averages()]
-        dev_us = sum(t for _, t in ev)
-        if dev_us == 0:
-            return {"busy_share": "not measured (the profiler saw no device time)"}
-        top = sorted(ev, key=lambda kv: -kv[1])[:6]
-        return {"traced_step_ms": wall_us / n / 1e3, "device_ms_per_step": dev_us / n / 1e3,
-                "busy_share": dev_us / wall_us, "top_ms_per_step": {k[:80]: t / n / 1e3 for k, t in top},
-                "kernel_ms_per_step": by_kernel(ev, n)}
-
-    def by_kernel(ev, n):
-        """Device ms per step (or per call) of the port's kernels, by name."""
-        names = ("wgmma_mm", "skinny_mm", "tiled_mm", "splitk_reduce", "paged_decode")
-        return {k: sum(t for key, t in ev if k in key) / n / 1e3 for k in names}
-
     def prefill_profile(L):
         """One prompt that fills bucket L, admitted at TP 1 under torch.profiler:
         its device ms, and the port's kernels' share of it."""
-        from torch.profiler import ProfilerActivity, profile
-
         req = Request(400 + L, "strict", rng.randint(0, cfg.vocab_size, size=L).astype(np.int32), 1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.admit(req)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        ev, wall_us = profiled(torch, lambda: eng.admit(req))
         eng.slot_req[req.slot] = None
         eng.slots.release(req.slot)
-        ev = [(e.key, getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
-              for e in prof.key_averages()]
         dev_us = sum(t for _, t in ev)
         if dev_us == 0:
             return {"device_ms": "not measured (the profiler saw no device time)"}
-        return {"traced_ttft_ms": wall_ms, "device_ms": dev_us / 1e3, "kernel_ms": by_kernel(ev, 1)}
+        return {"traced_ttft_ms": wall_us / 1e3, "device_ms": dev_us / 1e3, "kernel_ms": kernel_ms(ev, 1)}
 
     eng.switch_tp(1)
     empty_slots()
@@ -1012,7 +1285,7 @@ def engine_bf16_timed(torch, dev, cfg, log):
     out["profile"] = {}
     for tp in (1, 8):
         eng.switch_tp(tp)
-        out["profile"][str(tp)] = device_share()
+        out["profile"][str(tp)] = decode_profile(torch, eng)
     log(f"engine bf16 (host clock, before any profiler): TTFT ms per bucket {json.dumps(out['ttft_ms'])}; "
         f"decode step ms per TP (3 rounds of 6 steps) {json.dumps(out['decode_step_ms'])}; "
         f"tokens/s {json.dumps(out['tokens_per_s'])} ({out['workload']}); launches over those runs "
@@ -1031,10 +1304,170 @@ def engine_bf16_timed(torch, dev, cfg, log):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the windowed models served at full width and depth
+# ---------------------------------------------------------------------------
+# 4160 fills its bucket past the 4096-token window (prefill builds the
+# rotating buffer); 4090 wraps it after 6 decode steps; 17, 100, 45, 77 and
+# 31 are shorter than their buckets
+WINDOWED_PROMPTS = (4160, 17, 100, 4090, 64, 3, 128, 45, 31, 77)
+WINDOWED_TPS = {"gemma2-2b": (1, 2, 4), "h2o-danube-1.8b": (1, 2, 4, 8)}
+WINDOWED_SCHEDULES = {"gemma2-2b": {3: 2, 7: 4, 13: 1, 19: 2}, "h2o-danube-1.8b": {3: 2, 7: 4, 13: 8, 19: 1}}
+
+
+def windowed_econf(torch, tps, dtype):
+    from repro_torch.serving.engine import EngineConfig
+
+    return EngineConfig(candidate_tps=tps, n_slots=8, max_len=4224, prefill_buckets=(32, 64, 128, 4096, 4160), dtype=dtype)
+
+
+def windowed_requests(cfg, base_id=0, new_tokens=24):
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+
+    rng = np.random.RandomState(0)
+    return [Request(base_id + i, "strict", rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), new_tokens)
+            for i, n in enumerate(WINDOWED_PROMPTS)]
+
+
+def engine_windowed_f32(torch, dev, cfg, log):
+    """One windowed model in f32 at full width and depth: the 10 requests
+    at fixed TP 1 and under the switch schedule over its TP levels; the
+    greedy trajectories must be identical, both kernels must launch (counts
+    set to 0 just before, read just after), a rebind must keep every
+    storage pointer, and the windowed layers' buffers must wrap, in prefill
+    (4160 > window) and in decode (4090 + 24 > window)."""
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.models import init_params, model_param_defs
+    from repro_torch.models.model import layer_windows
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.serving.engine import ServingEngine
+
+    tps, schedule = WINDOWED_TPS[cfg.name], WINDOWED_SCHEDULES[cfg.name]
+    econf = windowed_econf(torch, tps, torch.float32)
+    t0 = time.perf_counter()
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"engine {cfg.name} f32: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    window = cfg.attn.window
+    check(max(WINDOWED_PROMPTS) > window and any(n < window < n + 24 for n in WINDOWED_PROMPTS),
+          "the requests wrap the window in prefill and in decode")
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0
+    eng = ServingEngine(cfg, params, econf, device=dev)
+    sizes = sorted({layer["k"].shape[1] for layer in eng.slots.layers})
+    t0 = time.perf_counter()
+    base = {r.req_id: list(r.generated) for r in eng.run(windowed_requests(cfg))}
+    t_a = time.perf_counter() - t0
+    del eng
+    eng_b = ServingEngine(cfg, params, econf, device=dev)
+    ptrs = storage_ptrs(eng_b)
+    t0 = time.perf_counter()
+    done = eng_b.run(windowed_requests(cfg), switch_schedule=schedule)
+    t_b = time.perf_counter() - t0
+    launches = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+    check(len(base) == 10 and len(done) == 10, "all 10 requests served")
+    check(all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v) for v in base.values()), "24 valid tokens each")
+    changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
+    check(not changed, f"{cfg.name}: trajectories changed across TP switches for requests {changed}")
+    check(eng_b.stats.switches == len(schedule), f"{len(schedule)} switches, got {eng_b.stats.switches}")
+    check(storage_ptrs(eng_b) == ptrs, "rebind kept every storage data_ptr")
+    check(all(n > 0 for n in launches.values()), f"both kernels launched on the main path: {launches}")
+    check(window in sizes and sum(w is not None for w in layer_windows(cfg)) > 0, f"window caches {sizes}")
+    st = eng_b.stats
+    log(f"engine {cfg.name} f32 (TP {tps}): fixed TP 1 run {t_a:.1f} s; switch run {t_b:.1f} s, {st.steps} steps, "
+        f"{st.switches} switches ({schedule}); cache rows per layer {sizes}; trajectories identical; launches {launches}")
+    log(f"engine {cfg.name} f32: tokens of the 4160- and 4090-token requests {base[0]} {base[3]}")
+    del eng_b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"tps": list(tps), "schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a,
+                      "switch_run_s": t_b, "cache_rows": sizes, "rebind_s_total": st.rebind_s,
+                      "migrate_s_total": st.migrate_s}
+
+
+def engine_windowed_bf16_timed(torch, dev, cfg, log):
+    """One windowed model in bf16, on the host clock before any profiler:
+    TTFT at buckets 128 and 4096 (TP 1, empty engine; median, min, max of
+    5 and 3), the decode step per TP level with the 8 slots holding the
+    first 8 requests (three rounds over the TP levels, 6 steps each; the
+    median of the rounds' medians, min, max); then 3 decode steps at TP 1
+    and at the largest TP under torch.profiler (device ms, busy share, ms
+    per kernel)."""
+    import numpy as np
+
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.models import init_params, model_param_defs
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    tps = WINDOWED_TPS[cfg.name]
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0),
+                         torch.bfloat16)
+    eng = ServingEngine(cfg, params, windowed_econf(torch, tps, torch.bfloat16), device=dev)
+    warm = eng.warmup()
+    rng = np.random.RandomState(2)
+    out = {"warmup_s": warm, "ttft_ms": {}, "decode_step_ms": {}}
+
+    def spread(xs):
+        xs = sorted(xs)
+        return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1], "n": len(xs)}
+
+    def release_all():
+        for slot, req in enumerate(eng.slot_req):
+            if req is not None:
+                eng.slot_req[slot] = None
+                eng.slots.release(slot)
+
+    for L, reps in ((128, 5), (4096, 3)):
+        times = []
+        for i in range(reps):
+            req = Request(100 + i, "strict", rng.randint(0, cfg.vocab_size, size=L).astype(np.int32), 1)
+            t0 = time.perf_counter()
+            eng.admit(req)
+            times.append((time.perf_counter() - t0) * 1e3)
+            release_all()
+        out["ttft_ms"][str(L)] = spread(times)
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0
+    for req in windowed_requests(cfg, base_id=200, new_tokens=10_000)[:8]:
+        eng.admit(req)
+    rounds = {tp: [] for tp in tps}
+    for _ in range(3):
+        for tp in tps:
+            eng.switch_tp(tp)
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                eng.step()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rounds[tp].append(sorted(times)[3])
+    out["decode_step_ms"] = {str(tp): spread(meds) for tp, meds in rounds.items()}
+    out["launches"] = {"tp_shard_matmul": tp_shard_matmul.launches,
+                       "paged_decode_attention": paged_decode_attention.launches}
+    check(all(n > 0 for n in out["launches"].values()), f"both kernels launched in bf16: {out['launches']}")
+    out["profile"] = {}
+    for tp in (tps[0], tps[-1]):
+        eng.switch_tp(tp)
+        out["profile"][str(tp)] = decode_profile(torch, eng)
+    log(f"engine {cfg.name} bf16 (host clock, before any profiler): warmup {warm:.1f} s; TTFT ms "
+        f"{json.dumps(out['ttft_ms'])}; decode step ms per TP (3 rounds of 6 steps, 8 slots of the phase's mix) "
+        f"{json.dumps(out['decode_step_ms'])}; launches {json.dumps(out['launches'])}")
+    for tp, prof in out["profile"].items():
+        log(f"engine {cfg.name} bf16: decode at TP {tp} under the profiler: {json.dumps(prof)}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
-    ap.add_argument("--skip-timed", action="store_true", help="leave out phase 5 (a quicker check)")
+    ap.add_argument("--skip-timed", action="store_true", help="leave out phase 5 and phase 6's bf16 timings")
     ap.add_argument("--timings-of", metavar="SRC", default=None,
                     help="only take the host cost of tp_shard_matmul calls and phase 5's bf16 engine timings and "
                          "profiles, importing repro_torch from SRC (e.g. the src/ of an unpacked earlier commit, "
@@ -1078,6 +1511,7 @@ def main() -> int:
         print(msg, flush=True)
 
     # ---- phase 1: card and build ----
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -1112,6 +1546,11 @@ def main() -> int:
     record["paged_decode_attention_long_context"] = measure_paged_long(torch, dev, cfg, flush, log, paged_decode_attention)
     record["paged_decode_attention_breakdown_ms"] = paged_breakdown(torch, dev, cfg, flush, log, paged_decode_attention)
     record["tp_shard_matmul"], record["paged_decode_attention"] = mm_rows, pa_rows
+    record["windowed_paged_errors"] = check_paged_windowed(torch, dev, log)
+    record["col_t"] = check_col_t(torch, dev, log)
+    record["windowed_launches_per_call"] = check_windowed_one_launch(torch, dev, log)
+    log("new instances at the windowed models' shapes (attention at the engine shape and full window, tied head):")
+    record["windowed_attention"], record["tied_head"] = measure_windowed(torch, dev, flush, log)
     check_kv_sweeps(torch, dev, cfg, log)
 
     # ---- phase 3: paged KV migration (kv counts reset just before each migrate_pages, read just after) ----
@@ -1127,12 +1566,30 @@ def main() -> int:
     if not args.skip_timed:  # the kernels line times bf16, so it takes the bf16 run's counts
         record["engine_bf16"] = engine_bf16_timed(torch, dev, cfg, log)
         launches.update(record["engine_bf16"]["launches"])
+    by_path = {name: {f"{cfg.name} {'f32' if args.skip_timed else 'bf16'}": launches[name]}
+               for name in ("tp_shard_matmul", "paged_decode_attention")}
+
+    # ---- phase 6: the windowed models (counts reset just before each f32 model's runs, read just after) ----
+    record["windowed"] = {}
+    for name in WINDOWED[::-1]:  # gemma2-2b first
+        t0 = time.perf_counter()
+        wcfg = get_config(name)
+        got, rec = engine_windowed_f32(torch, dev, wcfg, log)
+        for k, n in got.items():
+            launches[k] += n
+            by_path[k][f"{name} f32"] = n
+        if not args.skip_timed:
+            rec["bf16"] = engine_windowed_bf16_timed(torch, dev, wcfg, log)
+        rec["wall_s"] = time.perf_counter() - t0
+        record["windowed"][name] = rec
+        log(f"phase 6 {name}: {rec['wall_s']:.1f} s")
 
     # main-path entries: the bf16 decode shapes that take the most time per step
     main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}
+    instances = {"tp_shard_matmul": record["tied_head"], "paged_decode_attention": record["windowed_attention"]}
     kernels = []
     for name, route_src, row in (("tp_shard_matmul", "src/repro_torch/csrc/tp_shard_matmul.cu", main_mm),
                                  ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu", main_pa),
@@ -1142,7 +1599,13 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "tol": row["tol"], "shape": row["shape"]})
-    record.update(card=card, layers=cfg.num_layers, kernels=kernels)
+        if name in by_path:
+            kernels[-1]["launches_by_path"] = by_path[name]
+        if instances.get(name):
+            kernels[-1]["instances"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                            "max_abs_err")} for r in instances[name]]
+    record.update(card=card, layers=cfg.num_layers, kernels=kernels, wall_s=time.perf_counter() - t_start)
+    log(f"chip_smoke: {record['wall_s']:.1f} s from the build to here")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -2,8 +2,10 @@
 
 The port's own copy of the dense subset of ``repro.configs.base``: the same
 field names and derived properties, so a configuration built from the same
-numbers describes the same model in both packages. MoE, Mamba and the
-multimodal front ends come with the slices that port those families.
+numbers describes the same model in both packages. MoE and Mamba come with
+the slices that port those families; ``frontend`` is carried as a field,
+and a "vq_image" model (image content as VQ token ids in the shared
+vocabulary) runs on the plain dense backbone.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ class LayerTemplate:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense
+    family: str  # dense | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,6 +47,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     final_logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
+    frontend: Optional[str] = None  # "vq_image" | "encodec" (stub embeddings)
+    subquadratic: bool = False  # eligible for long_500k
     source: str = ""  # citation tag
 
     @property
@@ -93,7 +97,7 @@ def get_config(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import llama3_8b  # noqa: F401
+    from repro_torch.configs import chameleon_34b, gemma2_2b, h2o_danube_1_8b, llama3_8b  # noqa: F401
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

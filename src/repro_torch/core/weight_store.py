@@ -137,9 +137,10 @@ class WeightStore:
         """Bind storage to TP ``tp`` without moving data.
 
         Returns the bound params ``models.forward`` runs on: ``embed``,
-        ``layers`` (one dict per layer), ``final_norm``, ``lm_head``; every
-        model-sharded weight is a ``ShardView`` of the storage tensors, so
-        every ``data_ptr()`` is the storage's own.
+        ``layers`` (one dict per layer), ``final_norm`` and, unless the
+        embeddings are tied, ``lm_head`` (a tied head reads ``embed``'s
+        ShardView in place); every model-sharded weight is a ``ShardView``
+        of the storage tensors, so every ``data_ptr()`` is the storage's own.
         """
         sel = self.select(tp)
         n_pos = len(self.cfg.layer_pattern)

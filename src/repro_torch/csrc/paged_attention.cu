@@ -46,6 +46,13 @@
 //      (M = max m_j, weights exp(m_j - M), L = sum l_j w_j, A = sum acc_j
 //      w_j), writes A / max(L, 1e-30), and resets the counter for the next
 //      call on the stream.
+// Head dims 16, 32, 64, 80, 128 and 256. A K/V row is HD * sizeof(T) / 16
+// vectors of 16 bytes (VPR: 10 or 20 at hd 80, not a power of two), so the
+// copy and p.V thread mappings use the first (THREADS / VPR) * VPR threads
+// and leave the rest idle. The ring has two slots where two fit in a block's
+// shared memory at G = 64 and a walk of 16 splits, else one (f32 at hd 256:
+// one split's K and V are 132 KB), in which case a block loads its next
+// split only after it has computed the last one.
 // Only live splits are counted, so the counter waits for no block that
 // returned early. Tokens at or past seq_len, whole pages named past it and
 // the tail of the last page are never read. The pages must start on a
@@ -133,6 +140,8 @@ __device__ __forceinline__ void wait_groups(int n) {
 template <typename T, int HD> struct Plan {
   static constexpr int V = Vec<T>::N, VPR = HD / V;        // 16-byte vectors of a K/V row
   static constexpr int NGG = THREADS / VPR;                // thread groups in p.V, one chunk per thread
+  static constexpr int USED = NGG * VPR;                   // threads that copy and take p.V chunks
+  static_assert(HD % V == 0 && VPR <= THREADS, "a row is whole 16-byte vectors, one thread each at most");
   static constexpr int KROW = HD * sizeof(T) + 16;         // bytes of a K row in shared memory, padded
   static constexpr int STAGE = T_SPLIT * (KROW + HD * sizeof(T));  // one split's K and V
   // Token slices in p.V, where a thread group takes a pair of rows: groups
@@ -207,11 +216,11 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* _
     const int s0 = (first + k) * T_SPLIT, nt = min(T_SPLIT, len - s0);
     unsigned char* Kb = smem + (k % stages) * P::STAGE;
     T* Vs = reinterpret_cast<T*>(Kb + T_SPLIT * KROW);
-    // thread tid copies column chunk tid % VPR of every (THREADS / VPR)-th token
+    // thread tid < USED copies column chunk tid % VPR of every NGG-th token
     const int c = tid % VPR;
     for (int half = 0; half < 2; ++half) {
-      const int t_end = min((half + 1) * HALF, nt);
-      for (int t = half * HALF + tid / VPR; t < t_end; t += THREADS / VPR) {
+      const int t_end = tid < P::USED ? min((half + 1) * HALF, nt) : 0;
+      for (int t = half * HALF + tid / VPR; t < t_end; t += NGG) {
         const int64_t off = ((int64_t)Rows[k * T_SPLIT + t] * KV + h) * HD + c * V;
         cp_async16(Kb + t * KROW + c * 16, kp + off);
         cp_async16(Vs + t * HD + c * V, vp + off);
@@ -326,7 +335,7 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* _
       }
     };
     if (TS == 1) {
-      for (int rp = gg; rp < RP; rp += NGG) {
+      for (int rp = gg; tid < P::USED && rp < RP; rp += NGG) {
         const int g0 = 2 * rp, g1 = min(g0 + 1, G - 1);
         float acc0[V], acc1[V];
         pv(g0, g1, 0, 1, acc0, acc1);
@@ -339,7 +348,7 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* _
       // adds up float4s of the rows, slice by slice in order.
       float* Red = reinterpret_cast<float*>(Kb);  // TS x 2 RP x HD
       const int ts = gg / RP, rp = gg % RP, g0 = 2 * rp, g1 = min(g0 + 1, G - 1);
-      if (ts < TS) {
+      if (tid < P::USED && ts < TS) {
         float acc0[V], acc1[V];
         pv(g0, g1, ts, TS, acc0, acc1);
         store<V>(Red + (ts * 2 * RP + g0) * HD + cc * V, acc0);
@@ -443,12 +452,42 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* _
 
 int n_splits(int page, int n_pages) { return (page * n_pages + T_SPLIT - 1) / T_SPLIT; }
 
+// Dynamic shared memory a block of this instance may take, after opting in
+// once to the card's most (cudaFuncSetAttribute); minus the CUDA error if
+// that failed.
+template <typename T, int HD>
+int smem_limit() {
+  static int limit = 0;
+  if (limit == 0) {
+    int dev = 0, most = 0;
+    cudaFuncAttributes fa;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaError_t e = cudaFuncGetAttributes(&fa, paged_decode_split<T, HD>);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(paged_decode_split<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most - (int)fa.sharedSizeBytes);
+    limit = e == cudaSuccess ? most - (int)fa.sharedSizeBytes : -static_cast<int>(e);
+  }
+  return limit;
+}
+
+// Ring slots for this instance within `limit` bytes: RING where they fit
+// beside the largest group (G = 64) and walk (MAX_BLOCK_SPLITS), else
+// fewer; 0 if not even one split's stage fits.
+template <typename T, int HD>
+int ring_stages(int limit) {
+  int st = RING;
+  while (st > 0 && smem_bytes<T, HD>(64, st, MAX_BLOCK_SPLITS) > (size_t)limit) --st;
+  return st;
+}
+
 // How many splits a block walks: one while one wave of blocks holds every
 // split, else as many as fill one wave. This changes only which block
 // computes a split, never a split's arithmetic, so results do not depend
 // on it.
 template <typename T, int HD>
-int block_splits(int total, int G) {
+int block_splits(int total, int G, int ring) {
   static int waves[65] = {0};  // resident blocks on the card, by G, with a full ring
   if (G > 64) return 1;
   if (waves[G] == 0) {
@@ -456,7 +495,7 @@ int block_splits(int total, int G) {
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_decode_split<T, HD>, THREADS,
-                                                  smem_bytes<T, HD>(G, RING, MAX_BLOCK_SPLITS));
+                                                  smem_bytes<T, HD>(G, ring, MAX_BLOCK_SPLITS));
     waves[G] = n_sm * (per_sm > 0 ? per_sm : 1);
   }
   const int n = (total + waves[G] - 1) / waves[G];
@@ -466,21 +505,12 @@ int block_splits(int total, int G) {
 template <typename T, int HD>
 int launch(const void* q, const void* kp, const void* vp, const int* tables, const int* lens, void* out,
            float* ws, int* counters, int B, int KV, int G, int page, int n_pages, float softcap, cudaStream_t s) {
-  static bool opted_in = false;  // dynamic shared memory above 48 KB, once per instantiation
-  if (!opted_in) {
-    int dev = 0, most = 0;
-    cudaFuncAttributes fa;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaError_t e = cudaFuncGetAttributes(&fa, paged_decode_split<T, HD>);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(paged_decode_split<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               most - (int)fa.sharedSizeBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
-  }
+  const int limit = smem_limit<T, HD>();  // opts in to dynamic shared memory above 48 KB, once
+  if (limit < 0) return -limit;
+  const int ring = ring_stages<T, HD>(limit);
+  if (ring == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int S = n_splits(page, n_pages);
-  const int bsplits = block_splits<T, HD>(B * KV * S, G), stages = bsplits < RING ? bsplits : RING;
+  const int bsplits = block_splits<T, HD>(B * KV * S, G, ring), stages = bsplits < ring ? bsplits : ring;
   const float scale = (float)(1.0 / sqrt((double)HD));
   float* ws_ml = ws + (int64_t)B * KV * S * G * HD;
   const int groups = (S + bsplits - 1) / bsplits;
@@ -500,7 +530,9 @@ int dispatch_hd(const void* q, const void* kp, const void* vp, const int* tables
     case 16: return launch<T, 16>(q, kp, vp, tables, lens, out, ws, cnt, B, KV, G, page, n_pages, softcap, s);
     case 32: return launch<T, 32>(q, kp, vp, tables, lens, out, ws, cnt, B, KV, G, page, n_pages, softcap, s);
     case 64: return launch<T, 64>(q, kp, vp, tables, lens, out, ws, cnt, B, KV, G, page, n_pages, softcap, s);
+    case 80: return launch<T, 80>(q, kp, vp, tables, lens, out, ws, cnt, B, KV, G, page, n_pages, softcap, s);
     case 128: return launch<T, 128>(q, kp, vp, tables, lens, out, ws, cnt, B, KV, G, page, n_pages, softcap, s);
+    case 256: return launch<T, 256>(q, kp, vp, tables, lens, out, ws, cnt, B, KV, G, page, n_pages, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,10 +4,14 @@
 // (Pallas body _mm_kernel). As there, one compiled kernel serves every shard
 // and every TP level: the shard is chosen by a runtime offset, here folded
 // into the weight's base pointer by the caller (col: w + off, row:
-// w + off * N_store), with the storage row length as the leading dimension.
-// No weight byte is copied to select a shard.
+// w + off * N_store, col_t: w + off * K), with the storage row length as
+// the leading dimension. No weight byte is copied to select a shard.
 //
-//   y[M, N] = x[M, K] @ W,   W[k][n] = w[k * ldw + n],   sums in f32
+//   y[M, N] = x[M, K] @ W,   sums in f32, where
+//   col, row:  W[k][n] = w[k * ldw + n]
+//   col_t:     W[k][n] = w[n * ldw + k]   (trans = 1: the weight stored
+//              transposed, as the tied LM head reads the (vocab, d)
+//              embedding; a vocab shard is a contiguous block of rows)
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 on the tensor
 // cores, 67 TFLOP/s f32 on the FMA units):
@@ -28,7 +32,11 @@
 //    core instead of 8 of its 64 rows. A block owns 128 weight columns
 //    (two 64-column sub-tiles, one m64nNTk16 each per K step of 16) and
 //    NT tokens. A is the weight tile, N contiguous (MN-major, wgmma's
-//    transpose bit); B is the x tile, K-major.
+//    transpose bit); B is the x tile, K-major. In col_t the weight tile is
+//    K-major like x (transpose bit clear): TMA boxes of 64 weight rows x 64
+//    K from the folded base, the same 128-byte swizzle, the descriptor
+//    stepping 32 bytes along a row per K step of 16 instead of 2 KiB down
+//    the rows. Only f32 output (logits) is instantiated for it.
 //  * A ring of 6 (NT = 128) to 8 stages in 192 KiB of dynamic shared memory
 //    (each stage 64 K rows of both weight sub-tiles and NT rows of x,
 //    128-byte swizzle), one block per SM. One producer warp keeps TMA
@@ -66,9 +74,14 @@
 //    flight, and keeps all 8 rows' sums in registers; x for the block's K
 //    range is staged in shared memory; the 8 warps take interleaved rows of
 //    that range and add their sums in warp order through shared memory.
+//    col_t (skinny_t_mm): a warp per 4 output columns, whose weight rows
+//    are contiguous along K; each lane takes 4 consecutive K of each row
+//    with a 16-byte load every 128 K, reuses each x load (through the L1)
+//    for the 4 rows, keeps the 4 x 8 sums, and the warp adds its lanes by
+//    a butterfly of shuffles.
 //  * M > 8 (prefill): a plain 64x64 SIMT tile, 256 threads with 4x4
 //    register tiles, the next K step's loads issued before the current
-//    step's FMAs.
+//    step's FMAs (col_t: consecutive threads load consecutive K).
 // Both split K over blocks when the grid is small and add the partial sums
 // in a second, fixed-order pass (splitk_reduce). Every f32 output is then
 // a sum in an order fixed by (M, N, K) alone, with the same properties.
@@ -203,12 +216,68 @@ skinny_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
   }
 }
 
+// col_t, M <= 8: warp w of block (bx, by) computes columns n0 .. n0 + 3,
+// n0 = 4 (8 bx + w), over K rows [by KS, by KS + KS); lane l takes
+// K = 4 l + 128 i .. + 3 of each of the 4 weight rows, and reuses each x
+// load for the 4 of them. x is read through the L1 (8 rows of K floats, the
+// same for every warp), so K is not bounded by shared memory and the head's
+// wide grid needs no split.
+constexpr int SKT_ROWS = 4;
+
+template <typename O>
+__global__ void __launch_bounds__(SK_THREADS)
+skinny_t_mm(const float* __restrict__ x, const float* __restrict__ w, O* __restrict__ y,
+            float* __restrict__ part, int M, int N, int K, int64_t ldw, int KS, bool vec_ok, bool x_vec) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n0 = (blockIdx.x * SK_WARPS + warp) * SKT_ROWS;
+  if (n0 >= N) return;
+  const int k0 = blockIdx.y * KS, kend = min(K, k0 + KS);
+  float acc[SKT_ROWS][SK_M];
+#pragma unroll
+  for (int j = 0; j < SKT_ROWS; ++j)
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m) acc[j][m] = 0.f;
+  for (int k = k0 + 4 * lane; k < kend; k += 128) {
+    float4 wv[SKT_ROWS];
+#pragma unroll
+    for (int j = 0; j < SKT_ROWS; ++j)
+      wv[j] = n0 + j < N ? load_row(w + (int64_t)(n0 + j) * ldw, k, kend, vec_ok) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m) {
+      if (m >= M) break;
+      const float4 xa = load_row(x + (int64_t)m * K, k, kend, x_vec);
+#pragma unroll
+      for (int j = 0; j < SKT_ROWS; ++j) {
+        acc[j][m] = fmaf(xa.x, wv[j].x, acc[j][m]);
+        acc[j][m] = fmaf(xa.y, wv[j].y, acc[j][m]);
+        acc[j][m] = fmaf(xa.z, wv[j].z, acc[j][m]);
+        acc[j][m] = fmaf(xa.w, wv[j].w, acc[j][m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SKT_ROWS; ++j)
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc[j][m] += __shfl_xor_sync(0xffffffffu, acc[j][m], o);
+  if (lane != 0) return;
+  for (int j = 0; j < SKT_ROWS && n0 + j < N; ++j)
+    for (int m = 0; m < M; ++m) {
+      if (part != nullptr) {
+        part[((int64_t)blockIdx.y * M + m) * N + n0 + j] = acc[j][m];
+      } else {
+        y[(int64_t)m * N + n0 + j] = from_f32<O>(acc[j][m]);
+      }
+    }
+}
+
 // ---------------------------------------------------------------------------
 // f32, tiled path, M > 8
 // ---------------------------------------------------------------------------
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, THREADS = 256;
 
-template <typename T, typename O>
+template <typename T, typename O, bool TRANS>
 __global__ void __launch_bounds__(THREADS)
 tiled_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
          float* __restrict__ part, int M, int N, int K, int64_t ldw, int KS) {
@@ -235,9 +304,9 @@ tiled_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
       const int am = idx / BK, ak = idx % BK;  // x tile: BM rows x BK
       const int gm = m0 + am, gk = k0 + ak;
       ra[i] = (gm < M && gk < kend) ? to_f32(x[(int64_t)gm * K + gk]) : 0.f;
-      const int bk = idx / BN, bn = idx % BN;  // w tile: BK rows x BN
+      const int bk = TRANS ? idx % BK : idx / BN, bn = TRANS ? idx / BK : idx % BN;  // w tile: BK x BN
       const int gkb = k0 + bk, gn = n0 + bn;
-      rb[i] = (gkb < kend && gn < N) ? to_f32(w[(int64_t)gkb * ldw + gn]) : 0.f;
+      rb[i] = (gkb < kend && gn < N) ? to_f32(w[TRANS ? (int64_t)gn * ldw + gkb : (int64_t)gkb * ldw + gn]) : 0.f;
     }
   };
   auto store = [&]() {
@@ -245,7 +314,11 @@ tiled_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + THREADS * i;
       As[idx % BK][idx / BK] = ra[i];
-      Bs[idx / BN][idx % BN] = rb[i];
+      if (TRANS) {
+        Bs[idx % BK][idx / BK] = rb[i];
+      } else {
+        Bs[idx / BN][idx % BN] = rb[i];
+      }
     }
   };
 
@@ -306,13 +379,13 @@ struct Plan {
   int S, KS;
 };
 
-Plan plan_f32(int M, int N, int K) {
+Plan plan_f32(int M, int N, int K, bool trans) {
   Plan p;
   p.skinny = M <= SK_M;
   int tiles, max_ks, align;
   if (p.skinny) {
-    tiles = ceil_div(N, 32 * Vec<float>::N);
-    max_ks = SK_MAX_KS;
+    tiles = trans ? ceil_div(N, SK_WARPS * SKT_ROWS) : ceil_div(N, 32 * Vec<float>::N);
+    max_ks = trans ? 1 << 30 : SK_MAX_KS;  // skinny_t_mm stages nothing in shared memory
     align = SK_ALIGN;
   } else {
     tiles = ceil_div(N, BN) * ceil_div(M, BM);
@@ -328,17 +401,25 @@ Plan plan_f32(int M, int N, int K) {
   return p;
 }
 
-int run_f32(const float* x, const float* w, float* y, float* ws, int M, int N, int K, int64_t ldw,
+int run_f32(const float* x, const float* w, float* y, float* ws, int M, int N, int K, int64_t ldw, bool trans,
             cudaStream_t s) {
-  const Plan p = plan_f32(M, N, K);
+  const Plan p = plan_f32(M, N, K, trans);
   float* part = p.S > 1 ? ws : nullptr;
-  if (p.skinny) {
-    const bool vec_ok = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * sizeof(float)) % 16 == 0;
+  const bool vec_ok = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * sizeof(float)) % 16 == 0;
+  if (p.skinny && trans) {
+    const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 4 == 0;
+    const dim3 grid(ceil_div(N, SK_WARPS * SKT_ROWS), p.S);
+    skinny_t_mm<float><<<grid, SK_THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS, vec_ok, x_vec);
+  } else if (p.skinny) {
     const dim3 grid(ceil_div(N, 32 * Vec<float>::N), p.S);
     skinny_mm<float, float><<<grid, SK_THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS, vec_ok);
   } else {
     const dim3 grid(ceil_div(N, BN), ceil_div(M, BM), p.S);
-    tiled_mm<float, float><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
+    if (trans) {
+      tiled_mm<float, float, true><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
+    } else {
+      tiled_mm<float, float, false><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
+    }
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.S == 1) return static_cast<int>(e);
@@ -365,63 +446,64 @@ template <int NT> struct Ring {
   static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 };
 
-// wgmma m64nNk16, f32 += bf16 x bf16: A (the weight tile) MN-major from
-// shared memory (transpose bit set), B (the x tile) K-major from shared memory.
-template <int N> struct Wgmma;
-template <> struct Wgmma<8> {
+// wgmma m64nNk16, f32 += bf16 x bf16: A (the weight tile) from shared
+// memory, MN-major (TA = 1, the transpose bit) or K-major (TA = 0, col_t);
+// B (the x tile) K-major from shared memory.
+template <int N, int TA> struct Wgmma;
+template <int TA> struct Wgmma<8, TA> {
   static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3"
-        "}, %4, %5, p, 1, 1, 1, 0;\n"
+        "}, %4, %5, p, 1, 1, %7, 0;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
-template <> struct Wgmma<16> {
+template <int TA> struct Wgmma<16, TA> {
   static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 1, 0;\n"
+        "}, %8, %9, p, 1, 1, %11, 0;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
-template <> struct Wgmma<32> {
+template <int TA> struct Wgmma<32, TA> {
   static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 1, 0;\n"
+        "}, %16, %17, p, 1, 1, %19, 0;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
-template <> struct Wgmma<64> {
+template <int TA> struct Wgmma<64, TA> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 1, 0;\n"
+        "}, %32, %33, p, 1, 1, %35, 0;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
-template <> struct Wgmma<128> {
+template <int TA> struct Wgmma<128, TA> {
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -430,7 +512,7 @@ template <> struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 1, 0;\n"
+        "}, %64, %65, p, 1, 1, %67, 0;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -440,7 +522,7 @@ template <> struct Wgmma<128> {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
 
@@ -489,8 +571,8 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
 // leading and stride byte offsets (16-byte units), layout type 1 (128B swizzle).
 // Both operands' 8-row groups lie 1024 bytes apart (SBO). The weight tile is
 // MN-major and exactly one swizzle atom (64 columns) wide, so its LBO (the
-// step to a next 64-column atom) is never taken; the x tile is K-major, for
-// which LBO is ignored.
+// step to a next 64-column atom) is never taken; the x tile, and col_t's
+// weight tile, are K-major, for which LBO is ignored.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
@@ -528,8 +610,10 @@ struct WgArgs {
   int tma;         // 1: TMA loads; 0: the producer warp's own loads
 };
 
-// grid (N tiles of 128, S, M tiles of NT); WG_THREADS threads
-template <int NT, typename O>
+// grid (N tiles of 128, S, M tiles of NT); WG_THREADS threads. TA = 1: the
+// weight is (K, N) rows, its tile MN-major; TA = 0 (col_t): (N, K) rows,
+// its tile K-major.
+template <int NT, typename O, int TA>
 __global__ void __launch_bounds__(WG_THREADS)
 wgmma_mm(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap, const WgArgs a) {
   using RG = Ring<NT>;
@@ -562,14 +646,25 @@ wgmma_mm(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUten
       if (a.tma) {
         if (lane == 0) {  // boxes past the shard's edge (even wholly) arrive zero-filled
           mbar_expect_tx(&full[s], RG::STAGE_BYTES);
-          tma_load(st, &wmap, &full[s], n0, k0);
-          tma_load(st + SUB_BYTES, &wmap, &full[s], n0 + 64, k0);
+          if (TA) {
+            tma_load(st, &wmap, &full[s], n0, k0);
+            tma_load(st + SUB_BYTES, &wmap, &full[s], n0 + 64, k0);
+          } else {
+            tma_load(st, &wmap, &full[s], k0, n0);
+            tma_load(st + SUB_BYTES, &wmap, &full[s], k0, n0 + 64);
+          }
           tma_load(st + 2 * SUB_BYTES, &xmap, &full[s], k0, m0);
         }
       } else {
-        const uint16_t* wk = a.w + k0 * a.ldw + n0;
-        fill_tile(st, wk, a.ldw, a.K - k0, a.N - n0, 64, lane);
-        fill_tile(st + SUB_BYTES, wk + 64, a.ldw, a.K - k0, a.N - n0 - 64, 64, lane);
+        if (TA) {
+          const uint16_t* wk = a.w + k0 * a.ldw + n0;
+          fill_tile(st, wk, a.ldw, a.K - k0, a.N - n0, 64, lane);
+          fill_tile(st + SUB_BYTES, wk + 64, a.ldw, a.K - k0, a.N - n0 - 64, 64, lane);
+        } else {
+          const uint16_t* wn = a.w + n0 * a.ldw + k0;
+          fill_tile(st, wn, a.ldw, a.N - n0, a.K - k0, 64, lane);
+          fill_tile(st + SUB_BYTES, wn + 64 * a.ldw, a.ldw, a.N - n0 - 64, a.K - k0, 64, lane);
+        }
         fill_tile(st + 2 * SUB_BYTES, a.x + (int64_t)m0 * a.K + k0, a.K, a.M - m0, a.K - k0, NT, lane);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes -> wgmma reads
         __syncwarp();
@@ -594,8 +689,9 @@ wgmma_mm(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUten
 #pragma unroll
     for (int j = 0; j < WG_BK / 16; ++j) {
       const uint64_t b = sw128_desc(st + 2 * SUB_BYTES + j * 32);  // 16 K values = 32 bytes along a row
-      Wgmma<NT>::mma(acc0, sw128_desc(st + j * 2048), b);         // 16 K rows of 128 bytes
-      Wgmma<NT>::mma(acc1, sw128_desc(st + SUB_BYTES + j * 2048), b);
+      const uint32_t step = TA ? j * 2048 : j * 32;                 // MN-major: 16 K rows of 128 bytes
+      Wgmma<NT, TA>::mma(acc0, sw128_desc(st + step), b);
+      Wgmma<NT, TA>::mma(acc1, sw128_desc(st + SUB_BYTES + step), b);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     // keep this stage's products in flight; the previous stage's are done, so free its tiles
@@ -734,61 +830,67 @@ bool encode(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer, 
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The weight's map, encoded once per (base, shard shape, row length): the
-// weights of a WeightStore keep their pointers, so the engine's calls find it here.
+// The weight's map, encoded once per (base, shard shape, row length,
+// layout): the weights of a WeightStore keep their pointers, so the
+// engine's calls find it here. (K, N) rows: boxes of 64 columns x 64 K
+// rows; col_t's (N, K) rows: 64 K x 64 weight rows.
 struct MapKey {
   uintptr_t base;
   int N, K;
   int64_t ldw;
-  bool operator==(const MapKey& o) const { return base == o.base && N == o.N && K == o.K && ldw == o.ldw; }
+  bool trans;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && N == o.N && K == o.K && ldw == o.ldw && trans == o.trans;
+  }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
-    return std::hash<uintptr_t>()(k.base) ^ (std::hash<int64_t>()(k.ldw) * 31 + k.N * 131 + k.K);
+    return std::hash<uintptr_t>()(k.base) ^ (std::hash<int64_t>()(k.ldw) * 31 + k.N * 131 + k.K + k.trans);
   }
 };
 
-bool weight_map(CUtensorMap* map, const void* w, int N, int K, int64_t ldw) {
+bool weight_map(CUtensorMap* map, const void* w, int N, int K, int64_t ldw, bool trans) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{reinterpret_cast<uintptr_t>(w), N, K, ldw};
+  const MapKey key{reinterpret_cast<uintptr_t>(w), N, K, ldw, trans};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return true;
   }
-  if (!encode(map, w, N, K, ldw * 2, WG_BK)) return false;
+  if (!(trans ? encode(map, w, K, N, ldw * 2, 64) : encode(map, w, N, K, ldw * 2, WG_BK))) return false;
   if (cache.size() >= (1u << 16)) cache.clear();
   cache.emplace(key, *map);
   return true;
 }
 
-template <int NT, typename O>
+template <int NT, typename O, int TA>
 cudaError_t launch_wgmma(const WgPlan& p, const CUtensorMap& wmap, const CUtensorMap& xmap, const WgArgs& a,
                          cudaStream_t s) {
   static const cudaError_t attr =
-      cudaFuncSetAttribute(wgmma_mm<NT, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<NT>::SMEM);
+      cudaFuncSetAttribute(wgmma_mm<NT, O, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<NT>::SMEM);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(p.tiles_n, p.S, p.tiles_m);
-  wgmma_mm<NT, O><<<grid, WG_THREADS, Ring<NT>::SMEM, s>>>(wmap, xmap, a);
+  wgmma_mm<NT, O, TA><<<grid, WG_THREADS, Ring<NT>::SMEM, s>>>(wmap, xmap, a);
   return cudaGetLastError();
 }
 
-template <typename O>
+template <typename O, int TA>
 cudaError_t launch_wgmma(const WgPlan& p, const CUtensorMap& wmap, const CUtensorMap& xmap, const WgArgs& a,
                          cudaStream_t s) {
   switch (p.NT) {
-    case 8: return launch_wgmma<8, O>(p, wmap, xmap, a, s);
-    case 16: return launch_wgmma<16, O>(p, wmap, xmap, a, s);
-    case 32: return launch_wgmma<32, O>(p, wmap, xmap, a, s);
-    case 64: return launch_wgmma<64, O>(p, wmap, xmap, a, s);
-    default: return launch_wgmma<128, O>(p, wmap, xmap, a, s);
+    case 8: return launch_wgmma<8, O, TA>(p, wmap, xmap, a, s);
+    case 16: return launch_wgmma<16, O, TA>(p, wmap, xmap, a, s);
+    case 32: return launch_wgmma<32, O, TA>(p, wmap, xmap, a, s);
+    case 64: return launch_wgmma<64, O, TA>(p, wmap, xmap, a, s);
+    default: return launch_wgmma<128, O, TA>(p, wmap, xmap, a, s);
   }
 }
 
 int run_bf16(const void* x, const void* w, void* y, float* ws, int* counters, int M, int N, int K, int64_t ldw,
-             bool out_f32, cudaStream_t s) {
+             bool out_f32, bool trans, cudaStream_t s) {
+  if (trans && !out_f32) return static_cast<int>(cudaErrorInvalidValue);  // col_t: f32 logits only
   const WgPlan p = plan_bf16(M, N, K);
   WgArgs a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), y, ws, counters, M, N, K, ldw,
            p.S, p.kts, 0};
@@ -796,17 +898,18 @@ int run_bf16(const void* x, const void* w, void* y, float* ws, int* counters, in
   a.tma = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * 2) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0 && (static_cast<int64_t>(K) * 2) % 16 == 0;
   CUtensorMap wmap{}, xmap{};
-  if (a.tma && !(weight_map(&wmap, w, N, K, ldw) && encode(&xmap, x, K, M, (uint64_t)K * 2, p.NT)))
+  if (a.tma && !(weight_map(&wmap, w, N, K, ldw, trans) && encode(&xmap, x, K, M, (uint64_t)K * 2, p.NT)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(out_f32 ? launch_wgmma<float>(p, wmap, xmap, a, s)
-                                  : launch_wgmma<__nv_bfloat16>(p, wmap, xmap, a, s));
+  if (trans) return static_cast<int>(launch_wgmma<float, 0>(p, wmap, xmap, a, s));
+  return static_cast<int>(out_f32 ? launch_wgmma<float, 1>(p, wmap, xmap, a, s)
+                                  : launch_wgmma<__nv_bfloat16, 1>(p, wmap, xmap, a, s));
 }
 
 // Scratch a call needs: f32 partial sums (bytes) and bf16 arrival counters (ints).
-void scratch_need(int M, int N, int K, int dtype, long long* ws_bytes, long long* n_counters) {
+void scratch_need(int M, int N, int K, int dtype, int trans, long long* ws_bytes, long long* n_counters) {
   *ws_bytes = *n_counters = 0;
   if (dtype == 0) {
-    const Plan p = plan_f32(M, N, K);
+    const Plan p = plan_f32(M, N, K, trans != 0);
     if (p.S > 1) *ws_bytes = (long long)p.S * M * N * sizeof(float);
   } else {
     const WgPlan p = plan_bf16(M, N, K);
@@ -821,27 +924,31 @@ constexpr int SCRATCH_TOO_SMALL = -1;
 
 }  // namespace
 
-extern "C" void tp_shard_matmul_scratch(int M, int N, int K, int dtype, long long* ws_bytes, long long* n_counters) {
-  scratch_need(M, N, K, dtype, ws_bytes, n_counters);
+extern "C" void tp_shard_matmul_scratch(int M, int N, int K, int dtype, int trans, long long* ws_bytes,
+                                        long long* n_counters) {
+  scratch_need(M, N, K, dtype, trans, ws_bytes, n_counters);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x and w). out_f32: write f32 whatever
-// the input type (the LM head's f32 logits). ws / counters: the caller's
-// scratch, of ws_bytes bytes and n_counters zeroed ints; -1 (launching
-// nothing) when that is less than tp_shard_matmul_scratch asks for. Else
-// returns cudaGetLastError().
+// the input type (the LM head's f32 logits). trans: 1 for col_t (w holds
+// N rows of K, at ldw), which in bf16 needs out_f32. ws / counters: the
+// caller's scratch, of ws_bytes bytes and n_counters zeroed ints; -1
+// (launching nothing) when that is less than tp_shard_matmul_scratch asks
+// for. Else returns cudaGetLastError().
 extern "C" int tp_shard_matmul(const void* x, const void* w, void* y, void* ws, long long ws_bytes, void* counters,
                                long long n_counters, int M, int N, int K, long long ldw, int dtype, int out_f32,
-                               void* stream) {
+                               int trans, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K <= 0 || dtype < 0 || dtype > 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0 || K <= 0 || dtype < 0 || dtype > 1 || trans < 0 || trans > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   long long need_ws, need_counters;
-  scratch_need(M, N, K, dtype, &need_ws, &need_counters);
+  scratch_need(M, N, K, dtype, trans, &need_ws, &need_counters);
   if (ws_bytes < need_ws || n_counters < need_counters) return SCRATCH_TOO_SMALL;
   if (dtype == 0)
     return run_f32(static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y),
-                   static_cast<float*>(ws), M, N, K, ldw, s);
-  return run_bf16(x, w, y, static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, ldw, out_f32 != 0, s);
+                   static_cast<float*>(ws), M, N, K, ldw, trans != 0, s);
+  return run_bf16(x, w, y, static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, ldw, out_f32 != 0,
+                  trans != 0, s);
 }
 
 extern "C" const char* error_string(int e) {

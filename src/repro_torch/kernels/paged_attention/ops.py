@@ -15,7 +15,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import T_SPLIT, paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 64  # query rows per KV head that fit the kernel's shared memory
 
 

@@ -1,9 +1,12 @@
 """Wrapper of the TP-shard-selecting matmul (csrc/tp_shard_matmul.cu).
 
 CPU tensors take the plain version in ref.py; CUDA tensors launch the
-kernel or raise. ``tp_shard_matmul.launches`` counts wrapper calls that
-launched: one kernel for bf16 (split-K reduced in the same launch), the
-kernel and its split-K pass for f32.
+kernel or raise. Modes: "col" and "row" select a column or row shard of a
+(K, N) weight; "col_t" selects rows of a weight stored transposed, (N, K),
+as the tied LM head reads the embedding's vocab rows.
+``tp_shard_matmul.launches`` counts wrapper calls that launched: one kernel
+for bf16 (split-K reduced in the same launch), the kernel and its split-K
+pass for f32.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.tp_shard_matmul
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, ll, p, ll, i, i, i, ll, i, i, p]
+        fn.argtypes = [p, p, p, p, ll, p, ll, i, i, i, ll, i, i, i, p]
         fn.restype = i
-        lib.tp_shard_matmul_scratch.argtypes = [i, i, i, i, ctypes.POINTER(ll), ctypes.POINTER(ll)]
+        lib.tp_shard_matmul_scratch.argtypes = [i, i, i, i, i, ctypes.POINTER(ll), ctypes.POINTER(ll)]
         lib.tp_shard_matmul_scratch.restype = None
     return lib
 
@@ -33,10 +36,10 @@ def _lib() -> ctypes.CDLL:
 _SCRATCH_TOO_SMALL = -1
 
 
-def _grow_scratch(lib, device: torch.device, stream: int, m: int, n: int, k: int, dtype: int):
+def _grow_scratch(lib, device: torch.device, stream: int, m: int, n: int, k: int, dtype: int, trans: int):
     """The split-K workspace (bytes) and per-tile counters, grown to this call's need."""
     need_ws, need_cnt = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.tp_shard_matmul_scratch(m, n, k, dtype, ctypes.byref(need_ws), ctypes.byref(need_cnt))
+    lib.tp_shard_matmul_scratch(m, n, k, dtype, trans, ctypes.byref(need_ws), ctypes.byref(need_cnt))
     return _build.scratch("tp_shard_matmul", device, stream, (need_ws.value, torch.uint8, need_cnt.value))
 
 
@@ -52,8 +55,10 @@ def tp_shard_matmul(
     """y = x @ (the shard of w_store selected at ``offset``).
 
     x: (M, K). col: w_store (K, N_store), takes columns offset..offset+n_out.
-    row: w_store (K_store, n_out), takes rows offset..offset+K. Sums in f32;
-    the output is ``out_dtype``, x's dtype by default (f32 for logits).
+    row: w_store (K_store, n_out), takes rows offset..offset+K. col_t:
+    w_store (N_store, K), takes rows offset..offset+n_out, transposed. Sums
+    in f32; the output is ``out_dtype``, x's dtype by default (f32 for
+    logits).
     """
     out_dtype = out_dtype or x.dtype
     if x.dim() != 2 or w_store.dim() != 2:
@@ -63,17 +68,23 @@ def tp_shard_matmul(
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"out_dtype must be {x.dtype} or float32, got {out_dtype}")
     m, k = x.shape
-    k_store, n_store = w_store.shape
+    rows, cols = w_store.shape
     if mode == "col":
-        if k_store != k or not 0 <= offset <= n_store - n_out:
+        if rows != k or not 0 <= offset <= cols - n_out:
             raise ValueError(f"col: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
         base = offset
     elif mode == "row":
-        if n_store != n_out or not 0 <= offset <= k_store - k:
+        if cols != n_out or not 0 <= offset <= rows - k:
             raise ValueError(f"row: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
-        base = offset * n_store
+        base = offset * cols
+    elif mode == "col_t":
+        if cols != k or not 0 <= offset <= rows - n_out:
+            raise ValueError(f"col_t: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
+        if out_dtype != torch.float32:
+            raise TypeError(f"col_t computes the tied head's logits: out_dtype must be float32, got {out_dtype}")
+        base = offset * cols
     else:
-        raise ValueError(f"mode must be 'col' or 'row', got {mode!r}")
+        raise ValueError(f"mode must be 'col', 'row' or 'col_t', got {mode!r}")
 
     if x.device.type == "cpu" and w_store.device.type == "cpu":
         return tp_shard_matmul_ref(x, w_store, offset, mode=mode, n_out=n_out, out_dtype=out_dtype)
@@ -91,12 +102,13 @@ def tp_shard_matmul(
     ws, cnt = _build.scratch("tp_shard_matmul", x.device, stream)
     w_ptr = w_store.data_ptr() + base * w_store.element_size()
     args = (x.data_ptr(), w_ptr, y.data_ptr())
-    tail = (m, n_out, k, n_store, dt, int(out_dtype == torch.float32 and x.dtype != torch.float32), stream)
+    trans = int(mode == "col_t")
+    tail = (m, n_out, k, cols, dt, int(out_dtype == torch.float32 and x.dtype != torch.float32), trans, stream)
     rc = _SCRATCH_TOO_SMALL
     if ws is not None:
         rc = lib.tp_shard_matmul(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
     if rc == _SCRATCH_TOO_SMALL:
-        ws, cnt = _grow_scratch(lib, x.device, stream, m, n_out, k, dt)
+        ws, cnt = _grow_scratch(lib, x.device, stream, m, n_out, k, dt, trans)
         rc = lib.tp_shard_matmul(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
     _build.check(lib, rc, "tp_shard_matmul")
     tp_shard_matmul.launches += 1

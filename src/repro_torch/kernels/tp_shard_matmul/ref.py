@@ -16,7 +16,9 @@ def tp_shard_matmul_ref(
     n_out: int,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """col: x @ w_store[:, offset:offset+n_out]; row: x @ w_store[offset:offset+K, :].
+    """col: x @ w_store[:, offset:offset+n_out]; row: x @ w_store[offset:offset+K, :];
+    col_t: x @ w_store[offset:offset+n_out, :].T (w_store holds the weight's
+    columns as rows, as a tied head reads the (vocab, d) embedding).
 
     Products are taken in f32; the result is cast to ``out_dtype`` (x's dtype
     by default).
@@ -25,6 +27,8 @@ def tp_shard_matmul_ref(
         w = w_store[:, offset:offset + n_out]
     elif mode == "row":
         w = w_store[offset:offset + x.shape[1], :]
+    elif mode == "col_t":
+        w = w_store[offset:offset + n_out, :].t()
     else:
         raise ValueError(mode)
     return (x.float() @ w.float()).to(out_dtype or x.dtype)

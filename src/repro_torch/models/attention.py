@@ -1,14 +1,16 @@
-"""GQA attention with full causal masking (mirrors repro/models/attention.py).
+"""GQA attention with full, sliding-window and local/global variants and
+optional qk-norm (mirrors repro/models/attention.py).
 
-Prefill runs the reference's blockwise streaming softmax as plain torch ops.
-Decode writes the new token's K/V into the dense slot cache at its position,
+Prefill runs the reference's blockwise streaming softmax as plain torch ops,
+every Q block of the sequence at once against one KV block at a time.
+Decode writes the new token's K/V into the dense slot cache (at its
+position, or at position % window in a windowed layer's rotating buffer),
 views that cache as pages, and runs the ``paged_decode_attention`` kernel
-over it. Sliding-window and local/global attention and qk-norm come with the
-next dense slice.
+over it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,58 +25,107 @@ NEG_INF = -1e30
 
 def attn_param_defs(cfg: ModelConfig, ec: ExecConfig) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
-    return {
+    defs = {
         "wq": ParamDef((d, ec.heads_exec, hd), ("embed", "heads", "head_dim")),
         "wk": ParamDef((d, ec.kv_exec, hd), ("embed", "kv_heads", "head_dim")),
         "wv": ParamDef((d, ec.kv_exec, hd), ("embed", "kv_heads", "head_dim")),
         "wo": ParamDef((ec.heads_exec, hd, d), ("heads", "head_dim", "embed")),
     }
+    if cfg.attn.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), ("head_dim",), init="zeros")
+        defs["k_norm"] = ParamDef((hd,), ("head_dim",), init="zeros")
+    return defs
 
 
-def attn_cache_defs(cfg: ModelConfig, ec: ExecConfig, batch: int, seq_len: int) -> dict:
-    """Cache ParamDefs for one attention layer."""
-    shape = (batch, seq_len, ec.kv_exec, cfg.head_dim)
+def _qk_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def attn_cache_defs(cfg: ModelConfig, ec: ExecConfig, batch: int, seq_len: int, window: Optional[int]) -> dict:
+    """Cache ParamDefs for one attention layer: min(window, seq_len) rows
+    for a windowed layer."""
+    Sc = min(window, seq_len) if window is not None else seq_len
+    shape = (batch, Sc, ec.kv_exec, cfg.head_dim)
     axes = ("batch", "kv_seq", "act_kv", "head_dim")
     return {"k": ParamDef(shape, axes, init="zeros"), "v": ParamDef(shape, axes, init="zeros")}
 
 
-def _blockwise(q, k, v, q_pos, k_pos, *, cap, block_q, block_k):
-    """q: (B,Sq,KV,G,hd); k,v: (B,Sk,KV,hd); positions (Sq,), (Sk,).
+def _block_sizes(S: int, block_q: int, block_k: int) -> Tuple[int, int]:
+    """The reference's prefill block sizes: one block when S is not a multiple."""
+    bq, bk = min(block_q, S), min(block_k, S)
+    return (bq if S % bq == 0 else S), (bk if S % bk == 0 else S)
 
-    Returns (B,Sq,KV,G,hd) in f32: the reference's flash-style loop over Q
-    blocks and KV blocks with a running max, sum and accumulator.
+
+def live_blocks(positions: torch.Tensor, window: Optional[int], block_q: int, block_k: int) -> torch.Tensor:
+    """(nq, nk) bool on the host, from ``positions`` on the host: False for
+    a (Q block, KV block) pair of a prefill whose every score is masked.
+
+    Reckoned from each block's least and greatest position, so it is exact
+    for increasing positions; otherwise it may leave a masked pair live,
+    which adds nothing either (see ``_blockwise``)."""
+    S = positions.shape[0]
+    bq, bk = _block_sizes(S, block_q, block_k)
+    pq, pk = positions.view(S // bq, bq), positions.view(S // bk, bk)
+    live = pq.amax(1)[:, None] >= pk.amin(1)[None, :]  # some q >= k
+    if window is not None:
+        live &= pq.amin(1)[:, None] - pk.amax(1)[None, :] < window  # some q - k < window
+    return live
+
+
+def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k):
+    """q: (B,S,KV,G,hd); k,v: (B,S,KV,hd); positions (S,); ``live`` from
+    ``live_blocks`` over the same positions, window and blocks.
+
+    Returns (B,S,KV,G,hd) in f32: the reference's flash-style loop, each Q
+    block carrying a running max, sum and accumulator over the KV blocks in
+    order. All Q blocks go through one KV block together. A (Q block, KV
+    block) pair whose every score is masked is skipped: the reference adds
+    exactly nothing for it (p = 0 and the rescale is 1 once a row has a live
+    key; before that its sums are zeroed by the first live block's rescale,
+    exp(-1e30 - m) = 0, and every row's own position is a live key).
     """
-    B, Sq, KV, G, hd = q.shape
-    Sk = k.shape[1]
-    bq, bk = min(block_q, Sq), min(block_k, Sk)
-    if Sq % bq:
-        bq = Sq
-    if Sk % bk:
-        bk = Sk
+    B, S, KV, G, hd = q.shape
+    bq, bk = _block_sizes(S, block_q, block_k)
+    nq, nk = S // bq, S // bk
+    if tuple(live.shape) != (nq, nk):
+        raise ValueError(f"live blocks {tuple(live.shape)} do not match {S} positions in blocks of {bq} x {bk}")
     scale = hd ** -0.5
-    qf, kf, vf = q.float(), k.float(), v.float()
-    outs = []
-    for i in range(0, Sq, bq):
-        q_i, qp = qf[:, i:i + bq], q_pos[i:i + bq]
-        m = torch.full((B, KV, G, bq), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros((B, KV, G, bq), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, KV, G, bq, hd), dtype=torch.float32, device=q.device)
-        for j in range(0, Sk, bk):
-            k_j, v_j, kp = kf[:, j:j + bk], vf[:, j:j + bk], k_pos[j:j + bk]
-            s = torch.einsum("bqkgh,bskh->bkgqs", q_i, k_j) * scale
-            if cap is not None:
-                s = cap * torch.tanh(s / cap)
-            mask = qp[:, None] >= kp[None, :]
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, v_j)
-            m = m_new
-        out = acc / l.clamp_min(1e-30)[..., None]  # (B,KV,G,bq,hd)
-        outs.append(out.permute(0, 3, 1, 2, 4))
-    return torch.cat(outs, dim=1)
+    qf = q.float().view(B, nq, bq, KV, G, hd).permute(0, 3, 4, 1, 2, 5)  # (B,KV,G,nq,bq,hd)
+    kf, vf = k.float(), v.float()
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    mask = mask.view(nq, bq, nk, bk)
+    m = torch.full((B, KV, G, nq, bq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, nq, bq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, nq, bq, hd), dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        rows = live[:, j].nonzero()
+        if not len(rows):
+            continue
+        i0, i1 = int(rows[0]), int(rows[-1]) + 1  # the Q blocks this KV block reaches
+        k_j, v_j = kf[:, j * bk:(j + 1) * bk], vf[:, j * bk:(j + 1) * bk]
+        s = torch.einsum("bkgnqh,bskh->bkgnqs", qf[:, :, :, i0:i1], k_j) * scale
+        if cap is not None:
+            s = cap * torch.tanh(s / cap)
+        s = torch.where(mask[i0:i1, :, j], s, torch.full_like(s, NEG_INF))
+        m_i = m[..., i0:i1, :]
+        m_new = torch.maximum(m_i, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_i - m_new)
+        l[..., i0:i1, :] = l[..., i0:i1, :] * corr + p.sum(-1)
+        acc[..., i0:i1, :, :] = acc[..., i0:i1, :, :] * corr[..., None] + torch.einsum("bkgnqs,bskh->bkgnqh", p, v_j)
+        m[..., i0:i1, :] = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]  # (B,KV,G,nq,bq,hd)
+    return out.permute(0, 3, 4, 1, 2, 5).reshape(B, S, KV, G, hd)
+
+
+def swa_cache_slots(window: int, seq_len: int) -> torch.Tensor:
+    """Rotating-buffer slot of each of the last ``window`` positions."""
+    return torch.arange(max(seq_len - window, 0), seq_len) % window
 
 
 def as_pages(cache: torch.Tensor, page: int) -> torch.Tensor:
@@ -99,10 +150,12 @@ def attn_apply(
     cfg: ModelConfig,
     ec: ExecConfig,
     positions: torch.Tensor,  # (S,) for prefill; (B,) for decode
+    window: Optional[int],
     mode: str,  # prefill | decode
     cache: Optional[dict] = None,  # decode: {"k","v"}: (B,Sc,KV,hd), written in place
     block_tables: Optional[torch.Tensor] = None,
     seq_lens: Optional[torch.Tensor] = None,
+    live: Optional[torch.Tensor] = None,  # prefill: live_blocks(positions, window, block_q, block_k)
     block_q: int = 512,
     block_k: int = 512,
 ):
@@ -118,19 +171,31 @@ def attn_apply(
     if q.shape[2] != ec.heads_exec or k.shape[2] != KV:
         raise ValueError(f"bound weights give {q.shape[2]} q / {k.shape[2]} kv heads; {ec} expects "
                          f"{ec.heads_exec} / {KV}")
+    if cfg.attn.qk_norm:
+        q = _qk_norm(q, p["q_norm"])
+        k = _qk_norm(k, p["k_norm"])
 
     rope_pos = positions[:, None] if mode == "decode" else positions[None, :]
     q = apply_rope(q, rope_pos, cfg.attn.rope_theta)
     k = apply_rope(k, rope_pos, cfg.attn.rope_theta)
 
     if mode == "prefill":
-        o = _blockwise(q.view(B, S, KV, G, hd), k, v, positions, positions,
+        o = _blockwise(q.view(B, S, KV, G, hd), k, v, positions, live, window=window,
                        cap=cap, block_q=block_q, block_k=block_k).to(x.dtype)
-        new_cache = {"k": k, "v": v}
+        if window is not None and S > window:  # the rotating buffer of the last window positions
+            slots = swa_cache_slots(window, S).to(x.device)
+            new_cache = {}
+            for name, t in (("k", k), ("v", v)):
+                buf = torch.zeros((B, window, KV, hd), dtype=t.dtype, device=t.device)
+                buf[:, slots] = t[:, -window:]
+                new_cache[name] = buf
+        else:
+            new_cache = {"k": k, "v": v}
     elif mode == "decode":
         rows = torch.arange(B, device=x.device)
-        cache["k"][rows, positions] = k[:, 0]
-        cache["v"][rows, positions] = v[:, 0]
+        slot = positions % window if window is not None else positions
+        cache["k"][rows, slot] = k[:, 0]
+        cache["v"][rows, slot] = v[:, 0]
         o = decode_attention(q[:, 0].reshape(B, KV, G, hd).contiguous(), cache["k"], cache["v"],
                              block_tables, seq_lens, cap)
         new_cache = cache

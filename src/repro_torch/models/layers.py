@@ -73,6 +73,16 @@ def row_parallel(xs: List[torch.Tensor], w: ShardView) -> torch.Tensor:
     return y
 
 
+def tied_head(x: torch.Tensor, embed: ShardView) -> List[torch.Tensor]:
+    """The tied LM head per rank, in f32: rank r's logits are
+    x @ embed[r's vocab rows].T, the embedding's (vocab, d) rows read in
+    place at the rank's offset."""
+    return [
+        tp_shard_matmul(x, m, off, n_out=embed.width, mode="col_t", out_dtype=torch.float32)
+        for m, off in zip(embed.mats, embed.offsets)
+    ]
+
+
 def vocab_parallel_embed(tokens: torch.Tensor, w: ShardView) -> torch.Tensor:
     """Embedding lookup with the table sharded over the vocab: rank r owns
     global rows r*width..(r+1)*width and contributes only those tokens."""

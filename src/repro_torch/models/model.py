@@ -2,37 +2,52 @@
 
 ``forward`` takes the *bound* parameters that ``WeightStore.rebind`` makes
 for one TP level: a dict with ``embed``, ``layers`` (one dict per layer,
-model-sharded weights as ``ShardView``s), ``final_norm`` and ``lm_head``.
-The reference's scan over pattern periods is a Python loop over layers.
+model-sharded weights as ``ShardView``s), ``final_norm`` and, unless the
+embeddings are tied, ``lm_head``. A tied head reads the embedding itself,
+in place. The reference's scan over pattern periods is a Python loop over
+layers; layer i runs the pattern's template i % period, which sets its
+attention window (full, sliding, or gemma-2's alternating local/global).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attn_apply, attn_cache_defs, attn_param_defs
-from repro_torch.models.layers import col_parallel, mlp_apply, mlp_param_defs, norm_def, rmsnorm, softcap, vocab_parallel_embed
+from repro_torch.models.attention import attn_apply, attn_cache_defs, attn_param_defs, live_blocks
+from repro_torch.models.layers import (
+    col_parallel, mlp_apply, mlp_param_defs, norm_def, rmsnorm, softcap, tied_head, vocab_parallel_embed,
+)
 from repro_torch.models.params import ParamDef, stack_defs
 from repro_torch.parallel.sharding import ExecConfig
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
+    """Raise for what the port does not run yet."""
     unsupported = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         unsupported.append(f"family {cfg.family!r}")
-    if cfg.attn.kind != "full" or cfg.attn.window is not None:
+    if cfg.frontend not in (None, "vq_image"):  # vq_image feeds token ids to the dense backbone
+        unsupported.append(f"frontend {cfg.frontend!r}")
+    if cfg.attn.kind not in ("full", "swa", "local_global"):
         unsupported.append(f"attention kind {cfg.attn.kind!r}")
-    if cfg.attn.qk_norm:
-        unsupported.append("qk_norm")
-    if cfg.tie_embeddings:
-        unsupported.append("tied embeddings")
-    if any(t.mixer != "attn" or t.ffn != "dense" for t in cfg.layer_pattern):
+    if any(not t.mixer.startswith("attn") or t.ffn != "dense" for t in cfg.layer_pattern):
         unsupported.append(f"layer pattern {cfg.layer_pattern}")
     if unsupported:
         raise NotImplementedError(f"{cfg.name}: " + ", ".join(unsupported))
+
+
+def _layer_window(cfg: ModelConfig, mixer: str) -> Optional[int]:
+    if mixer == "attn_local" or (mixer == "attn" and cfg.attn.kind == "swa"):
+        return cfg.attn.window
+    return None
+
+
+def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
+    """The attention window of each layer, None for full attention."""
+    pattern = cfg.layer_pattern
+    return [_layer_window(cfg, pattern[i % len(pattern)].mixer) for i in range(cfg.num_layers)]
 
 
 def model_param_defs(cfg: ModelConfig, ec: ExecConfig) -> dict:
@@ -47,18 +62,21 @@ def model_param_defs(cfg: ModelConfig, ec: ExecConfig) -> dict:
         }
         for i, _ in enumerate(cfg.layer_pattern)
     }
-    return {
+    defs = {
         "embed": ParamDef((cfg.vocab_padded, d), ("vocab", "embed"), scale=1.0),
         "periods": stack_defs(per_period, cfg.num_periods),
         "final_norm": norm_def(d),
-        "lm_head": ParamDef((d, cfg.vocab_padded), ("embed", "vocab")),
     }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, cfg.vocab_padded), ("embed", "vocab"))
+    return defs
 
 
 def init_cache_defs(cfg: ModelConfig, ec: ExecConfig, batch: int, seq_len: int) -> List[dict]:
-    """One {"k", "v"} cache def per layer."""
+    """One {"k", "v"} cache def per layer, min(window, seq_len) rows long
+    for a windowed layer."""
     check_supported(cfg)
-    return [attn_cache_defs(cfg, ec, batch, seq_len) for _ in range(cfg.num_layers)]
+    return [attn_cache_defs(cfg, ec, batch, seq_len, w) for w in layer_windows(cfg)]
 
 
 def forward(
@@ -69,29 +87,46 @@ def forward(
     tokens: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[List[dict]] = None,
-    block_tables: Optional[torch.Tensor] = None,
-    seq_lens: Optional[torch.Tensor] = None,
+    block_tables: Optional[Sequence[torch.Tensor]] = None,
+    seq_lens: Optional[Sequence[torch.Tensor]] = None,
     mode: str = "prefill",
     block_q: int = 512,
     block_k: int = 512,
 ) -> Tuple[torch.Tensor, List[dict]]:
     """Returns (hidden (B,S,D) after the final norm, per-layer caches).
 
-    prefill: tokens (B,S); returns each layer's (B,S,KV,hd) K/V.
+    prefill: tokens (B,S); returns each layer's (B,S,KV,hd) K/V, or for a
+    windowed layer with S > window its rotating buffer of the last window
+    positions, (B,window,KV,hd).
     decode: tokens (B,1), positions (B,); writes each layer's new K/V into
-    ``cache`` in place, attends through ``block_tables``/``seq_lens``.
+    ``cache`` in place (slot position % window in a windowed layer) and
+    attends through ``block_tables``/``seq_lens``, one of each per layer.
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     h = vocab_parallel_embed(tokens, params["embed"])
+    if cfg.tie_embeddings:  # gemma convention: scale tied embeddings
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()  # the factor rounded to h's dtype
+    windows = layer_windows(cfg)
+    live = {}
+    if mode == "prefill":  # the block pairs each window leaves live, from host positions: no sync per layer
+        host_pos = torch.arange(tokens.shape[1]) if positions is None else positions.cpu()
+        live = {w: live_blocks(host_pos, w, block_q, block_k) for w in set(windows)}
+    else:
+        block_tables, seq_lens = list(block_tables), list(seq_lens)
+        if len(block_tables) != cfg.num_layers or len(seq_lens) != cfg.num_layers:
+            raise ValueError(f"decode takes one block table and one seq_lens per layer ({cfg.num_layers}), got "
+                             f"{len(block_tables)} and {len(seq_lens)}")
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     new_cache = []
-    for i, lp in enumerate(params["layers"]):
+    for i, (lp, window) in enumerate(zip(params["layers"], windows)):
         y, nc = attn_apply(
             lp["mixer"], rmsnorm(h, lp["norm1"], cfg.norm_eps), cfg=cfg, ec=ec,
-            positions=positions, mode=mode, cache=cache[i] if cache is not None else None,
-            block_tables=block_tables, seq_lens=seq_lens, block_q=block_q, block_k=block_k,
+            positions=positions, window=window, mode=mode, cache=cache[i] if cache is not None else None,
+            block_tables=block_tables[i] if mode == "decode" else None,
+            seq_lens=seq_lens[i] if mode == "decode" else None,
+            live=live.get(window), block_q=block_q, block_k=block_k,
         )
         h = h + y
         h = h + mlp_apply(lp["ffn"], rmsnorm(h, lp["norm2"], cfg.norm_eps))
@@ -100,7 +135,13 @@ def forward(
 
 
 def logits_for(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """h: (B,S,D) -> logits (B,S,V_padded) in f32 (+ final softcap)."""
+    """h: (B,S,D) -> logits (B,S,V_padded) in f32 (+ final softcap). A tied
+    head is the embedding read transposed: rank r's logits are
+    h @ embed[r's vocab rows].T."""
     B, S, d = h.shape
-    parts = col_parallel(h.reshape(B * S, d), params["lm_head"], out_dtype=torch.float32)
+    x = h.reshape(B * S, d)
+    if cfg.tie_embeddings:
+        parts = tied_head(x, params["embed"])
+    else:
+        parts = col_parallel(x, params["lm_head"], out_dtype=torch.float32)
     return softcap(torch.cat(parts, dim=-1).view(B, S, -1), cfg.final_logit_softcap)

@@ -151,10 +151,12 @@ class ServingEngine:
         tokens = torch.zeros((1, L), dtype=torch.int64)
         tokens[0, : req.prompt_len] = torch.from_numpy(np.asarray(req.prompt, np.int64))
         nxt, logits, kv = self._prefill(self.ctl.params, tokens.to(self.device), req.prompt_len)
-        # insert in place: the slot's first L rows take the prompt's K/V
+        # insert in place: the slot's first rows take the prompt's K/V, L of
+        # them, or a windowed layer's rotating buffer when L > window
         for layer, c in zip(self.slots.layers, kv):
-            layer["k"][slot, :L] = c["k"][0]
-            layer["v"][slot, :L] = c["v"][0]
+            n = c["k"].shape[1]
+            layer["k"][slot, :n] = c["k"][0]
+            layer["v"][slot, :n] = c["v"][0]
         tok = int(nxt[0])
         req.slot = slot
         req.state = RequestState.DECODE

@@ -1,11 +1,15 @@
 """KV cache management (mirrors repro/serving/kv_cache.py). Two layouts:
 
   * SlotCache - the serving engine's dense slot cache, one K and one V
-    tensor per layer. Decode reads it through the paged-attention kernel:
-    ``page_tables`` gives identity block tables of ``max_len / PAGE_SIZE``
-    pages per slot, and ``models.attention.decode_attention`` views each
-    layer's cache as those pages, which gives exactly the reference's dense
-    masked decode attention.
+    tensor per layer: max_len rows a slot, or min(window, max_len) for a
+    windowed layer's rotating buffer. Decode reads it through the
+    paged-attention kernel: ``page_tables`` gives each layer identity block
+    tables of Sc / PAGE_SIZE pages per slot (one table per cache length)
+    and seq_lens = min(position + 1, Sc), and
+    ``models.attention.decode_attention`` views each layer's cache as those
+    pages, which gives exactly the reference's dense masked decode attention
+    (a wrapped window buffer is all valid; attention does not depend on the
+    order of the keys).
   * PagedPool - PagedAttention-style paged pool with free-list allocation
     and block tables; the layout the migration kernels (kv_gather /
     kv_scatter) aggregate from, driven by ``core.migration.migrate_pages``.
@@ -33,28 +37,34 @@ class SlotCache:
     ec: ExecConfig
     n_slots: int
     max_len: int
-    layers: List[dict]  # per layer {"k", "v"}: (n_slots, max_len, KV, hd)
+    layers: List[dict]  # per layer {"k", "v"}: (n_slots, Sc, KV, hd)
     lengths: np.ndarray  # host-side per-slot lengths
     free: Deque[int]
-    tables: torch.Tensor  # (n_slots, max_len / PAGE_SIZE) int32 identity block table
+    tables: Dict[int, torch.Tensor]  # Sc -> (n_slots, Sc / PAGE_SIZE) int32 identity block table
 
     @classmethod
     def create(cls, cfg, ec, n_slots: int, max_len: int, dtype: torch.dtype, device) -> "SlotCache":
-        if max_len % PAGE_SIZE:
-            raise ValueError(f"max_len {max_len} must be a multiple of the page size {PAGE_SIZE}")
         layers = [
             {k: torch.zeros(d.shape, dtype=dtype, device=device) for k, d in layer.items()}
             for layer in init_cache_defs(cfg, ec, n_slots, max_len)
         ]
-        n_pages = max_len // PAGE_SIZE
-        tables = torch.arange(n_slots * n_pages, dtype=torch.int32, device=device).view(n_slots, n_pages)
-        return cls(cfg, ec, n_slots, max_len, layers, np.zeros(n_slots, np.int64),
-                   deque(range(n_slots)), tables)
+        tables = {}
+        for layer in layers:
+            Sc = layer["k"].shape[1]
+            if Sc % PAGE_SIZE:
+                raise ValueError(f"{cfg.name}: a cache of {Sc} rows (max_len {max_len}, or a window) is not a "
+                                 f"multiple of the page size {PAGE_SIZE}")
+            if Sc not in tables:
+                n_pages = Sc // PAGE_SIZE
+                tables[Sc] = torch.arange(n_slots * n_pages, dtype=torch.int32, device=device).view(n_slots, n_pages)
+        return cls(cfg, ec, n_slots, max_len, layers, np.zeros(n_slots, np.int64), deque(range(n_slots)), tables)
 
-    def page_tables(self, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Identity block tables and seq_lens = min(position + 1, max_len)
-        for a decode step that writes each slot at ``positions``."""
-        return self.tables, (positions + 1).clamp(max=self.max_len).to(torch.int32)
+    def page_tables(self, positions: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Per layer, its identity block table and seq_lens = min(position +
+        1, Sc) for a decode step that writes each slot at ``positions``."""
+        lens = {Sc: (positions + 1).clamp(max=Sc).to(torch.int32) for Sc in self.tables}
+        sizes = [layer["k"].shape[1] for layer in self.layers]
+        return [self.tables[Sc] for Sc in sizes], [lens[Sc] for Sc in sizes]
 
     def alloc(self) -> Optional[int]:
         return self.free.popleft() if self.free else None

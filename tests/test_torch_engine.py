@@ -205,7 +205,7 @@ def test_slot_cache_paged_view_equals_reference_decode_attention():
     kp = as_pages(kc, PAGE_SIZE)
     assert kp.data_ptr() == kc.data_ptr()
     pos = np.array([0, 20, 47])
-    tables, lens = slots.page_tables(torch.from_numpy(pos))
+    tables, lens = (per_layer[1] for per_layer in slots.page_tables(torch.from_numpy(pos)))
     assert lens.tolist() == [1, 21, 48]
     for b in range(3):
         for j in range(tables.shape[1]):

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import AttnSpec, ModelConfig  # noqa: E402
 from repro_torch.core.migration import migrate_pages  # noqa: E402
 from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter  # noqa: E402
@@ -141,6 +142,117 @@ def test_tp_shard_matmul_bf16_nan_past_the_shard_stays_out(cuda, m, mode, k, sto
     want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
     assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+# col_t: the tied head, the embedding's (vocab, d) rows read in place and
+# transposed, f32 logits. bf16 feeds wgmma a K-major weight tile (TMA, or
+# the producer warp's loads where a base or row stride is not 16-byte
+# aligned); f32 the FMA kernels. (m, k, n_store, n_out, off); d = 100 and
+# off 75 are misaligned.
+_COL_T_SHAPES = [(2304, 4096, 1024, 3 * 1024), (2304, 1024, 1024, 0), (100, 300, 75, 75), (576, 2048, 144, 288)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 64, 128])
+@pytest.mark.parametrize("k,n_store,n_out,off", _COL_T_SHAPES)
+def test_tp_shard_matmul_col_t_matches_plain(cuda, dtype, m, k, n_store, n_out, off):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(n_store, k, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    before = tp_shard_matmul.launches
+    got = tp_shard_matmul(x, w, off, n_out=n_out, mode="col_t", out_dtype=torch.float32)
+    assert tp_shard_matmul.launches == before + 1 and got.dtype == torch.float32
+    want = tp_shard_matmul_ref(x, w, off, mode="col_t", n_out=n_out, out_dtype=torch.float32)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(tp_shard_matmul(x, w, off, n_out=n_out, mode="col_t", out_dtype=torch.float32), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8, 128])
+def test_tp_shard_matmul_col_t_in_place_equals_presliced(cuda, dtype, m):
+    """Each rank's vocab rows at TP 1/2/4 read in place equal the call on the
+    pre-sliced rows, bit for bit; again with the storage 2 bytes past a
+    16-byte boundary (bf16: the producer warp's loads in place against TMA),
+    and NaN in the rows around the shard stays out."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    V, d = 8192, 2304
+    x = torch.randn(m, d, generator=g, device=cuda).to(dtype)
+    buf = (torch.randn(V * d + 1, generator=g, device=cuda) / d ** 0.5).to(dtype)
+    for lead in (0, 1):
+        store = buf[lead:lead + V * d].view(V, d)
+        for tp in (1, 2, 4):
+            n = V // tp
+            for s in range(tp):
+                got = tp_shard_matmul(x, store, s * n, n_out=n, mode="col_t", out_dtype=torch.float32)
+                want = tp_shard_matmul(x, store[s * n:(s + 1) * n].contiguous(), 0, n_out=n, mode="col_t",
+                                       out_dtype=torch.float32)
+                assert torch.equal(got, want), (lead, tp, s)
+    w = store.clone()
+    w[:1024] = w[2048:] = float("nan")
+    got = tp_shard_matmul(x, w, 1024, n_out=1024, mode="col_t", out_dtype=torch.float32)
+    want = tp_shard_matmul_ref(x, w, 1024, mode="col_t", n_out=1024, out_dtype=torch.float32)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4, 64])
+@pytest.mark.parametrize("hd", [80, 256])
+@pytest.mark.parametrize("draw", range(4))
+def test_paged_split_kernel_new_head_dims_at_split_boundaries(cuda, dtype, hd, G, draw):
+    """hd 80 (a row is 10 or 20 16-byte vectors: not a power of two) and 256
+    (f32: one ring slot), at the lengths where a split begins or ends, and
+    with gemma2's attention softcap; four draws of the inputs."""
+    n_pages = 3 * T_SPLIT // 16
+    lens = [1, T_SPLIT - 1, T_SPLIT, T_SPLIT + 1, 2 * T_SPLIT, 2 * T_SPLIT + 1, 3 * T_SPLIT - 1, 3 * T_SPLIT]
+    args = _paged_case(cuda, dtype, lens, 2, G, hd, 16, n_pages, seed=hd + G + 1000 * draw)
+    f32 = dtype == torch.float32
+    for cap in (None, 50.0):
+        before = paged_decode_attention.launches
+        got = paged_decode_attention(*args, softcap=cap)
+        assert paged_decode_attention.launches == before + 1 and got.dtype == dtype
+        _assert_paged_close(got, paged_decode_attention_split_ref(*args, softcap=cap), _TOL_SPLIT_F32 if f32 else None)
+        _assert_paged_close(got, paged_decode_attention_ref(*args, softcap=cap), _TOL_DENSE_F32 if f32 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,cap", [(8, 4, 80, None), (4, 2, 256, 50.0)], ids=["danube", "gemma2"])
+def test_paged_split_kernel_full_window_rows(cuda, dtype, KV, G, hd, cap):
+    """8 slots of a 4096-token window buffer, every row full (seq_len = Sc,
+    the wrapped case) but one: more splits than a wave holds, so blocks walk
+    several through the ring (one slot at f32 hd 256). Batch invariant:
+    a row alone equals it in the batch, bit for bit."""
+    lens = [4096, 4096, 4096, 4096, 4096, 4096, 4096, 4000]
+    q, kp, vp, tables, lens_t = _paged_case(cuda, dtype, lens, KV, G, hd, 16, 256, seed=hd)
+    got = paged_decode_attention(q, kp, vp, tables, lens_t, softcap=cap)
+    f32 = dtype == torch.float32
+    _assert_paged_close(got, paged_decode_attention_split_ref(q, kp, vp, tables, lens_t, softcap=cap),
+                        _TOL_SPLIT_F32 if f32 else None)
+    _assert_paged_close(got, paged_decode_attention_ref(q, kp, vp, tables, lens_t, softcap=cap),
+                        _TOL_DENSE_F32 if f32 else None)
+    alone = paged_decode_attention(q[7:].contiguous(), kp, vp, tables[7:].contiguous(), lens_t[7:].contiguous(),
+                                   softcap=cap)
+    assert torch.equal(alone[0], got[7])
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "h2o-danube-1.8b"])
+def test_windowed_engine_on_card_matches_cpu(cuda, name):
+    """Reduced gemma2 / danube (window 16): prompts shorter and longer than
+    the window and than their bucket, the buffer wrapping in decode, TP
+    switches; the card's trajectories equal the CPU plain path's."""
+    cfg = reduced(get_config(name))
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator().manual_seed(0))
+    econf = EngineConfig(candidate_tps=(1, 2), n_slots=4, max_len=64, prefill_buckets=(8, 16, 32))
+
+    def requests():
+        rng = np.random.RandomState(0)
+        return [Request(i, "strict", rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 24)
+                for i, n in enumerate([5, 20, 32, 10, 16, 17, 3, 29, 8, 24])]
+
+    base = {r.req_id: r.generated for r in ServingEngine(cfg, params, econf, device="cpu").run(requests())}
+    before = (tp_shard_matmul.launches, paged_decode_attention.launches)
+    done = ServingEngine(cfg, params, econf, device=cuda).run(requests(), switch_schedule={3: 2, 7: 1, 13: 2})
+    assert {r.req_id: r.generated for r in done} == base
+    assert tp_shard_matmul.launches > before[0] and paged_decode_attention.launches > before[1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -124,6 +124,42 @@ def test_tp_shard_matmul_rejects_bad_inputs(x_shape, w_shape, kw, err):
         tp_shard_matmul(torch.zeros(8, 64), torch.zeros(64, 64, dtype=torch.bfloat16), 0, n_out=64)
 
 
+# col_t: the tied head, y = x @ embed[offset:offset+n_out].T with f32 logits,
+# against the reference's logits_for einsum with embed.T and against the
+# pre-sliced rows; (m, k, n_store, n_out, shard); 576 = gemma2 d_ff / 16
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("m,k,n_store,n_out,shard", [(8, 64, 512, 128, 3), (1, 128, 256, 64, 2), (33, 48, 576, 144, 1),
+                                                     (8, 100, 300, 75, 3)])
+def test_tp_shard_matmul_col_t_matches_reference_head(dtype, m, k, n_store, n_out, shard):
+    rng = np.random.RandomState(m + k + shard)
+    jx, tx = _pair(rng.randn(m, k).astype(np.float32), dtype)
+    jw, tw = _pair(rng.randn(n_store, k).astype(np.float32), dtype)
+    off = shard * n_out
+    got = tp_shard_matmul(tx, tw, off, n_out=n_out, mode="col_t", out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (m, n_out)
+    want = jnp.einsum("md,dv->mv", jx, jw.T[:, off:off + n_out], preferred_element_type=jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    sliced = tp_shard_matmul(tx, tw[off:off + n_out].contiguous(), 0, n_out=n_out, mode="col_t", out_dtype=torch.float32)
+    assert torch.equal(got, sliced)
+    np.testing.assert_allclose(got.numpy(), _f32(j_mm_ref(jx, jw.T, off, mode="col", n_out=n_out)), **_mm_tol(dtype))
+
+
+@pytest.mark.parametrize(
+    "x_shape,w_shape,kw,err",
+    [
+        ((8, 64), (128, 64), dict(offset=96, n_out=64), ValueError),  # rows past the end
+        ((8, 64), (128, 32), dict(offset=0, n_out=64), ValueError),  # K mismatch
+        ((8, 64), (64, 128), dict(offset=0, n_out=64), ValueError),  # stored (K, N), not (N, K)
+    ],
+)
+def test_tp_shard_matmul_col_t_rejects_bad_inputs(x_shape, w_shape, kw, err):
+    with pytest.raises(err):
+        tp_shard_matmul(torch.zeros(x_shape), torch.zeros(w_shape), kw.pop("offset"), mode="col_t", **kw)
+    with pytest.raises(TypeError, match="float32"):  # logits only: bf16 in, f32 out
+        tp_shard_matmul(torch.zeros(8, 64, dtype=torch.bfloat16), torch.zeros(128, 64, dtype=torch.bfloat16), 0,
+                        n_out=64, mode="col_t")
+
+
 def test_cpu_path_launches_no_kernel():
     before = (tp_shard_matmul.launches, paged_decode_attention.launches)
     tp_shard_matmul(torch.zeros(8, 16), torch.zeros(16, 32), 16, n_out=16, mode="col")
@@ -267,6 +303,56 @@ def test_dense_slot_cache_as_pages_equals_decode_attention(page):
     valid = np.arange(S)[None] <= pos[:, None]
     want = j_decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(valid), None, None, None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+# The new models' decode shapes: h2o-danube-1.8b (hd 80, G 4) and gemma2-2b
+# (hd 256, G 2, attention softcap 50), against the Pallas kernel in interpret
+# mode and the jnp oracle, including a windowed layer's wrapped buffer:
+# identity tables over Sc = 64 rows, seq_len = Sc for every row.
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd,G,cap", [(80, 4, None), (256, 2, 50.0)], ids=["danube_hd80", "gemma2_hd256"])
+def test_paged_decode_attention_new_head_dims(dtype, hd, G, cap):
+    q, kp, vp, tables, lens = _paged_inputs(3, 2, G, hd, 16, 5, seed=hd + G)
+    got, kernel, oracle = _run_paged(q * 4, kp, vp, tables, lens, dtype, softcap=cap)
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, kernel, **tol)
+    np.testing.assert_allclose(got, oracle, **tol)
+    B, Sc, page = 2, 64, 16
+    q, kp, vp, _, _ = _paged_inputs(B, 2, G, hd, page, Sc // page, seed=hd, extra_pages=0)
+    tables = np.arange(B * Sc // page, dtype=np.int32).reshape(B, Sc // page)
+    full = np.full((B,), Sc, np.int32)
+    got, kernel, oracle = _run_paged(q, kp, vp, tables, full, dtype, softcap=cap)
+    np.testing.assert_allclose(got, kernel, **tol)
+    np.testing.assert_allclose(got, oracle, **tol)
+    if dtype == "float32":
+        split, _, _ = _run_split(q, kp, vp, tables, full, softcap=cap)
+        np.testing.assert_allclose(split, oracle, rtol=2e-5, atol=2e-5)
+
+
+def test_wrapped_window_buffer_equals_attention_in_position_order():
+    """After a windowed layer's buffer wraps, slot s holds the latest position
+    p with p % window = s, so the buffer is the window in rotated order;
+    attention over it with seq_len = window equals attention over the same
+    keys in position order."""
+    rng = np.random.RandomState(11)
+    B, KV, G, hd, window, page = 2, 2, 4, 80, 32, 16
+    pos = np.array([40, 75])  # the position each row writes now
+    keys = rng.randn(B, 80, KV, hd).astype(np.float32)  # K/V by absolute position
+    vals = rng.randn(B, 80, KV, hd).astype(np.float32)
+    buf_k, buf_v = np.zeros((B, window, KV, hd), np.float32), np.zeros((B, window, KV, hd), np.float32)
+    for b in range(B):
+        for p in range(pos[b] + 1):
+            buf_k[b, p % window], buf_v[b, p % window] = keys[b, p], vals[b, p]
+    q = rng.randn(B, KV, G, hd).astype(np.float32)
+    tables = torch.arange(B * window // page, dtype=torch.int32).view(B, window // page)
+    lens = torch.from_numpy(np.minimum(pos + 1, window).astype(np.int32))
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(buf_k), torch.from_numpy(buf_v), tables, lens, None)
+    for b in range(B):
+        lo = pos[b] + 1 - window
+        want = j_decode_attention(jnp.asarray(q[b:b + 1]), jnp.asarray(keys[b:b + 1, lo:pos[b] + 1]),
+                                  jnp.asarray(vals[b:b + 1, lo:pos[b] + 1]), jnp.ones((1, window), bool),
+                                  None, None, None)
+        np.testing.assert_allclose(got[b:b + 1].numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
 def test_paged_decode_attention_rejects_bad_inputs():

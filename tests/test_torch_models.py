@@ -123,7 +123,8 @@ def test_forward_prefill_decode_and_logits_match_reference():
     n_pages = Sc // 8
     tables = torch.arange(B * n_pages, dtype=torch.int32).view(B, n_pages)
     h1, _ = forward(params, cfg, ec, tokens=torch.from_numpy(tokens[:, S:]), positions=torch.from_numpy(pos),
-                    cache=cache, block_tables=tables, seq_lens=torch.full((B,), S + 1, dtype=torch.int32), mode="decode")
+                    cache=cache, block_tables=[tables] * cfg.num_layers,
+                    seq_lens=[torch.full((B,), S + 1, dtype=torch.int32)] * cfg.num_layers, mode="decode")
     np.testing.assert_allclose(logits_for(params, cfg, h1).numpy(),
                                np.asarray(j_logits_for(jparams, jcfg, jh1, DEFAULT_RULES, None)), rtol=2e-4, atol=2e-4)
     for i, c in enumerate(cache):  # decode wrote the new K/V at position S in place
