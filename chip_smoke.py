@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py [--layers N] [--skip-timed]
-    python3 chip_smoke.py --timings-of build/parent/src   # host cost, attention timings + phase 5, of another tree
+    python3 chip_smoke.py --timings-of build/parent/src   # host cost, attention timings, phase 5 and phase 6's bf16 timings, of another tree
 
 Phases; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit, then every CUDA
@@ -42,15 +42,23 @@ Phases; any failure raises and the script exits non-zero:
      index_select in turns at 0.537 GB); migrate_pages timed; and Fig. 7's
      pair: one copy per page against the aggregated gathers;
   4. the serving engine at llama3-8b width in f32 (check_engine at full
-     width): 10 requests served at fixed TP 1 and under a TP switch
-     schedule must give identical greedy trajectories, launch the matmul
-     and attention kernels, and rebind without moving a weight; plus a
-     tiny model served on the card against the same model on the CPU;
+     width), which replays one CUDA graph per (TP level, stage, bucket)
+     captured at warm-up: 10 requests served at fixed TP 1 and under a TP
+     switch schedule must give identical greedy trajectories, launch the
+     matmul and attention kernels (every launch by a replay: the counts
+     equal the replays times the launches each graph holds) and rebind
+     without moving a weight; then every graph against the eager step it
+     captured, decode at every TP level and prefill at every (TP, bucket),
+     bit for bit (tokens, f32 logits, KV cache); plus a tiny model served
+     on the card against the same model on the CPU;
   5. the engine in bf16, timed on the host clock with repeats (median and
      spread): TTFT per bucket, decode step per TP level, tokens/s, the
      switch's binding lookup, the bind per TP level made at install, and
-     migrate; then, last, one prefill per bucket and decode at TP 1 and 8
-     under torch.profiler (device ms, busy share, ms per kernel);
+     migrate; the capture seconds per graph, the graph pool's bytes, one
+     replay's device ms (CUDA events) per TP level and per bucket and the
+     busy share they give, peak device memory over the weights; then,
+     last, one prefill per bucket and decode at TP 1 and 8 under
+     torch.profiler (device ms, busy share, ms per kernel);
   6. the windowed models at full width and depth: gemma2-2b (alternating
      4096-token local and global layers, both softcaps, tied embeddings:
      the head is col_t over the embedding) and h2o-danube-1.8b (sliding
@@ -60,13 +68,16 @@ Phases; any failure raises and the script exits non-zero:
      6 decode steps, short ones shorter than their bucket); in f32 at fixed
      TP 1 and under a switch schedule over TP 1/2/4 (gemma2) or 1/2/4/8
      (danube): identical trajectories, both kernels launched, no weight
-     moved by a rebind; then in bf16 TTFT at buckets 128 and 4096, the
-     decode step per TP level and one torch.profiler pass. Each model is
-     freed before the next.
+     moved by a rebind, every launch by a graph replay, and every graph
+     equal to its eager step; then in bf16 TTFT at buckets 128 and 4096,
+     the decode step per TP level, capture, replay times and memory as in
+     phase 5, and one torch.profiler pass. Each model is freed before the
+     next.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
-serving runs and each model's f32 runs in phase 6 for the others) and read
-just after. The kernels line's ``launches`` adds phase 5's counts (phase
+serving runs and each model's f32 runs in phase 6 for the others; after
+the engines' warm-up, so that the counts are the replays') and read just
+after. The kernels line's ``launches`` adds phase 5's counts (phase
 4's when phase 5 is skipped) and phase 6's f32 runs', with the split in
 ``launches_by_path``; ``instances`` holds the new instances' rows. The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
@@ -1115,6 +1126,88 @@ def storage_ptrs(eng):
     return sorted(t.data_ptr() for _, per_pos in tree_leaves_with_path(eng.storage) for t in per_pos)
 
 
+def graph_stats(eng):
+    """An engine's executables: capture seconds per (TP, key), how many are
+    graphs, their pool's bytes; None for an engine without a cache (an
+    earlier tree's, under --timings-of)."""
+    cache = getattr(eng, "cache", None)
+    if cache is None:
+        return None
+    return {"graphs": cache.graphs(), "capture_s": {f"{tp}/{key}": t for (tp, key), t in cache.capture_s.items()},
+            "capture_s_total": sum(cache.capture_s.values()), "pool_bytes": cache.pool_bytes()}
+
+
+def graphs_vs_eager(torch, eng, log):
+    """Every executable of the engine against the eager step function it
+    captured, at every TP level, each from the same KV cache (N(0, 1)
+    values): the decode graph with one slot at the cache's last position
+    (past the window in a windowed model: the rotating buffer wrapped) and
+    the others at random ones, and every bucket's prefill graph for a prompt
+    3 tokens shorter than its bucket. Next tokens, f32 logits and the KV
+    cache must be equal bit for bit, and a replay must add the launches of
+    the eager call to the counts."""
+    import numpy as np
+
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    cfg, layers, dev = eng.cfg, eng.slots.layers, eng.device
+    n, max_len = eng.econf.n_slots, eng.econf.max_len
+    g = torch.Generator(device=dev).manual_seed(11)
+    for c in layers:
+        for t in c.values():
+            t.normal_(generator=g)
+    start = [{k: t.clone() for k, t in c.items()} for c in layers]
+    rng = np.random.RandomState(12)
+    pos = rng.randint(0, max_len, size=n)
+    pos[0] = max_len - 1
+    decode_args = (torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(n, 1))), torch.from_numpy(pos))
+    t0, n_cases = time.perf_counter(), 0
+    for tp in eng.tps:
+        eng.switch_tp(tp)
+        params = eng.ctl.bindings[tp]
+        cases = [("decode", lambda *a: eng._decode(params, *a), decode_args)]
+        for L in eng.econf.prefill_buckets:
+            prompt = torch.zeros((1, L), dtype=torch.int64)
+            prompt[0, : L - 3] = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=L - 3))
+            cases.append((L, lambda *a: eng._prefill(params, *a), (prompt, torch.tensor([L - 4]), torch.tensor([L % n]))))
+        for key, eager, host_args in cases:
+            runs = []
+            for fn, args in ((eager, [a.to(dev) for a in host_args]), (eng.cache.get(tp, key), host_args)):
+                for c, c0 in zip(layers, start):
+                    for k in c:
+                        c[k].copy_(c0[k])
+                before = (tp_shard_matmul.launches, paged_decode_attention.launches)
+                out = [t.clone() for t in fn(*args)]
+                torch.cuda.synchronize()
+                runs.append((out, (tp_shard_matmul.launches - before[0], paged_decode_attention.launches - before[1])))
+                if len(runs) == 1:
+                    want_cache = [{k: t.clone() for k, t in c.items()} for c in layers]
+            (want, want_n), (got, got_n) = runs
+            what = f"{cfg.name} TP {tp} {key}"
+            check(all(torch.equal(a, b) for a, b in zip(want, got)), f"{what}: graph replay != eager (tokens, logits)")
+            check(all(torch.equal(c[k], w[k]) for c, w in zip(layers, want_cache) for k in c),
+                  f"{what}: the KV cache after the replay != after the eager call")
+            check(got_n == want_n and got_n[0] > 0, f"{what}: launches added by the replay {got_n}, eager {want_n}")
+            del want_cache
+            n_cases += 1
+    del start
+    eng.switch_tp(eng.tps[0])
+    log(f"engine {cfg.name}: {n_cases} graphs (decode at TP {list(eng.tps)}, prefill at every (TP, bucket "
+        f"{list(eng.econf.prefill_buckets)})) replay equal to the eager step, bit for bit (tokens, f32 logits, KV "
+        f"cache), each adding the eager call's launches; {time.perf_counter() - t0:.1f} s")
+    return n_cases
+
+
+def replayed(*engines):
+    """Launches the engines' graph replays made, by kernel."""
+    out = {}
+    for eng in engines:
+        for k, v in eng.cache.replayed_launches().items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def engine_f32(torch, dev, cfg, log):
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
@@ -1130,18 +1223,20 @@ def engine_f32(torch, dev, cfg, log):
     log(f"engine f32: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
         f"{time.perf_counter() - t0:.1f} s")
     schedule = {3: 2, 7: 4, 13: 8, 19: 1}
-    tp_shard_matmul.launches = paged_decode_attention.launches = 0
     eng = ServingEngine(cfg, params, econf, device=dev)
     warm = eng.warmup()
+    eng_b = ServingEngine(cfg, params, econf, device=dev)
+    eng_b.warmup()
+    ptrs = storage_ptrs(eng_b)
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0  # from here on only replays launch
     t0 = time.perf_counter()
     base = {r.req_id: list(r.generated) for r in eng.run(make_requests(cfg))}
     t_a = time.perf_counter() - t0
-    eng_b = ServingEngine(cfg, params, econf, device=dev)
-    ptrs = storage_ptrs(eng_b)
     t0 = time.perf_counter()
     done = eng_b.run(make_requests(cfg), switch_schedule=schedule)
     t_b = time.perf_counter() - t0
     launches = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+    check(launches == replayed(eng, eng_b), f"every launch came from a graph replay: {launches}")
     check(len(base) == 10 and len(done) == 10, "all 10 requests served")
     check(all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v) for v in base.values()), "24 valid tokens each")
     changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
@@ -1150,15 +1245,19 @@ def engine_f32(torch, dev, cfg, log):
     check(storage_ptrs(eng_b) == ptrs, "rebind kept every storage data_ptr")
     check(all(n > 0 for n in launches.values()), f"both kernels launched on the main path: {launches}")
     st = eng_b.stats
-    log(f"engine f32: warmup {warm:.1f} s; fixed TP 1 run {t_a:.1f} s, {eng.stats.steps} steps; switch run "
-        f"{t_b:.1f} s, {st.steps} steps, {st.switches} switches ({schedule}); trajectories identical; "
-        f"launches {launches}")
+    graphs = graph_stats(eng)
+    log(f"engine f32: warmup {warm:.1f} s ({graphs['graphs']} graphs, pool {graphs['pool_bytes']} bytes); fixed TP 1 "
+        f"run {t_a:.1f} s, {eng.stats.steps} steps; switch run {t_b:.1f} s, {st.steps} steps, {st.switches} switches "
+        f"({schedule}); trajectories identical; launches {launches}, all by graph replays")
     log(f"engine f32: first request's tokens {base[0]}")
-    del eng, eng_b, params
+    del eng
+    n_graphs = graphs_vs_eager(torch, eng_b, log)
+    del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a, "switch_run_s": t_b,
-                      "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s}
+                      "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s,
+                      "graphs": graphs, "graphs_equal_to_eager": n_graphs}
 
 
 def engine_tiny_vs_cpu(torch, dev, log):
@@ -1201,10 +1300,14 @@ def engine_bf16_timed(torch, dev, cfg, log):
                          dtype=torch.bfloat16)
     params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0),
                          torch.bfloat16)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(cfg, params, econf, device=dev)
-    eng.warmup()
+    warm = eng.warmup()
     rng = np.random.RandomState(1)
-    out = {"ttft_ms": {}, "decode_step_ms": {}, "rebind_lookup_us": [], "migrate_ms": []}
+    out = {"warmup_s": warm, "graphs": graph_stats(eng), "ttft_ms": {}, "decode_step_ms": {}, "rebind_lookup_us": [],
+           "migrate_ms": []}
 
     def median(xs):
         return sorted(xs)[len(xs) // 2]
@@ -1233,6 +1336,7 @@ def engine_bf16_timed(torch, dev, cfg, log):
             eng.slot_req[req.slot] = None
             eng.slots.release(req.slot)
         out["ttft_ms"][str(L)] = spread(times)
+    out["prefill_replay_ms"] = replay_ms(torch, eng, econf.prefill_buckets)
     fill_slots(200)  # every slot busy; decode steps at each TP, three rounds of 1 -> 2 -> 4 -> 8
     rounds = {tp: [] for tp in econf.candidate_tps}
     for _ in range(3):
@@ -1249,6 +1353,10 @@ def engine_bf16_timed(torch, dev, cfg, log):
             rounds[tp].append(median(times))
     for tp, meds in rounds.items():  # median of the three rounds' medians, and their spread
         out["decode_step_ms"][str(tp)] = spread(meds)
+    out["decode_replay_ms"] = replay_ms(torch, eng, ["decode"])
+    if out["decode_replay_ms"]:
+        out["busy_share_from_events"] = {tp: out["decode_replay_ms"][tp]["decode"] / out["decode_step_ms"][tp]["median"]
+                                         for tp in out["decode_replay_ms"]}
     eng.switch_tp(1)
     empty_slots()
     runs = []
@@ -1265,6 +1373,8 @@ def engine_bf16_timed(torch, dev, cfg, log):
     check(all(n > 0 for n in out["launches"].values()), f"both kernels launched serving in bf16: {out['launches']}")
     out["workload"] = f"10 requests, prompts 4-120, 24 new tokens, TP 1: {n_tok} tokens per run, 3 runs"
     out["bind_ms_per_tp"] = {str(tp): s * 1e3 for tp, s in eng.ctl.bind_s.items()}
+    out["memory_gb"] = {"weights": weights / 1e9, "peak": torch.cuda.max_memory_allocated() / 1e9,
+                        "peak_over_weights": (torch.cuda.max_memory_allocated() - weights) / 1e9}
 
     def prefill_profile(L):
         """One prompt that fills bucket L, admitted at TP 1 under torch.profiler:
@@ -1290,6 +1400,9 @@ def engine_bf16_timed(torch, dev, cfg, log):
         f"decode step ms per TP (3 rounds of 6 steps) {json.dumps(out['decode_step_ms'])}; "
         f"tokens/s {json.dumps(out['tokens_per_s'])} ({out['workload']}); launches over those runs "
         f"{json.dumps(out['launches'])}")
+    log(f"engine bf16: warmup {warm:.1f} s, graphs {json.dumps(out['graphs'])}; replay device ms (CUDA events) "
+        f"decode {json.dumps(out['decode_replay_ms'])}, prefill at TP 1 {json.dumps(out['prefill_replay_ms'])}; "
+        f"busy share from events {json.dumps(out.get('busy_share_from_events'))}; memory GB {json.dumps(out['memory_gb'])}")
     log(f"engine bf16: TP switch = lookup of a binding made at install: lookup us "
         f"{[round(x, 2) for x in out['rebind_lookup_us']]}; bind ms per TP level (once, at install) "
         f"{json.dumps({k: round(v, 2) for k, v in out['bind_ms_per_tp'].items()})}; "
@@ -1302,6 +1415,20 @@ def engine_bf16_timed(torch, dev, cfg, log):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def replay_ms(torch, eng, keys):
+    """{TP: {key: device ms of one replay of that graph}} (CUDA events,
+    time_ms; no replay goes through the engine, so no count moves): every
+    TP level for "decode", TP 1 for the prefill buckets; {} without graphs.
+    A decode replay writes the K/V of its last inputs again, the same bits;
+    a prefill replay rewrites its last slot, so it is timed while no slot is
+    in use."""
+    cache = getattr(eng, "cache", None)
+    if cache is None or not cache.graphs():
+        return {}
+    tps = eng.tps if keys == ["decode"] else eng.tps[:1]
+    return {str(tp): {str(k): time_ms(torch, cache.get(tp, k).graph.replay, iters=10) for k in keys} for tp in tps}
 
 
 # ---------------------------------------------------------------------------
@@ -1355,19 +1482,27 @@ def engine_windowed_f32(torch, dev, cfg, log):
     window = cfg.attn.window
     check(max(WINDOWED_PROMPTS) > window and any(n < window < n + 24 for n in WINDOWED_PROMPTS),
           "the requests wrap the window in prefill and in decode")
-    tp_shard_matmul.launches = paged_decode_attention.launches = 0
+    def counted_run(eng, **kw):  # counts set to 0 after the warm-up, just before the run, read just after
+        eng.warmup()
+        tp_shard_matmul.launches = paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run(windowed_requests(cfg), **kw)
+        n = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+        check(n == replayed(eng), f"{cfg.name}: every launch came from a graph replay: {n}")
+        return done, time.perf_counter() - t0, n
+
     eng = ServingEngine(cfg, params, econf, device=dev)
     sizes = sorted({layer["k"].shape[1] for layer in eng.slots.layers})
-    t0 = time.perf_counter()
-    base = {r.req_id: list(r.generated) for r in eng.run(windowed_requests(cfg))}
-    t_a = time.perf_counter() - t0
+    done, t_a, n_a = counted_run(eng)
+    base = {r.req_id: list(r.generated) for r in done}
+    graphs = graph_stats(eng)
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     eng_b = ServingEngine(cfg, params, econf, device=dev)
     ptrs = storage_ptrs(eng_b)
-    t0 = time.perf_counter()
-    done = eng_b.run(windowed_requests(cfg), switch_schedule=schedule)
-    t_b = time.perf_counter() - t0
-    launches = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+    done, t_b, n_b = counted_run(eng_b, switch_schedule=schedule)
+    launches = {k: n_a[k] + n_b[k] for k in n_a}
     check(len(base) == 10 and len(done) == 10, "all 10 requests served")
     check(all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v) for v in base.values()), "24 valid tokens each")
     changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
@@ -1379,13 +1514,16 @@ def engine_windowed_f32(torch, dev, cfg, log):
     st = eng_b.stats
     log(f"engine {cfg.name} f32 (TP {tps}): fixed TP 1 run {t_a:.1f} s; switch run {t_b:.1f} s, {st.steps} steps, "
         f"{st.switches} switches ({schedule}); cache rows per layer {sizes}; trajectories identical; launches {launches}")
-    log(f"engine {cfg.name} f32: tokens of the 4160- and 4090-token requests {base[0]} {base[3]}")
+    log(f"engine {cfg.name} f32: tokens of the 4160- and 4090-token requests {base[0]} {base[3]}; graphs "
+        f"{graphs['graphs']}, capture {graphs['capture_s_total']:.1f} s, pool {graphs['pool_bytes']} bytes; every "
+        f"launch by a graph replay")
+    n_graphs = graphs_vs_eager(torch, eng_b, log)
     del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"tps": list(tps), "schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a,
                       "switch_run_s": t_b, "cache_rows": sizes, "rebind_s_total": st.rebind_s,
-                      "migrate_s_total": st.migrate_s}
+                      "migrate_s_total": st.migrate_s, "graphs": graphs, "graphs_equal_to_eager": n_graphs}
 
 
 def engine_windowed_bf16_timed(torch, dev, cfg, log):
@@ -1408,10 +1546,13 @@ def engine_windowed_bf16_timed(torch, dev, cfg, log):
     tps = WINDOWED_TPS[cfg.name]
     params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0),
                          torch.bfloat16)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(cfg, params, windowed_econf(torch, tps, torch.bfloat16), device=dev)
     warm = eng.warmup()
     rng = np.random.RandomState(2)
-    out = {"warmup_s": warm, "ttft_ms": {}, "decode_step_ms": {}}
+    out = {"warmup_s": warm, "graphs": graph_stats(eng), "ttft_ms": {}, "decode_step_ms": {}}
 
     def spread(xs):
         xs = sorted(xs)
@@ -1432,6 +1573,7 @@ def engine_windowed_bf16_timed(torch, dev, cfg, log):
             times.append((time.perf_counter() - t0) * 1e3)
             release_all()
         out["ttft_ms"][str(L)] = spread(times)
+    out["prefill_replay_ms"] = replay_ms(torch, eng, [128, 4096])
     tp_shard_matmul.launches = paged_decode_attention.launches = 0
     for req in windowed_requests(cfg, base_id=200, new_tokens=10_000)[:8]:
         eng.admit(req)
@@ -1449,6 +1591,12 @@ def engine_windowed_bf16_timed(torch, dev, cfg, log):
     out["launches"] = {"tp_shard_matmul": tp_shard_matmul.launches,
                        "paged_decode_attention": paged_decode_attention.launches}
     check(all(n > 0 for n in out["launches"].values()), f"both kernels launched in bf16: {out['launches']}")
+    out["decode_replay_ms"] = replay_ms(torch, eng, ["decode"])
+    if out["decode_replay_ms"]:
+        out["busy_share_from_events"] = {tp: out["decode_replay_ms"][tp]["decode"] / out["decode_step_ms"][tp]["median"]
+                                         for tp in out["decode_replay_ms"]}
+    out["memory_gb"] = {"weights": weights / 1e9, "peak": torch.cuda.max_memory_allocated() / 1e9,
+                        "peak_over_weights": (torch.cuda.max_memory_allocated() - weights) / 1e9}
     out["profile"] = {}
     for tp in (tps[0], tps[-1]):
         eng.switch_tp(tp)
@@ -1456,6 +1604,9 @@ def engine_windowed_bf16_timed(torch, dev, cfg, log):
     log(f"engine {cfg.name} bf16 (host clock, before any profiler): warmup {warm:.1f} s; TTFT ms "
         f"{json.dumps(out['ttft_ms'])}; decode step ms per TP (3 rounds of 6 steps, 8 slots of the phase's mix) "
         f"{json.dumps(out['decode_step_ms'])}; launches {json.dumps(out['launches'])}")
+    log(f"engine {cfg.name} bf16: graphs {json.dumps(out['graphs'])}; replay device ms (CUDA events) decode "
+        f"{json.dumps(out['decode_replay_ms'])}, prefill at TP {tps[0]} {json.dumps(out['prefill_replay_ms'])}; busy share "
+        f"from events {json.dumps(out.get('busy_share_from_events'))}; memory GB {json.dumps(out['memory_gb'])}")
     for tp, prof in out["profile"].items():
         log(f"engine {cfg.name} bf16: decode at TP {tp} under the profiler: {json.dumps(prof)}")
     del eng, params
@@ -1469,9 +1620,10 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
     ap.add_argument("--skip-timed", action="store_true", help="leave out phase 5 and phase 6's bf16 timings")
     ap.add_argument("--timings-of", metavar="SRC", default=None,
-                    help="only take the host cost of tp_shard_matmul calls and phase 5's bf16 engine timings and "
-                         "profiles, importing repro_torch from SRC (e.g. the src/ of an unpacked earlier commit, "
-                         "to compare two commits in one call); print them as one JSON line")
+                    help="only take the host cost of tp_shard_matmul calls, the attention timings, and phase 5's "
+                         "and phase 6's bf16 engine timings and profiles, importing repro_torch from SRC (e.g. the "
+                         "src/ of an unpacked earlier commit, to compare two commits in one call); print them as "
+                         "one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -1498,8 +1650,11 @@ def main() -> int:
                  "long_context": measure_paged_long(torch, dev, cfg, flush, print, paged_decode_attention,
                                                     check_plain=False)}
         del flush
+        timed = {"engine_bf16": engine_bf16_timed(torch, dev, cfg, print)}
+        for name in WINDOWED[::-1]:
+            timed[name] = engine_windowed_bf16_timed(torch, dev, get_config(name), print)
         print(json.dumps({"src": args.timings_of, "card": card_line(), "host_us_per_call": us,
-                          "paged_decode_attention": paged, "engine_bf16": engine_bf16_timed(torch, dev, cfg, print)}))
+                          "paged_decode_attention": paged, **timed}))
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 oracle runs in full f32

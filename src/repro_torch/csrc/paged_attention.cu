@@ -447,7 +447,7 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* _
     float a[4] = {u.x / L, u.y / L, u.z / L, u.w / L};
     store<4>(out + qbase + 4 * e, a);
   }
-  if (tid == 0) counters[bh] = 0;  // ready for the next call on this stream
+  if (tid == 0) counters[bh] = 0;  // ready for the next call on this stream, or the next replay of a graph
 }
 
 int n_splits(int page, int n_pages) { return (page * n_pages + T_SPLIT - 1) / T_SPLIT; }

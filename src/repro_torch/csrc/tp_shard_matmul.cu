@@ -51,6 +51,15 @@
 //    next rank's rows or columns; x is cut at M and K the same way. The
 //    weight's descriptor is encoded once per (pointer, shape, stride) and
 //    cached: WeightStore's pointers do not change.
+//  * Under a CUDA graph: both maps go to the kernel by value, as
+//    __grid_constant__ parameters, so a captured launch keeps the maps it
+//    was captured with (the weight's from the cache, by its pointer; x's
+//    encoded from x's address in that call), as it keeps y, the workspace
+//    and the counters by address. A graph is therefore valid only while its
+//    weights, its input and output buffers and its scratch keep their
+//    addresses: WeightStore never moves a weight, the graph's memory pool
+//    keeps the buffers it allocated at capture, and the graph's owner keeps
+//    the scratch (repro_torch/core/tp_switch.py).
 //  * TMA needs 16-byte-aligned bases and row strides. Where x or the
 //    weight misses that, the producer warp writes the same swizzled tiles,
 //    zeros past the edges, with ordinary loads and feeds the same wgmma
@@ -773,7 +782,7 @@ wgmma_mm(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUten
     }
   }
   out_all();
-  if (tid == 0) a.counters[tile] = 0;  // ready for the next call on this stream
+  if (tid == 0) a.counters[tile] = 0;  // ready for the next call on this stream, or the next replay of a graph
 }
 
 // How a bf16 call is cut: tokens per block (NT), N and M tiles, and S splits

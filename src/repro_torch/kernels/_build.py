@@ -6,7 +6,9 @@ covering the source and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing is built or loaded at import time:
 the first call of a kernel's wrapper builds it, and ``build_all`` builds
 every kernel at once, one nvcc process per source, in parallel. ``scratch``
-keeps the per-stream workspaces of kernels that reduce across blocks.
+keeps the per-stream workspaces of kernels that reduce across blocks, and
+refuses to allocate one inside a CUDA graph capture. ``COUNTED`` lists every
+wrapper that counts its launches (``counted``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +32,16 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# every kernel wrapper with a ``launches`` count, registered by its module
+COUNTED: List[Callable] = []
+
+
+def counted(wrapper: Callable) -> Callable:
+    """Give ``wrapper`` a launch count at 0 and register it in ``COUNTED``."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
 
 
 def _nvcc() -> str:
@@ -108,16 +120,32 @@ def scratch(kernel: str, device: torch.device, stream: int, grow_to: Optional[Tu
     dtype, counters) when given. Reuse is safe: calls on one stream run in
     order, so a call's workspace is not touched again until the call before
     it has ended, and the block that finishes a reduction resets its counter
-    to 0 on the way out. A buffer given up by growing goes back to PyTorch's
-    allocator, which hands it out again only to work queued after it on the
-    same stream."""
+    to 0 on the way out (so a CUDA graph's every replay finds them at 0). A
+    buffer given up by growing goes back to PyTorch's allocator, which hands
+    it out again only to work queued after it on the same stream; a graph
+    captured before keeps its own reference (``scratch_buffers``).
+
+    A graph replays the pointers it was captured with, so scratch is never
+    allocated inside a capture: growing it while the stream captures
+    raises. Run the call once on the capturing stream first."""
     key = (kernel, device.index, stream)
     ws, cnt = _SCRATCH.get(key, (None, None))
     if grow_to is not None:
         n_ws, dtype, n_cnt = grow_to
-        if ws is None or ws.numel() < n_ws:
+        grow_ws, grow_cnt = ws is None or ws.numel() < n_ws, cnt is None or cnt.numel() < n_cnt
+        if (grow_ws or grow_cnt) and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: its scratch must be grown before a CUDA graph capture (run the call "
+                               f"once on the capturing stream first)")
+        if grow_ws:
             ws = torch.empty(max(n_ws, 1), dtype=dtype, device=device)
-        if cnt is None or cnt.numel() < n_cnt:
+        if grow_cnt:
             cnt = torch.zeros(max(n_cnt, 1), dtype=torch.int32, device=device)
         _SCRATCH[key] = (ws, cnt)
     return ws, cnt
+
+
+def scratch_buffers(device: torch.device, stream: int) -> List[torch.Tensor]:
+    """Every workspace and counter tensor that calls on ``stream`` use now:
+    what a CUDA graph captured on that stream points at, for its owner to
+    keep alive as long as the graph."""
+    return [t for (_, d, s), pair in _SCRATCH.items() if (d, s) == (device.index, stream) for t in pair]

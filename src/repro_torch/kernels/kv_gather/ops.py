@@ -117,5 +117,5 @@ def kv_scatter(pool: torch.Tensor, staged: torch.Tensor, page_ids) -> torch.Tens
     return pool
 
 
-kv_gather.launches = 0
-kv_scatter.launches = 0
+_build.counted(kv_gather)
+_build.counted(kv_scatter)

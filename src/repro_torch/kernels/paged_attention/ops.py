@@ -2,7 +2,10 @@
 
 CPU tensors take the plain version in ref.py; CUDA tensors launch the
 kernel or raise. ``paged_decode_attention.launches`` counts kernel launches:
-one per call, the splits of a sequence merged in the same launch.
+one per call, the splits of a sequence merged in the same launch. A call
+inside a CUDA graph capture launches nothing: the graph's owner
+(``core.tp_switch.ExecutableCache``) takes it back off the count and adds it
+again at every replay.
 """
 from __future__ import annotations
 
@@ -104,4 +107,4 @@ def paged_decode_attention(
     return out
 
 
-paged_decode_attention.launches = 0
+_build.counted(paged_decode_attention)

@@ -6,7 +6,9 @@ kernel or raise. Modes: "col" and "row" select a column or row shard of a
 as the tied LM head reads the embedding's vocab rows.
 ``tp_shard_matmul.launches`` counts wrapper calls that launched: one kernel
 for bf16 (split-K reduced in the same launch), the kernel and its split-K
-pass for f32.
+pass for f32. A call inside a CUDA graph capture launches nothing: the
+graph's owner (``core.tp_switch.ExecutableCache``) takes it back off the
+count and adds it again at every replay.
 """
 from __future__ import annotations
 
@@ -115,4 +117,4 @@ def tp_shard_matmul(
     return y
 
 
-tp_shard_matmul.launches = 0
+_build.counted(tp_shard_matmul)

@@ -123,9 +123,10 @@ def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k):
     return out.permute(0, 3, 4, 1, 2, 5).reshape(B, S, KV, G, hd)
 
 
-def swa_cache_slots(window: int, seq_len: int) -> torch.Tensor:
-    """Rotating-buffer slot of each of the last ``window`` positions."""
-    return torch.arange(max(seq_len - window, 0), seq_len) % window
+def swa_cache_slots(window: int, seq_len: int, device=None) -> torch.Tensor:
+    """Rotating-buffer slot of each of the last ``window`` positions, made
+    on ``device`` (no copy from the host, so a CUDA graph can hold it)."""
+    return torch.arange(max(seq_len - window, 0), seq_len, device=device) % window
 
 
 def as_pages(cache: torch.Tensor, page: int) -> torch.Tensor:
@@ -183,7 +184,7 @@ def attn_apply(
         o = _blockwise(q.view(B, S, KV, G, hd), k, v, positions, live, window=window,
                        cap=cap, block_q=block_q, block_k=block_k).to(x.dtype)
         if window is not None and S > window:  # the rotating buffer of the last window positions
-            slots = swa_cache_slots(window, S).to(x.device)
+            slots = swa_cache_slots(window, S, x.device)
             new_cache = {}
             for name, t in (("k", k), ("v", v)):
                 buf = torch.zeros((B, window, KV, hd), dtype=t.dtype, device=t.device)

@@ -10,9 +10,18 @@ on one card all ranks are that card, and the reference's psum is a sum of
 the ranks' partial products in rank order. Every projection runs once per
 rank through the ``tp_shard_matmul`` kernel; decode attention runs through
 the ``paged_decode_attention`` kernel.
+
+As the reference compiles one executable per TP level for decode and one
+per (TP level, bucket) for prefill and warms them all up front, ``warmup``
+captures one CUDA graph per (TP level, stage, bucket) into the
+controller's ``ExecutableCache``; ``step`` and ``admit`` only copy their
+inputs in and replay (on a CUDA device there is no eager path). The step
+functions ``_decode`` and ``_prefill`` are what is captured; on the CPU the
+cache calls them directly.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Union
@@ -85,13 +94,31 @@ class ServingEngine:
     def storage(self) -> dict:
         return self.ctl.storage
 
+    @property
+    def cache(self):
+        """The executables per (TP level, key): "decode", or a prefill bucket."""
+        return self.ctl.cache
+
     # ------------------------------------------------------------------
-    def _prefill(self, params: dict, tokens: torch.Tensor, true_len: int):
+    def _prefill(self, params: dict, tokens: torch.Tensor, last: torch.Tensor, slot: torch.Tensor):
+        """Prefill one prompt padded to its bucket and insert its K/V into a
+        slot's first rows (L of them, or a windowed layer's rotating buffer
+        when L > window). tokens (1, L); last (1,) the prompt's last
+        position; slot (1,): index tensors, so that one captured graph
+        serves every prompt length and slot of the bucket. Returns the next
+        token (1,) and the logits (1, vocab)."""
         h, kv = forward(params, self.cfg, self.ec, tokens=tokens, mode="prefill", block_q=64, block_k=64)
-        logits = logits_for(params, self.cfg, h[:, true_len - 1:true_len])[:, 0, : self.cfg.vocab_size]
-        return logits.argmax(-1), logits, kv
+        logits = logits_for(params, self.cfg, h.index_select(1, last))[:, 0, : self.cfg.vocab_size]
+        for layer, c in zip(self.slots.layers, kv):
+            n = c["k"].shape[1]
+            for name in ("k", "v"):
+                layer[name][slot, :n] = c[name][0].to(layer[name].dtype)
+        return logits.argmax(-1), logits
 
     def _decode(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor):
+        """One decode step of every slot: tokens (n_slots, 1), positions
+        (n_slots,); the block tables are fixed and seq_lens come from the
+        positions on the device."""
         tables, lens = self.slots.page_tables(positions)
         h, _ = forward(params, self.cfg, self.ec, tokens=tokens, positions=positions,
                        cache=self.slots.layers, block_tables=tables, seq_lens=lens, mode="decode")
@@ -99,33 +126,54 @@ class ServingEngine:
         return logits.argmax(-1), logits
 
     def warmup(self) -> float:
-        """Run one decode step and one prefill per (TP level, bucket), the
-        counterpart of the reference's AOT warm-up: it builds the kernels
-        and warms the allocator. Returns the seconds taken."""
+        """Make the executables: the decode step at every candidate TP level
+        and prefill at every (TP level, bucket), one CUDA graph each on a
+        CUDA device (each run once on the capture stream first), the
+        counterpart of the reference's AOT warm-up. Raises if a capture
+        fails. Returns the seconds taken; ``cache.capture_s`` has each.
+
+        The warm-up runs write slot 0's rows and row 0 of every slot, so it
+        is refused while a request holds a slot."""
+        if any(r is not None for r in self.slot_req):
+            raise RuntimeError("warmup() writes the KV cache: call it before admitting requests")
         t0 = time.perf_counter()
-        n = self.econf.n_slots
-        tok = torch.zeros((n, 1), dtype=torch.int64, device=self.device)
-        pos = torch.zeros((n,), dtype=torch.int64, device=self.device)
+        n, dev = self.econf.n_slots, self.device
         for tp in self.tps:
             params = self.ctl.bindings[tp]
-            self._decode(params, tok, pos)
+            self.cache.put(tp, "decode", functools.partial(self._decode, params),
+                           (torch.zeros((n, 1), dtype=torch.int64, device=dev),
+                            torch.zeros((n,), dtype=torch.int64, device=dev)))
             for L in self.econf.prefill_buckets:
-                self._prefill(params, torch.zeros((1, L), dtype=torch.int64, device=self.device), 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                self.cache.put(tp, L, functools.partial(self._prefill, params),
+                               (torch.zeros((1, L), dtype=torch.int64, device=dev),
+                                torch.zeros((1,), dtype=torch.int64, device=dev),
+                                torch.zeros((1,), dtype=torch.int64, device=dev)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
         self.stats.warmup_s += dt
         return dt
 
+    def _executable(self, key):
+        if not self.cache.has(self.tp, key):
+            self.warmup()
+        return self.cache.get(self.tp, key)
+
     def switch_tp(self, tp: int) -> dict:
         """Stop-and-migrate TP switch (paper §3.2): zero-copy weight rebind,
-        then the KV cache to the new layout (on one card: no bytes move).
-        A failed migration rolls back (``SwitchAborted``)."""
+        then the KV cache to the new layout (on one card: no bytes move),
+        then the new TP level's executables replay. A failed migration rolls
+        back (``SwitchAborted``); so does one that hands back new storage
+        while graphs exist, since they read the cache at its addresses."""
         if tp == self.tp:
             return {"rebind_s": 0.0, "migrate_s": 0.0}
 
         def migrate(_tp):
-            return migrate_cache(self.slots.layers, self.device)
+            moved, seconds = migrate_cache(self.slots.layers, self.device)
+            if self.cache.graphs() and any(a[k].data_ptr() != b[k].data_ptr()
+                                           for a, b in zip(self.slots.layers, moved) for k in a):
+                raise RuntimeError("cache migration moved the KV cache while CUDA graphs read it in place")
+            return moved, seconds
 
         self.slots.layers = self.ctl.switch(tp, migrate_fn=migrate)
         st = self.ctl.stats
@@ -142,21 +190,16 @@ class ServingEngine:
         raise ValueError(f"prompt length {n} exceeds buckets")
 
     def admit(self, req: Request) -> bool:
+        L = self._bucket(req.prompt_len)
+        prefill = self._executable(L)
         slot = self.slots.alloc()
         if slot is None:
             return False
         if req.arrival_s == 0.0:  # demo requests: arrival = admission
             req.arrival_s = time.perf_counter()
-        L = self._bucket(req.prompt_len)
         tokens = torch.zeros((1, L), dtype=torch.int64)
         tokens[0, : req.prompt_len] = torch.from_numpy(np.asarray(req.prompt, np.int64))
-        nxt, logits, kv = self._prefill(self.ctl.params, tokens.to(self.device), req.prompt_len)
-        # insert in place: the slot's first rows take the prompt's K/V, L of
-        # them, or a windowed layer's rotating buffer when L > window
-        for layer, c in zip(self.slots.layers, kv):
-            n = c["k"].shape[1]
-            layer["k"][slot, :n] = c["k"][0]
-            layer["v"][slot, :n] = c["v"][0]
+        nxt, logits = prefill(tokens, torch.tensor([req.prompt_len - 1]), torch.tensor([slot]))
         tok = int(nxt[0])
         req.slot = slot
         req.state = RequestState.DECODE
@@ -171,9 +214,9 @@ class ServingEngine:
 
     def step(self) -> List[Request]:
         """One decode iteration over all slots; returns the finished requests."""
-        tokens = torch.from_numpy(self.next_tokens).to(self.device).view(-1, 1)
-        positions = torch.from_numpy(self.slots.lengths).to(self.device)
-        nxt, logits = self._decode(self.ctl.params, tokens, positions)
+        tokens = torch.from_numpy(self.next_tokens).view(-1, 1)
+        positions = torch.from_numpy(self.slots.lengths)
+        nxt, logits = self._executable("decode")(tokens, positions)
         nxt = nxt.cpu().numpy()
         if self.econf.record_logits:
             logits = logits.cpu().numpy()

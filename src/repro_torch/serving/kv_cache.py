@@ -4,8 +4,10 @@
     tensor per layer: max_len rows a slot, or min(window, max_len) for a
     windowed layer's rotating buffer. Decode reads it through the
     paged-attention kernel: ``page_tables`` gives each layer identity block
-    tables of Sc / PAGE_SIZE pages per slot (one table per cache length)
-    and seq_lens = min(position + 1, Sc), and
+    tables of Sc / page pages per slot (one table per cache length; the
+    page is ``page_for(Sc)``, the largest divisor of Sc up to PAGE_SIZE,
+    so any cache length is whole pages) and seq_lens = min(position + 1,
+    Sc), and
     ``models.attention.decode_attention`` views each layer's cache as those
     pages, which gives exactly the reference's dense masked decode attention
     (a wrapped window buffer is all valid; attention does not depend on the
@@ -28,7 +30,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import init_cache_defs
 from repro_torch.parallel.sharding import ExecConfig
 
-PAGE_SIZE = 16  # tokens per page of the paged view
+PAGE_SIZE = 16  # tokens per page of the paged view, at most
+
+
+def page_for(Sc: int) -> int:
+    """Tokens per page of a cache of Sc rows: the largest divisor of Sc
+    that is not above PAGE_SIZE (the kernel takes any page size)."""
+    return next(p for p in range(min(PAGE_SIZE, Sc), 0, -1) if Sc % p == 0)
 
 
 @dataclass
@@ -40,7 +48,7 @@ class SlotCache:
     layers: List[dict]  # per layer {"k", "v"}: (n_slots, Sc, KV, hd)
     lengths: np.ndarray  # host-side per-slot lengths
     free: Deque[int]
-    tables: Dict[int, torch.Tensor]  # Sc -> (n_slots, Sc / PAGE_SIZE) int32 identity block table
+    tables: Dict[int, torch.Tensor]  # Sc -> (n_slots, Sc / page_for(Sc)) int32 identity block table
 
     @classmethod
     def create(cls, cfg, ec, n_slots: int, max_len: int, dtype: torch.dtype, device) -> "SlotCache":
@@ -51,11 +59,8 @@ class SlotCache:
         tables = {}
         for layer in layers:
             Sc = layer["k"].shape[1]
-            if Sc % PAGE_SIZE:
-                raise ValueError(f"{cfg.name}: a cache of {Sc} rows (max_len {max_len}, or a window) is not a "
-                                 f"multiple of the page size {PAGE_SIZE}")
             if Sc not in tables:
-                n_pages = Sc // PAGE_SIZE
+                n_pages = Sc // page_for(Sc)
                 tables[Sc] = torch.arange(n_slots * n_pages, dtype=torch.int32, device=device).view(n_slots, n_pages)
         return cls(cfg, ec, n_slots, max_len, layers, np.zeros(n_slots, np.int64), deque(range(n_slots)), tables)
 

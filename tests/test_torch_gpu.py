@@ -5,6 +5,8 @@ machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -13,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import AttnSpec, ModelConfig  # noqa: E402
 from repro_torch.core.migration import migrate_pages  # noqa: E402
+from repro_torch.core.tp_switch import SwitchAborted  # noqa: E402
 from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter  # noqa: E402
 from repro_torch.kernels.kv_gather.ref import kv_gather_ref, kv_scatter_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention  # noqa: E402
@@ -474,3 +477,138 @@ def test_migrate_pages_on_card_keeps_attention_bitwise(cuda):
         a = paged_decode_attention(q, dst.k_pages[layer], dst.v_pages[layer], t_dst, lens_t)
         b = paged_decode_attention(q, src.k_pages[layer], src.v_pages[layer], t_src, lens_t)
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,KV,G,hd,cap,lens", [
+    (torch.float32, 8, 4, 80, None, [4096] * 7 + [4000]), (torch.float32, 4, 2, 256, 50.0, [4096] * 7 + [4000]),
+    (torch.float32, 2, 4, 80, 50.0, [1, 63, 64, 65, 128, 129, 191, 192]),
+    (torch.float32, 2, 64, 256, None, [1, 63, 64, 65, 128, 129, 191, 192]),
+], ids=["danube_full", "gemma2_full", "hd80_boundaries", "hd256_boundaries"])
+def test_paged_split_kernel_repeats_bit_for_bit(cuda, dtype, KV, G, hd, cap, lens):
+    """50 calls on the same inputs give the same bits (a race would show as
+    calls that differ), and they equal the plain split version within its
+    5e-6."""
+    n_pages = -(-max(lens) // 16)
+    args = _paged_case(cuda, dtype, lens, KV, G, hd, 16, n_pages, seed=hd + G)
+    first = paged_decode_attention(*args, softcap=cap)
+    for _ in range(49):
+        assert torch.equal(paged_decode_attention(*args, softcap=cap), first)
+    _assert_paged_close(first, paged_decode_attention_split_ref(*args, softcap=cap), _TOL_SPLIT_F32)
+
+
+# ---------------------------------------------------------------------------
+# The engine's CUDA graphs, one per (TP level, stage, bucket), against the
+# eager step functions they capture: full width, 2 layers (gemma2-2b: one
+# local, one global), f32
+# ---------------------------------------------------------------------------
+_GRAPH_TPS = {"llama3-8b": (1, 2, 4, 8), "gemma2-2b": (1, 2, 4), "h2o-danube-1.8b": (1, 2, 4, 8)}
+_GRAPH_ENGINES = {}
+
+
+@pytest.fixture
+def graph_engine(cuda):
+    def get(name):
+        if name not in _GRAPH_ENGINES:
+            _GRAPH_ENGINES.clear()
+            cfg = dataclasses.replace(get_config(name), num_layers=2)
+            params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)),
+                                 torch.Generator(device=cuda).manual_seed(0))
+            windowed = cfg.attn.window is not None
+            econf = EngineConfig(candidate_tps=_GRAPH_TPS[name], n_slots=8, max_len=4224 if windowed else 256,
+                                 prefill_buckets=(32, 128, 4160) if windowed else (32, 64, 128))
+            eng = ServingEngine(cfg, params, econf, device=cuda)
+            eng.warmup()
+            _GRAPH_ENGINES[name] = (cfg, eng)
+        return _GRAPH_ENGINES[name]
+
+    yield get
+    torch.cuda.synchronize()
+
+
+def _replay_against_eager(eng, eager, exe, host_args):
+    """Run ``eager`` on the device copies of host_args and ``exe`` (a
+    replay) on host_args, each from the same KV cache: their outputs, the
+    caches they leave, and the launches of each kernel each added."""
+    layers = eng.slots.layers
+    start = [{k: t.clone() for k, t in c.items()} for c in layers]
+    runs = []
+    for fn, args in ((eager, [a.to(eng.device) for a in host_args]), (exe, host_args)):
+        for c, s0 in zip(layers, start):
+            for k in c:
+                c[k].copy_(s0[k])
+        before = (tp_shard_matmul.launches, paged_decode_attention.launches)
+        out = [t.clone() for t in fn(*args)]
+        torch.cuda.synchronize()
+        runs.append((out, [{k: t.clone() for k, t in c.items()} for c in layers],
+                     (tp_shard_matmul.launches - before[0], paged_decode_attention.launches - before[1])))
+    return runs
+
+
+def _same_caches(a, b):
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+@pytest.mark.parametrize("name,tp", [(n, tp) for n, tps in _GRAPH_TPS.items() for tp in tps])
+def test_graph_replays_equal_the_eager_steps(graph_engine, name, tp):
+    """At each TP level: the decode graph's replay equals the eager
+    ``_decode`` bit for bit (next tokens, f32 logits, the K/V it writes),
+    with the windowed models' slots past their 4096-token window (the
+    rotating buffer wrapped); the prefill graph of every bucket equals the
+    eager ``_prefill`` (next token, logits, the K/V inserted into the slot)
+    for a prompt shorter than its bucket. Each replay adds the launches of
+    the eager call to the kernels' counts."""
+    cfg, eng = graph_engine(name)
+    eng.switch_tp(tp)
+    params = eng.ctl.bindings[tp]
+    g = torch.Generator(device=eng.device).manual_seed(tp)
+    for c in eng.slots.layers:
+        for t in c.values():
+            t.normal_(generator=g)
+    rng = np.random.RandomState(tp)
+    n, max_len = eng.econf.n_slots, eng.econf.max_len
+    pos = [max_len - 1, 4100, 4095, 17, 0, 4096, 300, 64] if max_len > 4096 else [255, 0, 17, 64, 100, 128, 200, 3]
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(n, 1)))
+    (want, want_cache, want_n), (got, got_cache, got_n) = _replay_against_eager(
+        eng, lambda t, p: eng._decode(params, t, p), eng.cache.get(tp, "decode"), (tokens, torch.tensor(pos)))
+    assert all(torch.equal(a, b) for a, b in zip(want, got)), "decode: replay != eager"
+    assert _same_caches(want_cache, got_cache) and got_n == want_n and got_n[1] == cfg.num_layers
+    for L in eng.econf.prefill_buckets:
+        prompt = torch.zeros((1, L), dtype=torch.int64)
+        prompt[0, : L - 3] = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=L - 3))
+        args = (prompt, torch.tensor([L - 4]), torch.tensor([(tp + L) % n]))
+        (want, want_cache, want_n), (got, got_cache, got_n) = _replay_against_eager(
+            eng, lambda *a: eng._prefill(params, *a), eng.cache.get(tp, L), args)
+        assert all(torch.equal(a, b) for a, b in zip(want, got)), f"prefill {L}: replay != eager"
+        assert _same_caches(want_cache, got_cache) and got_n == want_n and got_n[0] > 0, L
+
+
+def test_graph_capture_refuses_to_allocate_scratch(cuda):
+    """A call captured on a stream that has no scratch yet raises instead of
+    allocating a workspace inside the graph."""
+    x = torch.randn(8, 4096, device=cuda).to(torch.bfloat16)
+    w = torch.randn(4096, 1024, device=cuda).to(torch.bfloat16)
+    tp_shard_matmul(x, w, 0, n_out=1024)  # built, and scratch for the default stream
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with pytest.raises(RuntimeError, match="before a CUDA graph capture"):
+        with torch.cuda.graph(graph, stream=stream):
+            tp_shard_matmul(x, w, 0, n_out=1024)
+
+
+def test_switch_refuses_a_cache_moved_under_graphs(cuda, monkeypatch):
+    """A migration that hands back new KV storage while graphs read the old
+    one rolls the switch back."""
+    import repro_torch.serving.engine as engine_mod
+
+    cfg = ModelConfig(name="tiny-serve", family="dense", num_layers=2, d_model=64, num_heads=8,
+                      num_kv_heads=8, head_dim=16, d_ff=128, vocab_size=256, attn=AttnSpec(kind="full"))
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator().manual_seed(0))
+    eng = ServingEngine(cfg, params, EngineConfig(candidate_tps=(1, 2), n_slots=4, max_len=64, prefill_buckets=(16,)),
+                        device=cuda)
+    eng.warmup()
+    assert eng.cache.graphs() == 4 and eng.cache.tps() == [1, 2]
+    eng.switch_tp(2)  # the cache stays where it is
+    monkeypatch.setattr(engine_mod, "migrate_cache",
+                        lambda cache, device: ([{k: t.clone() for k, t in c.items()} for c in cache], 0.0))
+    with pytest.raises(SwitchAborted):
+        eng.switch_tp(1)
+    assert eng.tp == 2

@@ -270,7 +270,9 @@ def test_engine_padded_bucket_keeps_the_reference_behaviour(served):
 def test_slot_cache_per_layer_tables():
     """gemma2's alternating layers: local caches min(window, max_len) rows,
     global max_len, one identity table per length, seq_lens clamped per
-    layer; a window that is not a whole number of pages is refused."""
+    layer; a cache length that is not a multiple of PAGE_SIZE takes pages
+    of its largest divisor up to PAGE_SIZE (window 20 and max_len 100:
+    pages of 10; a prime length: pages of 1)."""
     from dataclasses import replace
 
     cfg = reduced(get_config("gemma2-2b"))
@@ -281,8 +283,11 @@ def test_slot_cache_per_layer_tables():
     assert [t.shape for t in tables] == [(3, 16 // PAGE_SIZE), (3, 48 // PAGE_SIZE)]
     assert [x.tolist() for x in lens] == [[4, 16, 16], [4, 21, 48]]
     assert tables[0] is slots.tables[16] and tables[1] is slots.tables[48]
-    with pytest.raises(ValueError, match="page size"):
-        SlotCache.create(replace(cfg, attn=replace(cfg.attn, window=20)), ec, 2, 48, torch.float32, CPU)
+    odd = SlotCache.create(replace(cfg, attn=replace(cfg.attn, window=20)), ec, 2, 100, torch.float32, CPU)
+    assert [c["k"].shape[1] for c in odd.layers] == [20, 100]
+    assert [tuple(odd.tables[n].shape) for n in (20, 100)] == [(2, 2), (2, 10)]
+    prime = SlotCache.create(cfg, ec, 2, 97, torch.float32, CPU)
+    assert tuple(prime.tables[97].shape) == (2, 97) and tuple(prime.tables[16].shape) == (2, 1)
 
 
 @pytest.mark.parametrize("S,window,block", [(64, None, 8), (64, 16, 8), (60, 16, 8), (48, 20, 16), (32, 64, 8)])
