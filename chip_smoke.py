@@ -2,23 +2,24 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py [--layers N] [--skip-timed]
-    python3 chip_smoke.py --timings-of build/parent/src   # host cost, attention timings, phase 5 and phase 6's bf16 timings, of another tree
+    python3 chip_smoke.py --timings-of build/parent/src   # host cost, f32 decode matmul, attention, bf16 engine timings and f32 step profiles of another tree
 
 Phases; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit, then every CUDA
      kernel (tp_shard_matmul, paged_attention, kv_gather) built from
      src/repro_torch/csrc with nvcc for sm_90a, one nvcc per source;
   2. kernels against their plain PyTorch versions on the card: the shape
-     sweeps of the tests, the presliced bit-identity (in bf16 also with
-     misaligned storage, the producer warp's loads against TMA), NaN around
-     a shard kept out of the output, repeated calls bitwise equal, every
-     llama3-8b projection at each rank's offset for TP 1/2/4/8 at decode
-     and prefill widths, decode attention at the engine's shape, and
-     kv_gather / kv_scatter bit for bit (sweeps, a llama3-8b page row,
-     round trip in place, both misaligned cases); one bf16 matmul call and
-     one attention call (rows of 1 to 4 splits) each launching one kernel
-     under torch.profiler; matmul timed at the decode shapes, the prefill
-     buckets and TP 8's shards, and attention at the decode shape and over
+     sweeps of the tests, the presliced bit-identity (f32 and bf16, also
+     with misaligned storage: the producer warp's own loads against TMA),
+     NaN around a shard kept out of the output, repeated calls bitwise
+     equal, every llama3-8b projection at each rank's offset for TP 1/2/4/8
+     at decode and prefill widths, decode attention at the engine's shape,
+     and kv_gather / kv_scatter bit for bit (sweeps, a llama3-8b page row,
+     round trip in place, both misaligned cases); a decode matmul call (f32
+     and bf16, col and row, split-K shapes) and one attention call (rows of
+     1 to 4 splits) each launching one kernel under torch.profiler; matmul
+     timed in f32 and bf16 at the decode shapes, the prefill buckets and
+     TP 8's shards, and attention at the decode shape and over
      16 x 2048 tokens of a fragmented pool, beside their bound, their plain
      version and one PyTorch library call; attention timed with every row
      at one length, 1 and 32 to 256 (fixed cost, cost per token); the
@@ -31,16 +32,19 @@ Phases; any failure raises and the script exits non-zero:
      embedding for each rank's vocab rows at TP 1/2/4, bit-identical to the
      pre-sliced rows, also from misaligned storage; one kernel per call of
      each under torch.profiler; attention timed at each model's engine
-     shape and full window against SDPA, the tied head against
-     torch.matmul(x, w.t());
+     shape and full window against SDPA, the tied head (whole, TP 2 and 4
+     ranks) against torch.matmul(x, w.t());
   3. paged KV migration at llama3-8b's page geometry: a bf16 PagedPool
      fragmented by interleaved growth (16 sequences of 256 and of 2048
      tokens, 0.537 and 4.295 GB) moved by migrate_pages into a fresh pool;
      pages and decode attention over every layer must be bit-identical
      before and after; kv_gather / kv_scatter timed per launch beside
-     their bound, plain version and library call (kv_gather also against
-     index_select in turns at 0.537 GB); migrate_pages timed; and Fig. 7's
-     pair: one copy per page against the aggregated gathers;
+     their bound, plain version and library call; kv_gather against
+     index_select in turns at both payloads, like for like (host ids: the
+     wrapper against index_select with the ids copied in the call; device
+     ids: the wrapper's launch against index_select), and the host us per
+     call of each; migrate_pages timed; and Fig. 7's pair at 0.537 GB: one
+     copy per page against the aggregated gathers;
   4. the serving engine at llama3-8b width in f32 (check_engine at full
      width), which replays one CUDA graph per (TP level, stage, bucket)
      captured at warm-up: 10 requests served at fixed TP 1 and under a TP
@@ -49,8 +53,10 @@ Phases; any failure raises and the script exits non-zero:
      equal the replays times the launches each graph holds) and rebind
      without moving a weight; then every graph against the eager step it
      captured, decode at every TP level and prefill at every (TP, bucket),
-     bit for bit (tokens, f32 logits, KV cache); plus a tiny model served
-     on the card against the same model on the CPU;
+     bit for bit (tokens, f32 logits, KV cache); the matmul's launches by
+     stage (decode and prefill graphs); the f32 decode step at TP 1 and 8
+     under torch.profiler (device ms, the matmul's share); plus a tiny
+     model served on the card against the same model on the CPU;
   5. the engine in bf16, timed on the host clock with repeats (median and
      spread): TTFT per bucket, decode step per TP level, tokens/s, the
      switch's binding lookup, the bind per TP level made at install, and
@@ -69,7 +75,8 @@ Phases; any failure raises and the script exits non-zero:
      TP 1 and under a switch schedule over TP 1/2/4 (gemma2) or 1/2/4/8
      (danube): identical trajectories, both kernels launched, no weight
      moved by a rebind, every launch by a graph replay, and every graph
-     equal to its eager step; then in bf16 TTFT at buckets 128 and 4096,
+     equal to its eager step; the f32 decode step profiled at TP 1 and the
+     largest TP as in phase 4; then in bf16 TTFT at buckets 128 and 4096,
      the decode step per TP level, capture, replay times and memory as in
      phase 5, and one torch.profiler pass. Each model is freed before the
      next.
@@ -179,20 +186,28 @@ def profiled(torch, fn):
 
 def kernels_in_one_call(torch, fn):
     """{kernel name: count} of one call under torch.profiler (after one
-    untraced call), or None when the profiler sees no device time."""
+    untraced call), or None when the profiler sees no device time in any of
+    three sessions (a session on the card has come back empty after a run
+    of earlier ones)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = {e.key[:60]: e.count for e in prof.key_averages()
-               if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
-    return kernels or None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key[:60]: e.count for e in prof.key_averages()
+                   if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
+        if kernels:
+            return kernels
+    return None
 
 
-PORT_KERNELS = ("wgmma_mm", "skinny_mm", "skinny_t_mm", "tiled_mm", "splitk_reduce", "paged_decode")
+# by substring of the kernel's name; "skinny" also takes an earlier tree's
+# skinny_t_mm under --timings-of
+MATMUL_KERNELS = ("wgmma_mm", "skinny", "tiled_mm", "splitk_reduce")
+PORT_KERNELS = MATMUL_KERNELS + ("paged_decode",)
 
 
 def kernel_ms(ev, n):
@@ -256,47 +271,55 @@ def check_matmul_sweeps(torch, dev, log):
                 row = tp_shard_matmul(x[:, :n].contiguous(), wr, s * n, n_out=1024, mode="row")
                 check(torch.equal(row, tp_shard_matmul(x[:, :n].contiguous(), wr[s * n:(s + 1) * n].contiguous(), 0,
                                                        n_out=1024, mode="row")), f"presliced row tp={tp} shard={s}")
-    # bf16 again with the storage 2 bytes past a 16-byte boundary: in place
-    # the producer warp loads the tiles, the pre-sliced copy goes through TMA
-    bf = torch.bfloat16
-    x = torch.randn(8, 4096, generator=g, device=dev).to(bf)
-    buf = torch.randn(4096 * 4096 + 1, generator=g, device=dev).to(bf)
-    for mode in ("col", "row"):
-        w = buf[1:].view(4096, 4096) if mode == "col" else buf[1:1 + 4096 * 1024].view(4096, 1024)
-        check(w.data_ptr() % 16 == 2, "misaligned storage")
-        for tp in (1, 2, 4, 8):
-            n = 4096 // tp
-            for s in range(tp):
-                if mode == "col":
-                    got = tp_shard_matmul(x, w, s * n, n_out=n, mode="col")
-                    want = tp_shard_matmul(x, w[:, s * n:(s + 1) * n].contiguous(), 0, n_out=n, mode="col")
-                else:
-                    xs = x[:, :n].contiguous()
-                    got = tp_shard_matmul(xs, w, s * n, n_out=1024, mode="row")
-                    want = tp_shard_matmul(xs, w[s * n:(s + 1) * n].contiguous(), 0, n_out=1024, mode="row")
-                check(torch.equal(got, want), f"presliced {mode} tp={tp} shard={s} bf16, misaligned storage")
+    # again with the storage one element past a 16-byte boundary (bf16 2
+    # bytes, f32 4): in place the producer warp loads the tiles itself (bf16
+    # with plain loads, f32 with 4-byte cp.async), the pre-sliced copy goes
+    # through TMA
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, 4096, generator=g, device=dev).to(dtype)
+        buf = torch.randn(4096 * 4096 + 1, generator=g, device=dev).to(dtype)
+        for mode in ("col", "row"):
+            w = buf[1:].view(4096, 4096) if mode == "col" else buf[1:1 + 4096 * 1024].view(4096, 1024)
+            check(w.data_ptr() % 16 == w.element_size(), "misaligned storage")
+            for tp in (1, 2, 4, 8):
+                n = 4096 // tp
+                for s in range(tp):
+                    if mode == "col":
+                        got = tp_shard_matmul(x, w, s * n, n_out=n, mode="col")
+                        want = tp_shard_matmul(x, w[:, s * n:(s + 1) * n].contiguous(), 0, n_out=n, mode="col")
+                    else:
+                        xs = x[:, :n].contiguous()
+                        got = tp_shard_matmul(xs, w, s * n, n_out=1024, mode="row")
+                        want = tp_shard_matmul(xs, w[s * n:(s + 1) * n].contiguous(), 0, n_out=1024, mode="row")
+                    check(torch.equal(got, want), f"presliced {mode} tp={tp} shard={s} {dtype}, misaligned storage")
+        del x, buf
     # NaN around the shard never reaches the output; two calls agree bit for bit
     n_poison = 0
-    for mode, m, k, store, n_out, off in (("col", 8, 4096, 14336, 1792, 3 * 1792), ("row", 8, 1792, 14336, 4096, 5 * 1792),
-                                          ("col", 3, 96, 210, 70, 70), ("row", 33, 100, 300, 70, 200),
-                                          ("col", 128, 4096, 4096, 512, 1024), ("row", 100, 1000, 3000, 516, 1000)):
-        x = torch.randn(m, k, generator=g, device=dev).to(bf)
-        w = (torch.randn(*((k, store) if mode == "col" else (store, n_out)), generator=g, device=dev) / math.sqrt(k)).to(bf)
-        if mode == "col":
-            w[:, :off] = w[:, off + n_out:] = float("nan")
-        else:
-            w[:off] = w[off + k:] = float("nan")
-        got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
-        want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
-        err = (got.float() - want.float()).abs().max().item()
-        check(bool(torch.isfinite(got).all()) and err <= 1e-2 * want.float().abs().max().item(),
-              f"NaN past the {mode} shard (M={m}, K={k}, N={n_out}): finite {bool(torch.isfinite(got).all())}, err {err}")
-        check(torch.equal(tp_shard_matmul(x, w, off, n_out=n_out, mode=mode), got), f"repeat bitwise {mode} M={m}")
-        n_poison += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode, m, k, store, n_out, off in (("col", 8, 4096, 14336, 1792, 3 * 1792),
+                                              ("row", 8, 1792, 14336, 4096, 5 * 1792),
+                                              ("col", 3, 96, 210, 70, 70), ("row", 33, 100, 300, 70, 200),
+                                              ("col", 128, 4096, 4096, 512, 1024), ("row", 100, 1000, 3000, 516, 1000)):
+            x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+            w = (torch.randn(*((k, store) if mode == "col" else (store, n_out)), generator=g, device=dev)
+                 / math.sqrt(k)).to(dtype)
+            if mode == "col":
+                w[:, :off] = w[:, off + n_out:] = float("nan")
+            else:
+                w[:off] = w[off + k:] = float("nan")
+            got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+            want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            check(bool(torch.isfinite(got).all()) and err <= tol * want.float().abs().max().item(),
+                  f"NaN past the {mode} shard ({dtype}, M={m}, K={k}, N={n_out}): finite "
+                  f"{bool(torch.isfinite(got).all())}, err {err}")
+            check(torch.equal(tp_shard_matmul(x, w, off, n_out=n_out, mode=mode), got), f"repeat bitwise {mode} M={m}")
+            n_poison += 1
     log(f"tp_shard_matmul: sweeps (exact inputs) max |err| {worst:.3g} (tol f32 2e-5, bf16 2e-2); "
-        f"presliced bit-identity holds at tp 1/2/4/8, col and row, f32 and bf16, and in bf16 with misaligned "
-        f"storage (producer-warp loads in place vs TMA pre-sliced); NaN around the shard stays out and a "
-        f"second call is bitwise equal in {n_poison} bf16 cases")
+        f"presliced bit-identity holds at tp 1/2/4/8, col and row, f32 and bf16, also with misaligned "
+        f"storage (the producer warp's own loads in place vs TMA pre-sliced); NaN around the shard stays out and a "
+        f"second call is bitwise equal in {n_poison} cases (f32 and bf16)")
     return worst
 
 
@@ -373,12 +396,14 @@ def check_matmul_main_shapes(torch, dev, cfg, log):
     return {"cases": n_cases, "worst_err_over_max_plain": worst}
 
 
-def measure_matmul(torch, dev, cfg, flush, log):
-    """The projections of llama3-8b as the main path runs them: at TP 1 at
-    decode (M = 8 slots) in bf16 and f32, and in bf16 at the prefill buckets
-    (M = 32/64/128) and at decode on a TP 8 rank's shard (rank 1's offset
-    into the full storage). Kernel vs plain vs torch.matmul on the
-    pre-sliced shard; the bound counts the shard's bytes."""
+def measure_matmul(torch, dev, cfg, flush, log, f32_decode_only=False):
+    """The projections of llama3-8b as the main path runs them, bf16 and
+    f32: at TP 1 at decode (M = 8 slots) and at the prefill buckets (M =
+    32/64/128), and at decode on a TP 8 rank's shard (rank 1's offset into
+    the full storage); f32_decode_only: the f32 decode rows alone. Kernel vs
+    plain vs torch.matmul on the pre-sliced shard (TF32 off); the bound
+    counts the shard's bytes. The f32 decode rows also take
+    f32_decode_extras."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
 
@@ -386,10 +411,12 @@ def measure_matmul(torch, dev, cfg, flush, log):
     shapes = [("wq/wo col", "col", d, d), ("wk/wv col", "col", d, cfg.num_kv_heads * hd), ("w_gate/w_in col", "col", d, ff),
               ("w_out row", "row", ff, d), ("lm_head col f32-out", "col", d, cfg.vocab_padded)]
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(s, 8, dt, 1) for dt in (bf, f32) for s in shapes]
-    cases += [(s, m, bf, 1) for m in (32, 64, 128) for s in shapes]
-    cases += [(s, 8, bf, 8) for s in shapes]
+    dtypes = (f32,) if f32_decode_only else (bf, f32)
+    cases = [(s, 8, dt, tp) for tp in (1, 8) for dt in dtypes for s in shapes]
+    if not f32_decode_only:
+        cases += [(s, m, dt, 1) for dt in dtypes for m in (32, 64, 128) for s in shapes]
     g = torch.Generator(device=dev).manual_seed(3)
+    clean = ReadFlush(torch, dev)
     rows = []
     for (name, mode, k_store, n_store), m, dtype, tp in cases:
         dname = str(dtype).split(".")[1]
@@ -421,18 +448,50 @@ def measure_matmul(torch, dev, cfg, flush, log):
             "library_ms": time_ms(torch, lambda: torch.matmul(x, sliced), flush=flush),
             "bound_ms": b_ms, "bound_by": b_by,
         }
+        if dtype == f32 and m == 8:
+            row.update(f32_decode_extras(torch, run, lambda: torch.matmul(x, sliced), clean))
         rows.append(row)
         log(f"  {shape}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of it), "
-            f"plain {row['plain_ms']:.4f}, torch.matmul {row['library_ms']:.4f}, err {err:.3g} (tol {row['tol']})")
+            f"plain {row['plain_ms']:.4f}, torch.matmul {row['library_ms']:.4f}, err {err:.3g} (tol {row['tol']})"
+            + (f"; read-only flush {row['ms_clean_l2']:.4f} (torch.matmul {row['library_ms_clean_l2']:.4f}), "
+               f"profiler {row['profiler_ms']}" if "ms_clean_l2" in row else ""))
         del w, sliced, x
     return rows
 
 
+def f32_decode_extras(torch, run, lib, clean):
+    """An f32 decode row's times after the read-only flush ``clean`` (kernel
+    and library call: no dirty lines to write back inside the call) and the
+    kernel's own device ms in one profiled call (the event window adds the
+    launch; None when the profiler sees no device time)."""
+    ev, _ = profiled(torch, run)
+    dev_us = sum(t for _, t in ev)
+    return {"ms_clean_l2": time_ms(torch, run, flush=clean), "library_ms_clean_l2": time_ms(torch, lib, flush=clean),
+            "profiler_ms": dev_us / 1e3 if dev_us else None}
+
+
+def host_us(torch, fn, n_calls):
+    """Host time of one call of fn, in us: n_calls calls queued back to back
+    behind a spin that keeps the card busy, so the host never waits for the
+    card; the wall time of the loop over n_calls, 5 loops (median, min, max)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of spin: the queue never drains while the host enqueues the calls
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn()
+        walls.append((time.perf_counter() - t0) / n_calls * 1e6)
+        torch.cuda.synchronize()
+    walls.sort()
+    return {"median": walls[2], "min": walls[0], "max": walls[4], "n": 5}
+
+
 def host_us_per_call(torch, dev, cfg, log, tp_shard_matmul, n_calls=400):
-    """Host time of one wrapper call, in us: n_calls calls queued back to
-    back behind a spin that keeps the card busy, so the host never waits
-    for the card; the wall time of the loop over n_calls. At TP 8 decode
-    shapes (bf16 and f32): the shapes whose device time is shortest."""
+    """Host time of one wrapper call (host_us) at TP 8 decode shapes (bf16
+    and f32): the shapes whose device time is shortest."""
     d, hd = cfg.d_model, cfg.head_dim
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -440,45 +499,36 @@ def host_us_per_call(torch, dev, cfg, log, tp_shard_matmul, n_calls=400):
                                           ("w_gate TP 8 shard", "col", d, cfg.d_ff, cfg.d_ff // 8)):
             w = torch.randn(k, n_store, device=dev).to(dtype)
             x = torch.randn(8, k, device=dev).to(dtype)
-            for _ in range(20):
-                tp_shard_matmul(x, w, n, n_out=n, mode="col")
-            torch.cuda.synchronize()
-            walls = []
-            for _ in range(5):
-                torch.cuda._sleep(200_000_000)  # ~0.1 s of spin: the queue never drains while the host enqueues the calls
-                t0 = time.perf_counter()
-                for _ in range(n_calls):
-                    tp_shard_matmul(x, w, n, n_out=n, mode="col")
-                walls.append((time.perf_counter() - t0) / n_calls * 1e6)
-                torch.cuda.synchronize()
-            walls.sort()
             key = f"{name} {str(dtype).split('.')[1]} M=8"
-            out[key] = {"median": walls[2], "min": walls[0], "max": walls[4], "n": 5}
-            log(f"  host us per tp_shard_matmul call, {key}: {walls[2]:.2f} (min {walls[0]:.2f}, max {walls[4]:.2f}, "
+            out[key] = r = host_us(torch, lambda: tp_shard_matmul(x, w, n, n_out=n, mode="col"), n_calls)
+            log(f"  host us per tp_shard_matmul call, {key}: {r['median']:.2f} (min {r['min']:.2f}, max {r['max']:.2f}, "
                 f"5 loops of {n_calls})")
             del w, x
     return out
 
 
 def check_one_launch(torch, dev, log):
-    """Under torch.profiler, one bf16 call at a split-K shape launches one
-    kernel and no splitk_reduce; the f32 call at the same shape launches its
-    kernel and the reduce. None when the profiler sees no device time."""
+    """Under torch.profiler, one decode call (M = 8) at split-K shapes, bf16
+    and f32, launches one kernel and no splitk_reduce: w_gate and wk/wv
+    (col) and w_out (row). None when the profiler sees no device time."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 
     seen = {}
     for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn(8, 4096, device=dev).to(dtype)
-        w = torch.randn(4096, 14336, device=dev).to(dtype)
-        seen[str(dtype).split(".")[1]] = kernels_in_one_call(torch, lambda: tp_shard_matmul(x, w, 0, n_out=14336, mode="col"))
-        del x, w
-    if not seen["float32"]:
+        for name, mode, k, n in (("w_gate col", "col", 4096, 14336), ("wk/wv col", "col", 4096, 1024),
+                                 ("w_out row", "row", 14336, 4096)):
+            x = torch.randn(8, k, device=dev).to(dtype)
+            w = torch.randn(k, n, device=dev).to(dtype)
+            seen[f"{name} {str(dtype).split('.')[1]}"] = kernels_in_one_call(
+                torch, lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode))
+            del x, w
+    if any(v is None for v in seen.values()):
         log("tp_shard_matmul: launches per call not checked: the profiler saw no device time")
         return None
-    bf = seen["bfloat16"]
-    check(sum(bf.values()) == 1 and not any("splitk_reduce" in k for k in bf),
-          f"one bf16 tp_shard_matmul call launches one kernel, no splitk_reduce: {bf}")
-    log(f"tp_shard_matmul: one call at w_gate M=8 under torch.profiler launches bf16 {bf}; f32 {seen['float32']}")
+    for key, kernels in seen.items():
+        check(sum(kernels.values()) == 1 and not any("splitk_reduce" in k for k in kernels),
+              f"one {key} tp_shard_matmul call launches one kernel, no splitk_reduce: {kernels}")
+    log(f"tp_shard_matmul: one decode call under torch.profiler launches one kernel: {json.dumps(seen)}")
     return seen
 
 
@@ -820,17 +870,14 @@ def measure_windowed(torch, dev, flush, log):
     of phase 6's decode mix, 12 steps in, over the 4096-row window cache of
     a local or sliding layer) and over 8 full-window rows, f32 and bf16,
     against the kernel's bound, its plain version and SDPA over the dense
-    cache; and the tied head at decode (x (8, 2304) against gemma2's
-    256000 x 2304 embedding, f32 logits) against torch.matmul(x, w.t())."""
+    cache; and the tied head (measure_tied_head)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
-    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
 
-    att, heads = [], []
+    att = []
     engine_lens = [min(n + 12, 4096) for n in WINDOWED_PROMPTS[:8]]
     for name in WINDOWED:
         KV, G, hd, cap = attention_geometry(get_config(name))
@@ -859,15 +906,28 @@ def measure_windowed(torch, dev, flush, log):
                 log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of it), "
                     f"plain {row['plain_ms']:.4f}, SDPA (softcap not applied) {row['library_ms']:.4f}, err {err:.3g}")
                 del q, kc, vc, kp, vp, ks, vs
+    return att, measure_tied_head(torch, dev, flush, log)
+
+
+def measure_tied_head(torch, dev, flush, log, dtypes=None):
+    """The tied head at decode (x (8, 2304) against gemma2's 256000 x 2304
+    embedding, f32 logits), whole and rank 1's vocab rows at TP 2 and 4,
+    against torch.matmul(x, w.t()), bf16 and f32 (or ``dtypes``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+    heads = []
     cfg = get_config("gemma2-2b")
     V, d = cfg.vocab_padded, cfg.d_model
     g = torch.Generator(device=dev).manual_seed(12)
-    for dtype in (torch.bfloat16, torch.float32):
+    clean = ReadFlush(torch, dev)
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         w = (torch.randn(V, d, generator=g, device=dev) / math.sqrt(d)).to(dtype)
         x = torch.randn(8, d, generator=g, device=dev).to(dtype)
-        for tp in (1, 4):
-            n, off = V // tp, (V // tp if tp > 1 else 0)  # TP 4: rank 1's vocab rows
+        for tp in (1, 2, 4):
+            n, off = V // tp, (V // tp if tp > 1 else 0)  # rank 1's vocab rows
             sliced = w[off:off + n]
             run = lambda: tp_shard_matmul(x, w, off, n_out=n, mode="col_t", out_dtype=torch.float32)  # noqa: E731
             plain = lambda: tp_shard_matmul_ref(x, w, off, mode="col_t", n_out=n, out_dtype=torch.float32)  # noqa: E731
@@ -881,11 +941,13 @@ def measure_windowed(torch, dev, flush, log):
                    "ms": time_ms(torch, run, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
                    "library_ms": time_ms(torch, lambda: torch.matmul(x, sliced.t()).float(), flush=flush),
                    "bound_ms": b_ms, "bound_by": b_by}
+            if dtype == torch.float32:
+                row.update(f32_decode_extras(torch, run, lambda: torch.matmul(x, sliced.t()), clean))
             heads.append(row)
             log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of it), "
                 f"plain {row['plain_ms']:.4f}, torch.matmul(x, w.t()).float() {row['library_ms']:.4f}, err {err:.3g}")
         del w, x, sliced
-    return att, heads
+    return heads
 
 
 def check_kv_sweeps(torch, dev, cfg, log):
@@ -964,7 +1026,7 @@ def migration_phase(torch, dev, cfg, flush, log):
     import numpy as np
 
     from repro_torch.core.migration import kv_migration_bytes, migrate_pages
-    from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter
+    from repro_torch.kernels.kv_gather.ops import _gather, kv_gather, kv_scatter
     from repro_torch.kernels.kv_gather.ref import kv_gather_ref, kv_scatter_ref
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.serving.kv_cache import PagedPool
@@ -1043,15 +1105,28 @@ def migration_phase(torch, dev, cfg, flush, log):
                 f"{b_ms / row['ms']:.2f} of it), plain {row['plain_ms']:.4f}, "
                 f"{'index_select' if name == 'kv_gather' else 'index_copy_'} {row['library_ms']:.4f}")
         rec["kernels"] = rows
-        if ctx == 256:  # kv_gather against index_select in turns: kernel, library, library, kernel, twice
-            turns = {"kv_gather": [], "index_select": []}
-            for name in ("kv_gather", "index_select", "index_select", "kv_gather") * 2:
-                fn = (lambda: kv_gather(src_k, src_rows)) if name == "kv_gather" else (
-                    lambda: torch.index_select(src_k, 0, src_ids))
-                turns[name].append(time_ms(torch, fn, flush=flush, spin=spin))
-            rec["gather_in_turns_ms"] = turns
-            log(f"  kv_gather vs index_select in turns (K, L, L, K, twice), ms: {json.dumps(turns)}")
-        del staged
+        # kv_gather against index_select in turns (kernel, library, library,
+        # kernel, twice), like for like: the public wrapper with host ids
+        # (checked, copied to the card from pinned memory) against
+        # index_select with the ids copied to the card in the call (a
+        # blocking copy); the wrapper's launch with int32 ids already on the
+        # card against index_select with device ids
+        dev_ids = torch.from_numpy(src_rows.astype(np.int32)).to(dev)
+        pairs = {"host ids": (lambda: kv_gather(src_k, src_rows),
+                              lambda: torch.index_select(src_k, 0, torch.from_numpy(src_rows).to(dev))),
+                 "device ids": (lambda: _gather(src_k, dev_ids), lambda: torch.index_select(src_k, 0, src_ids))}
+        check(torch.equal(pairs["device ids"][0](), staged), f"kv_gather at ctx {ctx} from device ids")
+        rec["gather_in_turns_ms"] = {}
+        for label, (kern, lib) in pairs.items():
+            turns = {"kernel": [], "index_select": []}
+            for who in ("kernel", "index_select", "index_select", "kernel") * 2:
+                turns[who].append(time_ms(torch, kern if who == "kernel" else lib, flush=flush, spin=spin))
+            rec["gather_in_turns_ms"][label] = turns
+            log(f"  kv_gather vs index_select, {label}, in turns (K, L, L, K, twice), ms: {json.dumps(turns)}")
+        rec["gather_host_us_per_call"] = {label: host_us(torch, pairs[label][0], 100) for label in pairs}
+        log(f"  host us per call, kv_gather (host ids) and its launch (device ids): "
+            f"{json.dumps(rec['gather_host_us_per_call'])}")
+        del staged, dev_ids
 
         walls = []  # migrate_pages again into the same pool, its sequences released first
         for _ in range(3):
@@ -1208,15 +1283,93 @@ def replayed(*engines):
     return out
 
 
+def matmul_launches_by_stage(*engines):
+    """tp_shard_matmul launches the engines' graph replays made, by stage:
+    decode graphs (M = 8 slots: skinny_mm in f32) and prefill graphs (the
+    bucket's projections, M > 8, plus the last token's head, M = 1)."""
+    out = {"decode": 0, "prefill": 0}
+    for eng in engines:
+        for tp in eng.cache.tps():
+            for key in ("decode", *eng.econf.prefill_buckets):
+                if eng.cache.has(tp, key):
+                    exe = eng.cache.get(tp, key)
+                    n = sum(k for w, k in exe.launches if w.__name__ == "tp_shard_matmul")
+                    out["decode" if key == "decode" else "prefill"] += n * exe.replays
+    return out
+
+
+def f32_step_profile(torch, eng, requests):
+    """The engine's decode step with its slots busy with ``requests``: 3
+    steps under torch.profiler at TP 1 and at the largest TP, device ms per
+    step and the matmul kernels' ms and share of it; the slots are freed
+    after."""
+    for req in requests:
+        eng.admit(req)
+    out = {}
+    for tp in (eng.tps[0], eng.tps[-1]):
+        eng.switch_tp(tp)
+        prof = decode_profile(torch, eng)
+        if "kernel_ms_per_step" in prof:
+            mm = sum(prof["kernel_ms_per_step"][k] for k in MATMUL_KERNELS)
+            prof.update(matmul_ms_per_step=mm, matmul_share=mm / prof["device_ms_per_step"])
+        out[str(tp)] = prof
+    for slot, req in enumerate(eng.slot_req):
+        if req is not None:
+            eng.slot_req[slot] = None
+            eng.slots.release(slot)
+    eng.switch_tp(eng.tps[0])
+    return out
+
+
+def profile_requests(cfg):
+    """8 requests that keep the slots busy through a profile: phase 6's
+    first 8 for a windowed model, else 64-token prompts."""
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+
+    if cfg.name in WINDOWED:
+        return windowed_requests(cfg, base_id=500, new_tokens=10_000)[:8]
+    rng = np.random.RandomState(3)
+    return [Request(500 + i, "strict", rng.randint(0, cfg.vocab_size, size=64).astype(np.int32), 10_000)
+            for i in range(8)]
+
+
+def engine_conf(torch, cfg, dtype):
+    """The engine configuration phases 4-6 serve ``cfg`` with."""
+    from repro_torch.serving.engine import EngineConfig
+
+    if cfg.name in WINDOWED:
+        return EngineConfig(candidate_tps=WINDOWED_TPS[cfg.name], n_slots=8, max_len=4224,
+                            prefill_buckets=(32, 64, 128, 4096, 4160), dtype=dtype)
+    return EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128), dtype=dtype)
+
+
+def engine_f32_profiled(torch, dev, cfg, log):
+    """An f32 engine warmed up, then f32_step_profile (for --timings-of)."""
+    from repro_torch.models import init_params, model_param_defs
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.serving.engine import ServingEngine
+
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
+    eng = ServingEngine(cfg, params, engine_conf(torch, cfg, torch.float32), device=dev)
+    eng.warmup()
+    out = f32_step_profile(torch, eng, profile_requests(cfg))
+    log(f"engine {cfg.name} f32 decode under the profiler: {json.dumps(out)}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def engine_f32(torch, dev, cfg, log):
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models import init_params, model_param_defs
     from repro_torch.parallel.sharding import make_exec_config
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import ServingEngine
 
-    econf = EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128),
-                         dtype=torch.float32)
+    econf = engine_conf(torch, cfg, torch.float32)
     t0 = time.perf_counter()
     params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -1244,20 +1397,25 @@ def engine_f32(torch, dev, cfg, log):
     check(eng_b.stats.switches == 4, f"4 switches, got {eng_b.stats.switches}")
     check(storage_ptrs(eng_b) == ptrs, "rebind kept every storage data_ptr")
     check(all(n > 0 for n in launches.values()), f"both kernels launched on the main path: {launches}")
+    by_stage = matmul_launches_by_stage(eng, eng_b)
     st = eng_b.stats
     graphs = graph_stats(eng)
     log(f"engine f32: warmup {warm:.1f} s ({graphs['graphs']} graphs, pool {graphs['pool_bytes']} bytes); fixed TP 1 "
         f"run {t_a:.1f} s, {eng.stats.steps} steps; switch run {t_b:.1f} s, {st.steps} steps, {st.switches} switches "
-        f"({schedule}); trajectories identical; launches {launches}, all by graph replays")
+        f"({schedule}); trajectories identical; launches {launches}, all by graph replays; tp_shard_matmul's by "
+        f"stage {by_stage}")
     log(f"engine f32: first request's tokens {base[0]}")
     del eng
     n_graphs = graphs_vs_eager(torch, eng_b, log)
+    profile = f32_step_profile(torch, eng_b, profile_requests(cfg))
+    log(f"engine f32: decode under the profiler: {json.dumps(profile)}")
     del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a, "switch_run_s": t_b,
                       "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s,
-                      "graphs": graphs, "graphs_equal_to_eager": n_graphs}
+                      "graphs": graphs, "graphs_equal_to_eager": n_graphs, "matmul_launches_by_stage": by_stage,
+                      "profile": profile}
 
 
 def engine_tiny_vs_cpu(torch, dev, log):
@@ -1293,11 +1451,10 @@ def engine_bf16_timed(torch, dev, cfg, log):
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models import init_params, model_param_defs
     from repro_torch.parallel.sharding import make_exec_config
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
-    econf = EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128),
-                         dtype=torch.bfloat16)
+    econf = engine_conf(torch, cfg, torch.bfloat16)
     params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0),
                          torch.bfloat16)
     torch.cuda.synchronize()
@@ -1442,12 +1599,6 @@ WINDOWED_TPS = {"gemma2-2b": (1, 2, 4), "h2o-danube-1.8b": (1, 2, 4, 8)}
 WINDOWED_SCHEDULES = {"gemma2-2b": {3: 2, 7: 4, 13: 1, 19: 2}, "h2o-danube-1.8b": {3: 2, 7: 4, 13: 8, 19: 1}}
 
 
-def windowed_econf(torch, tps, dtype):
-    from repro_torch.serving.engine import EngineConfig
-
-    return EngineConfig(candidate_tps=tps, n_slots=8, max_len=4224, prefill_buckets=(32, 64, 128, 4096, 4160), dtype=dtype)
-
-
 def windowed_requests(cfg, base_id=0, new_tokens=24):
     import numpy as np
 
@@ -1473,7 +1624,7 @@ def engine_windowed_f32(torch, dev, cfg, log):
     from repro_torch.serving.engine import ServingEngine
 
     tps, schedule = WINDOWED_TPS[cfg.name], WINDOWED_SCHEDULES[cfg.name]
-    econf = windowed_econf(torch, tps, torch.float32)
+    econf = engine_conf(torch, cfg, torch.float32)
     t0 = time.perf_counter()
     params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -1494,6 +1645,7 @@ def engine_windowed_f32(torch, dev, cfg, log):
     eng = ServingEngine(cfg, params, econf, device=dev)
     sizes = sorted({layer["k"].shape[1] for layer in eng.slots.layers})
     done, t_a, n_a = counted_run(eng)
+    by_stage = matmul_launches_by_stage(eng)
     base = {r.req_id: list(r.generated) for r in done}
     graphs = graph_stats(eng)
     del eng
@@ -1503,6 +1655,7 @@ def engine_windowed_f32(torch, dev, cfg, log):
     ptrs = storage_ptrs(eng_b)
     done, t_b, n_b = counted_run(eng_b, switch_schedule=schedule)
     launches = {k: n_a[k] + n_b[k] for k in n_a}
+    by_stage = {k: n + matmul_launches_by_stage(eng_b)[k] for k, n in by_stage.items()}
     check(len(base) == 10 and len(done) == 10, "all 10 requests served")
     check(all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v) for v in base.values()), "24 valid tokens each")
     changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
@@ -1513,17 +1666,21 @@ def engine_windowed_f32(torch, dev, cfg, log):
     check(window in sizes and sum(w is not None for w in layer_windows(cfg)) > 0, f"window caches {sizes}")
     st = eng_b.stats
     log(f"engine {cfg.name} f32 (TP {tps}): fixed TP 1 run {t_a:.1f} s; switch run {t_b:.1f} s, {st.steps} steps, "
-        f"{st.switches} switches ({schedule}); cache rows per layer {sizes}; trajectories identical; launches {launches}")
+        f"{st.switches} switches ({schedule}); cache rows per layer {sizes}; trajectories identical; launches {launches}; "
+        f"tp_shard_matmul's by stage {by_stage}")
     log(f"engine {cfg.name} f32: tokens of the 4160- and 4090-token requests {base[0]} {base[3]}; graphs "
         f"{graphs['graphs']}, capture {graphs['capture_s_total']:.1f} s, pool {graphs['pool_bytes']} bytes; every "
         f"launch by a graph replay")
     n_graphs = graphs_vs_eager(torch, eng_b, log)
+    profile = f32_step_profile(torch, eng_b, profile_requests(cfg))
+    log(f"engine {cfg.name} f32: decode under the profiler: {json.dumps(profile)}")
     del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"tps": list(tps), "schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a,
                       "switch_run_s": t_b, "cache_rows": sizes, "rebind_s_total": st.rebind_s,
-                      "migrate_s_total": st.migrate_s, "graphs": graphs, "graphs_equal_to_eager": n_graphs}
+                      "migrate_s_total": st.migrate_s, "graphs": graphs, "graphs_equal_to_eager": n_graphs,
+                      "matmul_launches_by_stage": by_stage, "profile": profile}
 
 
 def engine_windowed_bf16_timed(torch, dev, cfg, log):
@@ -1549,7 +1706,7 @@ def engine_windowed_bf16_timed(torch, dev, cfg, log):
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(cfg, params, windowed_econf(torch, tps, torch.bfloat16), device=dev)
+    eng = ServingEngine(cfg, params, engine_conf(torch, cfg, torch.bfloat16), device=dev)
     warm = eng.warmup()
     rng = np.random.RandomState(2)
     out = {"warmup_s": warm, "graphs": graph_stats(eng), "ttft_ms": {}, "decode_step_ms": {}}
@@ -1620,10 +1777,11 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
     ap.add_argument("--skip-timed", action="store_true", help="leave out phase 5 and phase 6's bf16 timings")
     ap.add_argument("--timings-of", metavar="SRC", default=None,
-                    help="only take the host cost of tp_shard_matmul calls, the attention timings, and phase 5's "
-                         "and phase 6's bf16 engine timings and profiles, importing repro_torch from SRC (e.g. the "
-                         "src/ of an unpacked earlier commit, to compare two commits in one call); print them as "
-                         "one JSON line")
+                    help="only take the host cost of tp_shard_matmul calls, the f32 decode matmul and tied-head "
+                         "timings, the attention timings, phase 5's and phase 6's bf16 engine timings and profiles, "
+                         "and the f32 decode step's profile of llama3-8b and gemma2-2b, importing repro_torch from "
+                         "SRC (e.g. the src/ of an unpacked earlier commit, to compare two commits in one call); "
+                         "print them as one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -1633,6 +1791,8 @@ def main() -> int:
         return 1
     import dataclasses
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 oracle and library calls run in full f32
+    torch.backends.cudnn.allow_tf32 = False
     if args.timings_of is not None:
         sys.path.insert(0, str(Path(args.timings_of).resolve()))
     from repro_torch.configs import get_config
@@ -1646,6 +1806,8 @@ def main() -> int:
         print(card_line())
         us = host_us_per_call(torch, dev, cfg, print, tp_shard_matmul)
         flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        f32 = {"matmul": measure_matmul(torch, dev, cfg, flush, print, f32_decode_only=True),
+               "tied_head": measure_tied_head(torch, dev, flush, print, dtypes=(torch.float32,))}
         paged = {"breakdown_ms": paged_breakdown(torch, dev, cfg, flush, print, paged_decode_attention),
                  "long_context": measure_paged_long(torch, dev, cfg, flush, print, paged_decode_attention,
                                                     check_plain=False)}
@@ -1653,12 +1815,12 @@ def main() -> int:
         timed = {"engine_bf16": engine_bf16_timed(torch, dev, cfg, print)}
         for name in WINDOWED[::-1]:
             timed[name] = engine_windowed_bf16_timed(torch, dev, get_config(name), print)
-        print(json.dumps({"src": args.timings_of, "card": card_line(), "host_us_per_call": us,
+        f32["step_profile"] = {name: engine_f32_profiled(torch, dev, get_config(name), print)
+                               for name in ("llama3-8b", "gemma2-2b")}
+        print(json.dumps({"src": args.timings_of, "card": card_line(), "host_us_per_call": us, "f32": f32,
                           "paged_decode_attention": paged, **timed}))
         return 0
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 oracle runs in full f32
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     record = {}
 

@@ -77,23 +77,36 @@
 //  the next tile's loads, clusters with TMA multicast of x, fp8 weights.
 //
 // f32 (the full-depth trajectory check) stays on the FMA units, without
-// TF32 (its tolerance is 1e-5). Two block shapes, chosen from M:
-//  * M <= 8 (decode): a block of 8 warps covers 128 columns; each lane
-//    streams 4 contiguous weight columns with 16-byte loads, 4 rows in
-//    flight, and keeps all 8 rows' sums in registers; x for the block's K
-//    range is staged in shared memory; the 8 warps take interleaved rows of
-//    that range and add their sums in warp order through shared memory.
-//    col_t (skinny_t_mm): a warp per 4 output columns, whose weight rows
-//    are contiguous along K; each lane takes 4 consecutive K of each row
-//    with a 16-byte load every 128 K, reuses each x load (through the L1)
-//    for the 4 rows, keeps the 4 x 8 sums, and the warp adds its lanes by
-//    a butterfly of shuffles.
-//  * M > 8 (prefill): a plain 64x64 SIMT tile, 256 threads with 4x4
-//    register tiles, the next K step's loads issued before the current
-//    step's FMAs (col_t: consecutive threads load consecutive K).
-// Both split K over blocks when the grid is small and add the partial sums
-// in a second, fixed-order pass (splitk_reduce). Every f32 output is then
-// a sum in an order fixed by (M, N, K) alone, with the same properties.
+// TF32 (its tolerance is 1e-5). Two kernels, chosen from M:
+//  * M <= 8 (decode), skinny_mm<TA>: the bf16 path's shape with FMAs in
+//    place of wgmma. The weight's bytes bound it, so it keeps many of them
+//    in flight without passing through registers, and reduces split-K in
+//    the same launch: a producer warp keeps a ring of 6 stages in flight
+//    per block, two blocks per SM (~200 KiB per SM): each
+//    stage 32 K of 128 weight columns (col, row: a (32, 128) tile of
+//    W[k][n]; col_t: 128 weight rows x 32 K, K contiguous, 16 KiB either
+//    way) and x's 8 rows of those 32 K, by TMA with f32 tensor maps cut at
+//    the shard (cached per pointer, shape and stride, as for bf16), or,
+//    where a base or row stride is not 16-byte aligned, by 4-byte cp.async
+//    into the same tile layout, zeros past the edges, completing on the
+//    same mbarrier (cp.async.mbarrier.arrive.noinc). Four consumer warps
+//    run the FMAs from shared memory. col, row: a lane owns 4 columns and
+//    each warp a quarter of a stage's K; the warps' sums are added in warp
+//    order at the end. col_t: 8 lanes share a weight row, each 4 of a
+//    stage's 32 K, a lane holds 8 rows x 8 tokens, and the 8 lanes add
+//    their sums by a fixed butterfly of shuffles. Split-K is reduced in the
+//    same launch as for bf16 (partial tiles of 8 x 128, a ticket per tile,
+//    the last block adds splits 0..S-1 in order and resets the counter):
+//    S fills ~2 blocks per SM, each split at least 4 stages. The loader
+//    differs between TMA and cp.async, the arithmetic does not, so a shard
+//    read in place is bit-identical to the pre-sliced weight at any offset.
+//  * M > 8 (prefill), tiled_mm: a plain 64x64 SIMT tile, 256 threads with
+//    4x4 register tiles, the next K step's loads issued before the current
+//    step's FMAs (col_t: consecutive threads load consecutive K). It splits
+//    K over blocks when the grid is small and adds the partial sums in a
+//    second, fixed-order pass (splitk_reduce).
+// Every f32 output is a sum in an order fixed by (M, N, K) alone, so two
+// calls on the same inputs agree bit for bit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -119,168 +132,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __device__ __forceinline__ int dceil_div(int a, int b) { return (a + b - 1) / b; }
-// ---------------------------------------------------------------------------
-// f32, skinny path, M <= 8
-// ---------------------------------------------------------------------------
-constexpr int SK_M = 8, SK_WARPS = 8, SK_THREADS = SK_WARPS * 32, SK_ALIGN = 32;
-constexpr int SK_MAX_KS = 1024;  // rows of x staged in shared memory per block
-
-// A 16-byte vector of T, and how many rows each lane keeps in flight.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4, UNROLL = 4;
-  using U = float4;
-};
-
-__device__ __forceinline__ void unpack(const float4& u, float (&out)[4]) {
-  out[0] = u.x, out[1] = u.y, out[2] = u.z, out[3] = u.w;
-}
-
-// Element by element, zero past column N: the same values as a vector load.
-__device__ __forceinline__ float4 load_scalar(const float* row, int c, int N) {
-  float e[4];
-#pragma unroll
-  for (int v = 0; v < 4; ++v) e[v] = c + v < N ? row[c + v] : 0.f;
-  return make_float4(e[0], e[1], e[2], e[3]);
-}
-
-
-// VEC contiguous weight values of one row from column c: one 16-byte load
-// when aligned and in range, else element by element.
-template <typename T>
-__device__ __forceinline__ typename Vec<T>::U load_row(const T* __restrict__ row, int c, int N, bool vec_ok) {
-  using U = typename Vec<T>::U;
-  if (vec_ok && c + Vec<T>::N <= N) return __ldg(reinterpret_cast<const U*>(row + c));
-  return load_scalar(row, c, N);
-}
-
-template <typename T, typename O>
-__global__ void __launch_bounds__(SK_THREADS)
-skinny_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
-          float* __restrict__ part, int M, int N, int K, int64_t ldw, int KS, bool vec_ok) {
-  constexpr int V = Vec<T>::N, BN = 32 * V;
-  __shared__ __align__(16) float xs[SK_MAX_KS][SK_M];  // x[m][k0 + r], transposed
-  __shared__ float red[SK_M][BN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, c = n0 + lane * V;
-  const int k0 = blockIdx.y * KS, rows = min(KS, K - k0);
-
-#pragma unroll 8
-  for (int i = tid; i < rows * SK_M; i += SK_THREADS) {  // coalesced along k
-    const int m = i / rows, r = i % rows;
-    xs[r][m] = m < M ? to_f32(x[(int64_t)m * K + k0 + r]) : 0.f;
-  }
-  __syncthreads();
-
-  float acc[SK_M][V];
-#pragma unroll
-  for (int m = 0; m < SK_M; ++m)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[m][v] = 0.f;
-
-  // warp w takes rows w, w + 8, w + 16, ... of the block's range
-  constexpr int UNROLL = Vec<T>::UNROLL;
-  for (int r0 = warp; r0 < rows; r0 += SK_WARPS * UNROLL) {
-    typename Vec<T>::U wr[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u * SK_WARPS;
-      if (r < rows) wr[u] = load_row(w + (int64_t)(k0 + r) * ldw, c, N, vec_ok);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u * SK_WARPS;
-      if (r >= rows) break;
-      float wv[V];
-      unpack(wr[u], wv);
-      const float4 xa = *reinterpret_cast<const float4*>(&xs[r][0]);
-      const float4 xb = *reinterpret_cast<const float4*>(&xs[r][4]);
-      const float xr[SK_M] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-      for (int m = 0; m < SK_M; ++m)
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[m][v] = fmaf(xr[m], wv[v], acc[m][v]);
-    }
-  }
-
-  // add the warps' sums in warp order
-  for (int ww = 0; ww < SK_WARPS; ++ww) {
-    if (warp == ww) {
-#pragma unroll
-      for (int m = 0; m < SK_M; ++m)
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          red[m][lane * V + v] = ww == 0 ? acc[m][v] : red[m][lane * V + v] + acc[m][v];
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < M * BN; i += SK_THREADS) {
-    const int m = i / BN, n = n0 + i % BN;
-    if (n >= N) continue;
-    if (part != nullptr) {
-      part[((int64_t)blockIdx.y * M + m) * N + n] = red[m][i % BN];
-    } else {
-      y[(int64_t)m * N + n] = from_f32<O>(red[m][i % BN]);
-    }
-  }
-}
-
-// col_t, M <= 8: warp w of block (bx, by) computes columns n0 .. n0 + 3,
-// n0 = 4 (8 bx + w), over K rows [by KS, by KS + KS); lane l takes
-// K = 4 l + 128 i .. + 3 of each of the 4 weight rows, and reuses each x
-// load for the 4 of them. x is read through the L1 (8 rows of K floats, the
-// same for every warp), so K is not bounded by shared memory and the head's
-// wide grid needs no split.
-constexpr int SKT_ROWS = 4;
-
-template <typename O>
-__global__ void __launch_bounds__(SK_THREADS)
-skinny_t_mm(const float* __restrict__ x, const float* __restrict__ w, O* __restrict__ y,
-            float* __restrict__ part, int M, int N, int K, int64_t ldw, int KS, bool vec_ok, bool x_vec) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = (blockIdx.x * SK_WARPS + warp) * SKT_ROWS;
-  if (n0 >= N) return;
-  const int k0 = blockIdx.y * KS, kend = min(K, k0 + KS);
-  float acc[SKT_ROWS][SK_M];
-#pragma unroll
-  for (int j = 0; j < SKT_ROWS; ++j)
-#pragma unroll
-    for (int m = 0; m < SK_M; ++m) acc[j][m] = 0.f;
-  for (int k = k0 + 4 * lane; k < kend; k += 128) {
-    float4 wv[SKT_ROWS];
-#pragma unroll
-    for (int j = 0; j < SKT_ROWS; ++j)
-      wv[j] = n0 + j < N ? load_row(w + (int64_t)(n0 + j) * ldw, k, kend, vec_ok) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int m = 0; m < SK_M; ++m) {
-      if (m >= M) break;
-      const float4 xa = load_row(x + (int64_t)m * K, k, kend, x_vec);
-#pragma unroll
-      for (int j = 0; j < SKT_ROWS; ++j) {
-        acc[j][m] = fmaf(xa.x, wv[j].x, acc[j][m]);
-        acc[j][m] = fmaf(xa.y, wv[j].y, acc[j][m]);
-        acc[j][m] = fmaf(xa.z, wv[j].z, acc[j][m]);
-        acc[j][m] = fmaf(xa.w, wv[j].w, acc[j][m]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < SKT_ROWS; ++j)
-#pragma unroll
-    for (int m = 0; m < SK_M; ++m)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc[j][m] += __shfl_xor_sync(0xffffffffu, acc[j][m], o);
-  if (lane != 0) return;
-  for (int j = 0; j < SKT_ROWS && n0 + j < N; ++j)
-    for (int m = 0; m < M; ++m) {
-      if (part != nullptr) {
-        part[((int64_t)blockIdx.y * M + m) * N + n0 + j] = acc[j][m];
-      } else {
-        y[(int64_t)m * N + n0 + j] = from_f32<O>(acc[j][m]);
-      }
-    }
-}
-
 // ---------------------------------------------------------------------------
 // f32, tiled path, M > 8
 // ---------------------------------------------------------------------------
@@ -381,54 +232,31 @@ __global__ void splitk_reduce(const float* __restrict__ part, float* __restrict_
   y[i] = s;
 }
 
-// How an f32 call is split: S blocks along K of KS rows each. Depends on
-// the shapes only.
+// How a tiled f32 call (M > 8) is split: S blocks along K of KS rows each.
+// Depends on the shapes only.
 struct Plan {
-  bool skinny;
   int S, KS;
 };
 
-Plan plan_f32(int M, int N, int K, bool trans) {
-  Plan p;
-  p.skinny = M <= SK_M;
-  int tiles, max_ks, align;
-  if (p.skinny) {
-    tiles = trans ? ceil_div(N, SK_WARPS * SKT_ROWS) : ceil_div(N, 32 * Vec<float>::N);
-    max_ks = trans ? 1 << 30 : SK_MAX_KS;  // skinny_t_mm stages nothing in shared memory
-    align = SK_ALIGN;
-  } else {
-    tiles = ceil_div(N, BN) * ceil_div(M, BM);
-    max_ks = 1 << 30;
-    align = BK;
-  }
+Plan plan_tiled(int M, int N, int K) {
+  const int tiles = ceil_div(N, BN) * ceil_div(M, BM);
   int S = ceil_div(TARGET_BLOCKS, tiles);
-  S = std::max(1, std::min(S, ceil_div(K, 4 * align)));  // at least 4 steps per split
-  int KS = ceil_div(ceil_div(K, S), align) * align;
-  KS = std::min(KS, max_ks);
-  p.KS = std::max(KS, align);
+  S = std::max(1, std::min(S, ceil_div(K, 4 * BK)));  // at least 4 steps per split
+  Plan p;
+  p.KS = std::max(ceil_div(ceil_div(K, S), BK) * BK, BK);
   p.S = ceil_div(K, p.KS);
   return p;
 }
 
-int run_f32(const float* x, const float* w, float* y, float* ws, int M, int N, int K, int64_t ldw, bool trans,
-            cudaStream_t s) {
-  const Plan p = plan_f32(M, N, K, trans);
+int run_tiled(const float* x, const float* w, float* y, float* ws, int M, int N, int K, int64_t ldw, bool trans,
+              cudaStream_t s) {
+  const Plan p = plan_tiled(M, N, K);
   float* part = p.S > 1 ? ws : nullptr;
-  const bool vec_ok = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * sizeof(float)) % 16 == 0;
-  if (p.skinny && trans) {
-    const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 4 == 0;
-    const dim3 grid(ceil_div(N, SK_WARPS * SKT_ROWS), p.S);
-    skinny_t_mm<float><<<grid, SK_THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS, vec_ok, x_vec);
-  } else if (p.skinny) {
-    const dim3 grid(ceil_div(N, 32 * Vec<float>::N), p.S);
-    skinny_mm<float, float><<<grid, SK_THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS, vec_ok);
+  const dim3 grid(ceil_div(N, BN), ceil_div(M, BM), p.S);
+  if (trans) {
+    tiled_mm<float, float, true><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
   } else {
-    const dim3 grid(ceil_div(N, BN), ceil_div(M, BM), p.S);
-    if (trans) {
-      tiled_mm<float, float, true><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
-    } else {
-      tiled_mm<float, float, false><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
-    }
+    tiled_mm<float, float, false><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.S == 1) return static_cast<int>(e);
@@ -809,6 +637,249 @@ WgPlan plan_bf16(int M, int N, int K) {
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// f32, decode path (M <= 8): the same ring, fed by TMA or cp.async; FMAs
+// ---------------------------------------------------------------------------
+constexpr int SK_M = 8;                          // x rows a block computes; rows past M are zero
+constexpr int SK_BN = 128;                       // weight columns (col_t: weight rows) per block
+constexpr int SK_BK = 32;                        // K per stage: 128 bytes of f32
+constexpr int SK_THREADS = 160;                  // 4 consumer warps (0-3) + the producer warp (4)
+constexpr int SK_W_BYTES = SK_BN * SK_BK * 4;    // the weight tile, 16 KiB
+constexpr int SK_STAGE = SK_W_BYTES + SK_M * SK_BK * 4;  // + x's tile, 1 KiB
+constexpr int SK_STAGES = 6;                     // 102 KiB a block: two blocks per SM
+constexpr int SK_TILE = SK_M * SK_BN;            // floats of one output (or partial) tile
+// the ring, one full and one empty mbarrier per stage, and slack to align the ring to 1024 bytes
+constexpr int SK_SMEM = SK_STAGES * SK_STAGE + 2 * SK_STAGES * 8 + 1024;
+constexpr int SK_MIN_KT = 4;                     // stages per split, at least
+
+// 4 bytes global -> shared, asynchronously; zeros where !ok (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// arrive on bar once this thread's cp.asyncs so far have landed (counted in the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+struct SkArgs {
+  const float* x;
+  const float* w;
+  float* y;
+  float* ws;       // partial tiles, S per output tile
+  int* counters;   // arrivals per output tile; 0 between calls
+  int M, N, K;
+  int64_t ldw;
+  int S, kts;      // splits along K, stages (of SK_BK) per split
+  int tma;         // 1: TMA loads; 0: the producer warp's cp.async
+};
+
+// grid (N tiles of SK_BN, S); SK_THREADS threads. TA = 1 (col, row): the
+// weight is (K, N) rows, a stage's tile [SK_BK][SK_BN]; TA = 0 (col_t): (N,
+// K) rows, the tile [SK_BN][SK_BK]. x's tile is [SK_M][SK_BK] either way.
+template <int TA>
+__global__ void __launch_bounds__(SK_THREADS, 2)
+skinny_mm(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap, const SkArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + SK_STAGES * SK_STAGE);
+  uint64_t* empty = full + SK_STAGES;
+  __shared__ int last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * SK_BN, split = blockIdx.y;
+  const int kt0 = split * a.kts, nkt = min(a.kts, dceil_div(a.K, SK_BK) - kt0);
+
+  if (tid == 0) {
+    for (int s = 0; s < SK_STAGES; ++s) {
+      mbar_init(&full[s], a.tma ? 1 : 32);  // TMA: the producer's one arrival; else one per lane's copies
+      mbar_init(&empty[s], 4);              // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: fill the ring
+    for (int i = 0; i < nkt; ++i) {
+      const int s = i % SK_STAGES;
+      mbar_wait(&empty[s], ((i / SK_STAGES) & 1) ^ 1);
+      float* st = reinterpret_cast<float*>(ring + s * SK_STAGE);
+      const int k0 = (kt0 + i) * SK_BK;
+      if (a.tma) {
+        if (lane == 0) {  // boxes past the shard's or x's edge arrive zero-filled
+          mbar_expect_tx(&full[s], SK_STAGE);
+          tma_load(st, &wmap, &full[s], TA ? n0 : k0, TA ? k0 : n0);
+          tma_load(st + SK_BN * SK_BK, &xmap, &full[s], k0, 0);
+        }
+      } else {
+        for (int e = lane; e < SK_BN * SK_BK; e += 32) {
+          const int r = TA ? e / SK_BN : e / SK_BK, c = TA ? e % SK_BN : e % SK_BK;
+          const int k = k0 + (TA ? r : c), n = n0 + (TA ? c : r);
+          const bool ok = k < a.K && n < a.N;
+          cp_async4(st + e, ok ? a.w + (TA ? (int64_t)k * a.ldw + n : (int64_t)n * a.ldw + k) : a.w, ok);
+        }
+        for (int e = lane; e < SK_M * SK_BK; e += 32) {
+          const int m = e / SK_BK, k = k0 + e % SK_BK;
+          const bool ok = m < a.M && k < a.K;
+          cp_async4(st + SK_BN * SK_BK + e, ok ? a.x + (int64_t)m * a.K + k : a.x, ok);
+        }
+        cp_async_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread's sums of the block's output tile, (m, n0 + tid) for m < SK_M
+  float v[SK_M];
+  float* red = reinterpret_cast<float*>(ring);  // the ring, once every stage is consumed
+  if (TA) {
+    // lane: columns 4 lane .. + 3; warp: K rows 8 warp .. + 7 of each stage
+    float acc[SK_M][4];
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+    for (int i = 0; i < nkt; ++i) {
+      const int s = i % SK_STAGES;
+      mbar_wait(&full[s], (i / SK_STAGES) & 1);
+      const float* wt = reinterpret_cast<const float*>(ring + s * SK_STAGE);
+      const float* xt = wt + SK_BN * SK_BK;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r0 = warp * 8 + h * 4;
+        float4 xv[SK_M], wv[4];
+#pragma unroll
+        for (int m = 0; m < SK_M; ++m) xv[m] = *reinterpret_cast<const float4*>(xt + m * SK_BK + r0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) wv[u] = *reinterpret_cast<const float4*>(wt + (r0 + u) * SK_BN + lane * 4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int m = 0; m < SK_M; ++m) {
+            const float xm = u == 0 ? xv[m].x : u == 1 ? xv[m].y : u == 2 ? xv[m].z : xv[m].w;
+            acc[m][0] = fmaf(xm, wv[u].x, acc[m][0]);
+            acc[m][1] = fmaf(xm, wv[u].y, acc[m][1]);
+            acc[m][2] = fmaf(xm, wv[u].z, acc[m][2]);
+            acc[m][3] = fmaf(xm, wv[u].w, acc[m][3]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    consumers_sync();
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m)
+      *reinterpret_cast<float4*>(red + (warp * SK_M + m) * SK_BN + lane * 4) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    consumers_sync();
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m)  // the 4 warps' sums, in warp order
+      v[m] = ((red[m * SK_BN + tid] + red[(SK_M + m) * SK_BN + tid]) + red[(2 * SK_M + m) * SK_BN + tid]) +
+             red[(3 * SK_M + m) * SK_BN + tid];
+  } else {
+    // lane: K 4 c .. + 3 of each stage (c = lane % 8) of rows 32 warp + 4 j + lane / 8, j < 8
+    const int c = lane & 7, r0 = warp * 32 + (lane >> 3);
+    float acc[8][SK_M];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int m = 0; m < SK_M; ++m) acc[j][m] = 0.f;
+    for (int i = 0; i < nkt; ++i) {
+      const int s = i % SK_STAGES;
+      mbar_wait(&full[s], (i / SK_STAGES) & 1);
+      const float* wt = reinterpret_cast<const float*>(ring + s * SK_STAGE);
+      const float* xt = wt + SK_BN * SK_BK;
+      float4 xv[SK_M];
+#pragma unroll
+      for (int m = 0; m < SK_M; ++m) xv[m] = *reinterpret_cast<const float4*>(xt + m * SK_BK + 4 * c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 wv = *reinterpret_cast<const float4*>(wt + (r0 + 4 * j) * SK_BK + 4 * c);
+#pragma unroll
+        for (int m = 0; m < SK_M; ++m) {
+          acc[j][m] = fmaf(xv[m].x, wv.x, acc[j][m]);
+          acc[j][m] = fmaf(xv[m].y, wv.y, acc[j][m]);
+          acc[j][m] = fmaf(xv[m].z, wv.z, acc[j][m]);
+          acc[j][m] = fmaf(xv[m].w, wv.w, acc[j][m]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // the 8 lanes of a row add their sums by the same butterfly; lane c keeps token c's
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int m = 0; m < SK_M; ++m)
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) acc[j][m] += __shfl_xor_sync(0xffffffffu, acc[j][m], o);
+    consumers_sync();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int m = 0; m < SK_M; ++m)
+        if (m == c) red[m * SK_BN + r0 + 4 * j] = acc[j][m];
+    consumers_sync();
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m) v[m] = red[m * SK_BN + tid];
+  }
+
+  auto out = [&]() {  // this thread's column of y
+#pragma unroll
+    for (int m = 0; m < SK_M; ++m)
+      if (m < a.M && n0 + tid < a.N) a.y[(int64_t)m * a.N + n0 + tid] = v[m];
+  };
+  if (a.S == 1) {
+    out();
+    return;
+  }
+  // split-K: this split's tile to the workspace, then a ticket; the last
+  // block to arrive adds splits 0..S-1 in that order, 8 splits' loads in flight
+  float* parts = a.ws + (int64_t)blockIdx.x * a.S * SK_TILE;
+#pragma unroll
+  for (int m = 0; m < SK_M; ++m) parts[split * SK_TILE + m * SK_BN + tid] = v[m];
+  __threadfence();
+  consumers_sync();
+  if (tid == 0) last = atomicAdd(&a.counters[blockIdx.x], 1) == a.S - 1;
+  consumers_sync();
+  if (!last) return;
+  __threadfence();
+  for (int z0 = 0; z0 < a.S; z0 += 8) {
+    float p[8][SK_M];
+#pragma unroll
+    for (int zz = 0; zz < 8; ++zz)
+#pragma unroll
+      for (int m = 0; m < SK_M; ++m)
+        p[zz][m] = z0 + zz < a.S ? __ldcg(parts + (z0 + zz) * SK_TILE + m * SK_BN + tid) : 0.f;
+#pragma unroll
+    for (int zz = 0; zz < 8; ++zz)
+#pragma unroll
+      for (int m = 0; m < SK_M; ++m)
+        if (z0 + zz < a.S) v[m] = z0 + zz == 0 ? p[zz][m] : v[m] + p[zz][m];
+  }
+  out();
+  if (tid == 0) a.counters[blockIdx.x] = 0;  // ready for the next call on this stream, or the next replay of a graph
+}
+
+// How a decode f32 call is cut: N tiles of SK_BN and S splits along K of
+// kts stages each. Depends on the shapes only.
+struct SkPlan {
+  int tiles, S, kts;
+};
+
+SkPlan plan_skinny(int N, int K) {
+  SkPlan p;
+  p.tiles = ceil_div(N, SK_BN);
+  const int kt = ceil_div(K, SK_BK);
+  // as many splits as give each SM two blocks, each of at least SK_MIN_KT stages
+  const int S = std::max(1, std::min(TARGET_BLOCKS / p.tiles, kt / SK_MIN_KT));
+  p.kts = ceil_div(kt, S);
+  p.S = ceil_div(kt, p.kts);
+  return p;
+}
+
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query (no -lcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -826,49 +897,58 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 2-D bf16 tensor map with 128-byte swizzle: `inner` x `outer` elements
-// from `base`, rows `row_bytes` apart, boxes of 64 x box_outer.
-bool encode(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer, uint64_t row_bytes,
-            uint32_t box_outer) {
+// A 2-D tensor map: `inner` x `outer` elements from `base`, rows
+// `row_bytes` apart, boxes of box_inner x box_outer. bf16 maps take the
+// 128-byte swizzle wgmma reads; f32 maps none (the FMA kernel reads its
+// tiles row by row).
+bool encode(CUtensorMap* map, bool f32, const void* base, uint64_t inner, uint64_t outer, uint64_t row_bytes,
+            uint32_t box_inner, uint32_t box_outer) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {64, box_outer}, elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint32_t box[2] = {box_inner, box_outer}, elem[2] = {1, 1};
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The weight's map, encoded once per (base, shard shape, row length,
-// layout): the weights of a WeightStore keep their pointers, so the
-// engine's calls find it here. (K, N) rows: boxes of 64 columns x 64 K
-// rows; col_t's (N, K) rows: 64 K x 64 weight rows.
+// layout, dtype): the weights of a WeightStore keep their pointers, so the
+// engine's calls find it here. bf16 (K, N) rows: boxes of 64 columns x 64
+// K rows; col_t's (N, K) rows: 64 K x 64 weight rows. f32: 128 columns x
+// 32 K rows; col_t: 32 K x 128 weight rows.
 struct MapKey {
   uintptr_t base;
   int N, K;
   int64_t ldw;
-  bool trans;
+  bool trans, f32;
   bool operator==(const MapKey& o) const {
-    return base == o.base && N == o.N && K == o.K && ldw == o.ldw && trans == o.trans;
+    return base == o.base && N == o.N && K == o.K && ldw == o.ldw && trans == o.trans && f32 == o.f32;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
-    return std::hash<uintptr_t>()(k.base) ^ (std::hash<int64_t>()(k.ldw) * 31 + k.N * 131 + k.K + k.trans);
+    return std::hash<uintptr_t>()(k.base) ^
+           (std::hash<int64_t>()(k.ldw) * 31 + k.N * 131 + k.K + k.trans + 2 * k.f32);
   }
 };
 
-bool weight_map(CUtensorMap* map, const void* w, int N, int K, int64_t ldw, bool trans) {
+bool weight_map(CUtensorMap* map, const void* w, int N, int K, int64_t ldw, bool trans, bool f32) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{reinterpret_cast<uintptr_t>(w), N, K, ldw, trans};
+  const MapKey key{reinterpret_cast<uintptr_t>(w), N, K, ldw, trans, f32};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return true;
   }
-  if (!(trans ? encode(map, w, K, N, ldw * 2, 64) : encode(map, w, N, K, ldw * 2, WG_BK))) return false;
+  const bool ok = f32 ? (trans ? encode(map, true, w, K, N, ldw * 4, SK_BK, SK_BN)
+                               : encode(map, true, w, N, K, ldw * 4, SK_BN, SK_BK))
+                      : (trans ? encode(map, false, w, K, N, ldw * 2, 64, 64)
+                               : encode(map, false, w, N, K, ldw * 2, 64, WG_BK));
+  if (!ok) return false;
   if (cache.size() >= (1u << 16)) cache.clear();
   cache.emplace(key, *map);
   return true;
@@ -907,19 +987,56 @@ int run_bf16(const void* x, const void* w, void* y, float* ws, int* counters, in
   a.tma = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * 2) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0 && (static_cast<int64_t>(K) * 2) % 16 == 0;
   CUtensorMap wmap{}, xmap{};
-  if (a.tma && !(weight_map(&wmap, w, N, K, ldw, trans) && encode(&xmap, x, K, M, (uint64_t)K * 2, p.NT)))
+  if (a.tma && !(weight_map(&wmap, w, N, K, ldw, trans, false) &&
+                 encode(&xmap, false, x, K, M, (uint64_t)K * 2, 64, p.NT)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (trans) return static_cast<int>(launch_wgmma<float, 0>(p, wmap, xmap, a, s));
   return static_cast<int>(out_f32 ? launch_wgmma<float, 1>(p, wmap, xmap, a, s)
                                   : launch_wgmma<__nv_bfloat16, 1>(p, wmap, xmap, a, s));
 }
 
-// Scratch a call needs: f32 partial sums (bytes) and bf16 arrival counters (ints).
-void scratch_need(int M, int N, int K, int dtype, int trans, long long* ws_bytes, long long* n_counters) {
+template <int TA>
+cudaError_t launch_skinny(const SkPlan& p, const CUtensorMap& wmap, const CUtensorMap& xmap, const SkArgs& a,
+                          cudaStream_t s) {
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(skinny_mm<TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, SK_SMEM);
+    if (e == cudaSuccess)  // room for two blocks per SM
+      e = cudaFuncSetAttribute(skinny_mm<TA>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  skinny_mm<TA><<<dim3(p.tiles, p.S), SK_THREADS, SK_SMEM, s>>>(wmap, xmap, a);
+  return cudaGetLastError();
+}
+
+int run_f32(const float* x, const float* w, float* y, float* ws, int* counters, int M, int N, int K, int64_t ldw,
+            bool trans, cudaStream_t s) {
+  if (M > SK_M) return run_tiled(x, w, y, ws, M, N, K, ldw, trans, s);
+  const SkPlan p = plan_skinny(N, K);
+  SkArgs a{x, w, y, ws, counters, M, N, K, ldw, p.S, p.kts, 0};
+  // TMA takes 16-byte-aligned bases and row strides; else the producer warp copies 4 bytes at a time
+  a.tma = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * 4) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0 && (static_cast<int64_t>(K) * 4) % 16 == 0;
+  CUtensorMap wmap{}, xmap{};
+  if (a.tma && !(weight_map(&wmap, w, N, K, ldw, trans, true) &&
+                 encode(&xmap, true, x, K, M, (uint64_t)K * 4, SK_BK, SK_M)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(trans ? launch_skinny<0>(p, wmap, xmap, a, s) : launch_skinny<1>(p, wmap, xmap, a, s));
+}
+
+// Scratch a call needs: f32 partial sums (bytes) and arrival counters (ints).
+void scratch_need(int M, int N, int K, int dtype, long long* ws_bytes, long long* n_counters) {
   *ws_bytes = *n_counters = 0;
-  if (dtype == 0) {
-    const Plan p = plan_f32(M, N, K, trans != 0);
+  if (dtype == 0 && M > SK_M) {
+    const Plan p = plan_tiled(M, N, K);
     if (p.S > 1) *ws_bytes = (long long)p.S * M * N * sizeof(float);
+  } else if (dtype == 0) {
+    const SkPlan p = plan_skinny(N, K);
+    if (p.S > 1) {
+      *n_counters = p.tiles;
+      *ws_bytes = (long long)p.tiles * p.S * SK_TILE * sizeof(float);
+    }
   } else {
     const WgPlan p = plan_bf16(M, N, K);
     if (p.S > 1) {
@@ -933,9 +1050,10 @@ constexpr int SCRATCH_TOO_SMALL = -1;
 
 }  // namespace
 
+// trans (col_t) is taken for the caller's sake: no plan depends on it.
 extern "C" void tp_shard_matmul_scratch(int M, int N, int K, int dtype, int trans, long long* ws_bytes,
                                         long long* n_counters) {
-  scratch_need(M, N, K, dtype, trans, ws_bytes, n_counters);
+  scratch_need(M, N, K, dtype, ws_bytes, n_counters);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x and w). out_f32: write f32 whatever
@@ -951,11 +1069,11 @@ extern "C" int tp_shard_matmul(const void* x, const void* w, void* y, void* ws, 
   if (M <= 0 || N <= 0 || K <= 0 || dtype < 0 || dtype > 1 || trans < 0 || trans > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   long long need_ws, need_counters;
-  scratch_need(M, N, K, dtype, trans, &need_ws, &need_counters);
+  scratch_need(M, N, K, dtype, &need_ws, &need_counters);
   if (ws_bytes < need_ws || n_counters < need_counters) return SCRATCH_TOO_SMALL;
   if (dtype == 0)
     return run_f32(static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y),
-                   static_cast<float*>(ws), M, N, K, ldw, trans != 0, s);
+                   static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, ldw, trans != 0, s);
   return run_bf16(x, w, y, static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, ldw, out_f32 != 0,
                   trans != 0, s);
 }

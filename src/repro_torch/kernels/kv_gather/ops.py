@@ -72,12 +72,21 @@ def kv_gather(pool: torch.Tensor, page_ids) -> torch.Tensor:
         return kv_gather_ref(pool, ids)
     if pool.device.type != "cuda":
         raise ValueError(f"pool on {pool.device}: expected a CPU or CUDA tensor")
-    staged = torch.empty((ids.size, pool.shape[1]), dtype=pool.dtype, device=pool.device)
-    if staged.numel() == 0:
-        return staged
-    dev_ids = _device_ids(ids, pool.device)
+    if ids.size == 0 or pool.shape[1] == 0:
+        return torch.empty((ids.size, pool.shape[1]), dtype=pool.dtype, device=pool.device)
+    return _gather(pool, _device_ids(ids, pool.device))
+
+
+def _gather(pool: torch.Tensor, dev_ids: torch.Tensor) -> torch.Tensor:
+    """The launch behind ``kv_gather``: pool a contiguous (num_pages, F) CUDA
+    tensor, dev_ids (n,) int32 page ids on its card, each in range (the
+    caller checked them on the host). Also timed on its own, with ids that
+    are already on the card."""
+    if dev_ids.dtype != torch.int32 or dev_ids.device != pool.device or dev_ids.dim() != 1:
+        raise ValueError(f"dev_ids must be 1-D int32 on {pool.device}, got {dev_ids.dtype} on {dev_ids.device}")
+    staged = torch.empty((dev_ids.numel(), pool.shape[1]), dtype=pool.dtype, device=pool.device)
     lib = _lib()
-    rc = lib.kv_gather(pool.data_ptr(), staged.data_ptr(), dev_ids.data_ptr(), ids.size,
+    rc = lib.kv_gather(pool.data_ptr(), staged.data_ptr(), dev_ids.data_ptr(), dev_ids.numel(),
                        pool.shape[1] * pool.element_size(), torch.cuda.current_stream(pool.device).cuda_stream)
     _build.check(lib, rc, "kv_gather")
     kv_gather.launches += 1

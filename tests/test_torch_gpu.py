@@ -197,6 +197,156 @@ def test_tp_shard_matmul_col_t_in_place_equals_presliced(cuda, dtype, m):
     assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
+# f32 at M <= 8 (decode) runs skinny_mm: a ring of (32 K x 128 columns)
+# weight tiles fed by TMA, or by 4-byte cp.async where a base or row stride
+# is not 16-byte aligned, split-K added in the same launch. (mode, k, store,
+# n_out, off, split): store is the stored width (col), rows (row) or weight
+# rows (col_t); K at one stage (32), at stage boundaries (1792, 2304, 4096)
+# and between them (99, 100, 1000); N not a multiple of 128 except two;
+# split: whether the call splits K (S > 1); off 70, 75 and stride 210, 99
+# put the weight off 16-byte alignment.
+_F32_DECODE_SHAPES = [
+    ("col", 32, 300, 200, 100, False), ("col", 4096, 2000, 1000, 1000, True), ("col", 1000, 210, 70, 70, True),
+    ("col", 1000, 34000, 34000, 0, False), ("row", 1792, 14336, 4096, 5 * 1792, True), ("row", 100, 300, 70, 200, False),
+    ("col_t", 2304, 4096, 1000, 1024, True), ("col_t", 99, 300, 75, 75, False), ("col_t", 4096, 40000, 34000, 0, False),
+]
+
+
+def _f32_case(cuda, seed, mode, m, k, store, n_out):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w_shape = {"col": (k, store), "row": (store, n_out), "col_t": (store, k)}[mode]
+    x = torch.randn(m, k, generator=g, device=cuda)
+    w = torch.randn(*w_shape, generator=g, device=cuda) / k ** 0.5
+    return x, w
+
+
+def _f32_call(x, w, off, n_out, mode):
+    return tp_shard_matmul(x, w, off, n_out=n_out, mode=mode, out_dtype=torch.float32)
+
+
+def _splits_k(m, n, k, mode):
+    """Whether the call splits K over blocks: it then asks for a workspace."""
+    import ctypes
+
+    from repro_torch.kernels.tp_shard_matmul.ops import _lib
+
+    ws, cnt = ctypes.c_longlong(), ctypes.c_longlong()
+    _lib().tp_shard_matmul_scratch(m, n, k, 0, int(mode == "col_t"), ctypes.byref(ws), ctypes.byref(cnt))
+    return ws.value > 0
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_DECODE_SHAPES)
+def test_tp_shard_matmul_f32_decode_matches_plain(cuda, m, mode, k, store, n_out, off, split):
+    x, w = _f32_case(cuda, 7 * m + k, mode, m, k, store, n_out)
+    assert _splits_k(m, n_out, k, mode) == split
+    before = tp_shard_matmul.launches
+    got = _f32_call(x, w, off, n_out, mode)
+    assert tp_shard_matmul.launches == before + 1
+    want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out, out_dtype=torch.float32)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(_f32_call(x, w, off, n_out, mode), got)  # a second call, bit for bit
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("mode", ["col", "row", "col_t"])
+def test_tp_shard_matmul_f32_decode_in_place_equals_presliced(cuda, m, mode):
+    """Each rank's shard at TP 1/2/4/8 read in place equals the same call on
+    the pre-sliced contiguous weight, bit for bit; the second pass puts the
+    storage 4 bytes past a 16-byte boundary (cp.async in place, TMA on the
+    pre-sliced copy)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(m, 4096, generator=g, device=cuda)
+    shape = {"col": (4096, 4096), "row": (4096, 1024), "col_t": (8192, 4096)}[mode]
+    buf = torch.randn(shape[0] * shape[1] + 1, generator=g, device=cuda) / 64
+    for lead in (0, 1):
+        store = buf[lead:lead + shape[0] * shape[1]].view(shape)
+        assert store.data_ptr() % 16 == 4 * lead
+        for tp in (1, 2, 4, 8):
+            n = shape[0 if mode != "col" else 1] // tp
+            for s in range(tp):
+                off = s * n
+                if mode == "col":
+                    got = _f32_call(x, store, off, n, "col")
+                    want = _f32_call(x, store[:, off:off + n].contiguous(), 0, n, "col")
+                elif mode == "row":
+                    xs = x[:, :n].contiguous()
+                    got = _f32_call(xs, store, off, 1024, "row")
+                    want = _f32_call(xs, store[off:off + n].contiguous(), 0, 1024, "row")
+                else:
+                    got = _f32_call(x, store, off, n, "col_t")
+                    want = _f32_call(x, store[off:off + n].contiguous(), 0, n, "col_t")
+                assert torch.equal(got, want), (lead, tp, s)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_DECODE_SHAPES[1:3] + _F32_DECODE_SHAPES[4:8])
+def test_tp_shard_matmul_f32_decode_nan_past_the_shard_stays_out(cuda, m, mode, k, store, n_out, off, split):
+    """NaN in the columns (col), rows (row) or weight rows (col_t) around
+    the shard: the output is finite and equals the plain version."""
+    x, w = _f32_case(cuda, 200 + m, mode, m, k, store, n_out)
+    if mode == "col":
+        w[:, :off] = w[:, off + n_out:] = float("nan")
+    elif mode == "row":
+        w[:off] = w[off + k:] = float("nan")
+    else:
+        w[:off] = w[off + n_out:] = float("nan")
+    got = _f32_call(x, w, off, n_out, mode)
+    want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out, out_dtype=torch.float32)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", [c for c in _F32_DECODE_SHAPES if c[-1]])
+def test_tp_shard_matmul_f32_decode_repeats_bit_for_bit(cuda, mode, k, store, n_out, off, split):
+    """50 calls at split-K shapes give the same bits: the last block of each
+    tile adds the splits in order, whichever block that is."""
+    x, w = _f32_case(cuda, 31, mode, 8, k, store, n_out)
+    first = _f32_call(x, w, off, n_out, mode)
+    for _ in range(50):
+        assert torch.equal(_f32_call(x, w, off, n_out, mode), first)
+
+
+def _kernels_in_one_call(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
+
+
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", [c for c in _F32_DECODE_SHAPES if c[-1]])
+def test_tp_shard_matmul_f32_decode_launches_one_kernel(cuda, mode, k, store, n_out, off, split):
+    """Under torch.profiler one f32 decode call at a split-K shape launches
+    skinny_mm alone: no splitk_reduce."""
+    x, w = _f32_case(cuda, 5, mode, 8, k, store, n_out)
+    kernels = _kernels_in_one_call(lambda: _f32_call(x, w, off, n_out, mode))
+    assert len(kernels) == 1 and sum(kernels.values()) == 1, kernels
+    assert "skinny_mm" in next(iter(kernels)), kernels
+
+
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", [c for c in _F32_DECODE_SHAPES if c[-1]])
+def test_tp_shard_matmul_f32_decode_graph_replay_equals_eager(cuda, mode, k, store, n_out, off, split):
+    """The call captured in a CUDA graph (scratch grown on the capture stream
+    first) replays equal to the eager call, bit for bit, replay after replay:
+    the arrival counters end each launch at zero."""
+    x, w = _f32_case(cuda, 9, mode, 8, k, store, n_out)
+    eager = _f32_call(x, w, off, n_out, mode)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _f32_call(x, w, off, n_out, mode)
+    with torch.cuda.graph(graph, stream=stream):
+        out = _f32_call(x, w, off, n_out, mode)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [1, 2, 4, 64])
 @pytest.mark.parametrize("hd", [80, 256])
