@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py [--layers N] [--skip-timed]
-    python3 chip_smoke.py --timings-of build/parent/src   # host cost, f32 decode matmul, attention, bf16 engine timings and f32 step profiles of another tree
+    python3 chip_smoke.py --timings-of build/parent/src   # host cost, f32 matmul, attention, bf16 engine timings and f32 profiles of another tree
 
 Phases; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit, then every CUDA
@@ -15,11 +15,14 @@ Phases; any failure raises and the script exits non-zero:
      equal, every llama3-8b projection at each rank's offset for TP 1/2/4/8
      at decode and prefill widths, decode attention at the engine's shape,
      and kv_gather / kv_scatter bit for bit (sweeps, a llama3-8b page row,
-     round trip in place, both misaligned cases); a decode matmul call (f32
-     and bf16, col and row, split-K shapes) and one attention call (rows of
-     1 to 4 splits) each launching one kernel under torch.profiler; matmul
-     timed in f32 and bf16 at the decode shapes, the prefill buckets and
-     TP 8's shards, and attention at the decode shape and over
+     round trip in place, both misaligned cases); a matmul call (decode in
+     f32 and bf16, prefill at M = 32 and 128 in f32; col and row, split-K
+     shapes) and one attention call (rows of 1 to 4 splits) each launching
+     one kernel under torch.profiler; matmul timed in f32 and bf16 at the
+     decode shapes, the prefill buckets and TP 8's shards (f32 also at
+     prefill, M = 128, on a TP 8 rank's shard, and at the windowed models'
+     4096- and 4160-token buckets: each projection of gemma2-2b and
+     h2o-danube-1.8b at TP 1), and attention at the decode shape and over
      16 x 2048 tokens of a fragmented pool, beside their bound, their plain
      version and one PyTorch library call; attention timed with every row
      at one length, 1 and 32 to 256 (fixed cost, cost per token); the
@@ -55,8 +58,9 @@ Phases; any failure raises and the script exits non-zero:
      captured, decode at every TP level and prefill at every (TP, bucket),
      bit for bit (tokens, f32 logits, KV cache); the matmul's launches by
      stage (decode and prefill graphs); the f32 decode step at TP 1 and 8
-     under torch.profiler (device ms, the matmul's share); plus a tiny
-     model served on the card against the same model on the CPU;
+     and one f32 prefill of 128 tokens at TP 1 under torch.profiler (device
+     ms, the matmul's ms and share); plus a tiny model served on the card
+     against the same model on the CPU;
   5. the engine in bf16, timed on the host clock with repeats (median and
      spread): TTFT per bucket, decode step per TP level, tokens/s, the
      switch's binding lookup, the bind per TP level made at install, and
@@ -76,10 +80,10 @@ Phases; any failure raises and the script exits non-zero:
      (danube): identical trajectories, both kernels launched, no weight
      moved by a rebind, every launch by a graph replay, and every graph
      equal to its eager step; the f32 decode step profiled at TP 1 and the
-     largest TP as in phase 4; then in bf16 TTFT at buckets 128 and 4096,
-     the decode step per TP level, capture, replay times and memory as in
-     phase 5, and one torch.profiler pass. Each model is freed before the
-     next.
+     largest TP as in phase 4, and one f32 prefill of 4096 tokens at TP 1;
+     then in bf16 TTFT at buckets 128 and 4096, the decode step per TP
+     level, capture, replay times and memory as in phase 5, and one
+     torch.profiler pass. Each model is freed before the next.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs and each model's f32 runs in phase 6 for the others; after
@@ -204,9 +208,10 @@ def kernels_in_one_call(torch, fn):
     return None
 
 
-# by substring of the kernel's name; "skinny" also takes an earlier tree's
-# skinny_t_mm under --timings-of
-MATMUL_KERNELS = ("wgmma_mm", "skinny", "tiled_mm", "splitk_reduce")
+# by substring of the kernel's name: bf16 wgmma_mm, f32 skinny_mm (decode)
+# and fma_mm (prefill); an earlier tree's skinny_t_mm, tiled_mm and
+# splitk_reduce under --timings-of
+MATMUL_KERNELS = ("wgmma_mm", "skinny", "fma_mm", "tiled_mm", "splitk_reduce")
 PORT_KERNELS = MATMUL_KERNELS + ("paged_decode",)
 
 
@@ -396,14 +401,26 @@ def check_matmul_main_shapes(torch, dev, cfg, log):
     return {"cases": n_cases, "worst_err_over_max_plain": worst}
 
 
-def measure_matmul(torch, dev, cfg, flush, log, f32_decode_only=False):
-    """The projections of llama3-8b as the main path runs them, bf16 and
-    f32: at TP 1 at decode (M = 8 slots) and at the prefill buckets (M =
-    32/64/128), and at decode on a TP 8 rank's shard (rank 1's offset into
-    the full storage); f32_decode_only: the f32 decode rows alone. Kernel vs
-    plain vs torch.matmul on the pre-sliced shard (TF32 off); the bound
-    counts the shard's bytes. The f32 decode rows also take
-    f32_decode_extras."""
+def projection_shapes(cfg):
+    """(name, mode, stored K, stored N) of a layer's projections as the
+    engine calls tp_shard_matmul at TP 1 (in prefill the head takes only
+    the last token, M = 1)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return [("wq col", "col", d, cfg.num_heads * hd), ("wk/wv col", "col", d, cfg.num_kv_heads * hd),
+            ("wo row", "row", cfg.num_heads * hd, d), ("w_gate/w_in col", "col", d, cfg.d_ff),
+            ("w_out row", "row", cfg.d_ff, d)]
+
+
+def measure_matmul(torch, dev, cfg, flush, log, f32_only=False):
+    """The projections as the main path runs them, bf16 and f32: llama3-8b
+    at TP 1 at decode (M = 8 slots) and at the prefill buckets (M =
+    32/64/128), and at decode and (f32) at M = 128 on a TP 8 rank's shard
+    (rank 1's offset into the full storage); the windowed models' f32
+    prefill at their 4096- and 4160-token buckets, TP 1. f32_only: the f32
+    rows alone. Kernel vs plain vs torch.matmul on the pre-sliced shard
+    (TF32 off); the bound counts the shard's bytes and FMAs. Each weight is
+    made and freed in turn. The f32 decode rows also take f32_decode_extras."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
 
@@ -411,14 +428,16 @@ def measure_matmul(torch, dev, cfg, flush, log, f32_decode_only=False):
     shapes = [("wq/wo col", "col", d, d), ("wk/wv col", "col", d, cfg.num_kv_heads * hd), ("w_gate/w_in col", "col", d, ff),
               ("w_out row", "row", ff, d), ("lm_head col f32-out", "col", d, cfg.vocab_padded)]
     bf, f32 = torch.bfloat16, torch.float32
-    dtypes = (f32,) if f32_decode_only else (bf, f32)
-    cases = [(s, 8, dt, tp) for tp in (1, 8) for dt in dtypes for s in shapes]
-    if not f32_decode_only:
-        cases += [(s, m, dt, 1) for dt in dtypes for m in (32, 64, 128) for s in shapes]
+    dtypes = (f32,) if f32_only else (bf, f32)
+    cases = [(cfg.name, s, 8, dt, tp) for tp in (1, 8) for dt in dtypes for s in shapes]
+    cases += [(cfg.name, s, m, dt, 1) for dt in dtypes for m in (32, 64, 128) for s in shapes]
+    cases += [(cfg.name, s, 128, f32, 8) for s in shapes]
+    for name in WINDOWED[::-1]:
+        cases += [(name, s, m, f32, 1) for m in (4096, 4160) for s in projection_shapes(get_config(name))]
     g = torch.Generator(device=dev).manual_seed(3)
     clean = ReadFlush(torch, dev)
     rows = []
-    for (name, mode, k_store, n_store), m, dtype, tp in cases:
+    for model, (name, mode, k_store, n_store), m, dtype, tp in cases:
         dname = str(dtype).split(".")[1]
         w = (torch.randn(k_store, n_store, generator=g, device=dev) / math.sqrt(k_store)).to(dtype)
         if mode == "col":  # rank 1's columns at TP 8
@@ -436,16 +455,20 @@ def measure_matmul(torch, dev, cfg, flush, log, f32_decode_only=False):
         scale = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         tol = 1e-5 if dtype == f32 else 1e-2
-        check(err <= tol * scale, f"tp_shard_matmul {name} {dname} M={m} TP {tp}: err {err} > {tol} x {scale}")
+        check(err <= tol * scale, f"tp_shard_matmul {model} {name} {dname} M={m} TP {tp}: err {err} > {tol} x {scale}")
         es, eo = x.element_size(), torch.finfo(out_dtype).bits // 8
         b_ms, b_by = bound_ms(es * (m * k + k * n) + eo * m * n, 2.0 * m * k * n, dname)
-        shape = f"{name} {dname} M={m} K={k} N={n}" + (f" (TP {tp} rank 1 shard)" if tp > 1 else "")
+        shape = (f"{name} {dname} M={m} K={k} N={n}" + (f" (TP {tp} rank 1 shard)" if tp > 1 else "")
+                 + ("" if model == cfg.name else f" ({model})"))
+        iters = 20 if m * k * n < 2**34 else 10
+        del got, want
         row = {
-            "name": name, "dtype": dname, "m": m, "tp": tp,
+            "name": name, "model": model, "dtype": dname, "m": m, "tp": tp,
             "shape": shape, "max_abs_err": err, "tol": f"{tol} x max|plain| = {tol * scale:.3g}",
-            "ms": time_ms(torch, run, flush=flush),
-            "plain_ms": time_ms(torch, lambda: tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n, out_dtype=out_dtype), flush=flush),
-            "library_ms": time_ms(torch, lambda: torch.matmul(x, sliced), flush=flush),
+            "ms": time_ms(torch, run, iters=iters, flush=flush),
+            "plain_ms": time_ms(torch, lambda: tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n, out_dtype=out_dtype),
+                                iters=iters, flush=flush),
+            "library_ms": time_ms(torch, lambda: torch.matmul(x, sliced), iters=iters, flush=flush),
             "bound_ms": b_ms, "bound_by": b_by,
         }
         if dtype == f32 and m == 8:
@@ -508,27 +531,29 @@ def host_us_per_call(torch, dev, cfg, log, tp_shard_matmul, n_calls=400):
 
 
 def check_one_launch(torch, dev, log):
-    """Under torch.profiler, one decode call (M = 8) at split-K shapes, bf16
-    and f32, launches one kernel and no splitk_reduce: w_gate and wk/wv
-    (col) and w_out (row). None when the profiler sees no device time."""
+    """Under torch.profiler, one call at split-K shapes launches one kernel
+    and no splitk_reduce: w_gate and wk/wv (col) and w_out (row), at decode
+    (M = 8) in bf16 and f32 and at prefill (M = 32 and 128) in f32. None
+    when the profiler sees no device time."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 
     seen = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, mode, k, n in (("w_gate col", "col", 4096, 14336), ("wk/wv col", "col", 4096, 1024),
-                                 ("w_out row", "row", 14336, 4096)):
-            x = torch.randn(8, k, device=dev).to(dtype)
-            w = torch.randn(k, n, device=dev).to(dtype)
-            seen[f"{name} {str(dtype).split('.')[1]}"] = kernels_in_one_call(
-                torch, lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode))
-            del x, w
+    for dtype, ms in ((torch.bfloat16, (8,)), (torch.float32, (8, 32, 128))):
+        for m in ms:
+            for name, mode, k, n in (("w_gate col", "col", 4096, 14336), ("wk/wv col", "col", 4096, 1024),
+                                     ("w_out row", "row", 14336, 4096)):
+                x = torch.randn(m, k, device=dev).to(dtype)
+                w = torch.randn(k, n, device=dev).to(dtype)
+                seen[f"{name} {str(dtype).split('.')[1]} M={m}"] = kernels_in_one_call(
+                    torch, lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode))
+                del x, w
     if any(v is None for v in seen.values()):
         log("tp_shard_matmul: launches per call not checked: the profiler saw no device time")
         return None
     for key, kernels in seen.items():
         check(sum(kernels.values()) == 1 and not any("splitk_reduce" in k for k in kernels),
               f"one {key} tp_shard_matmul call launches one kernel, no splitk_reduce: {kernels}")
-    log(f"tp_shard_matmul: one decode call under torch.profiler launches one kernel: {json.dumps(seen)}")
+    log(f"tp_shard_matmul: one decode or prefill call under torch.profiler launches one kernel: {json.dumps(seen)}")
     return seen
 
 
@@ -1321,6 +1346,31 @@ def f32_step_profile(torch, eng, requests):
     return out
 
 
+def f32_prefill_profile(torch, eng, cfg):
+    """One prompt that fills the prefill bucket the f32 trajectory check
+    leans on most (llama3-8b 128 tokens, the windowed models 4096), admitted
+    at TP 1 with every slot free, under torch.profiler: device ms, the port's
+    kernels' ms and the matmul kernels' ms and share of it."""
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+
+    L = 4096 if cfg.name in WINDOWED else 128
+    prompt = np.random.RandomState(7).randint(0, cfg.vocab_size, size=L).astype(np.int32)
+    req = Request(900, "strict", prompt, 1)
+    eng.switch_tp(eng.tps[0])
+    ev, wall_us = profiled(torch, lambda: eng.admit(req))
+    eng.slot_req[req.slot] = None
+    eng.slots.release(req.slot)
+    dev_us = sum(t for _, t in ev)
+    if dev_us == 0:
+        return {"bucket": L, "device_ms": "not measured (the profiler saw no device time)"}
+    km = kernel_ms(ev, 1)
+    mm = sum(km[k] for k in MATMUL_KERNELS)
+    return {"bucket": L, "traced_ms": wall_us / 1e3, "device_ms": dev_us / 1e3, "kernel_ms": km, "matmul_ms": mm,
+            "matmul_share": mm / (dev_us / 1e3)}
+
+
 def profile_requests(cfg):
     """8 requests that keep the slots busy through a profile: phase 6's
     first 8 for a windowed model, else 64-token prompts."""
@@ -1354,8 +1404,8 @@ def engine_f32_profiled(torch, dev, cfg, log):
     params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
     eng = ServingEngine(cfg, params, engine_conf(torch, cfg, torch.float32), device=dev)
     eng.warmup()
-    out = f32_step_profile(torch, eng, profile_requests(cfg))
-    log(f"engine {cfg.name} f32 decode under the profiler: {json.dumps(out)}")
+    out = {"decode": f32_step_profile(torch, eng, profile_requests(cfg)), "prefill": f32_prefill_profile(torch, eng, cfg)}
+    log(f"engine {cfg.name} f32 decode and prefill under the profiler: {json.dumps(out)}")
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1409,13 +1459,16 @@ def engine_f32(torch, dev, cfg, log):
     n_graphs = graphs_vs_eager(torch, eng_b, log)
     profile = f32_step_profile(torch, eng_b, profile_requests(cfg))
     log(f"engine f32: decode under the profiler: {json.dumps(profile)}")
+    prefill_profile = f32_prefill_profile(torch, eng_b, cfg)
+    log(f"engine f32: prefill of {prefill_profile['bucket']} tokens at TP 1 under the profiler: "
+        f"{json.dumps(prefill_profile)}")
     del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a, "switch_run_s": t_b,
                       "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s,
                       "graphs": graphs, "graphs_equal_to_eager": n_graphs, "matmul_launches_by_stage": by_stage,
-                      "profile": profile}
+                      "profile": profile, "prefill_profile": prefill_profile}
 
 
 def engine_tiny_vs_cpu(torch, dev, log):
@@ -1674,13 +1727,16 @@ def engine_windowed_f32(torch, dev, cfg, log):
     n_graphs = graphs_vs_eager(torch, eng_b, log)
     profile = f32_step_profile(torch, eng_b, profile_requests(cfg))
     log(f"engine {cfg.name} f32: decode under the profiler: {json.dumps(profile)}")
+    prefill_profile = f32_prefill_profile(torch, eng_b, cfg)
+    log(f"engine {cfg.name} f32: prefill of {prefill_profile['bucket']} tokens at TP 1 under the profiler: "
+        f"{json.dumps(prefill_profile)}")
     del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"tps": list(tps), "schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a,
                       "switch_run_s": t_b, "cache_rows": sizes, "rebind_s_total": st.rebind_s,
                       "migrate_s_total": st.migrate_s, "graphs": graphs, "graphs_equal_to_eager": n_graphs,
-                      "matmul_launches_by_stage": by_stage, "profile": profile}
+                      "matmul_launches_by_stage": by_stage, "profile": profile, "prefill_profile": prefill_profile}
 
 
 def engine_windowed_bf16_timed(torch, dev, cfg, log):
@@ -1777,11 +1833,12 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
     ap.add_argument("--skip-timed", action="store_true", help="leave out phase 5 and phase 6's bf16 timings")
     ap.add_argument("--timings-of", metavar="SRC", default=None,
-                    help="only take the host cost of tp_shard_matmul calls, the f32 decode matmul and tied-head "
-                         "timings, the attention timings, phase 5's and phase 6's bf16 engine timings and profiles, "
-                         "and the f32 decode step's profile of llama3-8b and gemma2-2b, importing repro_torch from "
-                         "SRC (e.g. the src/ of an unpacked earlier commit, to compare two commits in one call); "
-                         "print them as one JSON line")
+                    help="only take the host cost of tp_shard_matmul calls, the f32 matmul timings (decode, "
+                         "prefill, TP 8 shards, the windowed models' 4096- and 4160-token buckets, the tied head), "
+                         "the attention timings, phase 5's and phase 6's bf16 engine timings and profiles, and the "
+                         "f32 decode step's and one f32 prefill's profile of all three models, importing repro_torch "
+                         "from SRC (e.g. the src/ of an unpacked earlier commit, to compare two commits in one "
+                         "call); print them as one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -1806,7 +1863,7 @@ def main() -> int:
         print(card_line())
         us = host_us_per_call(torch, dev, cfg, print, tp_shard_matmul)
         flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-        f32 = {"matmul": measure_matmul(torch, dev, cfg, flush, print, f32_decode_only=True),
+        f32 = {"matmul": measure_matmul(torch, dev, cfg, flush, print, f32_only=True),
                "tied_head": measure_tied_head(torch, dev, flush, print, dtypes=(torch.float32,))}
         paged = {"breakdown_ms": paged_breakdown(torch, dev, cfg, flush, print, paged_decode_attention),
                  "long_context": measure_paged_long(torch, dev, cfg, flush, print, paged_decode_attention,
@@ -1816,7 +1873,7 @@ def main() -> int:
         for name in WINDOWED[::-1]:
             timed[name] = engine_windowed_bf16_timed(torch, dev, get_config(name), print)
         f32["step_profile"] = {name: engine_f32_profiled(torch, dev, get_config(name), print)
-                               for name in ("llama3-8b", "gemma2-2b")}
+                               for name in ("llama3-8b", "gemma2-2b", "h2o-danube-1.8b")}
         print(json.dumps({"src": args.timings_of, "card": card_line(), "host_us_per_call": us, "f32": f32,
                           "paged_decode_attention": paged, **timed}))
         return 0
@@ -1906,7 +1963,11 @@ def main() -> int:
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}
-    instances = {"tp_shard_matmul": record["tied_head"], "paged_decode_attention": record["windowed_attention"]}
+    # the new instances: the tied head, and the f32 prefill kernel at llama3-8b's bucket 128 and the
+    # windowed models' 4096-token bucket
+    f32_prefill = [r for r in mm_rows if r["dtype"] == "float32" and r["tp"] == 1 and r["m"] in (128, 4096)]
+    instances = {"tp_shard_matmul": record["tied_head"] + f32_prefill,
+                 "paged_decode_attention": record["windowed_attention"]}
     kernels = []
     for name, route_src, row in (("tp_shard_matmul", "src/repro_torch/csrc/tp_shard_matmul.cu", main_mm),
                                  ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu", main_pa),

@@ -77,7 +77,8 @@
 //  the next tile's loads, clusters with TMA multicast of x, fp8 weights.
 //
 // f32 (the full-depth trajectory check) stays on the FMA units, without
-// TF32 (its tolerance is 1e-5). Two kernels, chosen from M:
+// TF32 (its tolerance is 1e-5). Two kernels, chosen from M, each one
+// launch per call:
 //  * M <= 8 (decode), skinny_mm<TA>: the bf16 path's shape with FMAs in
 //    place of wgmma. The weight's bytes bound it, so it keeps many of them
 //    in flight without passing through registers, and reduces split-K in
@@ -100,11 +101,48 @@
 //    S fills ~2 blocks per SM, each split at least 4 stages. The loader
 //    differs between TMA and cp.async, the arithmetic does not, so a shard
 //    read in place is bit-identical to the pre-sliced weight at any offset.
-//  * M > 8 (prefill), tiled_mm: a plain 64x64 SIMT tile, 256 threads with
-//    4x4 register tiles, the next K step's loads issued before the current
-//    step's FMAs (col_t: consecutive threads load consecutive K). It splits
-//    K over blocks when the grid is small and adds the partial sums in a
-//    second, fixed-order pass (splitk_reduce).
+//  * M > 8 (prefill), fma_mm<BM, TA, THREADS>: one launch per call,
+//    split-K included. Bytes bound it up to M ~ 40 (the weight at 3.35 TB/s
+//    against 2 M K N FMAs at 67 TFLOP/s), FMAs above: a 4096-token prompt's
+//    projections are all FMA work (gemma2-2b's w_gate: 2.6 ms). What stands
+//    between the FMA units and that bound is shared memory: an SM reads 32
+//    floats a clock from it and issues 128 FMAs, so a thread that holds
+//    TM x TN sums must do TM TN / (TM + TN) >= 4 FMAs per float it reads.
+//    So each thread holds 8 x 16 sums (128 threads a block, up to 254
+//    registers, two blocks per SM) of a BM x 128 output tile (BM = 128 for
+//    M > 64; 64 or 32 below, so that M = 32 or 64 spends no FMA on zero
+//    rows; then 4 or 2 rows a thread; and smaller where a narrow shard
+//    would leave the card short of blocks). A tile of 64 or 128 rows that
+//    splits K takes 4 or 8 x 8 sums on 256 threads instead: its blocks are
+//    short, and twice the warps hide their latencies better (measured:
+//    PERF.md).
+//    A ring of 3 (BM = 128), 4 (64) or 5 (32) stages of 32 K, ~100 KiB a
+//    block, is filled by TMA, thread 0 issuing each stage's two loads as
+//    many stages ahead as the ring holds less one, once every warp has
+//    freed the slot (an empty mbarrier per stage): x's [BM][32] tile, K
+//    contiguous, with the 128-byte swizzle (each 128-byte row's eight
+//    16-byte chunks permuted by row % 8), and the weight's tile from the f32
+//    maps cut at the shard and cached (col, row: [32][128], N contiguous,
+//    unswizzled, the decode kernel's map; col_t: [128][32], K contiguous,
+//    swizzled like x). A ragged tile, such as the last half-tile of a
+//    4160-row prompt, arrives zero-filled. Where TMA cannot take a base or
+//    row stride, every thread fills its share of the same layouts by 4-byte
+//    cp.async, zeros past the edges, completing on the same full mbarrier.
+//    No load passes through registers. A thread reads its rows' x one k at
+//    a time (rows ty + 16 r: the lanes of a warp hit different chunks of
+//    the swizzle, so no bank conflicts) and its columns of the weight as
+//    float4s (col, row: columns 4 tx + 4 TX h .. + 3 of a 16 x TX thread
+//    grid, a quarter-warp's 8 lanes on 128 contiguous bytes) or one k at a
+//    time (col_t: weight rows tx + TX j, swizzled).
+//    Split-K in the same launch, S chosen from (M, N, K) as the fewest
+//    splits (each at least 8 stages) that fill the grid's waves of ~2
+//    blocks per SM to 0.8 on average: partial tiles of BM x 128 in the
+//    workspace, a ticket per tile, the last block streams the
+//    partials through its idle ring by cp.async and adds splits 0..S-1 in
+//    order, then resets the counter. Every sum walks its K in order and the
+//    splits in order, whichever loader ran and whichever thread count: a
+//    shard read in place is bit-identical to the pre-sliced weight at any
+//    offset.
 // Every f32 output is a sum in an order fixed by (M, N, K) alone, so two
 // calls on the same inputs agree bit for bit.
 
@@ -122,8 +160,6 @@ namespace {
 constexpr int SMS = 132;               // H100 SXM
 constexpr int TARGET_BLOCKS = 2 * SMS;  // f32: split K until the grid has ~2 blocks per SM
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
 template <typename O> __device__ __forceinline__ O from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
@@ -132,139 +168,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __device__ __forceinline__ int dceil_div(int a, int b) { return (a + b - 1) / b; }
-// ---------------------------------------------------------------------------
-// f32, tiled path, M > 8
-// ---------------------------------------------------------------------------
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, THREADS = 256;
-
-template <typename T, typename O, bool TRANS>
-__global__ void __launch_bounds__(THREADS)
-tiled_mm(const T* __restrict__ x, const T* __restrict__ w, O* __restrict__ y,
-         float* __restrict__ part, int M, int N, int K, int64_t ldw, int KS) {
-  __shared__ float As[BK][BM + 1];  // x tile, transposed; +1 breaks bank conflicts
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * KS, kend = min(K, kbeg + KS);
-  const int ntiles = (kend - kbeg + BK - 1) / BK;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  float ra[4], rb[4];
-  auto load = [&](int t) {
-    const int k0 = kbeg + t * BK;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + THREADS * i;
-      const int am = idx / BK, ak = idx % BK;  // x tile: BM rows x BK
-      const int gm = m0 + am, gk = k0 + ak;
-      ra[i] = (gm < M && gk < kend) ? to_f32(x[(int64_t)gm * K + gk]) : 0.f;
-      const int bk = TRANS ? idx % BK : idx / BN, bn = TRANS ? idx / BK : idx % BN;  // w tile: BK x BN
-      const int gkb = k0 + bk, gn = n0 + bn;
-      rb[i] = (gkb < kend && gn < N) ? to_f32(w[TRANS ? (int64_t)gn * ldw + gkb : (int64_t)gkb * ldw + gn]) : 0.f;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + THREADS * i;
-      As[idx % BK][idx / BK] = ra[i];
-      if (TRANS) {
-        Bs[idx % BK][idx / BK] = rb[i];
-      } else {
-        Bs[idx / BN][idx % BN] = rb[i];
-      }
-    }
-  };
-
-  load(0);
-  store();
-  __syncthreads();
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) load(t + 1);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (t + 1 < ntiles) {
-      store();
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      if (part != nullptr) {
-        part[((int64_t)blockIdx.z * M + gm) * N + gn] = acc[i][j];
-      } else {
-        y[(int64_t)gm * N + gn] = from_f32<O>(acc[i][j]);
-      }
-    }
-  }
-}
-
-// y = sum over splits s = 0..S-1 of part[s], in that order
-__global__ void splitk_reduce(const float* __restrict__ part, float* __restrict__ y, int S, int64_t MN) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = part[i];
-  for (int z = 1; z < S; ++z) s += part[z * MN + i];
-  y[i] = s;
-}
-
-// How a tiled f32 call (M > 8) is split: S blocks along K of KS rows each.
-// Depends on the shapes only.
-struct Plan {
-  int S, KS;
-};
-
-Plan plan_tiled(int M, int N, int K) {
-  const int tiles = ceil_div(N, BN) * ceil_div(M, BM);
-  int S = ceil_div(TARGET_BLOCKS, tiles);
-  S = std::max(1, std::min(S, ceil_div(K, 4 * BK)));  // at least 4 steps per split
-  Plan p;
-  p.KS = std::max(ceil_div(ceil_div(K, S), BK) * BK, BK);
-  p.S = ceil_div(K, p.KS);
-  return p;
-}
-
-int run_tiled(const float* x, const float* w, float* y, float* ws, int M, int N, int K, int64_t ldw, bool trans,
-              cudaStream_t s) {
-  const Plan p = plan_tiled(M, N, K);
-  float* part = p.S > 1 ? ws : nullptr;
-  const dim3 grid(ceil_div(N, BN), ceil_div(M, BM), p.S);
-  if (trans) {
-    tiled_mm<float, float, true><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
-  } else {
-    tiled_mm<float, float, false><<<grid, THREADS, 0, s>>>(x, w, y, part, M, N, K, ldw, p.KS);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || p.S == 1) return static_cast<int>(e);
-  const int64_t mn = (int64_t)M * N;
-  splitk_reduce<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(part, y, p.S, mn);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
 // bf16: TMA-fed wgmma, swap-AB, split-K reduced in the same launch
 // ---------------------------------------------------------------------------
@@ -880,6 +783,262 @@ SkPlan plan_skinny(int N, int K) {
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// f32, prefill path (M > 8): a ring fed by TMA or cp.async; 8 x 16 FMA tiles
+// ---------------------------------------------------------------------------
+constexpr int FM_BN = 128;           // weight columns (col_t: weight rows) per block
+constexpr int FM_BK = 32;            // K per stage: 128 bytes of f32
+constexpr int FM_RING = 100 * 1024;  // shared memory for the ring: two blocks per SM
+constexpr int FM_W_FLOATS = FM_BK * FM_BN;  // the weight's tile, 16 KiB
+static_assert(FM_BN == SK_BN && FM_BK == SK_BK, "the weight's f32 tensor maps serve both f32 kernels");
+
+template <int BM> struct Fm {
+  static constexpr int TM = BM / 16;                  // rows per thread: ty + 16 r
+  static constexpr int STAGE = (FM_W_FLOATS + BM * FM_BK) * 4;  // + x's tile; a multiple of 1024
+  static constexpr int STAGES = FM_RING / STAGE;      // 3 (BM 128), 4 (64), 5 (32)
+  // the ring, one full and one empty mbarrier per stage, and slack to align the ring to 1024 bytes
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+constexpr int FM_MIN_KT = 8;  // stages per split, at least
+
+struct FmArgs {
+  const float* x;
+  const float* w;
+  float* y;
+  float* ws;       // partial tiles, S per output tile
+  int* counters;   // arrivals per output tile; 0 between calls
+  int M, N, K;
+  int64_t ldw;
+  int S, kts;      // splits along K, stages (of FM_BK) per split
+  int tma;         // 1: TMA loads; 0: every thread's cp.async
+};
+
+// Element (r, k) of a K-contiguous [rows][32] f32 tile (x's; col_t's
+// weight), in floats: row r's 8 chunks of 4 K permuted by r % 8, as TMA's
+// 128-byte swizzle lays them out.
+__device__ __forceinline__ int sw128(int r, int k) { return r * 32 + ((((k >> 2) ^ (r & 7)) << 2) | (k & 3)); }
+
+// grid (M tiles of BM, N tiles of FM_BN, S); THREADS (128 or 256) threads,
+// no producer warp: thread 0 issues a stage's two TMA loads (or, without
+// TMA, every thread its share of 4-byte cp.asyncs into the same layouts)
+// once every warp has freed the slot. Thread (ty, tx) of the 16 x TX grid
+// holds rows ty + 16 r and TN = 128 / TX columns: TA = 1 (col, row: the
+// weight is (K, N) rows, its tile [FM_BK][FM_BN] dense, read as float4s)
+// 4 tx + 4 TX h .. + 3; TA = 0 (col_t: (N, K) rows, its tile swizzled like
+// x's, read one k at a time) tx + TX j. Every sum takes its K in order, so
+// the thread count changes no bit of the result.
+template <int BM, int TA, int THREADS>
+__global__ void __launch_bounds__(THREADS, 2)
+fma_mm(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap, const FmArgs a) {
+  using F = Fm<BM>;
+  // a 16 x TX grid of threads, each TM rows x TN columns
+  constexpr int TM = F::TM, WARPS = THREADS / 32, TX = THREADS / 16, TN = FM_BN / TX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + F::STAGES * F::STAGE);
+  uint64_t* empty = full + F::STAGES;
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid & 31, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * FM_BN, split = blockIdx.z;
+  const int kt0 = split * a.kts, nkt = min(a.kts, dceil_div(a.K, FM_BK) - kt0);
+
+  if (tid == 0) {
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(&full[s], a.tma ? 1 : THREADS);  // TMA: thread 0's arrival; else every thread's copies
+      mbar_init(&empty[s], WARPS);                  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this split's stage t into slot t % STAGES, once every warp has freed it;
+  // zeros past the shard's and x's edges
+  auto refill = [&](int t) {
+    const int s = t % F::STAGES;
+    float* wt = reinterpret_cast<float*>(ring + s * F::STAGE);
+    float* xt = wt + FM_W_FLOATS;
+    const int k0 = (kt0 + t) * FM_BK;
+    if (a.tma) {
+      if (tid == 0) {
+        mbar_wait(&empty[s], ((t / F::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], F::STAGE);
+        tma_load(wt, &wmap, &full[s], TA ? n0 : k0, TA ? k0 : n0);
+        tma_load(xt, &xmap, &full[s], k0, m0);
+      }
+      return;
+    }
+    mbar_wait(&empty[s], ((t / F::STAGES) & 1) ^ 1);
+    for (int e = tid; e < FM_W_FLOATS; e += THREADS) {  // lanes along the tile's contiguous axis
+      const int r = TA ? e / FM_BN : e / FM_BK, c = TA ? e % FM_BN : e % FM_BK;
+      const int k = k0 + (TA ? r : c), n = n0 + (TA ? c : r);
+      const bool ok = k < a.K && n < a.N;
+      cp_async4(wt + (TA ? e : sw128(r, c)), ok ? a.w + (TA ? (int64_t)k * a.ldw + n : (int64_t)n * a.ldw + k) : a.w,
+                ok);
+    }
+    for (int e = tid; e < BM * FM_BK; e += THREADS) {
+      const int r = e / FM_BK, k = k0 + e % FM_BK, m = m0 + r;
+      const bool ok = m < a.M && k < a.K;
+      cp_async4(xt + sw128(r, e % FM_BK), ok ? a.x + (int64_t)m * a.K + k : a.x, ok);
+    }
+    cp_async_arrive(&full[s]);
+  };
+
+  for (int t = 0; t < F::STAGES - 1 && t < nkt; ++t) refill(t);
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[r][j] = 0.f;
+  for (int i = 0; i < nkt; ++i) {
+    if (i + F::STAGES - 1 < nkt) refill(i + F::STAGES - 1);  // the slot stage i - 1 used
+    const int s = i % F::STAGES;
+    mbar_wait(&full[s], (i / F::STAGES) & 1);
+    const float* wt = reinterpret_cast<const float*>(ring + s * F::STAGE);
+    const float* xt = wt + FM_W_FLOATS + ty * FM_BK;  // row ty; rows ty + 16 r share its swizzle
+#pragma unroll
+    for (int c = 0; c < FM_BK / 4; ++c) {
+      const float* xc = xt + ((c ^ (ty & 7)) << 2);
+      const float* wc = TA ? wt + 4 * tx : wt + tx * FM_BK + ((c ^ (tx & 7)) << 2);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = 4 * c + u;
+        float xv[TM], wv[TN];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) xv[r] = xc[r * 16 * FM_BK + u];
+        if (TA) {
+#pragma unroll
+          for (int h = 0; h < TN / 4; ++h) {
+            const float4 v = *reinterpret_cast<const float4*>(wc + k * FM_BN + 4 * TX * h);
+            wv[4 * h] = v.x, wv[4 * h + 1] = v.y, wv[4 * h + 2] = v.z, wv[4 * h + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) wv[j] = wc[j * TX * FM_BK + u];
+        }
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(xv[r], wv[j], acc[r][j]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  auto out = [&]() {  // this thread's TM x TN outputs
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int m = m0 + ty + 16 * r;
+      if (m >= a.M) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + (TA ? (j >> 2) * 4 * TX + 4 * tx + (j & 3) : tx + TX * j);
+        if (n < a.N) a.y[(int64_t)m * a.N + n] = acc[r][j];
+      }
+    }
+  };
+  if (a.S == 1) {
+    out();
+    return;
+  }
+  // split-K: this split's tile to the workspace as float4s in [float4][tid]
+  // order (coalesced), then a ticket; the last block to arrive adds splits
+  // 0..S-1 in that order, each thread its own float4s
+  constexpr int F4 = TM * TN / 4;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  float4* parts = reinterpret_cast<float4*>(a.ws) + (int64_t)tile * a.S * (F4 * THREADS);
+  float4* mine = parts + (int64_t)split * (F4 * THREADS);
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h)
+      mine[(TN / 4 * r + h) * THREADS + tid] =
+          make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2], acc[r][4 * h + 3]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&a.counters[tile], 1) == a.S - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The partials stream through the idle ring with cp.async (L2 only), ZC
+  // splits at a time, so that many bytes are in flight without holding
+  // registers; each thread copies and then adds only its own float4s, so no
+  // barrier is needed between copy and add.
+  constexpr int ZC = F::STAGES * F::STAGE / (F4 * THREADS * 16);
+  float4* held = reinterpret_cast<float4*>(ring);
+  for (int z0 = 0; z0 < a.S; z0 += ZC) {
+    const int nz = min(ZC, a.S - z0);
+    for (int zz = 0; zz < nz; ++zz)
+#pragma unroll
+      for (int f = 0; f < F4; ++f) {
+        const int i = (zz * F4 + f) * THREADS + tid;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(held + i)),
+                     "l"(parts + (int64_t)(z0 + zz) * (F4 * THREADS) + f * THREADS + tid)
+                     : "memory");
+      }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    for (int zz = 0; zz < nz; ++zz) {
+      const bool first = z0 + zz == 0;
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int h = 0; h < TN / 4; ++h) {
+          const float4 v = held[(zz * F4 + TN / 4 * r + h) * THREADS + tid];
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][4 * h + e] = first ? vs[e] : acc[r][4 * h + e] + vs[e];
+        }
+    }
+  }
+  out();
+  if (tid == 0) a.counters[tile] = 0;  // ready for the next call on this stream, or the next replay of a graph
+}
+
+// How a prefill f32 call is cut: BM rows per tile, M and N tiles, S
+// splits along K of kts stages each, and the block's threads. Depends on
+// the shapes only.
+struct FmPlan {
+  int BM, tiles_m, tiles_n, S, kts, threads;
+};
+
+FmPlan plan_fma(int M, int N, int K) {
+  FmPlan p;
+  const int kt = ceil_div(K, FM_BK), s_max = std::max(1, kt / FM_MIN_KT);
+  // BM: the rows M needs (32, 64 or 128), or fewer where that tile leaves
+  // the card short of blocks even at the most splits (a TP 8 rank's narrow
+  // shard): the largest whose tiles times s_max reach 0.4 of TARGET_BLOCKS,
+  // else 32
+  p.BM = 32;
+  for (int bm = M <= 32 ? 32 : M <= 64 ? 64 : 128; bm >= 32; bm /= 2)
+    if ((double)ceil_div(M, bm) * ceil_div(N, FM_BN) * s_max >= 0.4 * TARGET_BLOCKS) {
+      p.BM = bm;
+      break;
+    }
+  p.tiles_m = ceil_div(M, p.BM);
+  p.tiles_n = ceil_div(N, FM_BN);
+  const int tiles = p.tiles_m * p.tiles_n;
+  // S: the fewest splits whose grid fills its waves of TARGET_BLOCKS blocks
+  // to 0.8 or more on average; if none does, the one that fills them best
+  int S = 1;
+  double best = 0.0;
+  for (int s = 1; s <= s_max; ++s) {
+    const double fill = (double)tiles * s / ((double)ceil_div(tiles * s, TARGET_BLOCKS) * TARGET_BLOCKS);
+    if (fill > best + 1e-9) S = s, best = fill;
+    if (fill >= 0.8) break;
+  }
+  p.kts = ceil_div(kt, S);
+  p.S = ceil_div(kt, p.kts);
+  // 8 x 16 sums a thread (128 threads) read 3 floats of shared memory per
+  // 16 FMAs, 8 x 8 or 4 x 8 (256 threads) 4 or 6: the card's 128 FMAs and
+  // 32 floats of shared memory a clock make the first FMA-bound. But the
+  // short blocks of a split tile of 64 or 128 rows run faster with twice
+  // the warps to hide their latencies (measured on an H100: PERF.md).
+  p.threads = p.BM >= 64 && p.S > 1 ? 256 : 128;
+  return p;
+}
+
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query (no -lcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -898,10 +1057,12 @@ EncodeTiled encode_fn() {
 }
 
 // A 2-D tensor map: `inner` x `outer` elements from `base`, rows
-// `row_bytes` apart, boxes of box_inner x box_outer. bf16 maps take the
-// 128-byte swizzle wgmma reads; f32 maps none (the FMA kernel reads its
-// tiles row by row).
-bool encode(CUtensorMap* map, bool f32, const void* base, uint64_t inner, uint64_t outer, uint64_t row_bytes,
+// `row_bytes` apart, boxes of box_inner x box_outer, with the 128-byte
+// swizzle (sw) or none. bf16 maps take the swizzle wgmma reads; f32 maps
+// none (the decode kernel reads its tiles row by row), except the prefill
+// kernel's K-contiguous tiles (x's, col_t's weight), whose 128-byte rows it
+// reads one k at a time across rows.
+bool encode(CUtensorMap* map, bool f32, bool sw, const void* base, uint64_t inner, uint64_t outer, uint64_t row_bytes,
             uint32_t box_inner, uint32_t box_outer) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
@@ -909,45 +1070,46 @@ bool encode(CUtensorMap* map, bool f32, const void* base, uint64_t inner, uint64
   const cuuint32_t box[2] = {box_inner, box_outer}, elem[2] = {1, 1};
   return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
             const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            sw ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The weight's map, encoded once per (base, shard shape, row length,
-// layout, dtype): the weights of a WeightStore keep their pointers, so the
-// engine's calls find it here. bf16 (K, N) rows: boxes of 64 columns x 64
-// K rows; col_t's (N, K) rows: 64 K x 64 weight rows. f32: 128 columns x
-// 32 K rows; col_t: 32 K x 128 weight rows.
+// layout, dtype, swizzle): the weights of a WeightStore keep their
+// pointers, so the engine's calls find it here. bf16 (K, N) rows: boxes of
+// 64 columns x 64 K rows; col_t's (N, K) rows: 64 K x 64 weight rows. f32:
+// 128 columns x 32 K rows; col_t: 32 K x 128 weight rows, unswizzled for
+// the decode kernel, swizzled (sw) for the prefill kernel.
 struct MapKey {
   uintptr_t base;
   int N, K;
   int64_t ldw;
-  bool trans, f32;
+  bool trans, f32, sw;
   bool operator==(const MapKey& o) const {
-    return base == o.base && N == o.N && K == o.K && ldw == o.ldw && trans == o.trans && f32 == o.f32;
+    return base == o.base && N == o.N && K == o.K && ldw == o.ldw && trans == o.trans && f32 == o.f32 && sw == o.sw;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     return std::hash<uintptr_t>()(k.base) ^
-           (std::hash<int64_t>()(k.ldw) * 31 + k.N * 131 + k.K + k.trans + 2 * k.f32);
+           (std::hash<int64_t>()(k.ldw) * 31 + k.N * 131 + k.K + k.trans + 2 * k.f32 + 4 * k.sw);
   }
 };
 
-bool weight_map(CUtensorMap* map, const void* w, int N, int K, int64_t ldw, bool trans, bool f32) {
+bool weight_map(CUtensorMap* map, const void* w, int N, int K, int64_t ldw, bool trans, bool f32, bool sw = false) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{reinterpret_cast<uintptr_t>(w), N, K, ldw, trans, f32};
+  const MapKey key{reinterpret_cast<uintptr_t>(w), N, K, ldw, trans, f32, sw};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return true;
   }
-  const bool ok = f32 ? (trans ? encode(map, true, w, K, N, ldw * 4, SK_BK, SK_BN)
-                               : encode(map, true, w, N, K, ldw * 4, SK_BN, SK_BK))
-                      : (trans ? encode(map, false, w, K, N, ldw * 2, 64, 64)
-                               : encode(map, false, w, N, K, ldw * 2, 64, WG_BK));
+  const bool ok = f32 ? (trans ? encode(map, true, sw, w, K, N, ldw * 4, SK_BK, SK_BN)
+                               : encode(map, true, false, w, N, K, ldw * 4, SK_BN, SK_BK))
+                      : (trans ? encode(map, false, true, w, K, N, ldw * 2, 64, 64)
+                               : encode(map, false, true, w, N, K, ldw * 2, 64, WG_BK));
   if (!ok) return false;
   if (cache.size() >= (1u << 16)) cache.clear();
   cache.emplace(key, *map);
@@ -988,7 +1150,7 @@ int run_bf16(const void* x, const void* w, void* y, float* ws, int* counters, in
           reinterpret_cast<uintptr_t>(x) % 16 == 0 && (static_cast<int64_t>(K) * 2) % 16 == 0;
   CUtensorMap wmap{}, xmap{};
   if (a.tma && !(weight_map(&wmap, w, N, K, ldw, trans, false) &&
-                 encode(&xmap, false, x, K, M, (uint64_t)K * 2, 64, p.NT)))
+                 encode(&xmap, false, true, x, K, M, (uint64_t)K * 2, 64, p.NT)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (trans) return static_cast<int>(launch_wgmma<float, 0>(p, wmap, xmap, a, s));
   return static_cast<int>(out_f32 ? launch_wgmma<float, 1>(p, wmap, xmap, a, s)
@@ -1010,17 +1172,52 @@ cudaError_t launch_skinny(const SkPlan& p, const CUtensorMap& wmap, const CUtens
   return cudaGetLastError();
 }
 
+template <int BM, int TA, int THREADS>
+cudaError_t launch_fma(const FmPlan& p, const CUtensorMap& wmap, const CUtensorMap& xmap, const FmArgs& a,
+                       cudaStream_t s) {
+  static const cudaError_t attr = [] {
+    cudaError_t e =
+        cudaFuncSetAttribute(fma_mm<BM, TA, THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, Fm<BM>::SMEM);
+    if (e == cudaSuccess)  // room for two blocks per SM
+      e = cudaFuncSetAttribute(fma_mm<BM, TA, THREADS>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  fma_mm<BM, TA, THREADS><<<dim3(p.tiles_m, p.tiles_n, p.S), THREADS, Fm<BM>::SMEM, s>>>(wmap, xmap, a);
+  return cudaGetLastError();
+}
+
+template <int TA>
+cudaError_t launch_fma(const FmPlan& p, const CUtensorMap& wmap, const CUtensorMap& xmap, const FmArgs& a,
+                       cudaStream_t s) {
+  if (p.threads == 256) return p.BM == 64 ? launch_fma<64, TA, 256>(p, wmap, xmap, a, s)
+                                          : launch_fma<128, TA, 256>(p, wmap, xmap, a, s);
+  switch (p.BM) {
+    case 32: return launch_fma<32, TA, 128>(p, wmap, xmap, a, s);
+    case 64: return launch_fma<64, TA, 128>(p, wmap, xmap, a, s);
+    default: return launch_fma<128, TA, 128>(p, wmap, xmap, a, s);
+  }
+}
+
 int run_f32(const float* x, const float* w, float* y, float* ws, int* counters, int M, int N, int K, int64_t ldw,
             bool trans, cudaStream_t s) {
-  if (M > SK_M) return run_tiled(x, w, y, ws, M, N, K, ldw, trans, s);
-  const SkPlan p = plan_skinny(N, K);
-  SkArgs a{x, w, y, ws, counters, M, N, K, ldw, p.S, p.kts, 0};
-  // TMA takes 16-byte-aligned bases and row strides; else the producer warp copies 4 bytes at a time
-  a.tma = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * 4) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(x) % 16 == 0 && (static_cast<int64_t>(K) * 4) % 16 == 0;
   CUtensorMap wmap{}, xmap{};
-  if (a.tma && !(weight_map(&wmap, w, N, K, ldw, trans, true) &&
-                 encode(&xmap, true, x, K, M, (uint64_t)K * 4, SK_BK, SK_M)))
+  // TMA takes 16-byte-aligned bases and row strides; else the kernels copy 4 bytes at a time with cp.async
+  const bool tma = reinterpret_cast<uintptr_t>(w) % 16 == 0 && (ldw * 4) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 && (static_cast<int64_t>(K) * 4) % 16 == 0;
+  if (M > SK_M) {
+    const FmPlan p = plan_fma(M, N, K);
+    const FmArgs a{x, w, y, ws, counters, M, N, K, ldw, p.S, p.kts, tma};
+    if (tma && !(weight_map(&wmap, w, N, K, ldw, trans, true, trans) &&
+                 encode(&xmap, true, true, x, K, M, (uint64_t)K * 4, FM_BK, p.BM)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(trans ? launch_fma<0>(p, wmap, xmap, a, s) : launch_fma<1>(p, wmap, xmap, a, s));
+  }
+  const SkPlan p = plan_skinny(N, K);
+  const SkArgs a{x, w, y, ws, counters, M, N, K, ldw, p.S, p.kts, tma};
+  if (tma && !(weight_map(&wmap, w, N, K, ldw, trans, true) &&
+               encode(&xmap, true, false, x, K, M, (uint64_t)K * 4, SK_BK, SK_M)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(trans ? launch_skinny<0>(p, wmap, xmap, a, s) : launch_skinny<1>(p, wmap, xmap, a, s));
 }
@@ -1029,8 +1226,11 @@ int run_f32(const float* x, const float* w, float* y, float* ws, int* counters, 
 void scratch_need(int M, int N, int K, int dtype, long long* ws_bytes, long long* n_counters) {
   *ws_bytes = *n_counters = 0;
   if (dtype == 0 && M > SK_M) {
-    const Plan p = plan_tiled(M, N, K);
-    if (p.S > 1) *ws_bytes = (long long)p.S * M * N * sizeof(float);
+    const FmPlan p = plan_fma(M, N, K);
+    if (p.S > 1) {
+      *n_counters = (long long)p.tiles_m * p.tiles_n;
+      *ws_bytes = *n_counters * p.S * p.BM * FM_BN * (long long)sizeof(float);
+    }
   } else if (dtype == 0) {
     const SkPlan p = plan_skinny(N, K);
     if (p.S > 1) {

@@ -4,11 +4,12 @@ CPU tensors take the plain version in ref.py; CUDA tensors launch the
 kernel or raise. Modes: "col" and "row" select a column or row shard of a
 (K, N) weight; "col_t" selects rows of a weight stored transposed, (N, K),
 as the tied LM head reads the embedding's vocab rows.
-``tp_shard_matmul.launches`` counts wrapper calls that launched: one kernel
-(split-K reduced in the same launch) for bf16 and for f32 at M <= 8, the
-tiled kernel and its split-K pass for f32 at M > 8. A call inside a CUDA graph capture launches nothing: the
-graph's owner (``core.tp_switch.ExecutableCache``) takes it back off the
-count and adds it again at every replay.
+``tp_shard_matmul.launches`` counts wrapper calls that launched: every call
+launches one kernel, split-K reduced in the same launch (bf16 ``wgmma_mm``;
+f32 ``skinny_mm`` at M <= 8 and ``fma_mm`` above). A call inside a CUDA
+graph capture launches nothing: the graph's owner
+(``core.tp_switch.ExecutableCache``) takes it back off the count and adds it
+again at every replay.
 """
 from __future__ import annotations
 

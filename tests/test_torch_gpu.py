@@ -197,19 +197,29 @@ def test_tp_shard_matmul_col_t_in_place_equals_presliced(cuda, dtype, m):
     assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
-# f32 at M <= 8 (decode) runs skinny_mm: a ring of (32 K x 128 columns)
-# weight tiles fed by TMA, or by 4-byte cp.async where a base or row stride
-# is not 16-byte aligned, split-K added in the same launch. (mode, k, store,
-# n_out, off, split): store is the stored width (col), rows (row) or weight
-# rows (col_t); K at one stage (32), at stage boundaries (1792, 2304, 4096)
-# and between them (99, 100, 1000); N not a multiple of 128 except two;
-# split: whether the call splits K (S > 1); off 70, 75 and stride 210, 99
-# put the weight off 16-byte alignment.
+# f32 at M <= 8 (decode) runs skinny_mm, at M > 8 (prefill) fma_mm: each a
+# ring of weight tiles (32 K x 128 columns, or 128 weight rows x 32 K) fed by
+# TMA, or by 4-byte cp.async where a base or row stride is not 16-byte
+# aligned, split-K added in the same launch. (mode, k, store, n_out, off,
+# split): store is the stored width (col), rows (row) or weight rows
+# (col_t); K at one stage (32), at stage boundaries (1792, 2304, 4096) and
+# between them (99, 100, 1000); N not a multiple of 128 except two; split:
+# whether a decode call splits K (S > 1); off 70, 75 and stride 210, 99 put
+# the weight off 16-byte alignment.
 _F32_DECODE_SHAPES = [
     ("col", 32, 300, 200, 100, False), ("col", 4096, 2000, 1000, 1000, True), ("col", 1000, 210, 70, 70, True),
     ("col", 1000, 34000, 34000, 0, False), ("row", 1792, 14336, 4096, 5 * 1792, True), ("row", 100, 300, 70, 200, False),
     ("col_t", 2304, 4096, 1000, 1024, True), ("col_t", 99, 300, 75, 75, False), ("col_t", 4096, 40000, 34000, 0, False),
 ]
+_F32_SPLIT_SHAPES = [c for c in _F32_DECODE_SHAPES if c[-1]]
+# prefill rows: around the 32-, 64- and 128-row tiles, and one row past them.
+# The same shapes (at these rows the two 34000-wide ones split K too: S
+# evens out the grid's last wave), and two with K = 64, never split, whose
+# 266 tiles keep 64-row tiles on 128 threads at M = 64 (tiles of 64 and 128
+# rows that split run on 256 threads, narrow shards on tiles of 32 rows).
+_F32_PREFILL_M = [9, 16, 31, 32, 33, 64, 100, 127, 128, 129]
+_F32_PREFILL_SHAPES = [(*c[:-1], c[-1] or c[3] == 34000) for c in _F32_DECODE_SHAPES] + [
+    ("col", 64, 34000, 34000, 0, False), ("col_t", 64, 34000, 34000, 0, False)]
 
 
 def _f32_case(cuda, seed, mode, m, k, store, n_out):
@@ -235,9 +245,7 @@ def _splits_k(m, n, k, mode):
     return ws.value > 0
 
 
-@pytest.mark.parametrize("m", range(1, 9))
-@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_DECODE_SHAPES)
-def test_tp_shard_matmul_f32_decode_matches_plain(cuda, m, mode, k, store, n_out, off, split):
+def _f32_matches_plain(cuda, m, mode, k, store, n_out, off, split):
     x, w = _f32_case(cuda, 7 * m + k, mode, m, k, store, n_out)
     assert _splits_k(m, n_out, k, mode) == split
     before = tp_shard_matmul.launches
@@ -248,13 +256,29 @@ def test_tp_shard_matmul_f32_decode_matches_plain(cuda, m, mode, k, store, n_out
     assert torch.equal(_f32_call(x, w, off, n_out, mode), got)  # a second call, bit for bit
 
 
-@pytest.mark.parametrize("m", [1, 8])
-@pytest.mark.parametrize("mode", ["col", "row", "col_t"])
-def test_tp_shard_matmul_f32_decode_in_place_equals_presliced(cuda, m, mode):
-    """Each rank's shard at TP 1/2/4/8 read in place equals the same call on
-    the pre-sliced contiguous weight, bit for bit; the second pass puts the
-    storage 4 bytes past a 16-byte boundary (cp.async in place, TMA on the
-    pre-sliced copy)."""
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_DECODE_SHAPES)
+def test_tp_shard_matmul_f32_decode_matches_plain(cuda, m, mode, k, store, n_out, off, split):
+    _f32_matches_plain(cuda, m, mode, k, store, n_out, off, split)
+
+
+@pytest.mark.parametrize("m", _F32_PREFILL_M)
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_PREFILL_SHAPES)
+def test_tp_shard_matmul_f32_prefill_matches_plain(cuda, m, mode, k, store, n_out, off, split):
+    _f32_matches_plain(cuda, m, mode, k, store, n_out, off, split)
+
+
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", [
+    ("col", 4096, 2000, 1000, 1000, False), ("col", 1000, 210, 70, 70, True),
+    ("row", 1792, 14336, 4096, 5 * 1792, False), ("col_t", 2304, 4096, 1000, 1024, False),
+])
+def test_tp_shard_matmul_f32_prefill_matches_plain_at_4160_rows(cuda, mode, k, store, n_out, off, split):
+    """The windowed models' longest bucket: 4160 rows, 32 and a half tiles of
+    128 (the last one ragged)."""
+    _f32_matches_plain(cuda, 4160, mode, k, store, n_out, off, split)
+
+
+def _f32_in_place_equals_presliced(cuda, m, mode):
     g = torch.Generator(device=cuda).manual_seed(17)
     x = torch.randn(m, 4096, generator=g, device=cuda)
     shape = {"col": (4096, 4096), "row": (4096, 1024), "col_t": (8192, 4096)}[mode]
@@ -280,10 +304,23 @@ def test_tp_shard_matmul_f32_decode_in_place_equals_presliced(cuda, m, mode):
 
 
 @pytest.mark.parametrize("m", [1, 8])
-@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_DECODE_SHAPES[1:3] + _F32_DECODE_SHAPES[4:8])
-def test_tp_shard_matmul_f32_decode_nan_past_the_shard_stays_out(cuda, m, mode, k, store, n_out, off, split):
-    """NaN in the columns (col), rows (row) or weight rows (col_t) around
-    the shard: the output is finite and equals the plain version."""
+@pytest.mark.parametrize("mode", ["col", "row", "col_t"])
+def test_tp_shard_matmul_f32_decode_in_place_equals_presliced(cuda, m, mode):
+    """Each rank's shard at TP 1/2/4/8 read in place equals the same call on
+    the pre-sliced contiguous weight, bit for bit; the second pass puts the
+    storage 4 bytes past a 16-byte boundary (cp.async in place, TMA on the
+    pre-sliced copy)."""
+    _f32_in_place_equals_presliced(cuda, m, mode)
+
+
+@pytest.mark.parametrize("m", [9, 32, 128])
+@pytest.mark.parametrize("mode", ["col", "row", "col_t"])
+def test_tp_shard_matmul_f32_prefill_in_place_equals_presliced(cuda, m, mode):
+    """As the decode test, at prefill rows (tiles of 32 and 128 rows)."""
+    _f32_in_place_equals_presliced(cuda, m, mode)
+
+
+def _f32_nan_stays_out(cuda, m, mode, k, store, n_out, off):
     x, w = _f32_case(cuda, 200 + m, mode, m, k, store, n_out)
     if mode == "col":
         w[:, :off] = w[:, off + n_out:] = float("nan")
@@ -296,14 +333,38 @@ def test_tp_shard_matmul_f32_decode_nan_past_the_shard_stays_out(cuda, m, mode, 
     assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
-@pytest.mark.parametrize("mode,k,store,n_out,off,split", [c for c in _F32_DECODE_SHAPES if c[-1]])
-def test_tp_shard_matmul_f32_decode_repeats_bit_for_bit(cuda, mode, k, store, n_out, off, split):
-    """50 calls at split-K shapes give the same bits: the last block of each
-    tile adds the splits in order, whichever block that is."""
-    x, w = _f32_case(cuda, 31, mode, 8, k, store, n_out)
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_DECODE_SHAPES[1:3] + _F32_DECODE_SHAPES[4:8])
+def test_tp_shard_matmul_f32_decode_nan_past_the_shard_stays_out(cuda, m, mode, k, store, n_out, off, split):
+    """NaN in the columns (col), rows (row) or weight rows (col_t) around
+    the shard: the output is finite and equals the plain version."""
+    _f32_nan_stays_out(cuda, m, mode, k, store, n_out, off)
+
+
+@pytest.mark.parametrize("m", [32, 128])
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_DECODE_SHAPES[1:3] + _F32_DECODE_SHAPES[4:8])
+def test_tp_shard_matmul_f32_prefill_nan_past_the_shard_stays_out(cuda, m, mode, k, store, n_out, off, split):
+    _f32_nan_stays_out(cuda, m, mode, k, store, n_out, off)
+
+
+def _f32_repeats(cuda, m, mode, k, store, n_out, off):
+    x, w = _f32_case(cuda, 31, mode, m, k, store, n_out)
     first = _f32_call(x, w, off, n_out, mode)
     for _ in range(50):
         assert torch.equal(_f32_call(x, w, off, n_out, mode), first)
+
+
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_SPLIT_SHAPES)
+def test_tp_shard_matmul_f32_decode_repeats_bit_for_bit(cuda, mode, k, store, n_out, off, split):
+    """50 calls at split-K shapes give the same bits: the last block of each
+    tile adds the splits in order, whichever block that is."""
+    _f32_repeats(cuda, 8, mode, k, store, n_out, off)
+
+
+@pytest.mark.parametrize("m", [32, 128])
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_SPLIT_SHAPES)
+def test_tp_shard_matmul_f32_prefill_repeats_bit_for_bit(cuda, m, mode, k, store, n_out, off, split):
+    _f32_repeats(cuda, m, mode, k, store, n_out, off)
 
 
 def _kernels_in_one_call(fn):
@@ -318,22 +379,29 @@ def _kernels_in_one_call(fn):
             if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
 
 
-@pytest.mark.parametrize("mode,k,store,n_out,off,split", [c for c in _F32_DECODE_SHAPES if c[-1]])
+def _f32_one_kernel(cuda, m, mode, k, store, n_out, off, name):
+    x, w = _f32_case(cuda, 5, mode, m, k, store, n_out)
+    kernels = _kernels_in_one_call(lambda: _f32_call(x, w, off, n_out, mode))
+    assert len(kernels) == 1 and sum(kernels.values()) == 1, kernels
+    assert name in next(iter(kernels)), kernels
+
+
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_SPLIT_SHAPES)
 def test_tp_shard_matmul_f32_decode_launches_one_kernel(cuda, mode, k, store, n_out, off, split):
     """Under torch.profiler one f32 decode call at a split-K shape launches
     skinny_mm alone: no splitk_reduce."""
-    x, w = _f32_case(cuda, 5, mode, 8, k, store, n_out)
-    kernels = _kernels_in_one_call(lambda: _f32_call(x, w, off, n_out, mode))
-    assert len(kernels) == 1 and sum(kernels.values()) == 1, kernels
-    assert "skinny_mm" in next(iter(kernels)), kernels
+    _f32_one_kernel(cuda, 8, mode, k, store, n_out, off, "skinny_mm")
 
 
-@pytest.mark.parametrize("mode,k,store,n_out,off,split", [c for c in _F32_DECODE_SHAPES if c[-1]])
-def test_tp_shard_matmul_f32_decode_graph_replay_equals_eager(cuda, mode, k, store, n_out, off, split):
-    """The call captured in a CUDA graph (scratch grown on the capture stream
-    first) replays equal to the eager call, bit for bit, replay after replay:
-    the arrival counters end each launch at zero."""
-    x, w = _f32_case(cuda, 9, mode, 8, k, store, n_out)
+@pytest.mark.parametrize("m", [32, 128])
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_SPLIT_SHAPES)
+def test_tp_shard_matmul_f32_prefill_launches_one_kernel(cuda, m, mode, k, store, n_out, off, split):
+    """One f32 prefill call at a split-K shape launches fma_mm alone."""
+    _f32_one_kernel(cuda, m, mode, k, store, n_out, off, "fma_mm")
+
+
+def _f32_graph_equals_eager(cuda, m, mode, k, store, n_out, off):
+    x, w = _f32_case(cuda, 9, mode, m, k, store, n_out)
     eager = _f32_call(x, w, off, n_out, mode)
     graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -345,6 +413,20 @@ def test_tp_shard_matmul_f32_decode_graph_replay_equals_eager(cuda, mode, k, sto
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_SPLIT_SHAPES)
+def test_tp_shard_matmul_f32_decode_graph_replay_equals_eager(cuda, mode, k, store, n_out, off, split):
+    """The call captured in a CUDA graph (scratch grown on the capture stream
+    first) replays equal to the eager call, bit for bit, replay after replay:
+    the arrival counters end each launch at zero."""
+    _f32_graph_equals_eager(cuda, 8, mode, k, store, n_out, off)
+
+
+@pytest.mark.parametrize("m", [32, 128])
+@pytest.mark.parametrize("mode,k,store,n_out,off,split", _F32_SPLIT_SHAPES)
+def test_tp_shard_matmul_f32_prefill_graph_replay_equals_eager(cuda, m, mode, k, store, n_out, off, split):
+    _f32_graph_equals_eager(cuda, m, mode, k, store, n_out, off)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
