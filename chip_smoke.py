@@ -84,12 +84,29 @@ Phases; any failure raises and the script exits non-zero:
      then in bf16 TTFT at buckets 128 and 4096, the decode step per TP
      level, capture, replay times and memory as in phase 5, and one
      torch.profiler pass. Each model is freed before the next.
+  7. the dense family's remainder at full width, 8 slots, buckets
+     32/64/128, max_len 256, TP 1/2/4/8: yi-34b in bf16 at full depth
+     (timed as in phase 5: TTFT per bucket, decode step per TP level,
+     capture, pool, peak memory, profiles), then phase 4's f32 switch check
+     of yi-34b and chameleon-34b at 4 layers, mistral-large-123b at 2 and
+     musicgen-large at full depth;
+  8. MoE: moonshot-v1-16b-a3b in bf16 at full depth at its published
+     capacity factor 1.25, timed as in phase 5 (the profiles split a step
+     into the matmul kernel, attention, the library's GEMMs - the expert
+     bmm and the router - and the rest; dropped assignments per TP level
+     and stage), then the f32 switch check of moonshot at 4 layers and
+     dbrx-132b at 2 at capacity factor 8.0 (no drop) and again at 1.25
+     (trajectories and drops printed, not asserted), with 14 requests of
+     which six are prefilled after the switches, two each at TP 2, 4 and
+     8. Phase 2 also holds these models' attention geometries and matmul
+     widths to their plain versions and times them.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
-serving runs and each model's f32 runs in phase 6 for the others; after
-the engines' warm-up, so that the counts are the replays') and read just
-after. The kernels line's ``launches`` adds phase 5's counts (phase
-4's when phase 5 is skipped) and phase 6's f32 runs', with the split in
+serving runs, each model's f32 runs in phases 6-8 and the bf16 runs of
+phases 7-8 for the others; after the engines' warm-up, so that the counts
+are the replays') and read just after. The kernels line's ``launches``
+adds phase 5's counts (phase 4's when phase 5 is skipped) and those of
+phases 6-8, with the split in
 ``launches_by_path``; ``instances`` holds the new instances' rows. The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
@@ -97,6 +114,7 @@ line, the card line and the contract line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -230,7 +248,29 @@ def decode_profile(torch, eng, n=3):
     top = sorted(ev, key=lambda kv: -kv[1])[:6]
     return {"traced_step_ms": wall_us / n / 1e3, "device_ms_per_step": dev_us / n / 1e3,
             "busy_share": dev_us / wall_us, "top_ms_per_step": {k[:80]: t / n / 1e3 for k, t in top},
-            "kernel_ms_per_step": kernel_ms(ev, n)}
+            "kernel_ms_per_step": kernel_ms(ev, n), "split_ms_per_step": step_split(ev, n)}
+
+
+# by substring: the library's GEMM kernels, which run the MoE expert bmm and
+# the router (cuBLAS's nvjet / xmma / cutlass / gemm / gemv kernels)
+LIBRARY_GEMM = ("nvjet", "xmma", "cutlass", "gemm", "gemv")
+
+
+def step_split(ev, n):
+    """Device ms per step: the port's matmul kernel, decode attention, the
+    library's GEMMs (the expert bmm and the router in an MoE model) and the
+    rest (plain PyTorch ops: norms, RoPE, dispatch, copies)."""
+    out = {"tp_shard_matmul": 0.0, "paged_decode_attention": 0.0, "library_gemm": 0.0, "rest": 0.0}
+    for key, t in ev:
+        if any(k in key for k in MATMUL_KERNELS):
+            out["tp_shard_matmul"] += t
+        elif "paged_decode" in key:
+            out["paged_decode_attention"] += t
+        elif any(k in key.lower() for k in LIBRARY_GEMM):
+            out["library_gemm"] += t
+        else:
+            out["rest"] += t
+    return {k: v / n / 1e3 for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -421,8 +461,6 @@ def measure_matmul(torch, dev, cfg, flush, log, f32_only=False):
     (TF32 off); the bound counts the shard's bytes and FMAs. Each weight is
     made and freed in turn. The f32 decode rows also take f32_decode_extras."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
 
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     shapes = [("wq/wo col", "col", d, d), ("wk/wv col", "col", d, cfg.num_kv_heads * hd), ("w_gate/w_in col", "col", d, ff),
@@ -434,7 +472,19 @@ def measure_matmul(torch, dev, cfg, flush, log, f32_only=False):
     cases += [(cfg.name, s, 128, f32, 8) for s in shapes]
     for name in WINDOWED[::-1]:
         cases += [(name, s, m, f32, 1) for m in (4096, 4160) for s in projection_shapes(get_config(name))]
-    g = torch.Generator(device=dev).manual_seed(3)
+    return measure_matmul_cases(torch, dev, cases, flush, log, cfg.name)
+
+
+def measure_matmul_cases(torch, dev, cases, flush, log, main_model, seed=3):
+    """measure_matmul's rows for ``cases``, (model, (name, mode, stored K,
+    stored N), M, dtype, TP): TP 1 takes the whole weight, TP > 1 rank 1's
+    shard of it; each row held to its plain version (tol x max|plain|) and
+    timed beside its bound, its plain version and torch.matmul."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(seed)
     clean = ReadFlush(torch, dev)
     rows = []
     for model, (name, mode, k_store, n_store), m, dtype, tp in cases:
@@ -459,7 +509,7 @@ def measure_matmul(torch, dev, cfg, flush, log, f32_only=False):
         es, eo = x.element_size(), torch.finfo(out_dtype).bits // 8
         b_ms, b_by = bound_ms(es * (m * k + k * n) + eo * m * n, 2.0 * m * k * n, dname)
         shape = (f"{name} {dname} M={m} K={k} N={n}" + (f" (TP {tp} rank 1 shard)" if tp > 1 else "")
-                 + ("" if model == cfg.name else f" ({model})"))
+                 + ("" if model == main_model else f" ({model})"))
         iters = 20 if m * k * n < 2**34 else 10
         del got, want
         row = {
@@ -975,6 +1025,132 @@ def measure_tied_head(torch, dev, flush, log, dtypes=None):
     return heads
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the instances of phases 7 and 8: decode attention at each new
+# model's engine geometry, and the matmul at their widths and heads
+# ---------------------------------------------------------------------------
+NEW_MODELS = ("musicgen-large", "moonshot-v1-16b-a3b", "yi-34b", "mistral-large-123b", "dbrx-132b")
+
+
+def engine_geometry(cfg):
+    """(KV, G, hd) of the engine's decode attention: the cache keeps the
+    largest TP level's (8) KV heads."""
+    from repro_torch.parallel.sharding import make_exec_config
+
+    ec = make_exec_config(cfg, 8)
+    return ec.kv_exec, ec.q_per_kv, cfg.head_dim
+
+
+def measure_new_attention(torch, dev, flush, log):
+    """Decode attention at each new model's engine geometry (musicgen hd 64
+    G 1 over 32 KV heads, moonshot hd 128 G 1, yi-34b G 7, mistral G 12,
+    dbrx G 6), f32 and bf16, over the engine's dense 8 x 256-row slot cache
+    in pages of 16: rows at every split boundary, held to the dense and the
+    split plain versions; and rows of the engine's decode mix (make_requests'
+    first 8 prompts, 12 steps in), held to the plain version and timed
+    beside the bound, the plain version and SDPA over the dense cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import (
+        T_SPLIT, paged_decode_attention_ref, paged_decode_attention_split_ref,
+    )
+
+    Sc, rows, worst = 256, [], {}
+    bounds = [1, T_SPLIT - 1, T_SPLIT, T_SPLIT + 1, 2 * T_SPLIT, 2 * T_SPLIT + 1, 3 * T_SPLIT - 1, Sc]
+    for name in NEW_MODELS:
+        cfg = get_config(name)
+        KV, G, hd = engine_geometry(cfg)
+        mix = [min(len(r.prompt) + 12, Sc) for r in make_requests(cfg)[:8]]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for label, lens in (("split boundaries", bounds), ("engine shape", mix)):
+                q, kc, vc, kp, vp, tables, lens_t = dense_window_case(torch, dev, dtype, KV, G, hd, lens, Sc, seed=hd + G)
+                run = lambda: paged_decode_attention(q, kp, vp, tables, lens_t)  # noqa: E731
+                got, errs = run(), {}
+                for ref_name, fn, tol in (("dense", paged_decode_attention_ref, 2e-5),
+                                          ("split", paged_decode_attention_split_ref, 5e-6)):
+                    want = fn(q, kp, vp, tables, lens_t)
+                    errs[ref_name] = err = (got.float() - want.float()).abs().max().item()
+                    check(paged_close(torch, got, want, dtype, tol), f"paged {name} {label} {dname} vs {ref_name}: "
+                                                                      f"err {err}")
+                    key = f"G {G} hd {hd} {dname} vs {ref_name}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                if label == "engine shape":
+                    plain = lambda: paged_decode_attention_ref(q, kp, vp, tables, lens_t)  # noqa: E731
+                    qs = q.reshape(8, KV * G, 1, hd)
+                    ks, vs = kc.permute(0, 2, 1, 3).contiguous(), vc.permute(0, 2, 1, 3).contiguous()
+                    mask = (torch.arange(Sc, device=dev)[None] < lens_t[:, None].long())[:, None, None, :]
+                    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)  # noqa: E731
+                    live = sum(lens)
+                    b_ms, b_by = bound_ms(q.element_size() * (2 * q.numel() + 2 * live * KV * hd) + 4 * (tables.numel() + 8),
+                                          4.0 * live * KV * G * hd, dname)
+                    err = errs["dense"]
+                    row = {"model": name, "shape": f"{name} engine shape {dname} B=8 KV={KV} G={G} hd={hd} page=16 "
+                                                   f"Sc={Sc} live_tokens={live}",
+                           "max_abs_err": err, "tol": "2e-5 (f32) or 1e-3 + 8e-3 |plain| (bf16)",
+                           "ms": time_ms(torch, run, flush=flush), "plain_ms": time_ms(torch, plain, flush=flush),
+                           "library_ms": time_ms(torch, lib, flush=flush), "bound_ms": b_ms, "bound_by": b_by}
+                    rows.append(row)
+                    log(f"  {row['shape']}: {row['ms']:.4f} ms (bound {b_ms:.4f} by {b_by}, {b_ms / row['ms']:.2f} of "
+                        f"it), plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, err {err:.3g}")
+                    del ks, vs, qs
+                del q, kc, vc, kp, vp, got, want
+    log(f"paged_decode_attention at the new models' geometries (split boundaries and the engine's mix; tol f32 2e-5 "
+        f"dense, 5e-6 split; bf16 1e-3 + 8e-3 |plain|): max |err| {json.dumps(worst)}")
+    return rows, worst
+
+
+def new_matmul_cases(torch):
+    """tp_shard_matmul at the new models' widths: yi-34b (K 7168, N 20480),
+    mistral-large-123b (K 12288, N 28672), moonshot's d 2048 and its
+    163840-row head, musicgen's 2048-entry head; decode (M 8) at TP 1 and a
+    TP 8 rank's shard in bf16, decode and prefill (M 128) in f32 and bf16."""
+    shapes = [("yi-34b", ("wq/wo col", "col", 7168, 7168)), ("yi-34b", ("w_gate/w_in col", "col", 7168, 20480)),
+              ("yi-34b", ("w_out row", "row", 20480, 7168)),
+              ("mistral-large-123b", ("w_gate/w_in col", "col", 12288, 28672)),
+              ("mistral-large-123b", ("w_out row", "row", 28672, 12288)),
+              ("moonshot-v1-16b-a3b", ("wq/wo col", "col", 2048, 2048)),
+              ("moonshot-v1-16b-a3b", ("lm_head col f32-out", "col", 2048, 163840)),
+              ("musicgen-large", ("lm_head col f32-out", "col", 2048, 2048))]
+    bf, f32 = torch.bfloat16, torch.float32
+    return [(model, shape, m, dt, tp) for model, shape in shapes
+            for m, dt, tp in ((8, bf, 1), (8, bf, 8), (128, bf, 1), (8, f32, 1), (128, f32, 1))]
+
+
+def check_new_one_launch(torch, dev, log):
+    """One call of each kind of new instance under torch.profiler launches
+    one kernel: attention at mistral's G 12 and musicgen's hd 64 over 32 KV
+    heads, the matmul at mistral's w_out (row) and moonshot's head, bf16
+    and f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    seen = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for name in ("mistral-large-123b", "musicgen-large"):
+            KV, G, hd = engine_geometry(get_config(name))
+            q, _, _, kp, vp, tables, lens = dense_window_case(torch, dev, dtype, KV, G, hd, [200] * 8, 256, seed=3)
+            seen[f"paged_decode_attention G {G} hd {hd} {dname}"] = kernels_in_one_call(
+                torch, lambda: paged_decode_attention(q, kp, vp, tables, lens))
+            del q, kp, vp
+        for label, k, n, mode, m in (("w_out row 28672 x 12288", 28672, 12288, "row", 8),
+                                     ("lm_head 2048 x 163840", 2048, 163840, "col", 128)):
+            w = torch.randn(k, n, device=dev).to(dtype)
+            x = torch.randn(m, k, device=dev).to(dtype)
+            seen[f"tp_shard_matmul {label} M={m} {dname}"] = kernels_in_one_call(
+                torch, lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode))
+            del w, x
+    for key, kernels in seen.items():
+        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
+        check(sum(kernels.values()) == 1, f"one {key} call launches one kernel: {kernels}")
+    log(f"phase 7 and 8 instances under torch.profiler, one kernel per call: {json.dumps(seen)}")
+    return seen
+
+
 def check_kv_sweeps(torch, dev, cfg, log):
     """kv_gather / kv_scatter bit for bit against their plain versions: the
     reference test shapes in f32 and bf16, a llama3-8b page row (F = 16384,
@@ -1211,13 +1387,23 @@ def migration_phase(torch, dev, cfg, flush, log):
 # phases 4 and 5: the serving engine
 # ---------------------------------------------------------------------------
 def make_requests(cfg, n=10, new_tokens=24):
+    """``n`` seeded prompts of 4 to 120 tokens; ``new_tokens``, an int or
+    one count per request."""
     import numpy as np
 
     from repro_torch.serving.request import Request
 
+    counts = [new_tokens] * n if isinstance(new_tokens, int) else list(new_tokens)
     rng = np.random.RandomState(0)
-    return [Request(i, "strict", rng.randint(0, cfg.vocab_size, size=rng.randint(4, 121)).astype(np.int32), new_tokens)
-            for i in range(n)]
+    return [Request(i, "strict", rng.randint(0, cfg.vocab_size, size=rng.randint(4, 121)).astype(np.int32), counts[i])
+            for i in range(len(counts))]
+
+
+# an MoE model's f32 runs: 14 requests, of which the first 8 fill the slots and two each end after 5, 9 and
+# 15 tokens, so that under F32_SCHEDULE requests 8-13 are prefilled two each at TP 2, 4 and 8 (steps 4, 8
+# and 14): the reference's prefill path and capacity change with the TP level
+F32_SCHEDULE = {3: 2, 7: 4, 13: 8, 19: 1}
+MOE_NEW_TOKENS = (5, 5, 9, 9, 15, 15) + (24,) * 8
 
 
 def storage_ptrs(eng):
@@ -1323,6 +1509,12 @@ def matmul_launches_by_stage(*engines):
     return out
 
 
+def prefill_replays(eng):
+    """{"TP/bucket": replays} of the engine's prefill graphs."""
+    return {f"{tp}/{key}": eng.cache.get(tp, key).replays for tp in eng.cache.tps()
+            for key in eng.econf.prefill_buckets if eng.cache.has(tp, key)}
+
+
 def f32_step_profile(torch, eng, requests):
     """The engine's decode step with its slots busy with ``requests``: 3
     steps under torch.profiler at TP 1 and at the largest TP, device ms per
@@ -1412,7 +1604,18 @@ def engine_f32_profiled(torch, dev, cfg, log):
     return out
 
 
-def engine_f32(torch, dev, cfg, log):
+def engine_f32(torch, dev, cfg, log, must_match=True, extras=True):
+    """One model at full width in f32: the 10 requests (an MoE model:
+    MOE_NEW_TOKENS' 14, so that the switch run also prefills at TP 2, 4 and
+    8) served at fixed TP 1 and under F32_SCHEDULE over TP 1/2/4/8, by two
+    engines warmed up
+    (counts set to 0 just before the runs, read just after): identical
+    greedy trajectories (``must_match``; else the requests whose tokens
+    changed are reported), both kernels launched, every launch by a graph
+    replay, no weight moved by a rebind; an MoE model's dropped
+    assignments per (TP level, stage) of both runs. ``extras``: then every
+    graph against its eager step (graphs_vs_eager), and the f32 decode step
+    and one prefill under the profiler."""
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models import init_params, model_param_defs
@@ -1420,12 +1623,14 @@ def engine_f32(torch, dev, cfg, log):
     from repro_torch.serving.engine import ServingEngine
 
     econf = engine_conf(torch, cfg, torch.float32)
+    what = f"engine {cfg.name} f32 ({cfg.num_layers} layers)"
     t0 = time.perf_counter()
     params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"engine f32: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
+    log(f"{what}: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
         f"{time.perf_counter() - t0:.1f} s")
-    schedule = {3: 2, 7: 4, 13: 8, 19: 1}
+    schedule = F32_SCHEDULE
+    new_tokens = 24 if cfg.moe is None else MOE_NEW_TOKENS
     eng = ServingEngine(cfg, params, econf, device=dev)
     warm = eng.warmup()
     eng_b = ServingEngine(cfg, params, econf, device=dev)
@@ -1433,42 +1638,59 @@ def engine_f32(torch, dev, cfg, log):
     ptrs = storage_ptrs(eng_b)
     tp_shard_matmul.launches = paged_decode_attention.launches = 0  # from here on only replays launch
     t0 = time.perf_counter()
-    base = {r.req_id: list(r.generated) for r in eng.run(make_requests(cfg))}
+    base = {r.req_id: list(r.generated) for r in eng.run(make_requests(cfg, new_tokens=new_tokens))}
     t_a = time.perf_counter() - t0
     t0 = time.perf_counter()
-    done = eng_b.run(make_requests(cfg), switch_schedule=schedule)
+    done = eng_b.run(make_requests(cfg, new_tokens=new_tokens), switch_schedule=schedule)
     t_b = time.perf_counter() - t0
     launches = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
     check(launches == replayed(eng, eng_b), f"every launch came from a graph replay: {launches}")
-    check(len(base) == 10 and len(done) == 10, "all 10 requests served")
-    check(all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v) for v in base.values()), "24 valid tokens each")
+    want = {r.req_id: r.max_new_tokens for r in make_requests(cfg, new_tokens=new_tokens)}
+    check(len(base) == len(want) and len(done) == len(want), f"all {len(want)} requests served")
+    check(all(len(v) == want[i] and all(0 <= t < cfg.vocab_size for t in v) for i, v in base.items()),
+          "each request's count of valid tokens")
+    prefills = prefill_replays(eng_b)
+    if cfg.moe is not None:
+        check(all(any(n for k, n in prefills.items() if k.startswith(f"{tp}/")) for tp in (2, 4, 8)),
+              f"{cfg.name}: the switch run prefilled at TP 2, 4 and 8: {prefills}")
     changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
-    check(not changed, f"trajectories changed across TP switches for requests {changed}")
+    check(not (must_match and changed), f"{cfg.name}: trajectories changed across TP switches for requests {changed}")
     check(eng_b.stats.switches == 4, f"4 switches, got {eng_b.stats.switches}")
     check(storage_ptrs(eng_b) == ptrs, "rebind kept every storage data_ptr")
     check(all(n > 0 for n in launches.values()), f"both kernels launched on the main path: {launches}")
     by_stage = matmul_launches_by_stage(eng, eng_b)
+    dropped = {"fixed TP 1": {f"{tp}/{st}": n for (tp, st), n in eng.moe_dropped().items()},
+               "switch schedule": {f"{tp}/{st}": n for (tp, st), n in eng_b.moe_dropped().items()}}
     st = eng_b.stats
     graphs = graph_stats(eng)
-    log(f"engine f32: warmup {warm:.1f} s ({graphs['graphs']} graphs, pool {graphs['pool_bytes']} bytes); fixed TP 1 "
+    log(f"{what}: warmup {warm:.1f} s ({graphs['graphs']} graphs, pool {graphs['pool_bytes']} bytes); fixed TP 1 "
         f"run {t_a:.1f} s, {eng.stats.steps} steps; switch run {t_b:.1f} s, {st.steps} steps, {st.switches} switches "
-        f"({schedule}); trajectories identical; launches {launches}, all by graph replays; tp_shard_matmul's by "
-        f"stage {by_stage}")
-    log(f"engine f32: first request's tokens {base[0]}")
+        f"({schedule}); trajectories {'identical' if not changed else f'changed for requests {changed}'}; launches "
+        f"{launches}, all by graph replays; tp_shard_matmul's by stage {by_stage}; the switch run's prefills "
+        f"per TP level/bucket {prefills}")
+    log(f"{what}: first request's tokens {base[0]}" + (f"; with the schedule {done[0].generated}" if changed else ""))
+    if cfg.moe is not None:
+        log(f"{what}: capacity factor {cfg.moe.capacity_factor}; MoE assignments dropped per TP level/stage "
+            f"{json.dumps(dropped)}")
     del eng
-    n_graphs = graphs_vs_eager(torch, eng_b, log)
-    profile = f32_step_profile(torch, eng_b, profile_requests(cfg))
-    log(f"engine f32: decode under the profiler: {json.dumps(profile)}")
-    prefill_profile = f32_prefill_profile(torch, eng_b, cfg)
-    log(f"engine f32: prefill of {prefill_profile['bucket']} tokens at TP 1 under the profiler: "
-        f"{json.dumps(prefill_profile)}")
+    rec = {"layers": cfg.num_layers, "schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a,
+           "switch_run_s": t_b, "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s,
+           "graphs": graphs, "matmul_launches_by_stage": by_stage, "switch_run_prefills": prefills,
+           "changed_requests": changed,
+           "first_tokens": base[0]}
+    if cfg.moe is not None:
+        rec.update(capacity_factor=cfg.moe.capacity_factor, moe_dropped=dropped)
+    if extras:
+        rec["graphs_equal_to_eager"] = graphs_vs_eager(torch, eng_b, log)
+        rec["profile"] = f32_step_profile(torch, eng_b, profile_requests(cfg))
+        log(f"{what}: decode under the profiler: {json.dumps(rec['profile'])}")
+        rec["prefill_profile"] = f32_prefill_profile(torch, eng_b, cfg)
+        log(f"{what}: prefill of {rec['prefill_profile']['bucket']} tokens at TP 1 under the profiler: "
+            f"{json.dumps(rec['prefill_profile'])}")
     del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, {"schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a, "switch_run_s": t_b,
-                      "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s,
-                      "graphs": graphs, "graphs_equal_to_eager": n_graphs, "matmul_launches_by_stage": by_stage,
-                      "profile": profile, "prefill_profile": prefill_profile}
+    return launches, rec
 
 
 def engine_tiny_vs_cpu(torch, dev, log):
@@ -1585,6 +1807,9 @@ def engine_bf16_timed(torch, dev, cfg, log):
     out["bind_ms_per_tp"] = {str(tp): s * 1e3 for tp, s in eng.ctl.bind_s.items()}
     out["memory_gb"] = {"weights": weights / 1e9, "peak": torch.cuda.max_memory_allocated() / 1e9,
                         "peak_over_weights": (torch.cuda.max_memory_allocated() - weights) / 1e9}
+    moe = getattr(cfg, "moe", None)  # None for a dense model, or an earlier tree's config (--timings-of)
+    if moe is not None:  # over the TTFT, decode-step and tokens/s runs above
+        out["moe_dropped"] = {f"{tp}/{st}": n for (tp, st), n in eng.moe_dropped().items()}
 
     def prefill_profile(L):
         """One prompt that fills bucket L, admitted at TP 1 under torch.profiler:
@@ -1606,21 +1831,24 @@ def engine_bf16_timed(torch, dev, cfg, log):
     for tp in (1, 8):
         eng.switch_tp(tp)
         out["profile"][str(tp)] = decode_profile(torch, eng)
-    log(f"engine bf16 (host clock, before any profiler): TTFT ms per bucket {json.dumps(out['ttft_ms'])}; "
+    log(f"engine {cfg.name} bf16 (host clock, before any profiler): TTFT ms per bucket {json.dumps(out['ttft_ms'])}; "
         f"decode step ms per TP (3 rounds of 6 steps) {json.dumps(out['decode_step_ms'])}; "
         f"tokens/s {json.dumps(out['tokens_per_s'])} ({out['workload']}); launches over those runs "
         f"{json.dumps(out['launches'])}")
-    log(f"engine bf16: warmup {warm:.1f} s, graphs {json.dumps(out['graphs'])}; replay device ms (CUDA events) "
+    log(f"engine {cfg.name} bf16: warmup {warm:.1f} s, graphs {json.dumps(out['graphs'])}; replay device ms (CUDA events) "
         f"decode {json.dumps(out['decode_replay_ms'])}, prefill at TP 1 {json.dumps(out['prefill_replay_ms'])}; "
         f"busy share from events {json.dumps(out.get('busy_share_from_events'))}; memory GB {json.dumps(out['memory_gb'])}")
-    log(f"engine bf16: TP switch = lookup of a binding made at install: lookup us "
+    log(f"engine {cfg.name} bf16: TP switch = lookup of a binding made at install: lookup us "
         f"{[round(x, 2) for x in out['rebind_lookup_us']]}; bind ms per TP level (once, at install) "
         f"{json.dumps({k: round(v, 2) for k, v in out['bind_ms_per_tp'].items()})}; "
         f"migrate ms {[round(x, 3) for x in out['migrate_ms']]}")
     for tp, prof in out["profile"].items():
-        log(f"engine bf16: decode at TP {tp} under the profiler: {json.dumps(prof)}")
+        log(f"engine {cfg.name} bf16: decode at TP {tp} under the profiler: {json.dumps(prof)}")
+    if moe is not None:
+        log(f"engine {cfg.name} bf16: capacity factor {moe.capacity_factor}; MoE assignments dropped per TP "
+            f"level/stage over the timed runs {json.dumps(out['moe_dropped'])}")
     for L, prof in out["prefill_profile"].items():
-        log(f"engine bf16: prefill of {L} tokens at TP 1 under the profiler: {json.dumps(prof)}")
+        log(f"engine {cfg.name} bf16: prefill of {L} tokens at TP 1 under the profiler: {json.dumps(prof)}")
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1828,6 +2056,84 @@ def engine_windowed_bf16_timed(torch, dev, cfg, log):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the dense family's remainder and MoE
+# ---------------------------------------------------------------------------
+# depth of each f32 switch check (None: full depth); widths stay the published ones
+F32_CHECK_LAYERS = {"yi-34b": 4, "chameleon-34b": 4, "mistral-large-123b": 2, "musicgen-large": None,
+                    "moonshot-v1-16b-a3b": 4, "dbrx-132b": 2}
+
+
+def cut(cfg, layers):
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def with_capacity(cfg, factor):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+
+
+def dense_remainder_phase(torch, dev, log, skip_timed):
+    """Phase 7: yi-34b in bf16 at full depth (engine_bf16_timed: TTFT per
+    bucket, decode step per TP level, capture, pool, peak memory, profiles),
+    then the f32 switch check (engine_f32) of yi-34b and chameleon-34b at 4
+    layers, mistral-large-123b at 2 and musicgen-large at full depth, all at
+    full width. Returns ({path: launches}, record)."""
+    from repro_torch.configs import get_config
+
+    by_path, rec = {}, {}
+    if not skip_timed:
+        t0 = time.perf_counter()
+        rec["yi-34b bf16"] = engine_bf16_timed(torch, dev, get_config("yi-34b"), log)
+        by_path["yi-34b bf16"] = rec["yi-34b bf16"]["launches"]
+        log(f"phase 7 yi-34b bf16 (60 layers): {time.perf_counter() - t0:.1f} s")
+    for name in ("yi-34b", "chameleon-34b", "mistral-large-123b", "musicgen-large"):
+        t0 = time.perf_counter()
+        cfg = cut(get_config(name), F32_CHECK_LAYERS[name])
+        key = f"{name} f32 ({cfg.num_layers} layers)"
+        by_path[key], rec[key] = engine_f32(torch, dev, cfg, log)
+        rec[key]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 7 {key}: {rec[key]['wall_s']:.1f} s")
+    return by_path, rec
+
+
+def moe_phase(torch, dev, log, skip_timed):
+    """Phase 8: moonshot-v1-16b-a3b in bf16 at full depth at its published
+    capacity factor 1.25 (engine_bf16_timed, whose profiles split the step
+    into the matmul kernel, attention, the library's GEMMs — the expert bmm
+    and the router — and the rest; drops per TP level and stage); the f32
+    switch check of moonshot at 4 layers and dbrx-132b at 2, full width, at
+    reduced()'s capacity factor 8.0 with no assignment dropped; and once
+    more at 1.25, trajectories and drops printed, not asserted. Returns
+    ({path: launches}, record)."""
+    from repro_torch.configs import get_config
+
+    by_path, rec = {}, {}
+    moon = get_config("moonshot-v1-16b-a3b")
+    if not skip_timed:
+        t0 = time.perf_counter()
+        rec["moonshot bf16"] = engine_bf16_timed(torch, dev, moon, log)
+        by_path[f"{moon.name} bf16"] = rec["moonshot bf16"]["launches"]
+        log(f"phase 8 {moon.name} bf16 (48 layers): {time.perf_counter() - t0:.1f} s")
+    for factor in (8.0, 1.25):
+        if factor == 1.25:
+            log("phase 8 at the published capacity factor 1.25: the reference's prefill capacity depends on the TP "
+                "level (bucket 128 at TP 1: one dispatch of 128 tokens; at TP 8: 8 dispatches of 16, capacity 8 "
+                "each; at TP 2 and 4 one replicated dispatch of 128), so assignments it drops, and with them its "
+                "own greedy trajectory, may change with the TP level: trajectories and drops printed, not asserted")
+        for name in ("moonshot-v1-16b-a3b", "dbrx-132b"):
+            t0 = time.perf_counter()
+            cfg = with_capacity(cut(get_config(name), F32_CHECK_LAYERS[name]), factor)
+            key = f"{name} f32 cf {factor} ({cfg.num_layers} layers)"
+            by_path[key], rec[key] = engine_f32(torch, dev, cfg, log, must_match=factor == 8.0, extras=factor == 8.0)
+            if factor == 8.0:
+                dropped = rec[key]["moe_dropped"]
+                check(not any(n for run in dropped.values() for n in run.values()),
+                      f"{key}: no assignment dropped at capacity factor 8.0: {dropped}")
+            rec[key]["wall_s"] = time.perf_counter() - t0
+            log(f"phase 8 {key}: {rec[key]['wall_s']:.1f} s")
+    return by_path, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
@@ -1846,8 +2152,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    import dataclasses
-
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 oracle and library calls run in full f32
     torch.backends.cudnn.allow_tf32 = False
     if args.timings_of is not None:
@@ -1904,6 +2208,7 @@ def main() -> int:
     log(f"model: {cfg.name} at full width, {cfg.num_layers} of 32 layers")
 
     # ---- phase 2: kernels against plain versions ----
+    t0 = time.perf_counter()
     check_matmul_sweeps(torch, dev, log)
     record["tp_shard_matmul_main_shapes"] = check_matmul_main_shapes(torch, dev, cfg, log)
     check_paged_sweeps(torch, dev, log)
@@ -1925,7 +2230,12 @@ def main() -> int:
     record["windowed_launches_per_call"] = check_windowed_one_launch(torch, dev, log)
     log("new instances at the windowed models' shapes (attention at the engine shape and full window, tied head):")
     record["windowed_attention"], record["tied_head"] = measure_windowed(torch, dev, flush, log)
+    log("new instances of phases 7 and 8 (attention at each model's engine geometry; matmul at their widths):")
+    record["new_attention"], record["new_attention_errors"] = measure_new_attention(torch, dev, flush, log)
+    record["new_matmul"] = measure_matmul_cases(torch, dev, new_matmul_cases(torch), flush, log, None, seed=19)
+    record["new_launches_per_call"] = check_new_one_launch(torch, dev, log)
     check_kv_sweeps(torch, dev, cfg, log)
+    log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3: paged KV migration (kv counts reset just before each migrate_pages, read just after) ----
     kv_launches, record["migration"] = migration_phase(torch, dev, cfg, flush, log)
@@ -1943,31 +2253,47 @@ def main() -> int:
     by_path = {name: {f"{cfg.name} {'f32' if args.skip_timed else 'bf16'}": launches[name]}
                for name in ("tp_shard_matmul", "paged_decode_attention")}
 
+    def add_paths(paths):
+        for path, got in paths.items():
+            for k, n in got.items():
+                launches[k] += n
+                by_path[k][path] = n
+
     # ---- phase 6: the windowed models (counts reset just before each f32 model's runs, read just after) ----
     record["windowed"] = {}
     for name in WINDOWED[::-1]:  # gemma2-2b first
         t0 = time.perf_counter()
         wcfg = get_config(name)
         got, rec = engine_windowed_f32(torch, dev, wcfg, log)
-        for k, n in got.items():
-            launches[k] += n
-            by_path[k][f"{name} f32"] = n
+        add_paths({f"{name} f32": got})
         if not args.skip_timed:
             rec["bf16"] = engine_windowed_bf16_timed(torch, dev, wcfg, log)
         rec["wall_s"] = time.perf_counter() - t0
         record["windowed"][name] = rec
         log(f"phase 6 {name}: {rec['wall_s']:.1f} s")
 
+    # ---- phase 7: the dense family's remainder (counts reset just before each path's runs, read just after) ----
+    t0 = time.perf_counter()
+    paths, record["dense_remainder"] = dense_remainder_phase(torch, dev, log, args.skip_timed)
+    add_paths(paths)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 8: MoE (counts reset just before each path's runs, read just after) ----
+    t0 = time.perf_counter()
+    paths, record["moe"] = moe_phase(torch, dev, log, args.skip_timed)
+    add_paths(paths)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+
     # main-path entries: the bf16 decode shapes that take the most time per step
     main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}
-    # the new instances: the tied head, and the f32 prefill kernel at llama3-8b's bucket 128 and the
-    # windowed models' 4096-token bucket
+    # the new instances: the tied head, the f32 prefill kernel at llama3-8b's bucket 128 and the windowed
+    # models' 4096-token bucket, and the shapes of phases 7 and 8
     f32_prefill = [r for r in mm_rows if r["dtype"] == "float32" and r["tp"] == 1 and r["m"] in (128, 4096)]
-    instances = {"tp_shard_matmul": record["tied_head"] + f32_prefill,
-                 "paged_decode_attention": record["windowed_attention"]}
+    instances = {"tp_shard_matmul": record["tied_head"] + f32_prefill + record["new_matmul"],
+                 "paged_decode_attention": record["windowed_attention"] + record["new_attention"]}
     kernels = []
     for name, route_src, row in (("tp_shard_matmul", "src/repro_torch/csrc/tp_shard_matmul.cu", main_mm),
                                  ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu", main_pa),

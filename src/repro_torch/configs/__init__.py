@@ -2,6 +2,7 @@ from repro_torch.configs.base import (
     AttnSpec,
     LayerTemplate,
     ModelConfig,
+    MoESpec,
     ceil_to,
     get_config,
     reduced,
@@ -12,6 +13,7 @@ __all__ = [
     "AttnSpec",
     "LayerTemplate",
     "ModelConfig",
+    "MoESpec",
     "ceil_to",
     "get_config",
     "reduced",

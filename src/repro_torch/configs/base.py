@@ -1,11 +1,12 @@
 """Model configuration for the PyTorch port.
 
-The port's own copy of the dense subset of ``repro.configs.base``: the same
-field names and derived properties, so a configuration built from the same
-numbers describes the same model in both packages. MoE and Mamba come with
-the slices that port those families; ``frontend`` is carried as a field,
-and a "vq_image" model (image content as VQ token ids in the shared
-vocabulary) runs on the plain dense backbone.
+The port's own copy of the dense and MoE subset of ``repro.configs.base``:
+the same field names and derived properties, so a configuration built from
+the same numbers describes the same model in both packages. Mamba comes
+with the slice that ports that family; ``frontend`` is carried as a field:
+a "vq_image" model (image content as VQ token ids in the shared vocabulary)
+and an "encodec" model (audio codebook ids, or precomputed frame embeddings
+through ``forward``'s ``embeds``) run on the plain dense backbone.
 """
 from __future__ import annotations
 
@@ -26,15 +27,27 @@ class AttnSpec:
 
 
 @dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    moe_every: int = 1  # 1 = every FFN is MoE; 2 = alternate dense/MoE
+
+
+@dataclass(frozen=True)
 class LayerTemplate:
     mixer: str  # "attn" | "attn_local" | "attn_global"
-    ffn: str  # "dense" | "none"
+    ffn: str  # "dense" | "moe" | "none"
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm
+    family: str  # dense | moe | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,6 +56,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     attn: AttnSpec = field(default_factory=AttnSpec)
+    moe: Optional[MoESpec] = None
     pattern: Optional[tuple] = None
     norm_eps: float = 1e-6
     final_logit_softcap: Optional[float] = None
@@ -59,9 +73,10 @@ class ModelConfig:
     def layer_pattern(self) -> tuple:
         if self.pattern is not None:
             return self.pattern
+        ffn = "moe" if (self.moe and self.moe.moe_every == 1) else "dense"
         if self.attn.kind == "local_global":
-            return (LayerTemplate("attn_local", "dense"), LayerTemplate("attn_global", "dense"))
-        return (LayerTemplate("attn", "dense"),)
+            return (LayerTemplate("attn_local", ffn), LayerTemplate("attn_global", ffn))
+        return (LayerTemplate("attn", ffn),)
 
     @property
     def num_periods(self) -> int:
@@ -74,6 +89,36 @@ class ModelConfig:
     def n_attn_layers(self) -> int:
         per = sum(1 for t in self.layer_pattern if t.mixer.startswith("attn"))
         return per * self.num_periods
+
+    def param_count(self) -> int:
+        """Total parameters (embedding included once if tied)."""
+        n = self.vocab_padded * self.d_model  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_padded * self.d_model  # lm head
+        for t in self.layer_pattern:
+            if not t.mixer.startswith("attn"):
+                raise NotImplementedError(f"{self.name}: parameters of a {t.mixer!r} mixer")
+            ln = self.d_model * self.num_heads * self.head_dim  # q
+            ln += 2 * self.d_model * self.num_kv_heads * self.head_dim  # k, v
+            ln += self.num_heads * self.head_dim * self.d_model  # o
+            if t.ffn == "dense":
+                ln += 3 * self.d_model * self.d_ff  # swiglu
+            elif t.ffn == "moe":
+                m = self.moe
+                ln += (m.num_experts + m.num_shared_experts) * 3 * self.d_model * m.d_ff_expert
+                ln += self.d_model * m.num_experts  # router
+            ln += 2 * self.d_model  # norms
+            n += ln * self.num_periods
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        n_moe_layers = sum(1 for t in self.layer_pattern if t.ffn == "moe") * self.num_periods
+        unused = (m.num_experts - m.top_k) * 3 * self.d_model * m.d_ff_expert
+        return self.param_count() - n_moe_layers * unused
 
 
 def ceil_to(x: int, m: int) -> int:
@@ -97,7 +142,18 @@ def get_config(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import chameleon_34b, gemma2_2b, h2o_danube_1_8b, llama3_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        chameleon_34b,
+        dbrx_132b,
+        gemma2_2b,
+        h2o_danube_1_8b,
+        llama3_8b,
+        mistral_large_123b,
+        moonshot_v1_16b_a3b,
+        musicgen_large,
+        yi_34b,
+    )
+
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -115,4 +171,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.attn.window is not None:
         kw["attn"] = replace(cfg.attn, window=16)
+    if cfg.moe is not None:
+        # capacity_factor high enough that nothing drops at test scale —
+        # capacity dropping is batch-composition dependent and would break
+        # exact prefill/decode-vs-full consistency checks.
+        kw["moe"] = replace(cfg.moe, num_experts=4, top_k=2, d_ff_expert=64, capacity_factor=8.0)
     return replace(cfg, **kw)

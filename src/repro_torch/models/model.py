@@ -1,4 +1,4 @@
-"""Dense decoder stack (mirrors repro/models/model.py for the dense family).
+"""Decoder stack for the dense and MoE families (mirrors repro/models/model.py).
 
 ``forward`` takes the *bound* parameters that ``WeightStore.rebind`` makes
 for one TP level: a dict with ``embed``, ``layers`` (one dict per layer,
@@ -6,7 +6,8 @@ model-sharded weights as ``ShardView``s), ``final_norm`` and, unless the
 embeddings are tied, ``lm_head``. A tied head reads the embedding itself,
 in place. The reference's scan over pattern periods is a Python loop over
 layers; layer i runs the pattern's template i % period, which sets its
-attention window (full, sliding, or gemma-2's alternating local/global).
+attention window (full, sliding, or gemma-2's alternating local/global) and
+its FFN (dense SwiGLU, or MoE through ``models.moe``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.models.attention import attn_apply, attn_cache_defs, attn_param
 from repro_torch.models.layers import (
     col_parallel, mlp_apply, mlp_param_defs, norm_def, rmsnorm, softcap, tied_head, vocab_parallel_embed,
 )
+from repro_torch.models.moe import moe_apply, moe_param_defs
 from repro_torch.models.params import ParamDef, stack_defs
 from repro_torch.parallel.sharding import ExecConfig
 
@@ -26,14 +28,17 @@ from repro_torch.parallel.sharding import ExecConfig
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     unsupported = []
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "audio", "moe"):
         unsupported.append(f"family {cfg.family!r}")
-    if cfg.frontend not in (None, "vq_image"):  # vq_image feeds token ids to the dense backbone
+    # vq_image feeds token ids to the dense backbone; encodec codebook ids or frame embeddings (``embeds``)
+    if cfg.frontend not in (None, "vq_image", "encodec"):
         unsupported.append(f"frontend {cfg.frontend!r}")
     if cfg.attn.kind not in ("full", "swa", "local_global"):
         unsupported.append(f"attention kind {cfg.attn.kind!r}")
-    if any(not t.mixer.startswith("attn") or t.ffn != "dense" for t in cfg.layer_pattern):
+    if any(not t.mixer.startswith("attn") or t.ffn not in ("dense", "moe") for t in cfg.layer_pattern):
         unsupported.append(f"layer pattern {cfg.layer_pattern}")
+    if any(t.ffn == "moe" for t in cfg.layer_pattern) and cfg.moe is None:
+        unsupported.append("moe layers without a MoESpec")
     if unsupported:
         raise NotImplementedError(f"{cfg.name}: " + ", ".join(unsupported))
 
@@ -58,9 +63,9 @@ def model_param_defs(cfg: ModelConfig, ec: ExecConfig) -> dict:
             "norm1": norm_def(d),
             "mixer": attn_param_defs(cfg, ec),
             "norm2": norm_def(d),
-            "ffn": mlp_param_defs(d, cfg.d_ff),
+            "ffn": moe_param_defs(cfg) if t.ffn == "moe" else mlp_param_defs(d, cfg.d_ff),
         }
-        for i, _ in enumerate(cfg.layer_pattern)
+        for i, t in enumerate(cfg.layer_pattern)
     }
     defs = {
         "embed": ParamDef((cfg.vocab_padded, d), ("vocab", "embed"), scale=1.0),
@@ -84,7 +89,8 @@ def forward(
     cfg: ModelConfig,
     ec: ExecConfig,
     *,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[List[dict]] = None,
     block_tables: Optional[Sequence[torch.Tensor]] = None,
@@ -92,25 +98,40 @@ def forward(
     mode: str = "prefill",
     block_q: int = 512,
     block_k: int = 512,
+    pool: Optional[int] = None,
+    moe_drops: Optional[torch.Tensor] = None,
+    moe_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[dict]]:
     """Returns (hidden (B,S,D) after the final norm, per-layer caches).
 
-    prefill: tokens (B,S); returns each layer's (B,S,KV,hd) K/V, or for a
-    windowed layer with S > window its rotating buffer of the last window
-    positions, (B,window,KV,hd).
-    decode: tokens (B,1), positions (B,); writes each layer's new K/V into
+    The input is ``tokens`` (B,S), looked up in the embedding, or ``embeds``
+    (B,S,D), taken as the first hidden state (a frontend's frame embeddings).
+    prefill: returns each layer's (B,S,KV,hd) K/V, or for a windowed layer
+    with S > window its rotating buffer of the last window positions,
+    (B,window,KV,hd).
+    decode: S = 1, positions (B,); writes each layer's new K/V into
     ``cache`` in place (slot position % window in a windowed layer) and
     attends through ``block_tables``/``seq_lens``, one of each per layer.
+    MoE layers run as the reference does at the bound weights' TP level in a
+    pool of ``pool`` ranks (default: that TP level); ``moe_drops``, a (1,)
+    int64 tensor, gains the assignments they drop of the tokens ``moe_mask``
+    (B,S) holds (every token without a mask).
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
-    h = vocab_parallel_embed(tokens, params["embed"])
-    if cfg.tie_embeddings:  # gemma convention: scale tied embeddings
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()  # the factor rounded to h's dtype
+    if (tokens is None) == (embeds is None):
+        raise ValueError("forward takes exactly one of tokens and embeds")
+    if embeds is None:
+        h = vocab_parallel_embed(tokens, params["embed"])
+        if cfg.tie_embeddings:  # gemma convention: scale tied embeddings
+            h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()  # the factor rounded to h's dtype
+    else:
+        h = embeds
+    S = h.shape[1]
     windows = layer_windows(cfg)
     live = {}
     if mode == "prefill":  # the block pairs each window leaves live, from host positions: no sync per layer
-        host_pos = torch.arange(tokens.shape[1]) if positions is None else positions.cpu()
+        host_pos = torch.arange(S) if positions is None else positions.cpu()
         live = {w: live_blocks(host_pos, w, block_q, block_k) for w in set(windows)}
     else:
         block_tables, seq_lens = list(block_tables), list(seq_lens)
@@ -118,7 +139,8 @@ def forward(
             raise ValueError(f"decode takes one block table and one seq_lens per layer ({cfg.num_layers}), got "
                              f"{len(block_tables)} and {len(seq_lens)}")
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = torch.arange(S, device=h.device)
+    pattern = cfg.layer_pattern
     new_cache = []
     for i, (lp, window) in enumerate(zip(params["layers"], windows)):
         y, nc = attn_apply(
@@ -129,7 +151,12 @@ def forward(
             live=live.get(window), block_q=block_q, block_k=block_k,
         )
         h = h + y
-        h = h + mlp_apply(lp["ffn"], rmsnorm(h, lp["norm2"], cfg.norm_eps))
+        hn = rmsnorm(h, lp["norm2"], cfg.norm_eps)
+        if pattern[i % len(pattern)].ffn == "moe":
+            y, _ = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=False, drops=moe_drops, mask=moe_mask)
+        else:
+            y = mlp_apply(lp["ffn"], hn)
+        h = h + y
         new_cache.append(nc)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_cache
 

@@ -58,6 +58,8 @@ class ExecConfig:
 
 
 def make_exec_config(cfg: ModelConfig, tp: int) -> ExecConfig:
+    if cfg.moe is not None and cfg.moe.num_experts % tp:  # the experts axis is model-sharded
+        raise ValueError(f"{cfg.name}: experts={cfg.moe.num_experts} not divisible by tp={tp}")
     h = ceil_to(cfg.num_heads, tp)
     kv = cfg.num_kv_heads
     if tp > kv:
@@ -86,3 +88,8 @@ class ShardView:
     @property
     def tp(self) -> int:
         return len(self.mats)
+
+    def block(self, r: int, *inner: int) -> torch.Tensor:
+        """Rank r's rows of a weight sharded on its first dim, as a view of
+        shape (-1, *inner): an expert leaf's (E/t, D, F) shard."""
+        return self.mats[r].narrow(0, self.offsets[r], self.width).view(-1, *inner)

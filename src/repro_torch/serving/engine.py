@@ -9,7 +9,11 @@ The TP group's ranks are a list of devices, ``[device] * max(candidate_tps)``:
 on one card all ranks are that card, and the reference's psum is a sum of
 the ranks' partial products in rank order. Every projection runs once per
 rank through the ``tp_shard_matmul`` kernel; decode attention runs through
-the ``paged_decode_attention`` kernel.
+the ``paged_decode_attention`` kernel. The ranks are the reference's pool
+of N devices: at TP t its mesh is (data = N/t, model = t), and an MoE layer
+picks its dispatch path and capacity from t and N as the reference does
+(``models.moe``), so its drops depend on the TP level as the reference's
+do; ``moe_dropped`` reads the dropped assignments per (TP level, stage).
 
 As the reference compiles one executable per TP level for decode and one
 per (TP level, bucket) for prefill and warms them all up front, ``warmup``
@@ -74,6 +78,8 @@ class ServingEngine:
         if cfg.num_kv_heads < max(self.tps):
             raise ValueError("the engine keeps kv_exec constant across TP levels; use a config "
                              "with num_kv_heads >= the largest candidate TP")
+        if cfg.moe is not None and cfg.moe.num_experts < max(self.tps):
+            raise ValueError(f"{cfg.name}: {cfg.moe.num_experts} experts cannot shard over TP {max(self.tps)}")
         self.ranks = [self.device] * max(self.tps)
         defs = model_param_defs(cfg, make_exec_config(cfg, 1))
         self.store = WeightStore(cfg, defs, self.ranks, storage_tp=1)
@@ -85,6 +91,9 @@ class ServingEngine:
         self.next_tokens = np.zeros(econf.n_slots, np.int64)
         self.stats = StepStats()
         self.logit_trace: Dict[int, list] = {}  # req_id -> per-step logits (record_logits)
+        # (TP level, "prefill" | "decode") -> dropped MoE assignments, counted on the device
+        self._drops = {(tp, stage): torch.zeros((1,), dtype=torch.int64, device=self.device)
+                       for tp in self.tps for stage in ("prefill", "decode")} if cfg.moe is not None else {}
 
     @property
     def tp(self) -> int:
@@ -100,14 +109,18 @@ class ServingEngine:
         return self.ctl.cache
 
     # ------------------------------------------------------------------
-    def _prefill(self, params: dict, tokens: torch.Tensor, last: torch.Tensor, slot: torch.Tensor):
+    def _prefill(self, params: dict, tokens: torch.Tensor, last: torch.Tensor, slot: torch.Tensor,
+                 drops: Optional[torch.Tensor] = None):
         """Prefill one prompt padded to its bucket and insert its K/V into a
         slot's first rows (L of them, or a windowed layer's rotating buffer
         when L > window). tokens (1, L); last (1,) the prompt's last
         position; slot (1,): index tensors, so that one captured graph
-        serves every prompt length and slot of the bucket. Returns the next
-        token (1,) and the logits (1, vocab)."""
-        h, kv = forward(params, self.cfg, self.ec, tokens=tokens, mode="prefill", block_q=64, block_k=64)
+        serves every prompt length and slot of the bucket. ``drops`` gains
+        the MoE assignments dropped of the prompt's tokens (not the
+        padding's). Returns the next token (1,) and the logits (1, vocab)."""
+        mask = None if drops is None else torch.arange(tokens.shape[1], device=tokens.device)[None] <= last[:, None]
+        h, kv = forward(params, self.cfg, self.ec, tokens=tokens, mode="prefill", block_q=64, block_k=64,
+                        pool=len(self.ranks), moe_drops=drops, moe_mask=mask)
         logits = logits_for(params, self.cfg, h.index_select(1, last))[:, 0, : self.cfg.vocab_size]
         for layer, c in zip(self.slots.layers, kv):
             n = c["k"].shape[1]
@@ -115,13 +128,16 @@ class ServingEngine:
                 layer[name][slot, :n] = c[name][0].to(layer[name].dtype)
         return logits.argmax(-1), logits
 
-    def _decode(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor):
+    def _decode(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor,
+                drops: Optional[torch.Tensor] = None):
         """One decode step of every slot: tokens (n_slots, 1), positions
         (n_slots,); the block tables are fixed and seq_lens come from the
-        positions on the device."""
+        positions on the device. ``drops`` gains the MoE assignments
+        dropped, idle slots' included (the reference dispatches them too)."""
         tables, lens = self.slots.page_tables(positions)
         h, _ = forward(params, self.cfg, self.ec, tokens=tokens, positions=positions,
-                       cache=self.slots.layers, block_tables=tables, seq_lens=lens, mode="decode")
+                       cache=self.slots.layers, block_tables=tables, seq_lens=lens, mode="decode",
+                       pool=len(self.ranks), moe_drops=drops)
         logits = logits_for(params, self.cfg, h)[:, 0, : self.cfg.vocab_size]
         return logits.argmax(-1), logits
 
@@ -140,19 +156,28 @@ class ServingEngine:
         n, dev = self.econf.n_slots, self.device
         for tp in self.tps:
             params = self.ctl.bindings[tp]
-            self.cache.put(tp, "decode", functools.partial(self._decode, params),
+            decode = functools.partial(self._decode, params, drops=self._drops.get((tp, "decode")))
+            prefill = functools.partial(self._prefill, params, drops=self._drops.get((tp, "prefill")))
+            self.cache.put(tp, "decode", decode,
                            (torch.zeros((n, 1), dtype=torch.int64, device=dev),
                             torch.zeros((n,), dtype=torch.int64, device=dev)))
             for L in self.econf.prefill_buckets:
-                self.cache.put(tp, L, functools.partial(self._prefill, params),
+                self.cache.put(tp, L, prefill,
                                (torch.zeros((1, L), dtype=torch.int64, device=dev),
                                 torch.zeros((1,), dtype=torch.int64, device=dev),
                                 torch.zeros((1,), dtype=torch.int64, device=dev)))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        for count in self._drops.values():  # the warm-up runs on the card counted theirs
+            count.zero_()
         dt = time.perf_counter() - t0
         self.stats.warmup_s += dt
         return dt
+
+    def moe_dropped(self) -> Dict[tuple, int]:
+        """MoE assignments dropped so far over capacity, per (TP level,
+        "prefill" | "decode"); empty for a dense model."""
+        return {key: int(n.item()) for key, n in self._drops.items()}
 
     def _executable(self, key):
         if not self.cache.has(self.tp, key):

@@ -731,9 +731,11 @@ def test_paged_split_kernel_repeats_bit_for_bit(cuda, dtype, KV, G, hd, cap, len
 # ---------------------------------------------------------------------------
 # The engine's CUDA graphs, one per (TP level, stage, bucket), against the
 # eager step functions they capture: full width, 2 layers (gemma2-2b: one
-# local, one global), f32
+# local, one global; moonshot-v1-16b-a3b: MoE at its published capacity
+# factor, so prefill may drop), f32
 # ---------------------------------------------------------------------------
-_GRAPH_TPS = {"llama3-8b": (1, 2, 4, 8), "gemma2-2b": (1, 2, 4), "h2o-danube-1.8b": (1, 2, 4, 8)}
+_GRAPH_TPS = {"llama3-8b": (1, 2, 4, 8), "gemma2-2b": (1, 2, 4), "h2o-danube-1.8b": (1, 2, 4, 8),
+              "moonshot-v1-16b-a3b": (1, 2, 4, 8)}
 _GRAPH_ENGINES = {}
 
 
@@ -844,3 +846,109 @@ def test_switch_refuses_a_cache_moved_under_graphs(cuda, monkeypatch):
     with pytest.raises(SwitchAborted):
         eng.switch_tp(1)
     assert eng.tp == 2
+
+
+# ---------------------------------------------------------------------------
+# MoE (models/moe.py) on the card: deterministic (no atomics), and equal to
+# the same layer on the CPU
+# ---------------------------------------------------------------------------
+def _bound_moe(cfg, params, tp, device, pool):
+    """One MoE layer's params bound at TP ``tp`` in a pool of ``pool`` ranks on ``device``."""
+    from repro_torch.core.weight_store import WeightStore
+    from repro_torch.models.moe import moe_param_defs
+    from repro_torch.models.params import tree_map
+
+    store = WeightStore(cfg, {"ffn": moe_param_defs(cfg)}, [device] * pool)
+    return store.rebind(store.build(tree_map(lambda t: t.to(device), params)), tp)["ffn"]
+
+
+def _moe_params(cfg, device, dtype=torch.float32, seed=0):
+    from repro_torch.models.moe import moe_param_defs
+
+    return init_params({"ffn": moe_param_defs(cfg)}, torch.Generator(device=device).manual_seed(seed), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [1, 2, 8])
+@pytest.mark.parametrize("B,S", [(8, 1), (1, 128)], ids=["decode", "prefill"])
+def test_moe_layer_repeats_bit_for_bit(cuda, B, S, tp, dtype):
+    """moonshot-v1-16b-a3b's MoE layer at full width (64 experts, top 6), at
+    its published capacity factor, in a pool of 8 at TP 1, 2 and 8 (local,
+    decode and sharded paths): 50 calls give the same bits, and the drop
+    count is the same each call."""
+    from repro_torch.models.moe import moe_apply
+
+    cfg = get_config("moonshot-v1-16b-a3b")
+    p = _bound_moe(cfg, _moe_params(cfg, cuda, dtype), tp, cuda, 8)
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda).to(dtype)
+    drops = torch.zeros(1, dtype=torch.int64, device=cuda)
+    first, _ = moe_apply(p, x, cfg, 8, drops=drops)
+    n0 = int(drops)
+    for _ in range(49):
+        y, _ = moe_apply(p, x, cfg, 8, drops=drops)
+        assert torch.equal(y, first)
+    assert int(drops) == 50 * n0 and bool(torch.isfinite(first.float()).all())
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("B,S", [(8, 1), (16, 1), (1, 32), (1, 6)], ids=["decode", "decode16", "prefill", "prefill6"])
+def test_moe_layer_on_card_matches_cpu(cuda, B, S, tp):
+    """A narrow MoE layer with a shared expert (d 256, 16 experts, top 4,
+    capacity factor 1.25: drops happen) in a pool of 4, f32, on the card
+    against the same weights and input on the CPU (plain versions): within
+    1e-5 of the output's scale, the same dropped assignments, the same aux
+    losses within 1e-5."""
+    from repro_torch.models.moe import moe_apply
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), d_model=256)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=16, top_k=4, d_ff_expert=128,
+                                                           num_shared_experts=1))
+    cpu = torch.device("cpu")
+    params = _moe_params(cfg, cpu)
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator().manual_seed(tp + B + S))
+    d_gpu, d_cpu = torch.zeros(1, dtype=torch.int64, device=cuda), torch.zeros(1, dtype=torch.int64)
+    got, aux = moe_apply(_bound_moe(cfg, params, tp, cuda, 4), x.to(cuda), cfg, 4, drops=d_gpu)
+    want, aux_cpu = moe_apply(_bound_moe(cfg, params, tp, cpu, 4), x, cfg, 4, drops=d_cpu)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert int(d_gpu) == int(d_cpu)
+    for k in ("lb", "z"):
+        assert abs(float(aux[k]) - float(aux_cpu[k])) <= 1e-5 * abs(float(aux_cpu[k]))
+
+
+# ---------------------------------------------------------------------------
+# the new models' kernel instances against their plain versions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd", [(32, 1, 64), (16, 1, 128), (8, 7, 128), (8, 12, 128), (8, 6, 128)],
+                         ids=["musicgen", "moonshot", "yi-34b", "mistral-large", "dbrx"])
+def test_paged_split_kernel_new_model_geometries(cuda, dtype, KV, G, hd):
+    """The engine's decode attention of each new model (the cache keeps TP
+    8's KV heads): rows at each split boundary of a 256-token table."""
+    n_pages = 256 // 16
+    lens = [1, T_SPLIT - 1, T_SPLIT, T_SPLIT + 1, 2 * T_SPLIT, 2 * T_SPLIT + 1, 3 * T_SPLIT - 1, 256]
+    args = _paged_case(cuda, dtype, lens, KV, G, hd, 16, n_pages, seed=KV * G + hd)
+    got = paged_decode_attention(*args)
+    f32 = dtype == torch.float32
+    _assert_paged_close(got, paged_decode_attention_split_ref(*args), _TOL_SPLIT_F32 if f32 else None)
+    _assert_paged_close(got, paged_decode_attention_ref(*args), _TOL_DENSE_F32 if f32 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("mode,k,store,n_out,off", [
+    ("col", 7168, 20480, 2560, 3 * 2560), ("row", 2560, 20480, 7168, 5 * 2560),  # yi-34b w_gate / w_out, TP 8
+    ("col", 12288, 28672, 28672, 0), ("row", 3584, 28672, 12288, 7 * 3584),  # mistral-large w_gate TP 1, w_out TP 8
+    ("col", 2048, 163840, 20480, 20480),  # moonshot's head, rank 1 at TP 8
+    ("col", 2048, 2048, 256, 6 * 256),  # musicgen's 2048-entry head, rank 6 at TP 8
+])
+def test_tp_shard_matmul_new_model_shapes(cuda, dtype, m, mode, k, store, n_out, off):
+    """The projections of the new models at a rank's offset, against the
+    plain version; f32 heads take f32 outputs as the engine's do."""
+    g = torch.Generator(device=cuda).manual_seed(k + n_out)
+    w_shape = (k, store) if mode == "col" else (store, n_out)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(*w_shape, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+    want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()

@@ -335,13 +335,24 @@ def test_decode_takes_one_table_per_layer():
 
 
 def test_check_supported_refuses_what_is_still_missing():
+    """MoE and the encodec frontend are served now; the state families, a
+    mamba mixer, an unknown frontend and MoE layers without a spec are not."""
     from dataclasses import replace
 
+    from repro_torch.configs.base import LayerTemplate
+
     llama = get_config("llama3-8b")
+    for name in ("moonshot-v1-16b-a3b", "dbrx-132b", "musicgen-large"):
+        check_supported(get_config(name))
     with pytest.raises(NotImplementedError, match="family"):
-        check_supported(replace(llama, family="moe"))
+        check_supported(replace(llama, family="ssm"))
+    with pytest.raises(NotImplementedError, match="layer pattern"):
+        check_supported(replace(llama, family="hybrid",
+                                pattern=(LayerTemplate("mamba", "none"), LayerTemplate("attn", "moe"))))
     with pytest.raises(NotImplementedError, match="frontend"):
-        check_supported(replace(llama, family="audio", frontend="encodec"))
+        check_supported(replace(llama, family="audio", frontend="waveform"))
+    with pytest.raises(NotImplementedError, match="MoESpec"):
+        check_supported(replace(llama, family="moe", pattern=(LayerTemplate("attn", "moe"),)))
 
 
 # ---------------------------------------------------------------------------
