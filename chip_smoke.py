@@ -100,13 +100,29 @@ Phases; any failure raises and the script exits non-zero:
      which six are prefilled after the switches, two each at TP 2, 4 and
      8. Phase 2 also holds these models' attention geometries and matmul
      widths to their plain versions and times them.
+  9. the Mamba family: mamba2-2.7b at full width and depth (64 layers,
+     11.3 GB in f32) through ``forward`` over a pool of 8 ranks (the
+     reference's path for it: its engine refuses a model without KV
+     heads): 8 prompts of 3-128 tokens prefilled, then 24 greedy decode
+     steps as a batch of 8 with the state cache, at fixed TP 1 and with
+     rebinds TP 1 -> 2 -> 4 -> 8 -> 1 (identical tokens, finite hidden
+     states, no weight byte moved, the matmul launched); in bf16 one
+     128-token prefill and the decode step of 8 at TP 1 and 8 under
+     torch.profiler (eager, not graph replays); then jamba-v0.1-52b through
+     the engine: the f32 switch check at one period (8 layers, 53.2 GB) at
+     capacity factor 8.0 (no drop; every graph equal to its eager step,
+     the Mamba states included), and in bf16 at two periods (16 layers,
+     52.1 GB) at the published capacity factor 1.25, timed as in phase 8.
+     Phase 2 also holds the Mamba projections (narrow N, K = 256, w_dt's
+     10-column shards at 20-byte offsets) to their plain versions, one
+     kernel a call, and times them.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
-serving runs, each model's f32 runs in phases 6-8 and the bf16 runs of
-phases 7-8 for the others; after the engines' warm-up, so that the counts
+serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
+phases 7-9 for the others; after the engines' warm-up, so that the counts
 are the replays') and read just after. The kernels line's ``launches``
 adds phase 5's counts (phase 4's when phase 5 is skipped) and those of
-phases 6-8, with the split in
+phases 6-9, with the split in
 ``launches_by_path``; ``instances`` holds the new instances' rows. The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
@@ -583,8 +599,8 @@ def host_us_per_call(torch, dev, cfg, log, tp_shard_matmul, n_calls=400):
 def check_one_launch(torch, dev, log):
     """Under torch.profiler, one call at split-K shapes launches one kernel
     and no splitk_reduce: w_gate and wk/wv (col) and w_out (row), at decode
-    (M = 8) in bf16 and f32 and at prefill (M = 32 and 128) in f32. None
-    when the profiler sees no device time."""
+    (M = 8) in bf16 and f32 and at prefill (M = 32 and 128) in f32. Fails
+    when the profiler sees no device time in any of three sessions."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 
     seen = {}
@@ -597,10 +613,8 @@ def check_one_launch(torch, dev, log):
                 seen[f"{name} {str(dtype).split('.')[1]} M={m}"] = kernels_in_one_call(
                     torch, lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode))
                 del x, w
-    if any(v is None for v in seen.values()):
-        log("tp_shard_matmul: launches per call not checked: the profiler saw no device time")
-        return None
     for key, kernels in seen.items():
+        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
         check(sum(kernels.values()) == 1 and not any("splitk_reduce" in k for k in kernels),
               f"one {key} tp_shard_matmul call launches one kernel, no splitk_reduce: {kernels}")
     log(f"tp_shard_matmul: one decode or prefill call under torch.profiler launches one kernel: {json.dumps(seen)}")
@@ -744,7 +758,7 @@ def paged_breakdown(torch, dev, cfg, flush, log, paged_decode_attention):
 def check_paged_one_launch(torch, dev, cfg, log):
     """Under torch.profiler, one call launches one kernel: at the engine's
     layout with rows of one, two and three splits (merged in the launch).
-    None when the profiler sees no device time."""
+    Fails when the profiler sees no device time in any of three sessions."""
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 
     KV, hd, G = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
@@ -754,9 +768,7 @@ def check_paged_one_launch(torch, dev, cfg, log):
     tables = torch.arange(128, dtype=torch.int32, device=dev).view(8, 16)
     lens = torch.tensor([1, 64, 65, 100, 128, 129, 192, 256], dtype=torch.int32, device=dev)
     kernels = kernels_in_one_call(torch, lambda: paged_decode_attention(q, kp, vp, tables, lens))
-    if not kernels:
-        log("paged_decode_attention: launches per call not checked: the profiler saw no device time")
-        return None
+    check(kernels is not None, "paged_decode_attention: the profiler saw device time in one of three sessions")
     check(sum(kernels.values()) == 1 and all("paged_decode" in k for k in kernels),
           f"one paged_decode_attention call launches one kernel: {kernels}")
     log(f"paged_decode_attention: one call (rows of 1 to 4 splits) under torch.profiler launches {kernels}")
@@ -912,7 +924,8 @@ def check_windowed_one_launch(torch, dev, log):
     """Each new instance, one call under torch.profiler, launches one
     kernel: attention at hd 80 and 256 (f32 and bf16; f32 hd 256 on one
     ring slot) over 8 full-window rows, and col_t at gemma2's head (bf16
-    and f32, M = 8)."""
+    and f32, M = 8). Fails when the profiler sees no device time in any of
+    three sessions."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
@@ -931,10 +944,8 @@ def check_windowed_one_launch(torch, dev, log):
         seen[f"tp_shard_matmul col_t {str(dtype).split('.')[1]}"] = kernels_in_one_call(
             torch, lambda: tp_shard_matmul(x, w, 0, n_out=cfg.vocab_padded, mode="col_t", out_dtype=torch.float32))
         del w, x
-    if any(v is None for v in seen.values()):
-        log(f"new instances: launches per call not checked: the profiler saw no device time ({seen})")
-        return None
     for key, kernels in seen.items():
+        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
         check(sum(kernels.values()) == 1, f"one {key} call launches one kernel: {kernels}")
     log(f"new instances under torch.profiler, one kernel per call: {json.dumps(seen)}")
     return seen
@@ -1587,6 +1598,35 @@ def engine_conf(torch, cfg, dtype):
     return EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128), dtype=dtype)
 
 
+# the models whose weights take each layer's own fan-in (below)
+PER_LAYER_FAN_IN = ("jamba-v0.1-52b",)
+
+
+def weight_defs(cfg):
+    """The parameter defs an engine's weights are drawn from. The
+    reference's rule (``init_params``) fills an unset scale with
+    1/sqrt(shape[0]), which for a leaf stacked over the pattern's periods is
+    the number of periods: jamba at one or two periods (8 or 16 layers)
+    then draws every projection at std 1 or 0.71, and its f32 activations
+    overflow. For the models in PER_LAYER_FAN_IN each stacked leaf takes
+    the rule applied to its layer's own shape (shape[1:]): 1/sqrt(fan-in) of
+    the layer's weight."""
+    from repro_torch.models import model_param_defs
+    from repro_torch.models.params import ParamDef, tree_map
+    from repro_torch.parallel.sharding import make_exec_config
+
+    defs = model_param_defs(cfg, make_exec_config(cfg, 1))
+    if cfg.name not in PER_LAYER_FAN_IN:
+        return defs
+
+    def own(d):
+        layer = d.shape[1:]
+        fan_in = layer[0] if len(layer) > 1 else layer[-1]
+        return d if d.scale is not None else ParamDef(d.shape, d.axes, d.init, fan_in ** -0.5)
+
+    return {k: tree_map(own, v) if k == "periods" else v for k, v in defs.items()}
+
+
 def engine_f32_profiled(torch, dev, cfg, log):
     """An f32 engine warmed up, then f32_step_profile (for --timings-of)."""
     from repro_torch.models import init_params, model_param_defs
@@ -1618,14 +1658,13 @@ def engine_f32(torch, dev, cfg, log, must_match=True, extras=True):
     and one prefill under the profiler."""
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.models import init_params, model_param_defs
-    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.models import init_params
     from repro_torch.serving.engine import ServingEngine
 
     econf = engine_conf(torch, cfg, torch.float32)
     what = f"engine {cfg.name} f32 ({cfg.num_layers} layers)"
     t0 = time.perf_counter()
-    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0))
+    params = init_params(weight_defs(cfg), torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     log(f"{what}: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1656,6 +1695,10 @@ def engine_f32(torch, dev, cfg, log, must_match=True, extras=True):
     changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
     check(not (must_match and changed), f"{cfg.name}: trajectories changed across TP switches for requests {changed}")
     check(eng_b.stats.switches == 4, f"4 switches, got {eng_b.stats.switches}")
+    prompt = torch.zeros((1, 128), dtype=torch.int64, device=dev)
+    _, logits = eng_b._prefill(eng_b.ctl.bindings[1], prompt, torch.tensor([127], device=dev),
+                               torch.tensor([0], device=dev))
+    check(bool(torch.isfinite(logits).all()), f"{what}: a prefill's logits are finite (eager, TP 1)")
     check(storage_ptrs(eng_b) == ptrs, "rebind kept every storage data_ptr")
     check(all(n > 0 for n in launches.values()), f"both kernels launched on the main path: {launches}")
     by_stage = matmul_launches_by_stage(eng, eng_b)
@@ -1724,14 +1767,12 @@ def engine_bf16_timed(torch, dev, cfg, log):
 
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.models import init_params, model_param_defs
-    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.models import init_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
     econf = engine_conf(torch, cfg, torch.bfloat16)
-    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=dev).manual_seed(0),
-                         torch.bfloat16)
+    params = init_params(weight_defs(cfg), torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1821,7 +1862,8 @@ def engine_bf16_timed(torch, dev, cfg, log):
         dev_us = sum(t for _, t in ev)
         if dev_us == 0:
             return {"device_ms": "not measured (the profiler saw no device time)"}
-        return {"traced_ttft_ms": wall_us / 1e3, "device_ms": dev_us / 1e3, "kernel_ms": kernel_ms(ev, 1)}
+        return {"traced_ttft_ms": wall_us / 1e3, "device_ms": dev_us / 1e3, "kernel_ms": kernel_ms(ev, 1),
+                "split_ms": step_split(ev, 1)}
 
     eng.switch_tp(1)
     empty_slots()
@@ -2134,10 +2176,253 @@ def moe_phase(torch, dev, log, skip_timed):
     return by_path, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Mamba family (mamba2-2.7b through forward, jamba through the engine)
+# ---------------------------------------------------------------------------
+# (model, (name, mode, stored K, stored N)): the new projections; measure_matmul_cases takes TP 8's rank 1 shard
+MAMBA_SHAPES = [("mamba2-2.7b", ("w_z/w_x col", "col", 2560, 5120)), ("mamba2-2.7b", ("w_dt col", "col", 2560, 80)),
+                ("mamba2-2.7b", ("w_out row", "row", 5120, 2560)), ("mamba2-2.7b", ("w_BC col", "col", 2560, 256)),
+                ("jamba-v0.1-52b", ("w_x/w_z col", "col", 4096, 8192)), ("jamba-v0.1-52b", ("w_dtr row", "row", 8192, 256)),
+                ("jamba-v0.1-52b", ("w_B/w_C row", "row", 8192, 16)),
+                ("jamba-v0.1-52b", ("dt_proj col", "col", 256, 8192)),
+                ("jamba-v0.1-52b", ("w_out row", "row", 8192, 4096))]
+
+
+def mamba_matmul_cases(torch):
+    """tp_shard_matmul at the Mamba projections' shapes: decode (M 8) and
+    prefill (M 128), f32 and bf16, at TP 1 and on a TP 8 rank's shard (the
+    replicated w_BC at TP 1 only). w_dt's TP 8 shard is 10 columns at a
+    20-byte offset in bf16; w_B/w_C have N = 16; dt_proj has K = 256."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [(model, shape, m, dt, tp) for model, shape in MAMBA_SHAPES for dt in (bf, f32) for m in (8, 128)
+            for tp in ((1,) if shape[0].startswith("w_BC") else (1, 8))]
+
+
+def check_mamba_one_launch(torch, dev, log):
+    """Each Mamba projection, one call under torch.profiler, launches one
+    kernel: every shape of MAMBA_SHAPES at M 8 and 128, f32 and bf16, whole
+    and (but w_BC) on a TP 8 rank's shard."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    seen = {}
+    for model, (name, mode, k_store, n_store), m, dtype, tp in mamba_matmul_cases(torch):
+        w = torch.randn(k_store, n_store, device=dev).to(dtype)
+        k, n, off = (k_store, n_store // tp, n_store // tp) if mode == "col" else (k_store // tp, n_store, k_store // tp)
+        x = torch.randn(m, k, device=dev).to(dtype)
+        key = f"{model} {name} {str(dtype).split('.')[1]} M={m} TP {tp}"
+        seen[key] = kernels_in_one_call(torch, lambda: tp_shard_matmul(x, w, off if tp > 1 else 0, n_out=n, mode=mode))
+        del w, x
+    for key, kernels in seen.items():
+        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
+        check(sum(kernels.values()) == 1, f"one {key} call launches one kernel: {kernels}")
+    log(f"phase 9 instances under torch.profiler, one kernel per call ({len(seen)} calls): {json.dumps(seen)}")
+    return seen
+
+
+MAMBA2_PROMPTS = (3, 128, 17, 64, 100, 5, 45, 77)  # tokens of the 8 prompts
+MAMBA2_STEPS = 24
+MAMBA2_REBINDS = {4: 2, 9: 4, 14: 8, 19: 1}  # decode step -> TP level
+
+
+def mamba2_serve(torch, cfg, store, storage, prompts, rebinds):
+    """mamba2's path (the reference's: forward, the engine refuses the
+    model): each prompt prefilled alone at TP 1 (its last token's logits
+    give its first token), the 8 states and conv tails stacked into one
+    cache, then MAMBA2_STEPS greedy decode steps as a batch of 8 from that
+    cache, updated in place; at the steps in ``rebinds`` the weights are
+    rebound to another TP level (``WeightStore.rebind``: views, no byte
+    moves), the state left where it is. Returns the tokens (8, 1 + steps)
+    on the host and whether every hidden state was finite."""
+    from repro_torch.models import forward, logits_for
+    from repro_torch.parallel.sharding import make_exec_config
+
+    V = cfg.vocab_size
+    params, tp = store.rebind(storage, 1), 1
+    finite = torch.ones((), dtype=torch.bool, device=prompts[0].device)
+    caches, first = [], []
+    for p in prompts:
+        h, c = forward(params, cfg, make_exec_config(cfg, tp), tokens=p[None], mode="prefill")
+        finite &= torch.isfinite(h).all()
+        first.append(logits_for(params, cfg, h[:, -1:])[0, 0, :V].argmax())
+        caches.append(c)
+    cache = [{k: torch.cat([c[i][k] for c in caches]) for k in caches[0][i]} for i in range(cfg.num_layers)]
+    tok = torch.stack(first)[:, None]
+    out = [tok]
+    for step in range(MAMBA2_STEPS):
+        if step in rebinds:
+            tp = rebinds[step]
+            params = store.rebind(storage, tp)
+        h, _ = forward(params, cfg, make_exec_config(cfg, tp), tokens=tok, cache=cache, mode="decode")
+        finite &= torch.isfinite(h).all()
+        tok = logits_for(params, cfg, h)[:, 0, :V].argmax(-1, keepdim=True)
+        out.append(tok)
+    return torch.cat(out, 1).cpu(), bool(finite)
+
+
+def mamba2_phase(torch, dev, log, skip_timed):
+    """Phase 9, mamba2-2.7b at full width and depth (64 layers) through
+    ``forward`` over a pool of 8 ranks: in f32 (11.3 GB) the 8 prompts
+    served at fixed TP 1 and with rebinds TP 1 -> 2 -> 4 -> 8 -> 1 (counts
+    set to 0 just before, read just after): identical tokens, every hidden
+    state finite, no weight byte moved, the matmul kernel launched; then in
+    bf16 (5.7 GB) one 128-token prefill and the decode step of 8 sequences
+    at TP 1 and 8 under torch.profiler (device ms split into the matmul
+    kernel, the library's GEMMs - the SSD's einsums - and the rest: the
+    scan and the plain ops) and the peak memory. All of it runs eagerly,
+    not as graph replays. Returns (launches, record)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.migration import state_bytes
+    from repro_torch.core.weight_store import WeightStore
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.models import forward, init_params, logits_for, model_param_defs
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.parallel.sharding import make_exec_config
+
+    cfg = get_config("mamba2-2.7b")
+    defs = model_param_defs(cfg, make_exec_config(cfg, 1))
+    rng = np.random.RandomState(9)
+    prompts = [torch.from_numpy(rng.randint(0, cfg.vocab_size, size=n)).to(dev) for n in MAMBA2_PROMPTS]
+    what = f"{cfg.name} f32 ({cfg.num_layers} layers)"
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold (the kernels' scratch among it)
+    params = init_params(defs, torch.Generator(device=dev).manual_seed(0))
+    store = WeightStore(cfg, defs, [dev] * 8)
+    storage = store.build(params)
+    ptrs = sorted(t.data_ptr() for _, per_pos in tree_leaves_with_path(storage) for t in per_pos)
+    torch.cuda.synchronize()
+    rec = {"layers": cfg.num_layers, "param_count": cfg.param_count(), "allocated_before_gb": before / 1e9,
+           "weights_gb_f32": (torch.cuda.memory_allocated() - before) / 1e9,
+           "state_bytes_per_seq_f32": state_bytes(cfg), "state_bytes_8_seqs_f32": 8 * state_bytes(cfg),
+           "prompts": list(MAMBA2_PROMPTS), "rebinds": {str(k): v for k, v in MAMBA2_REBINDS.items()},
+           "note": "forward called eagerly (no CUDA graphs): times are not comparable with the engine's steps"}
+    log(f"{what}: weights {rec['weights_gb_f32']:.2f} GB on the card, made in {time.perf_counter() - t0:.1f} s; "
+        f"SSD state {rec['state_bytes_per_seq_f32'] / 1e6:.1f} MB per sequence in f32 "
+        f"({rec['state_bytes_8_seqs_f32'] / 1e9:.3f} GB for 8)")
+    tp_shard_matmul.launches = 0
+    t0 = time.perf_counter()
+    base, finite_a = mamba2_serve(torch, cfg, store, storage, prompts, {})
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moved, finite_b = mamba2_serve(torch, cfg, store, storage, prompts, MAMBA2_REBINDS)
+    t_b = time.perf_counter() - t0
+    launches = {"tp_shard_matmul": tp_shard_matmul.launches}
+    check(finite_a and finite_b, f"{what}: every hidden state finite")
+    check(bool(((base >= 0) & (base < cfg.vocab_size)).all()), f"{what}: tokens in the vocabulary")
+    changed = [i for i in range(len(prompts)) if not torch.equal(base[i], moved[i])]
+    check(not changed, f"{what}: tokens changed under the rebinds for prompts {changed}")
+    check(sorted(t.data_ptr() for _, per_pos in tree_leaves_with_path(storage) for t in per_pos) == ptrs,
+          f"{what}: the rebinds kept every storage data_ptr")
+    check(launches["tp_shard_matmul"] > 0, f"{what}: tp_shard_matmul launched on the path: {launches}")
+    rec.update(fixed_run_s=t_a, rebind_run_s=t_b, launches=launches, first_tokens=base[0].tolist())
+    log(f"{what}: 8 prompts of {list(MAMBA2_PROMPTS)} tokens prefilled, {MAMBA2_STEPS} greedy decode steps as a batch "
+        f"of 8 with the state cache: fixed TP 1 {t_a:.1f} s, with rebinds {MAMBA2_REBINDS} {t_b:.1f} s (eager); "
+        f"tokens identical, every hidden state finite, no weight byte moved; launches {launches}; first prompt's "
+        f"tokens {rec['first_tokens']}")
+    del params, storage, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    if skip_timed:
+        return launches, rec
+
+    before = torch.cuda.memory_allocated()
+    params = init_params(defs, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    store = WeightStore(cfg, defs, [dev] * 8)
+    storage = store.build(params)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    bound = {tp: store.rebind(storage, tp) for tp in (1, 8)}
+    ec = {tp: make_exec_config(cfg, tp) for tp in (1, 8)}
+    V = cfg.vocab_size
+
+    def split(ev, wall_us, n):
+        dev_us = sum(t for _, t in ev)
+        if dev_us == 0:
+            return {"device_ms": "not measured (the profiler saw no device time)"}
+        sp = step_split(ev, n)
+        return {"traced_ms": wall_us / n / 1e3, "device_ms": dev_us / n / 1e3, "busy_share": dev_us / wall_us,
+                "tp_shard_matmul_ms": sp["tp_shard_matmul"], "library_gemm_ms": sp["library_gemm"],
+                "scan_and_plain_ops_ms": sp["rest"], "top_ms": {k[:80]: t / n / 1e3
+                                                                for k, t in sorted(ev, key=lambda kv: -kv[1])[:6]}}
+
+    prompt = torch.from_numpy(rng.randint(0, V, size=(1, 128))).to(dev)
+
+    def prefill():
+        h, _ = forward(bound[1], cfg, ec[1], tokens=prompt, mode="prefill")
+        return logits_for(bound[1], cfg, h[:, -1:])[0, 0, :V].argmax()
+
+    prefill()
+    ev, wall_us = profiled(torch, prefill)
+    bf16 = {"weights_gb": weights / 1e9, "prefill_128_tp1": split(ev, wall_us, 1), "decode_8": {}}
+    batch = torch.from_numpy(rng.randint(0, V, size=(8, 64))).to(dev)
+    _, cache = forward(bound[1], cfg, ec[1], tokens=batch, mode="prefill")
+    tok = batch[:, -1:]
+    for tp in (1, 8):
+        def steps(n=3):
+            for _ in range(n):
+                h, _ = forward(bound[tp], cfg, ec[tp], tokens=tok, cache=cache, mode="decode")
+                logits_for(bound[tp], cfg, h)[:, 0, :V].argmax(-1)
+
+        steps(1)
+        ev, wall_us = profiled(torch, steps)
+        bf16["decode_8"][str(tp)] = split(ev, wall_us, 3)
+    peak = torch.cuda.max_memory_allocated() - before
+    bf16["memory_gb"] = {"weights": weights / 1e9, "peak": peak / 1e9, "peak_over_weights": (peak - weights) / 1e9,
+                         "allocated_before": before / 1e9}
+    rec["bf16"] = bf16
+    log(f"{cfg.name} bf16 ({cfg.num_layers} layers, eager forward, under torch.profiler): prefill of 128 tokens at TP "
+        f"1 {json.dumps(bf16['prefill_128_tp1'])}; decode step of 8 sequences {json.dumps(bf16['decode_8'])}; memory GB "
+        f"{json.dumps(bf16['memory_gb'])}")
+    del params, storage, store, bound, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+JAMBA_F32_LAYERS, JAMBA_BF16_LAYERS = 8, 16  # one and two periods; the full 32 layers are 103 GB in bf16
+
+
+def jamba_phase(torch, dev, log, skip_timed):
+    """Phase 9, jamba-v0.1-52b at full width through the engine: the f32
+    switch check (engine_f32) at one period, 8 layers (7 mamba1, 1
+    attention, 4 MoE), at capacity factor 8.0 with no assignment dropped;
+    then in bf16 at two periods, 16 layers, at the published capacity
+    factor 1.25, timed (engine_bf16_timed: TTFT per bucket, decode step per
+    TP level, capture, pool, peak memory, drops, and profiles that split a
+    step into the matmul kernel, attention, the library's GEMMs - the expert
+    bmm and the router - and the rest: the scan and the plain ops). Its
+    weights take each layer's own fan-in (weight_defs). Returns
+    ({path: launches}, record)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("jamba-v0.1-52b")
+    by_path, rec = {}, {}
+    t0 = time.perf_counter()
+    f32 = with_capacity(cut(cfg, JAMBA_F32_LAYERS), 8.0)
+    key = f"{cfg.name} f32 cf 8.0 ({f32.num_layers} layers)"
+    by_path[key], rec[key] = engine_f32(torch, dev, f32, log)
+    dropped = rec[key]["moe_dropped"]
+    check(not any(n for run in dropped.values() for n in run.values()),
+          f"{key}: no assignment dropped at capacity factor 8.0: {dropped}")
+    rec[key]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 9 {key}: {rec[key]['wall_s']:.1f} s")
+    if not skip_timed:
+        t0 = time.perf_counter()
+        bf16 = cut(cfg, JAMBA_BF16_LAYERS)
+        key = f"{cfg.name} bf16 ({bf16.num_layers} layers)"
+        rec[key] = engine_bf16_timed(torch, dev, bf16, log)
+        by_path[key] = rec[key]["launches"]
+        rec[key]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 9 {key}: {rec[key]['wall_s']:.1f} s")
+    return by_path, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
-    ap.add_argument("--skip-timed", action="store_true", help="leave out phase 5 and phase 6's bf16 timings")
+    ap.add_argument("--skip-timed", action="store_true", help="leave out the bf16 timings of phases 5-9")
     ap.add_argument("--timings-of", metavar="SRC", default=None,
                     help="only take the host cost of tp_shard_matmul calls, the f32 matmul timings (decode, "
                          "prefill, TP 8 shards, the windowed models' 4096- and 4160-token buckets, the tied head), "
@@ -2234,6 +2519,9 @@ def main() -> int:
     record["new_attention"], record["new_attention_errors"] = measure_new_attention(torch, dev, flush, log)
     record["new_matmul"] = measure_matmul_cases(torch, dev, new_matmul_cases(torch), flush, log, None, seed=19)
     record["new_launches_per_call"] = check_new_one_launch(torch, dev, log)
+    log("new instances of phase 9 (the Mamba projections: narrow N, K = 256, misaligned shard offsets):")
+    record["mamba_matmul"] = measure_matmul_cases(torch, dev, mamba_matmul_cases(torch), flush, log, None, seed=23)
+    record["mamba_launches_per_call"] = check_mamba_one_launch(torch, dev, log)
     check_kv_sweeps(torch, dev, cfg, log)
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -2284,6 +2572,14 @@ def main() -> int:
     add_paths(paths)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 9: the Mamba family (counts reset just before each path's runs, read just after) ----
+    t0 = time.perf_counter()
+    got, record["mamba2"] = mamba2_phase(torch, dev, log, args.skip_timed)
+    add_paths({"mamba2-2.7b f32 (64 layers, forward)": got})
+    paths, record["jamba"] = jamba_phase(torch, dev, log, args.skip_timed)
+    add_paths(paths)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
     # main-path entries: the bf16 decode shapes that take the most time per step
     main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
@@ -2292,7 +2588,7 @@ def main() -> int:
     # the new instances: the tied head, the f32 prefill kernel at llama3-8b's bucket 128 and the windowed
     # models' 4096-token bucket, and the shapes of phases 7 and 8
     f32_prefill = [r for r in mm_rows if r["dtype"] == "float32" and r["tp"] == 1 and r["m"] in (128, 4096)]
-    instances = {"tp_shard_matmul": record["tied_head"] + f32_prefill + record["new_matmul"],
+    instances = {"tp_shard_matmul": record["tied_head"] + f32_prefill + record["new_matmul"] + record["mamba_matmul"],
                  "paged_decode_attention": record["windowed_attention"] + record["new_attention"]}
     kernels = []
     for name, route_src, row in (("tp_shard_matmul", "src/repro_torch/csrc/tp_shard_matmul.cu", main_mm),

@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (
     AttnSpec,
     LayerTemplate,
+    MambaSpec,
     ModelConfig,
     MoESpec,
     ceil_to,
@@ -12,6 +13,7 @@ from repro_torch.configs.base import (
 __all__ = [
     "AttnSpec",
     "LayerTemplate",
+    "MambaSpec",
     "ModelConfig",
     "MoESpec",
     "ceil_to",

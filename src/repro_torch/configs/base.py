@@ -1,15 +1,17 @@
 """Model configuration for the PyTorch port.
 
-The port's own copy of the dense and MoE subset of ``repro.configs.base``:
-the same field names and derived properties, so a configuration built from
-the same numbers describes the same model in both packages. Mamba comes
-with the slice that ports that family; ``frontend`` is carried as a field:
+The port's own copy of ``repro.configs.base``'s model configuration: the
+same field names and derived properties, so a configuration built from the
+same numbers describes the same model in both packages (dense, MoE, the
+Mamba state family and the hybrid of the two). ``frontend`` is carried as a
+field:
 a "vq_image" model (image content as VQ token ids in the shared vocabulary)
 and an "encodec" model (audio codebook ids, or precomputed frame embeddings
 through ``forward``'s ``embeds``) run on the plain dense backbone.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -39,15 +41,28 @@ class MoESpec:
 
 
 @dataclass(frozen=True)
+class MambaSpec:
+    """Covers Mamba-1 (selective scan) and Mamba-2 (SSD)."""
+
+    version: int = 2  # 1 | 2
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64  # mamba-2 only
+    ngroups: int = 1  # mamba-2 only (B/C groups)
+    chunk: int = 256  # SSD chunk length
+
+
+@dataclass(frozen=True)
 class LayerTemplate:
-    mixer: str  # "attn" | "attn_local" | "attn_global"
+    mixer: str  # "attn" | "attn_local" | "attn_global" | "mamba"
     ffn: str  # "dense" | "moe" | "none"
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | vlm | audio
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -57,6 +72,7 @@ class ModelConfig:
     vocab_size: int
     attn: AttnSpec = field(default_factory=AttnSpec)
     moe: Optional[MoESpec] = None
+    mamba: Optional[MambaSpec] = None
     pattern: Optional[tuple] = None
     norm_eps: float = 1e-6
     final_logit_softcap: Optional[float] = None
@@ -73,6 +89,8 @@ class ModelConfig:
     def layer_pattern(self) -> tuple:
         if self.pattern is not None:
             return self.pattern
+        if self.family == "ssm":
+            return (LayerTemplate("mamba", "none"),)
         ffn = "moe" if (self.moe and self.moe.moe_every == 1) else "dense"
         if self.attn.kind == "local_global":
             return (LayerTemplate("attn_local", ffn), LayerTemplate("attn_global", ffn))
@@ -90,17 +108,45 @@ class ModelConfig:
         per = sum(1 for t in self.layer_pattern if t.mixer.startswith("attn"))
         return per * self.num_periods
 
+    @property
+    def n_mamba_layers(self) -> int:
+        per = sum(1 for t in self.layer_pattern if t.mixer == "mamba")
+        return per * self.num_periods
+
+    @property
+    def d_inner(self) -> int:
+        if self.mamba is None:
+            raise ValueError(f"{self.name}: d_inner of a model without a MambaSpec")
+        return self.mamba.expand * self.d_model
+
     def param_count(self) -> int:
         """Total parameters (embedding included once if tied)."""
         n = self.vocab_padded * self.d_model  # embed
         if not self.tie_embeddings:
             n += self.vocab_padded * self.d_model  # lm head
         for t in self.layer_pattern:
-            if not t.mixer.startswith("attn"):
-                raise NotImplementedError(f"{self.name}: parameters of a {t.mixer!r} mixer")
-            ln = self.d_model * self.num_heads * self.head_dim  # q
-            ln += 2 * self.d_model * self.num_kv_heads * self.head_dim  # k, v
-            ln += self.num_heads * self.head_dim * self.d_model  # o
+            ln = 0
+            if t.mixer.startswith("attn"):
+                ln += self.d_model * self.num_heads * self.head_dim  # q
+                ln += 2 * self.d_model * self.num_kv_heads * self.head_dim  # k, v
+                ln += self.num_heads * self.head_dim * self.d_model  # o
+            elif t.mixer == "mamba":
+                m = self.mamba
+                d_in = self.d_inner
+                if m.version == 2:
+                    nheads = d_in // m.head_dim
+                    conv_dim = d_in + 2 * m.ngroups * m.d_state
+                    ln += self.d_model * (2 * d_in + 2 * m.ngroups * m.d_state + nheads)
+                    ln += conv_dim * m.d_conv
+                    ln += d_in * self.d_model  # out proj
+                    ln += 2 * nheads  # A_log, D
+                else:
+                    ln += self.d_model * 2 * d_in  # in_proj (x, z)
+                    ln += d_in * m.d_conv  # conv
+                    ln += d_in * (m.d_state * 2 + math.ceil(self.d_model / 16))
+                    ln += d_in * m.d_state  # A
+                    ln += d_in * 2  # D, dt bias
+                    ln += d_in * self.d_model  # out proj
             if t.ffn == "dense":
                 ln += 3 * self.d_model * self.d_ff  # swiglu
             elif t.ffn == "moe":
@@ -147,13 +193,14 @@ def _load_all() -> None:
         dbrx_132b,
         gemma2_2b,
         h2o_danube_1_8b,
+        jamba_v0_1_52b,
         llama3_8b,
+        mamba2_2_7b,
         mistral_large_123b,
         moonshot_v1_16b_a3b,
         musicgen_large,
         yi_34b,
     )
-
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -176,4 +223,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         # capacity dropping is batch-composition dependent and would break
         # exact prefill/decode-vs-full consistency checks.
         kw["moe"] = replace(cfg.moe, num_experts=4, top_k=2, d_ff_expert=64, capacity_factor=8.0)
+    if cfg.mamba is not None:
+        kw["mamba"] = replace(cfg.mamba, d_state=16, head_dim=16, expand=2, chunk=16)
     return replace(cfg, **kw)

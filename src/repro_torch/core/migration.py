@@ -3,10 +3,10 @@ repro/core/migration.py.
 
 Two paths:
   * ``migrate_cache`` - the engine's. The engine keeps its dense slot cache
-    in one layout for every TP level (KV heads at the largest candidate TP)
-    on the device its attention runs on. On one card a switch therefore
-    moves no KV byte: ``Tensor.to`` of a tensor already on the target
-    device returns that tensor.
+    in one layout for every TP level (KV heads at the largest candidate TP,
+    a Mamba layer's state and conv tail whole) on the device it runs on.
+    On one card a switch therefore moves no cache byte: ``Tensor.to`` of a
+    tensor already on the target device returns that tensor.
   * ``migrate_pages`` - the paper's aggregated migration of a paged pool,
     as the reference documents it: the sequences' fragmented pages are
     gathered (kernels/kv_gather) into one contiguous staging buffer per kind,
@@ -14,9 +14,10 @@ Two paths:
     pages. On one card the transfer is the identity; the move between cards
     (NCCL) and the overlap of gather and send come with the multi-card slice.
 
-``kv_migration_bytes`` is the reference's byte count for attention KV. The
-analytic ``MigrationModel`` stays in the reference: its constants are a
-TPU's.
+``kv_migration_bytes`` is the reference's byte count for attention KV and,
+for the Mamba families, their recurrent state (``state_bytes``, the
+reference's ``PerfModel._state_bytes_raw``). The analytic ``MigrationModel``
+stays in the reference: its constants are a TPU's.
 """
 from __future__ import annotations
 
@@ -115,6 +116,19 @@ def migrate_pages(src: PagedPool, dst: PagedPool, seq_ids: Sequence[int]) -> Tup
     return dst.block_table_array(seq_ids), time.perf_counter() - t0
 
 
+def state_bytes(cfg: ModelConfig) -> float:
+    """O(1) recurrent state of one sequence over every Mamba layer, in f32,
+    conv tail excluded (the reference's ``PerfModel._state_bytes_raw``)."""
+    if cfg.mamba is None:
+        return 0.0
+    m = cfg.mamba
+    if m.version == 2:
+        per = (cfg.d_inner // m.head_dim) * m.head_dim * m.d_state
+    else:
+        per = cfg.d_inner * m.d_state
+    return per * cfg.n_mamba_layers * 4  # f32 state
+
+
 def kv_migration_bytes(
     cfg: ModelConfig, n_seqs: int, ctx_len: int, from_tp: int, to_tp: int,
     dtype_bytes: int = 2,
@@ -122,13 +136,18 @@ def kv_migration_bytes(
     """Bytes that must cross chips when re-partitioning KV heads.
 
     Head-repartitioning moves the fraction of heads whose owner changes;
-    upper bound (paper's Fig. 6 worst case) is the full per-group cache.
+    upper bound (paper's Fig. 6 worst case) is the full per-group cache. An
+    SSM moves each sequence's recurrent state instead; a hybrid adds the
+    state to each sequence's KV before the moved fraction, as the
+    reference counts it.
     """
-    if cfg.n_attn_layers == 0 or any(t.mixer == "mamba" for t in cfg.layer_pattern):
-        raise NotImplementedError(f"{cfg.name}: SSM state migration comes with the Mamba/hybrid families slice")
+    if cfg.n_attn_layers == 0:  # SSM: migrate recurrent state instead
+        return n_seqs * state_bytes(cfg)
     win = cfg.attn.window or ctx_len
     eff = min(ctx_len, win)
     per_seq = 2 * cfg.num_kv_heads * cfg.head_dim * dtype_bytes * eff * cfg.n_attn_layers
     lo, hi = min(from_tp, to_tp), max(from_tp, to_tp)
     moved_frac = 1.0 - lo / hi  # heads staying on the same chip
+    if cfg.mamba is not None:  # hybrid: add state bytes
+        per_seq += state_bytes(cfg)
     return n_seqs * per_seq * moved_frac

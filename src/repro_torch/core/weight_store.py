@@ -53,6 +53,8 @@ def _as_matrix(w: torch.Tensor, dim: int) -> Tuple[torch.Tensor, int]:
     of matrix columns (dim > 0) or rows (dim == 0) per unit of the sharded
     dim. Always a view: binding never copies."""
     sh = w.shape
+    if w.dim() == 1:  # a 1-D leaf (mamba's A_log, D, dt_bias, norm): one row per unit
+        return w.view(sh[0], 1), 1
     if dim == 0:  # row-parallel (wo, w_out), the vocab-sharded embedding, or experts (ShardView.block)
         return w.view(math.prod(sh[:-1]), sh[-1]), math.prod(sh[1:-1])
     return w.view(sh[0], math.prod(sh[1:])), math.prod(sh[dim + 1:])

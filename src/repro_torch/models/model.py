@@ -1,4 +1,4 @@
-"""Decoder stack for the dense and MoE families (mirrors repro/models/model.py).
+"""Decoder stack: dense, MoE, SSM and hybrid (mirrors repro/models/model.py).
 
 ``forward`` takes the *bound* parameters that ``WeightStore.rebind`` makes
 for one TP level: a dict with ``embed``, ``layers`` (one dict per layer,
@@ -6,8 +6,9 @@ model-sharded weights as ``ShardView``s), ``final_norm`` and, unless the
 embeddings are tied, ``lm_head``. A tied head reads the embedding itself,
 in place. The reference's scan over pattern periods is a Python loop over
 layers; layer i runs the pattern's template i % period, which sets its
-attention window (full, sliding, or gemma-2's alternating local/global) and
-its FFN (dense SwiGLU, or MoE through ``models.moe``).
+mixer (attention with its window: full, sliding, or gemma-2's alternating
+local/global; or a Mamba layer, ``models.mamba``) and its FFN (dense
+SwiGLU, MoE through ``models.moe``, or none).
 """
 from __future__ import annotations
 
@@ -20,25 +21,31 @@ from repro_torch.models.attention import attn_apply, attn_cache_defs, attn_param
 from repro_torch.models.layers import (
     col_parallel, mlp_apply, mlp_param_defs, norm_def, rmsnorm, softcap, tied_head, vocab_parallel_embed,
 )
+from repro_torch.models.mamba import (
+    mamba1_apply, mamba1_cache_defs, mamba1_param_defs, mamba2_apply, mamba2_cache_defs, mamba2_param_defs,
+)
 from repro_torch.models.moe import moe_apply, moe_param_defs
 from repro_torch.models.params import ParamDef, stack_defs
 from repro_torch.parallel.sharding import ExecConfig
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
+    """Raise for what the port does not run."""
     unsupported = []
-    if cfg.family not in ("dense", "vlm", "audio", "moe"):
+    if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm", "hybrid"):
         unsupported.append(f"family {cfg.family!r}")
     # vq_image feeds token ids to the dense backbone; encodec codebook ids or frame embeddings (``embeds``)
     if cfg.frontend not in (None, "vq_image", "encodec"):
         unsupported.append(f"frontend {cfg.frontend!r}")
     if cfg.attn.kind not in ("full", "swa", "local_global"):
         unsupported.append(f"attention kind {cfg.attn.kind!r}")
-    if any(not t.mixer.startswith("attn") or t.ffn not in ("dense", "moe") for t in cfg.layer_pattern):
+    if any(not (t.mixer.startswith("attn") or t.mixer == "mamba") or t.ffn not in ("dense", "moe", "none")
+           for t in cfg.layer_pattern):
         unsupported.append(f"layer pattern {cfg.layer_pattern}")
     if any(t.ffn == "moe" for t in cfg.layer_pattern) and cfg.moe is None:
         unsupported.append("moe layers without a MoESpec")
+    if any(t.mixer == "mamba" for t in cfg.layer_pattern) and (cfg.mamba is None or cfg.mamba.version not in (1, 2)):
+        unsupported.append("mamba layers without a MambaSpec of version 1 or 2")
     if unsupported:
         raise NotImplementedError(f"{cfg.name}: " + ", ".join(unsupported))
 
@@ -50,23 +57,36 @@ def _layer_window(cfg: ModelConfig, mixer: str) -> Optional[int]:
 
 
 def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
-    """The attention window of each layer, None for full attention."""
+    """The attention window of each layer, None for full attention (and for
+    a Mamba layer)."""
     pattern = cfg.layer_pattern
     return [_layer_window(cfg, pattern[i % len(pattern)].mixer) for i in range(cfg.num_layers)]
+
+
+def layer_templates(cfg: ModelConfig) -> List:
+    """The pattern's template of each layer."""
+    pattern = cfg.layer_pattern
+    return [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
+
+
+def _mamba_defs(cfg: ModelConfig):
+    """(param defs, cache defs, apply) of the config's Mamba version."""
+    if cfg.mamba.version == 2:
+        return mamba2_param_defs, mamba2_cache_defs, mamba2_apply
+    return mamba1_param_defs, mamba1_cache_defs, mamba1_apply
 
 
 def model_param_defs(cfg: ModelConfig, ec: ExecConfig) -> dict:
     check_supported(cfg)
     d = cfg.d_model
-    per_period = {
-        f"pos{i}": {
-            "norm1": norm_def(d),
-            "mixer": attn_param_defs(cfg, ec),
-            "norm2": norm_def(d),
-            "ffn": moe_param_defs(cfg) if t.ffn == "moe" else mlp_param_defs(d, cfg.d_ff),
-        }
-        for i, t in enumerate(cfg.layer_pattern)
-    }
+    per_period = {}
+    for i, t in enumerate(cfg.layer_pattern):
+        layer = {"norm1": norm_def(d)}
+        layer["mixer"] = attn_param_defs(cfg, ec) if t.mixer.startswith("attn") else _mamba_defs(cfg)[0](cfg)
+        if t.ffn != "none":
+            layer["norm2"] = norm_def(d)
+            layer["ffn"] = moe_param_defs(cfg) if t.ffn == "moe" else mlp_param_defs(d, cfg.d_ff)
+        per_period[f"pos{i}"] = layer
     defs = {
         "embed": ParamDef((cfg.vocab_padded, d), ("vocab", "embed"), scale=1.0),
         "periods": stack_defs(per_period, cfg.num_periods),
@@ -78,10 +98,13 @@ def model_param_defs(cfg: ModelConfig, ec: ExecConfig) -> dict:
 
 
 def init_cache_defs(cfg: ModelConfig, ec: ExecConfig, batch: int, seq_len: int) -> List[dict]:
-    """One {"k", "v"} cache def per layer, min(window, seq_len) rows long
-    for a windowed layer."""
+    """One cache def per layer: an attention layer's {"k", "v"}, min(window,
+    seq_len) rows long for a windowed layer; a Mamba layer's state and conv
+    tail, {"ssd", "conv"} (v2) or {"h", "conv"} (v1)."""
     check_supported(cfg)
-    return [attn_cache_defs(cfg, ec, batch, seq_len, w) for w in layer_windows(cfg)]
+    return [attn_cache_defs(cfg, ec, batch, seq_len, w) if t.mixer.startswith("attn")
+            else _mamba_defs(cfg)[1](cfg, batch)
+            for t, w in zip(layer_templates(cfg), layer_windows(cfg))]
 
 
 def forward(
@@ -109,9 +132,12 @@ def forward(
     prefill: returns each layer's (B,S,KV,hd) K/V, or for a windowed layer
     with S > window its rotating buffer of the last window positions,
     (B,window,KV,hd).
-    decode: S = 1, positions (B,); writes each layer's new K/V into
-    ``cache`` in place (slot position % window in a windowed layer) and
-    attends through ``block_tables``/``seq_lens``, one of each per layer.
+    A Mamba layer's prefill cache is its final state and conv tail.
+    decode: S = 1, positions (B,); writes each attention layer's new K/V
+    into ``cache`` in place (slot position % window in a windowed layer) and
+    attends through ``block_tables``/``seq_lens``, one of each per layer
+    (a Mamba layer's are not read; a model without attention layers needs
+    none); a Mamba layer updates its state and conv window in place.
     MoE layers run as the reference does at the bound weights' TP level in a
     pool of ``pool`` ranks (default: that TP level); ``moe_drops``, a (1,)
     int64 tensor, gains the assignments they drop of the tokens ``moe_mask``
@@ -129,34 +155,42 @@ def forward(
         h = embeds
     S = h.shape[1]
     windows = layer_windows(cfg)
+    templates = layer_templates(cfg)
+    attn_windows = {w for t, w in zip(templates, windows) if t.mixer.startswith("attn")}
     live = {}
     if mode == "prefill":  # the block pairs each window leaves live, from host positions: no sync per layer
         host_pos = torch.arange(S) if positions is None else positions.cpu()
-        live = {w: live_blocks(host_pos, w, block_q, block_k) for w in set(windows)}
-    else:
-        block_tables, seq_lens = list(block_tables), list(seq_lens)
+        live = {w: live_blocks(host_pos, w, block_q, block_k) for w in attn_windows}
+    elif attn_windows:
+        block_tables = list(block_tables) if block_tables is not None else []
+        seq_lens = list(seq_lens) if seq_lens is not None else []
         if len(block_tables) != cfg.num_layers or len(seq_lens) != cfg.num_layers:
             raise ValueError(f"decode takes one block table and one seq_lens per layer ({cfg.num_layers}), got "
                              f"{len(block_tables)} and {len(seq_lens)}")
     if positions is None:
         positions = torch.arange(S, device=h.device)
-    pattern = cfg.layer_pattern
+    mamba_apply = _mamba_defs(cfg)[2] if cfg.mamba is not None else None
     new_cache = []
-    for i, (lp, window) in enumerate(zip(params["layers"], windows)):
-        y, nc = attn_apply(
-            lp["mixer"], rmsnorm(h, lp["norm1"], cfg.norm_eps), cfg=cfg, ec=ec,
-            positions=positions, window=window, mode=mode, cache=cache[i] if cache is not None else None,
-            block_tables=block_tables[i] if mode == "decode" else None,
-            seq_lens=seq_lens[i] if mode == "decode" else None,
-            live=live.get(window), block_q=block_q, block_k=block_k,
-        )
-        h = h + y
-        hn = rmsnorm(h, lp["norm2"], cfg.norm_eps)
-        if pattern[i % len(pattern)].ffn == "moe":
-            y, _ = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=False, drops=moe_drops, mask=moe_mask)
+    for i, (lp, t, window) in enumerate(zip(params["layers"], templates, windows)):
+        hn = rmsnorm(h, lp["norm1"], cfg.norm_eps)
+        lc = cache[i] if cache is not None else None
+        if t.mixer.startswith("attn"):
+            y, nc = attn_apply(
+                lp["mixer"], hn, cfg=cfg, ec=ec, positions=positions, window=window, mode=mode, cache=lc,
+                block_tables=block_tables[i] if mode == "decode" else None,
+                seq_lens=seq_lens[i] if mode == "decode" else None,
+                live=live.get(window), block_q=block_q, block_k=block_k,
+            )
         else:
-            y = mlp_apply(lp["ffn"], hn)
+            y, nc = mamba_apply(lp["mixer"], hn, cfg=cfg, mode=mode, cache=lc)
         h = h + y
+        if t.ffn != "none":
+            hn = rmsnorm(h, lp["norm2"], cfg.norm_eps)
+            if t.ffn == "moe":
+                y, _ = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=False, drops=moe_drops, mask=moe_mask)
+            else:
+                y = mlp_apply(lp["ffn"], hn)
+            h = h + y
         new_cache.append(nc)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_cache
 

@@ -60,6 +60,8 @@ class ExecConfig:
 def make_exec_config(cfg: ModelConfig, tp: int) -> ExecConfig:
     if cfg.moe is not None and cfg.moe.num_experts % tp:  # the experts axis is model-sharded
         raise ValueError(f"{cfg.name}: experts={cfg.moe.num_experts} not divisible by tp={tp}")
+    if cfg.family == "ssm":  # no attention: no heads to resolve
+        return ExecConfig(cfg, tp, 0, 0)
     h = ceil_to(cfg.num_heads, tp)
     kv = cfg.num_kv_heads
     if tp > kv:
@@ -91,5 +93,16 @@ class ShardView:
 
     def block(self, r: int, *inner: int) -> torch.Tensor:
         """Rank r's rows of a weight sharded on its first dim, as a view of
-        shape (-1, *inner): an expert leaf's (E/t, D, F) shard."""
+        shape (-1, *inner): an expert leaf's (E/t, D, F) shard, or a 1-D
+        leaf's (n/t,) slice."""
         return self.mats[r].narrow(0, self.offsets[r], self.width).view(-1, *inner)
+
+    def joined(self, dim: int) -> torch.Tensor:
+        """The ranks' shards joined in rank order along ``dim`` of the 2-D
+        views (0: rows, 1: columns): the whole leaf as a matrix. A view
+        when the shards tile one storage tensor in order, as at storage TP
+        1 on one card; else a copy."""
+        first, off = self.mats[0], self.offsets[0]
+        if all(m is first and o == off + r * self.width for r, (m, o) in enumerate(zip(self.mats, self.offsets))):
+            return first.narrow(dim, off, self.width * self.tp)
+        return torch.cat([m.narrow(dim, o, self.width) for m, o in zip(self.mats, self.offsets)], dim)

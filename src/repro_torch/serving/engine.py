@@ -113,7 +113,9 @@ class ServingEngine:
                  drops: Optional[torch.Tensor] = None):
         """Prefill one prompt padded to its bucket and insert its K/V into a
         slot's first rows (L of them, or a windowed layer's rotating buffer
-        when L > window). tokens (1, L); last (1,) the prompt's last
+        when L > window), and each Mamba layer's final state and conv tail
+        into the slot's row: the whole padded bucket's, as the reference
+        inserts them (padding included). tokens (1, L); last (1,) the prompt's last
         position; slot (1,): index tensors, so that one captured graph
         serves every prompt length and slot of the bucket. ``drops`` gains
         the MoE assignments dropped of the prompt's tokens (not the
@@ -123,6 +125,10 @@ class ServingEngine:
                         pool=len(self.ranks), moe_drops=drops, moe_mask=mask)
         logits = logits_for(params, self.cfg, h.index_select(1, last))[:, 0, : self.cfg.vocab_size]
         for layer, c in zip(self.slots.layers, kv):
+            if "k" not in c:  # a Mamba layer: the slot's state and conv tail
+                for name, t in c.items():
+                    layer[name][slot] = t.to(layer[name].dtype)
+                continue
             n = c["k"].shape[1]
             for name in ("k", "v"):
                 layer[name][slot, :n] = c[name][0].to(layer[name].dtype)
@@ -132,7 +138,8 @@ class ServingEngine:
                 drops: Optional[torch.Tensor] = None):
         """One decode step of every slot: tokens (n_slots, 1), positions
         (n_slots,); the block tables are fixed and seq_lens come from the
-        positions on the device. ``drops`` gains the MoE assignments
+        positions on the device; Mamba layers update their slots' states in
+        place. ``drops`` gains the MoE assignments
         dropped, idle slots' included (the reference dispatches them too)."""
         tables, lens = self.slots.page_tables(positions)
         h, _ = forward(params, self.cfg, self.ec, tokens=tokens, positions=positions,

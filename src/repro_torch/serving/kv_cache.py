@@ -11,7 +11,9 @@
     ``models.attention.decode_attention`` views each layer's cache as those
     pages, which gives exactly the reference's dense masked decode attention
     (a wrapped window buffer is all valid; attention does not depend on the
-    order of the keys).
+    order of the keys). A Mamba layer holds each slot's state and conv
+    tail instead, {"ssd", "conv"} (mamba2) or {"h", "conv"} (mamba1), one
+    row a slot, and takes no block table.
   * PagedPool - PagedAttention-style paged pool with free-list allocation
     and block tables; the layout the migration kernels (kv_gather /
     kv_scatter) aggregate from, driven by ``core.migration.migrate_pages``.
@@ -45,7 +47,7 @@ class SlotCache:
     ec: ExecConfig
     n_slots: int
     max_len: int
-    layers: List[dict]  # per layer {"k", "v"}: (n_slots, Sc, KV, hd)
+    layers: List[dict]  # per layer {"k", "v"}: (n_slots, Sc, KV, hd), or a Mamba layer's (n_slots, ...) state
     lengths: np.ndarray  # host-side per-slot lengths
     free: Deque[int]
     tables: Dict[int, torch.Tensor]  # Sc -> (n_slots, Sc / page_for(Sc)) int32 identity block table
@@ -58,6 +60,8 @@ class SlotCache:
         ]
         tables = {}
         for layer in layers:
+            if "k" not in layer:  # a Mamba layer's state
+                continue
             Sc = layer["k"].shape[1]
             if Sc not in tables:
                 n_pages = Sc // page_for(Sc)
@@ -66,10 +70,11 @@ class SlotCache:
 
     def page_tables(self, positions: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Per layer, its identity block table and seq_lens = min(position +
-        1, Sc) for a decode step that writes each slot at ``positions``."""
+        1, Sc) for a decode step that writes each slot at ``positions``
+        (None for a Mamba layer)."""
         lens = {Sc: (positions + 1).clamp(max=Sc).to(torch.int32) for Sc in self.tables}
-        sizes = [layer["k"].shape[1] for layer in self.layers]
-        return [self.tables[Sc] for Sc in sizes], [lens[Sc] for Sc in sizes]
+        sizes = [layer["k"].shape[1] if "k" in layer else None for layer in self.layers]
+        return [self.tables.get(Sc) for Sc in sizes], [lens.get(Sc) for Sc in sizes]
 
     def alloc(self) -> Optional[int]:
         return self.free.popleft() if self.free else None

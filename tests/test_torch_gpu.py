@@ -952,3 +952,112 @@ def test_tp_shard_matmul_new_model_shapes(cuda, dtype, m, mode, k, store, n_out,
     want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the Mamba family (models/mamba.py) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("mode,k,store,n_out,off", [
+    ("col", 2560, 5120, 5120, 0), ("col", 2560, 5120, 640, 640),  # mamba2 w_z / w_x: TP 1, rank 1 at TP 8
+    ("col", 2560, 80, 80, 0), ("col", 2560, 80, 10, 10), ("col", 2560, 80, 10, 30),  # w_dt: 10 columns at TP 8
+    ("col", 2560, 256, 256, 0),  # w_BC (replicated)
+    ("row", 640, 5120, 2560, 640),  # mamba2 w_out, rank 1 at TP 8
+    ("col", 4096, 8192, 1024, 3 * 1024),  # jamba w_x / w_z, rank 3 at TP 8
+    ("row", 8192, 8192, 256, 0), ("row", 1024, 8192, 256, 5 * 1024),  # w_dtr: TP 1, rank 5 at TP 8
+    ("row", 8192, 8192, 16, 0), ("row", 1024, 8192, 16, 1024),  # w_B / w_C: N = 16
+    ("col", 256, 8192, 8192, 0), ("col", 256, 8192, 1024, 7 * 1024),  # dt_proj: K = 256
+    ("row", 1024, 8192, 4096, 2 * 1024),  # jamba w_out, rank 2 at TP 8
+])
+def test_tp_shard_matmul_mamba_shapes(cuda, dtype, m, mode, k, store, n_out, off):
+    """mamba2-2.7b's and jamba's projections at a rank's offset, against the
+    plain version: narrow N (10, 16), short K (256) and w_dt's shards at
+    20- and 60-byte offsets in bf16 (not 16-byte aligned: the producer
+    warp's own loads)."""
+    g = torch.Generator(device=cuda).manual_seed(k + n_out + off)
+    w_shape = (k, store) if mode == "col" else (store, n_out)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(*w_shape, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    got = tp_shard_matmul(x, w, off, n_out=n_out, mode=mode)
+    want = tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_mamba2_forward_on_card_matches_cpu(cuda, tp):
+    """Reduced mamba2-2.7b, f32: prefill of 40 tokens (chunks of 16: one
+    chunk, S % chunk != 0) and of 32 (two chunks), then 3 decode steps over
+    the state cache, on the card at TP ``tp`` against the CPU's plain path:
+    hidden states and caches within 1e-4 of their scale."""
+    from repro_torch.core.weight_store import WeightStore
+    from repro_torch.models import forward
+    from repro_torch.models.params import tree_map
+
+    cfg = reduced(get_config("mamba2-2.7b"))
+    defs = model_param_defs(cfg, make_exec_config(cfg, 1))
+    params = init_params(defs, torch.Generator().manual_seed(0))
+    ec = make_exec_config(cfg, tp)
+    tokens = torch.from_numpy(np.random.RandomState(tp).randint(0, cfg.vocab_size, size=(2, 43)))
+
+    def close(a, b):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+
+    before = tp_shard_matmul.launches
+    for S in (40, 32):
+        runs = []
+        for dev in (cuda, torch.device("cpu")):
+            store = WeightStore(cfg, defs, [dev] * 4)
+            bound = store.rebind(store.build(tree_map(lambda t: t.to(dev), params)), tp)
+            h, cache = forward(bound, cfg, ec, tokens=tokens[:, :S].to(dev), mode="prefill")
+            hs = [h]
+            for s in range(3):
+                h, _ = forward(bound, cfg, ec, tokens=tokens[:, S + s:S + s + 1].to(dev),
+                               positions=torch.full((2,), S + s, device=dev), cache=cache, mode="decode")
+                hs.append(h)
+            runs.append((hs, cache))
+        (g_hs, g_cache), (c_hs, c_cache) = runs
+        for a, b in zip(g_hs, c_hs):
+            close(a, b)
+        for a, b in zip(g_cache, c_cache):
+            for k in b:
+                close(a[k], b[k])
+    assert tp_shard_matmul.launches > before
+
+
+def test_jamba_graph_replays_equal_the_eager_steps(cuda):
+    """Reduced jamba-v0.1-52b (4 KV heads; mamba1, attention and MoE layers)
+    served in f32 at TP 1/2/4: at each TP level the decode graph's replay
+    and every bucket's prefill graph (a prompt shorter than its bucket)
+    equal the eager step bit for bit: next tokens, logits, the K/V and each
+    Mamba layer's state and conv window they leave in the cache."""
+    cfg = dataclasses.replace(reduced(get_config("jamba-v0.1-52b")), num_kv_heads=4)
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=256,
+                                                  prefill_buckets=(32, 64, 128)), device=cuda)
+    eng.warmup()
+    assert {k for c in eng.slots.layers for k in c} == {"k", "v", "h", "conv"}
+    for tp in (1, 2, 4):
+        eng.switch_tp(tp)
+        params_tp = eng.ctl.bindings[tp]
+        g = torch.Generator(device=cuda).manual_seed(tp)
+        for c in eng.slots.layers:
+            for t in c.values():
+                t.normal_(generator=g)
+        rng = np.random.RandomState(tp)
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(8, 1)))
+        pos = torch.tensor([255, 0, 17, 64, 100, 128, 200, 3])
+        (want, want_cache, want_n), (got, got_cache, got_n) = _replay_against_eager(
+            eng, lambda t, p: eng._decode(params_tp, t, p), eng.cache.get(tp, "decode"), (tokens, pos))
+        assert all(torch.equal(a, b) for a, b in zip(want, got)), f"TP {tp} decode: replay != eager"
+        assert _same_caches(want_cache, got_cache) and got_n == want_n and got_n[1] == cfg.n_attn_layers
+        for L in eng.econf.prefill_buckets:
+            prompt = torch.zeros((1, L), dtype=torch.int64)
+            prompt[0, : L - 3] = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=L - 3))
+            args = (prompt, torch.tensor([L - 4]), torch.tensor([(tp + L) % 8]))
+            (want, want_cache, want_n), (got, got_cache, got_n) = _replay_against_eager(
+                eng, lambda *a: eng._prefill(params_tp, *a), eng.cache.get(tp, L), args)
+            assert all(torch.equal(a, b) for a, b in zip(want, got)), f"TP {tp} prefill {L}: replay != eager"
+            assert _same_caches(want_cache, got_cache) and got_n == want_n and got_n[0] > 0, L
+    torch.cuda.synchronize()

@@ -20,7 +20,7 @@ from repro.kernels.paged_attention.ops import paged_decode_attention as j_paged 
 from repro.serving.kv_cache import PagedPool as JPagedPool  # noqa: E402
 
 import repro_torch.core.migration as migration_mod  # noqa: E402
-from repro_torch.configs import LayerTemplate, ModelConfig, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.migration import MigrationAborted, kv_migration_bytes, migrate_pages  # noqa: E402
 from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter  # noqa: E402
 from repro_torch.kernels.kv_gather.ref import kv_gather_ref, kv_scatter_ref  # noqa: E402
@@ -326,7 +326,11 @@ def test_kv_migration_bytes_matches_reference(n_seqs, ctx, from_tp, to_tp):
 
 
 def test_kv_migration_bytes_refuses_state_families():
-    ssm = ModelConfig(name="ssm", family="mamba2", num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
-                      head_dim=16, d_ff=0, vocab_size=256, pattern=(LayerTemplate("mamba", "none"),))
-    with pytest.raises(NotImplementedError, match="families"):
-        kv_migration_bytes(ssm, 1, 128, 1, 2)
+    """The state families count as the reference counts them (they were
+    refused until the Mamba slice): an SSM moves each sequence's recurrent
+    state whatever the TP levels, a hybrid adds it to each sequence's KV
+    before the moved fraction."""
+    for name in ("mamba2-2.7b", "jamba-v0.1-52b"):
+        for args in ((1, 128, 1, 2), (16, 256, 1, 8), (8, 4096, 4, 2)):
+            got = kv_migration_bytes(get_config(name), *args)
+            assert got == j_kv_migration_bytes(j_get_config(name), *args) > 0

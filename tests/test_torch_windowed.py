@@ -335,20 +335,21 @@ def test_decode_takes_one_table_per_layer():
 
 
 def test_check_supported_refuses_what_is_still_missing():
-    """MoE and the encodec frontend are served now; the state families, a
-    mamba mixer, an unknown frontend and MoE layers without a spec are not."""
+    """MoE, the encodec frontend and the state families (an SSM, a hybrid
+    with mamba mixers) are served now; an unknown frontend, MoE layers
+    without a spec and mamba layers without one are not."""
     from dataclasses import replace
 
-    from repro_torch.configs.base import LayerTemplate
+    from repro_torch.configs.base import LayerTemplate, MambaSpec
 
     llama = get_config("llama3-8b")
-    for name in ("moonshot-v1-16b-a3b", "dbrx-132b", "musicgen-large"):
+    for name in ("moonshot-v1-16b-a3b", "dbrx-132b", "musicgen-large", "mamba2-2.7b", "jamba-v0.1-52b"):
         check_supported(get_config(name))
-    with pytest.raises(NotImplementedError, match="family"):
-        check_supported(replace(llama, family="ssm"))
-    with pytest.raises(NotImplementedError, match="layer pattern"):
-        check_supported(replace(llama, family="hybrid",
-                                pattern=(LayerTemplate("mamba", "none"), LayerTemplate("attn", "moe"))))
+    check_supported(replace(llama, family="ssm", mamba=MambaSpec()))
+    hybrid = (LayerTemplate("mamba", "none"), LayerTemplate("attn", "dense"))
+    check_supported(replace(llama, family="hybrid", pattern=hybrid, mamba=MambaSpec(version=1)))
+    with pytest.raises(NotImplementedError, match="MambaSpec"):
+        check_supported(replace(llama, family="hybrid", pattern=hybrid))
     with pytest.raises(NotImplementedError, match="frontend"):
         check_supported(replace(llama, family="audio", frontend="waveform"))
     with pytest.raises(NotImplementedError, match="MoESpec"):
