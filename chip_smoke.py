@@ -116,13 +116,25 @@ Phases; any failure raises and the script exits non-zero:
      Phase 2 also holds the Mamba projections (narrow N, K = 256, w_dt's
      10-column shards at 20-byte offsets) to their plain versions, one
      kernel a call, and times them.
+ 10. the H100's offline profile and the planner that consumes it: the
+     fields of ``profiles.perf_model.H100`` measured on this card beside
+     the committed ones; llama3-8b in bf16 (phase 5's engine configuration,
+     --layers cuts it) profiled by ``profile_engine`` through its CUDA
+     graphs (every launch by a replay), its TP 1 rows written to
+     src/repro_torch/profiles/tables/llama3-8b_h100.json (full depth) and
+     chiprun_out/, the TP > 1 rows printed apart (one card runs the t ranks
+     one after another); the TP 1 times beside ``PerfModel(cfg, H100)``;
+     tiers derived from a ``TabulatedPerfModel`` of the table and the
+     planner's plan for two tiers on 8 chips (at most 8 used); 16 requests
+     served and scored with ``GoodputMeter``; ``MigrationModel(hw=H100)``
+     beside phase 3's ``migrate_pages``.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
 phases 7-9 for the others; after the engines' warm-up, so that the counts
 are the replays') and read just after. The kernels line's ``launches``
 adds phase 5's counts (phase 4's when phase 5 is skipped) and those of
-phases 6-9, with the split in
+phases 6-10 (phase 10: the profile's replays), with the split in
 ``launches_by_path``; ``instances`` holds the new instances' rows. The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
@@ -2273,12 +2285,12 @@ def mamba2_phase(torch, dev, log, skip_timed):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.migration import state_bytes
     from repro_torch.core.weight_store import WeightStore
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models import forward, init_params, logits_for, model_param_defs
     from repro_torch.models.params import tree_leaves_with_path
     from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.profiles.perf_model import PerfModel
 
     cfg = get_config("mamba2-2.7b")
     defs = model_param_defs(cfg, make_exec_config(cfg, 1))
@@ -2292,9 +2304,10 @@ def mamba2_phase(torch, dev, log, skip_timed):
     storage = store.build(params)
     ptrs = sorted(t.data_ptr() for _, per_pos in tree_leaves_with_path(storage) for t in per_pos)
     torch.cuda.synchronize()
+    state = PerfModel(cfg).state_bytes()
     rec = {"layers": cfg.num_layers, "param_count": cfg.param_count(), "allocated_before_gb": before / 1e9,
            "weights_gb_f32": (torch.cuda.memory_allocated() - before) / 1e9,
-           "state_bytes_per_seq_f32": state_bytes(cfg), "state_bytes_8_seqs_f32": 8 * state_bytes(cfg),
+           "state_bytes_per_seq_f32": state, "state_bytes_8_seqs_f32": 8 * state,
            "prompts": list(MAMBA2_PROMPTS), "rebinds": {str(k): v for k, v in MAMBA2_REBINDS.items()},
            "note": "forward called eagerly (no CUDA graphs): times are not comparable with the engine's steps"}
     log(f"{what}: weights {rec['weights_gb_f32']:.2f} GB on the card, made in {time.perf_counter() - t0:.1f} s; "
@@ -2417,6 +2430,177 @@ def jamba_phase(torch, dev, log, skip_timed):
         rec[key]["wall_s"] = time.perf_counter() - t0
         log(f"phase 9 {key}: {rec[key]['wall_s']:.1f} s")
     return by_path, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the H100's offline profile and the planner that consumes it
+# ---------------------------------------------------------------------------
+TABLES = ROOT / "src" / "repro_torch" / "profiles" / "tables"
+PROFILE_BATCHES, PROFILE_CTXS = (1, 4, 8), (64,)
+PLAN_DEMANDS = {"strict": 2.0, "relaxed": 6.0}  # req/s, prompt 64, output 24
+PLAN_CHIPS = 8
+
+
+def h100_fields(torch, dev, cfg, decode_row, flush, log):
+    """The fields of repro_torch.profiles.perf_model.H100 measured on this
+    card: total memory and L2 size (the card's properties), flops_eff (the
+    bf16 tp_shard_matmul's TFLOP/s at a prefill-sized product, (4096, d) @
+    (d, d_ff), over the 989 TFLOP/s peak), bw_eff (bound_ms / ms of phase
+    2's bf16 w_gate decode row) and ici_latency_s (the CUDA-event time of a
+    4-byte device-to-device copy, a lower bound for a hop)."""
+    props = torch.cuda.get_device_properties(dev)
+    shape = ("w_gate/w_in col", "col", cfg.d_model, cfg.d_ff)
+    big = measure_matmul_cases(torch, dev, [(cfg.name, shape, 4096, torch.bfloat16, 1)], flush, log, cfg.name, seed=29)[0]
+    src, dst = torch.zeros(1, device=dev), torch.empty(1, device=dev)
+    copy_ms = time_ms(torch, lambda: dst.copy_(src), iters=50)
+    return {"hbm_bytes": float(props.total_memory), "vmem_bytes": float(props.L2_cache_size),
+            "flops_eff": 2.0 * 4096 * cfg.d_model * cfg.d_ff / (big["ms"] * 1e-3) / PEAK_FLOPS["bfloat16"],
+            "bw_eff": decode_row["bound_ms"] / decode_row["ms"], "ici_latency_s": copy_ms * 1e-3,
+            "rows": {"prefill": big["shape"], "prefill_ms": big["ms"], "decode": decode_row["shape"],
+                     "decode_ms": decode_row["ms"], "decode_bound_ms": decode_row["bound_ms"]}}
+
+
+def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
+    """Phase 10: ``cfg`` (llama3-8b, 32 layers unless --layers) in bf16
+    through phase 5's engine configuration, profiled with
+    ``profile_engine`` (batches 1/4/8, context 64, buckets 32/64/128) by
+    replaying its CUDA graphs: every tp_shard_matmul and
+    paged_decode_attention launch of the profile must come from a replay
+    (counts set to 0 just before, read just after). The TP 1 rows are the
+    H100 table (written to src/repro_torch/profiles/tables/ at full depth,
+    and to chiprun_out/); the TP > 1 rows are printed apart, labelled, and
+    kept out of the table. Then: the H100 spec's measured fields beside the
+    committed ones; the TP 1 times beside PerfModel(cfg, H100); the tiers
+    derive_tiers makes from a TabulatedPerfModel of the table and the
+    planner's plan for two tiers on 8 chips (the plan's one check: it uses
+    at most 8, mixed groups counted); 16 requests (half each tier) served at TP 1 and scored with
+    GoodputMeter (arrival at admission, as the engine stamps it: TTFT
+    excludes waiting for a slot); MigrationModel(hw=H100) beside phase 3's
+    measured migrate_pages. Returns (launches, record)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.goodput import GoodputMeter, RequestRecord
+    from repro_torch.core.migration import MigrationModel
+    from repro_torch.core.planner import Planner, PlannerInputs, TierDemand
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.models import init_params
+    from repro_torch.profiles.perf_model import H100, PerfModel, clear_perf_caches
+    from repro_torch.profiles.profiler import ProfileTable, TabulatedPerfModel, profile_engine
+    from repro_torch.profiles.slo import derive_tiers
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    measured = h100_fields(torch, dev, cfg, decode_row, flush, log)
+    del flush
+    rec = {"h100": {k: {"measured": measured[k], "committed": getattr(H100, k)}
+                    for k in ("hbm_bytes", "vmem_bytes", "flops_eff", "bw_eff", "ici_latency_s")},
+           "h100_rows": measured["rows"], "h100_spec": dataclasses.asdict(H100)}
+    log(f"phase 10: H100 spec fields, measured on this card vs committed in perf_model.H100: {json.dumps(rec['h100'])}; "
+        f"rows {json.dumps(measured['rows'])}")
+
+    econf = engine_conf(torch, cfg, torch.bfloat16)
+    params = init_params(weight_defs(cfg), torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    eng = ServingEngine(cfg, params, econf, device=dev)
+    rec["warmup_s"] = eng.warmup()
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0
+    before = replayed(eng)
+    t1 = time.perf_counter()
+    table = profile_engine(eng, batches=PROFILE_BATCHES, ctxs=PROFILE_CTXS)
+    rec["profile_s"] = time.perf_counter() - t1
+    launches = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+    by_replay = {k: n - before.get(k, 0) for k, n in replayed(eng).items()}
+    check(all(n > 0 for n in launches.values()) and launches == {k: by_replay.get(k, 0) for k in launches},
+          f"phase 10: every launch of the profile came from a graph replay: {launches} vs replays {by_replay}")
+    rec["launches"] = launches
+
+    tp1 = ProfileTable({k: v for k, v in table.decode_s.items() if k[0] == 1},
+                       {k: v for k, v in table.prefill_s.items() if k[0] == 1})
+    full_depth = cfg.num_layers == get_config(cfg.name).num_layers
+    fname = f"{cfg.name}_h100.json" if full_depth else f"{cfg.name}-{cfg.num_layers}l_h100.json"
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    paths = [out_dir / fname] + ([TABLES / fname] if full_depth else [])
+    for path in paths:
+        tp1.save(str(path))
+        back = ProfileTable.load(str(path))
+        check(back.decode_s == tp1.decode_s and back.prefill_s == tp1.prefill_s, f"{path} round-trips")
+    rec["table"] = {"files": [str(p.relative_to(ROOT)) for p in paths],
+                    "decode_ms": {f"{tp}/{b}/{c}": v * 1e3 for (tp, b, c), v in tp1.decode_s.items()},
+                    "prefill_ms": {f"{tp}/{L}": v * 1e3 for (tp, L), v in tp1.prefill_s.items()}}
+    rec["one_card_tp_rows"] = {
+        "label": "t ranks run one after another on one card; not a t-card step",
+        "decode_ms": {f"{tp}/{b}/{c}": v * 1e3 for (tp, b, c), v in table.decode_s.items() if tp > 1},
+        "prefill_ms": {f"{tp}/{L}": v * 1e3 for (tp, L), v in table.prefill_s.items() if tp > 1}}
+    log(f"phase 10: {cfg.name} bf16 ({cfg.num_layers} layers) profiled by graph replays in {rec['profile_s']:.1f} s, "
+        f"launches {json.dumps(launches)}; TP 1 table ({', '.join(rec['table']['files'])}): "
+        f"decode ms {json.dumps(rec['table']['decode_ms'])}, prefill ms {json.dumps(rec['table']['prefill_ms'])}")
+    log(f"phase 10: TP > 1 rows, t ranks run one after another on one card; not a t-card step: "
+        f"{json.dumps({k: v for k, v in rec['one_card_tp_rows'].items() if k != 'label'})}")
+
+    analytic = PerfModel(cfg, H100)
+    calib = {"decode 8 x ctx 64": (tp1.decode_s[(1, 8, 64)], analytic.decode_step_time_s(8, 64, 1))}
+    calib.update({f"prefill {L}": (tp1.prefill_s[(1, L)], analytic.prefill_time_s(L, 1)) for L in econf.prefill_buckets})
+    rec["calibration"] = {k: {"measured_ms": m * 1e3, "analytic_ms": a * 1e3, "measured_over_analytic": m / a}
+                          for k, (m, a) in calib.items()}
+    log(f"phase 10: TP 1 measured vs PerfModel(cfg, H100): {json.dumps(rec['calibration'])}")
+
+    clear_perf_caches()  # the memo is shared by every tabulated model of this config (ROADMAP, Reference notes)
+    perf = TabulatedPerfModel(cfg, tp1, hw=H100)
+    tiers = derive_tiers(perf, 64)
+    plan = Planner(perf, tiers).plan(PlannerInputs(
+        {name: TierDemand(rps, 64, 24) for name, rps in PLAN_DEMANDS.items()}, total_chips=PLAN_CHIPS))
+    rec["tiers"] = [dataclasses.asdict(t) for t in tiers]
+    # chips_used() counts prefill and decode groups only, not mixed ones (ROADMAP, Reference notes)
+    allocated = sum(t.prefill.chips + t.decode.chips + (t.mixed.chips if t.mixed else 0) for t in plan.tiers.values())
+    rec["plan"] = {"chips_used": plan.chips_used(), "chips_with_mixed": allocated, "leftover_chips": plan.leftover_chips,
+                   "planning_ms": plan.planning_ms, "demands_rps": PLAN_DEMANDS,
+                   "tiers": {n: {"prefill_tp": t.prefill.tp, "prefill_chips": t.prefill.chips, "decode_tp": t.decode.tp,
+                                 "decode_chips": t.decode.chips, "served_rps": t.served_rps,
+                                 "mixed": None if t.mixed is None else {"tp": t.mixed.tp, "chips": t.mixed.chips}}
+                             for n, t in plan.tiers.items()}}
+    check(plan.chips_used() <= allocated <= PLAN_CHIPS, f"phase 10: the plan uses at most {PLAN_CHIPS} chips: {rec['plan']}")
+    log(f"phase 10: tiers from the table {json.dumps(rec['tiers'])}; plan on {PLAN_CHIPS} chips for "
+        f"{json.dumps(PLAN_DEMANDS)} req/s (prompt 64, output 24): {json.dumps(rec['plan'])}")
+
+    rng = np.random.RandomState(11)
+    reqs = [Request(900 + i, ("strict", "relaxed")[i % 2], rng.randint(0, cfg.vocab_size, size=64).astype(np.int32), 24)
+            for i in range(16)]
+    t1 = time.perf_counter()
+    done = eng.run(reqs)
+    horizon = time.perf_counter() - t1
+    check(len(done) == 16 and all(len(r.generated) == 24 for r in done), "phase 10: 16 requests served")
+    meter = GoodputMeter({t.name: t for t in tiers})
+    for r in done:
+        meter.add(RequestRecord(r.req_id, r.tier, r.arrival_s, r.prompt_len, len(r.generated), r.first_token_s,
+                                r.finish_s, len(r.generated)))
+    rec["goodput"] = {"horizon_s": horizon, "per_tier_rps": meter.per_tier_goodput(horizon),
+                      "latency_ms": {t: meter.latency_percentiles(t, q=(50,)) for t in ("strict", "relaxed")},
+                      "met": {t: sum(meter.meets_slo(r) for r in meter.records if r.tier == t) for t in ("strict", "relaxed")}}
+    log(f"phase 10: 16 requests (8 per tier, prompt 64, 24 tokens) at TP 1 scored against those tiers: "
+        f"{json.dumps(rec['goodput'])}")
+
+    mm = MigrationModel(hw=H100)
+    rec["migration_model"] = {}
+    for ctx, m in migration.items():
+        nbytes = m["bytes_moved"]
+        rec["migration_model"][ctx] = {
+            "bytes": nbytes, "measured_migrate_pages_ms": m["migrate_pages_ms"]["median"],
+            "aggregated_ms": mm.aggregated_s(nbytes) * 1e3, "pipelined_ms": mm.pipelined_s(nbytes) * 1e3,
+            "gather_term_ms": 2 * nbytes / (H100.hbm_bw * H100.bw_eff) * 1e3}
+        if "fig7" in m:
+            rec["migration_model"][ctx].update(naive_ms=mm.naive_per_page_s(m["fig7"]["bytes"]) * 1e3,
+                                               measured_per_page_copy_ms=m["fig7"]["per_page_copy_ms"]["median"])
+    log(f"phase 10: MigrationModel(hw=H100) (link fields published, not measured) beside phase 3's migrate_pages "
+        f"(on one card the send is the identity): {json.dumps(rec['migration_model'])}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t0
+    return launches, rec
 
 
 def main() -> int:
@@ -2582,6 +2766,11 @@ def main() -> int:
 
     # main-path entries: the bf16 decode shapes that take the most time per step
     main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
+
+    # ---- phase 10: the H100's profile, then the plan (counts reset just before the profile, read just after) ----
+    got, record["profile_plan"] = profile_plan_phase(torch, dev, cfg, log, main_mm, record["migration"])
+    add_paths({f"{cfg.name} bf16 profile ({cfg.num_layers} layers)": got})
+    log(f"phase 10: {record['profile_plan']['wall_s']:.1f} s")
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}

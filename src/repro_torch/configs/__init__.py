@@ -6,6 +6,7 @@ from repro_torch.configs.base import (
     MoESpec,
     ceil_to,
     get_config,
+    list_configs,
     reduced,
     register,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "MoESpec",
     "ceil_to",
     "get_config",
+    "list_configs",
     "reduced",
     "register",
 ]

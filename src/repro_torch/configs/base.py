@@ -187,6 +187,12 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def list_configs() -> list:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
+
+
 def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         chameleon_34b,

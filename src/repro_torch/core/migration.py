@@ -15,14 +15,16 @@ Two paths:
     (NCCL) and the overlap of gather and send come with the multi-card slice.
 
 ``kv_migration_bytes`` is the reference's byte count for attention KV and,
-for the Mamba families, their recurrent state (``state_bytes``, the
-reference's ``PerfModel._state_bytes_raw``). The analytic ``MigrationModel``
-stays in the reference: its constants are a TPU's.
+for the Mamba families, their recurrent state (``PerfModel.state_bytes``).
+``MigrationModel`` is the reference's analytic latency model (paper Fig.
+7), priced with a ``HardwareSpec``: at ``V5E`` the reference's numbers, at
+``H100`` the card's (its link fields are published figures, not measured).
 """
 from __future__ import annotations
 
 import time
 from collections import deque
+from dataclasses import dataclass
 from typing import List, Sequence, Tuple, Union
 
 import numpy as np
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter
+from repro_torch.profiles.perf_model import V5E, HardwareSpec, PerfModel
 from repro_torch.serving.kv_cache import PagedPool
 
 
@@ -116,17 +119,52 @@ def migrate_pages(src: PagedPool, dst: PagedPool, seq_ids: Sequence[int]) -> Tup
     return dst.block_table_array(seq_ids), time.perf_counter() - t0
 
 
-def state_bytes(cfg: ModelConfig) -> float:
-    """O(1) recurrent state of one sequence over every Mamba layer, in f32,
-    conv tail excluded (the reference's ``PerfModel._state_bytes_raw``)."""
-    if cfg.mamba is None:
-        return 0.0
-    m = cfg.mamba
-    if m.version == 2:
-        per = (cfg.d_inner // m.head_dim) * m.head_dim * m.d_state
-    else:
-        per = cfg.d_inner * m.d_state
-    return per * cfg.n_mamba_layers * 4  # f32 state
+# ---------------------------------------------------------------------------
+# Analytic migration-latency model (paper Fig. 7)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class MigrationModel:
+    hw: HardwareSpec = V5E
+    page_bytes: int = 32 * 1024  # 16 tokens x 8 kv heads x 128 x 2B
+    # per-op issue overhead: dominated by host-side descriptor setup for
+    # small async copies; 50us/page reproduces the paper's measured Fig. 7
+    # endpoints (0.88s naive @ 0.5GB, 24.8ms pipelined @ 5GB) on the
+    # reference's V5E link constants (the reference's calibration, kept
+    # as it is at every HardwareSpec).
+    per_transfer_overhead_s: float = 50e-6
+    staging_bytes: int = 16 * 1024 * 1024  # double-buffer stage size
+
+    def ici_bw(self) -> float:
+        return self.hw.ici_bw * self.hw.ici_links
+
+    def naive_per_page_s(self, total_bytes: float) -> float:
+        """cudaMemcpyAsync-per-page analogue: one transfer per page."""
+        n_pages = max(int(np.ceil(total_bytes / self.page_bytes)), 1)
+        # small transfers do not reach link bandwidth; model an effective
+        # bandwidth that saturates with transfer size
+        eff_bw = self.ici_bw() * self.page_bytes / (self.page_bytes + 256 * 1024)
+        return n_pages * (self.per_transfer_overhead_s + self.page_bytes / eff_bw)
+
+    def aggregated_s(self, total_bytes: float) -> float:
+        """Gather all pages into one buffer, then one big transfer."""
+        gather = total_bytes * 2 / (self.hw.hbm_bw * self.hw.bw_eff)  # r+w
+        send = total_bytes / self.ici_bw() + self.per_transfer_overhead_s
+        return gather + send
+
+    def pipelined_s(self, total_bytes: float) -> float:
+        """Nitsum: double-buffered overlap of gather and transmit."""
+        gather = total_bytes * 2 / (self.hw.hbm_bw * self.hw.bw_eff)
+        send = total_bytes / self.ici_bw()
+        stage = self.staging_bytes
+        fill = stage * 2 / (self.hw.hbm_bw * self.hw.bw_eff)
+        return max(gather, send) + fill + self.per_transfer_overhead_s
+
+    def migration_s(self, total_bytes: float, strategy: str = "pipelined") -> float:
+        return {
+            "naive": self.naive_per_page_s,
+            "aggregated": self.aggregated_s,
+            "pipelined": self.pipelined_s,
+        }[strategy](total_bytes)
 
 
 def kv_migration_bytes(
@@ -142,12 +180,12 @@ def kv_migration_bytes(
     reference counts it.
     """
     if cfg.n_attn_layers == 0:  # SSM: migrate recurrent state instead
-        return n_seqs * state_bytes(cfg)
+        return n_seqs * PerfModel(cfg).state_bytes()
     win = cfg.attn.window or ctx_len
     eff = min(ctx_len, win)
     per_seq = 2 * cfg.num_kv_heads * cfg.head_dim * dtype_bytes * eff * cfg.n_attn_layers
     lo, hi = min(from_tp, to_tp), max(from_tp, to_tp)
     moved_frac = 1.0 - lo / hi  # heads staying on the same chip
     if cfg.mamba is not None:  # hybrid: add state bytes
-        per_seq += state_bytes(cfg)
+        per_seq += PerfModel(cfg).state_bytes()
     return n_seqs * per_seq * moved_frac

@@ -1061,3 +1061,69 @@ def test_jamba_graph_replays_equal_the_eager_steps(cuda):
             assert all(torch.equal(a, b) for a, b in zip(want, got)), f"TP {tp} prefill {L}: replay != eager"
             assert _same_caches(want_cache, got_cache) and got_n == want_n and got_n[0] > 0, L
     torch.cuda.synchronize()
+
+
+def test_profile_engine_on_card_replays_graphs(cuda, tmp_path):
+    """profile_engine on llama3-8b at full width, 2 layers, bf16, TP
+    1/2/4/8: every tp_shard_matmul and paged_decode_attention launch of the
+    profile comes from a graph replay, the table has the reference's keys
+    with positive times, the engine stays at its TP level, and the table
+    round-trips through its JSON."""
+    from repro_torch.profiles.profiler import ProfileTable, profile_engine
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2)
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=cuda).manual_seed(0),
+                         torch.bfloat16)
+    econf = EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128),
+                         dtype=torch.bfloat16)
+    eng = ServingEngine(cfg, params, econf, device=cuda)
+    eng.warmup()
+    eng.switch_tp(4)
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0
+    table = profile_engine(eng, batches=(1, 4, 8), ctxs=(64,))
+    launches = {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+    assert all(n > 0 for n in launches.values())
+    assert launches == {k: eng.cache.replayed_launches()[k] for k in launches}
+    assert set(table.decode_s) == {(tp, b, 64) for tp in (1, 2, 4, 8) for b in (1, 4, 8)}
+    assert set(table.prefill_s) == {(tp, L) for tp in (1, 2, 4, 8) for L in (32, 64, 128)}
+    assert all(v > 0 for v in [*table.decode_s.values(), *table.prefill_s.values()])
+    assert eng.tp == 4
+    table.save(str(tmp_path / "t.json"))
+    back = ProfileTable.load(str(tmp_path / "t.json"))
+    assert back.decode_s == table.decode_s and back.prefill_s == table.prefill_s
+
+
+def test_time_fn_waits_for_the_device(cuda):
+    """time_fn synchronises: a call that queues ~10 ms of device work
+    (torch.cuda._sleep) and returns at once is read at no less than its
+    CUDA-event time, and so is a decode graph's replay."""
+    from repro_torch.profiles.profiler import time_fn
+
+    x = torch.zeros(1, device=cuda)
+
+    def busy():
+        torch.cuda._sleep(20_000_000)
+        return x.add(1)
+
+    def event_ms(fn, *args):
+        fn(*args)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn(*args)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    want = event_ms(busy)
+    assert want > 2.0
+    assert time_fn(busy) * 1e3 >= 0.9 * want
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2)
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(device=cuda).manual_seed(0),
+                         torch.bfloat16)
+    eng = ServingEngine(cfg, params, EngineConfig(candidate_tps=(1,), n_slots=8, max_len=256, prefill_buckets=(32,),
+                                                  dtype=torch.bfloat16), device=cuda)
+    eng.warmup()
+    args = (torch.zeros((8, 1), dtype=torch.int64, device=cuda), torch.full((8,), 64, dtype=torch.int64, device=cuda))
+    decode = eng.cache.get(1, "decode")
+    assert time_fn(decode, *args, iters=5) * 1e3 >= 0.9 * event_ms(decode, *args)

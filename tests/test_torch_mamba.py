@@ -52,7 +52,7 @@ from repro.parallel.sharding import DEFAULT_RULES, make_exec_config as j_make_ex
 
 from repro_torch.checkpoint.convert import to_numpy, to_torch  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.core.migration import kv_migration_bytes, state_bytes  # noqa: E402
+from repro_torch.core.migration import kv_migration_bytes  # noqa: E402
 from repro_torch.core.weight_store import WeightStore  # noqa: E402
 from repro_torch.models import forward, init_cache_defs, model_param_defs  # noqa: E402
 from repro_torch.models import mamba  # noqa: E402
@@ -68,6 +68,7 @@ MAMBA2, JAMBA = "mamba2-2.7b", "jamba-v0.1-52b"
 N_POOL = 4
 FWD_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_models.py's prefill/decode tolerance
 ENGINE_TOL = dict(rtol=0, atol=1e-2)  # reduced jamba's f32 conditioning (module docstring)
+FAN_IN_TOL = dict(rtol=2e-4, atol=2e-4)  # the other engine tests' bound, on weights drawn at each layer's fan-in
 
 
 def _pair(name):
@@ -329,14 +330,16 @@ def test_rebind_is_zero_copy_for_state_leaves(tp):
 @pytest.mark.parametrize("n_seqs,ctx,from_tp,to_tp", [(16, 256, 1, 8), (8, 4096, 2, 4), (1, 9000, 4, 1), (3, 7, 2, 2)])
 @pytest.mark.parametrize("name", [MAMBA2, JAMBA])
 def test_kv_migration_bytes_matches_reference_for_state_families(name, n_seqs, ctx, from_tp, to_tp):
-    from repro.profiles.perf_model import PerfModel
+    from repro.profiles.perf_model import PerfModel as JPerfModel
+
+    from repro_torch.profiles.perf_model import PerfModel
 
     cfg, jcfg = get_config(name), j_get_config(name)
-    assert state_bytes(cfg) == PerfModel(jcfg).state_bytes()
+    assert PerfModel(cfg).state_bytes() == JPerfModel(jcfg).state_bytes()
     assert kv_migration_bytes(cfg, n_seqs, ctx, from_tp, to_tp) == j_kv_migration_bytes(jcfg, n_seqs, ctx, from_tp,
                                                                                          to_tp)
     if name == MAMBA2:  # 80 heads x 64 x 128 x 64 layers in f32 per sequence
-        assert state_bytes(cfg) == 80 * 64 * 128 * 64 * 4
+        assert PerfModel(cfg).state_bytes() == 80 * 64 * 128 * 64 * 4
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +363,20 @@ def _requests(cls):
             for i, (n, k) in enumerate(zip(lens, NEW_TOKENS))]
 
 
+def _fan_in_params(jcfg, seed=0):
+    """The reference's weights with each stacked leaf of rank >= 3 drawn at
+    its layer's own fan-in, 1/sqrt(shape[-2]), given to ``init_params``
+    through ``ParamDef.scale`` (the init rule's fan-in for such a leaf is
+    its number of periods: std 1 at one period)."""
+    from repro.models.params import tree_map_defs
+
+    defs = j_param_defs(jcfg, j_make_exec_config(jcfg, 1))
+    own = (lambda d: replace(d, scale=d.shape[-2] ** -0.5)
+           if d.scale is None and d.init == "normal" and len(d.shape) >= 3 else d)
+    defs = {k: tree_map_defs(own, v) if k == "periods" else v for k, v in defs.items()}
+    return j_init_params(defs, jax.random.PRNGKey(seed), jnp.float32)
+
+
 def _engine_kw():
     return dict(candidate_tps=(1, 2, 4), n_slots=4, max_len=64, prefill_buckets=(32,), record_logits=True)
 
@@ -375,10 +392,12 @@ def _padded_request(cls):
 
 def _reference_engines(out):
     """The reference engine over 4 host devices at fixed TP 1, then under
-    SCHEDULE, then (TP 1) the padded-bucket prompt in its bucket of 32; and
-    an engine on one device whose only bucket is the prompt's length, 20.
-    One engine serves the three runs, so its executables compile once. The
-    weights, trajectories and logits go to ``out`` (pickle)."""
+    SCHEDULE, then (TP 1) the padded-bucket prompt in its bucket of 32, then
+    fixed and under SCHEDULE again on ``_fan_in_params`` (the engine's
+    storage rebuilt from them at TP 1); and an engine on one device whose
+    only bucket is the prompt's length, 20. One engine serves the five
+    runs, so its executables compile once. The weights, trajectories and
+    logits go to ``out`` (pickle)."""
     from repro.serving.engine import EngineConfig as JEngineConfig, ServingEngine as JServingEngine
     from repro.serving.request import Request as JRequest
 
@@ -395,6 +414,16 @@ def _reference_engines(out):
         switches = eng.stats.switches
         done = eng.run(reqs, switch_schedule=schedule)
         assert eng.tp == 1 and eng.stats.switches - switches == len(schedule or {})
+        res[case] = {"tokens": {r.req_id: list(map(int, r.generated)) for r in done},
+                     "logits": {k: [np.asarray(x) for x in v] for k, v in eng.logit_trace.items()}}
+        print(f"{case}: {len(done)} requests")
+    fan_in = _fan_in_params(jcfg)
+    res["fan_in_params"] = jax.tree_util.tree_map(np.asarray, fan_in)
+    eng.storage = eng.store.build(fan_in, eng.meshes[eng.tp])
+    for case, schedule in (("fan_in_fixed", None), ("fan_in_switch", SCHEDULE)):
+        eng.logit_trace = {}
+        done = eng.run(_requests(JRequest), switch_schedule=schedule)
+        assert eng.tp == 1
         res[case] = {"tokens": {r.req_id: list(map(int, r.generated)) for r in done},
                      "logits": {k: [np.asarray(x) for x in v] for k, v in eng.logit_trace.items()}}
         print(f"{case}: {len(done)} requests")
@@ -445,6 +474,26 @@ def test_jamba_engine_matches_reference_engine(reference_engines, case):
         assert len(eng.logit_trace[rid]) == len(steps) == NEW_TOKENS[rid]
         for g, w in zip(eng.logit_trace[rid], steps):
             np.testing.assert_allclose(g, w, **ENGINE_TOL, err_msg=f"request {rid}")
+    assert not any(eng.moe_dropped().values())
+
+
+@pytest.mark.parametrize("case", ["fixed", "switch"])
+def test_jamba_engine_matches_reference_engine_at_own_fan_in(reference_engines, case):
+    """test_jamba_engine_matches_reference_engine on weights drawn at each
+    layer's own fan-in (``_fan_in_params``), where reduced jamba is well
+    conditioned in f32: the same tokens, every step's logits within
+    FAN_IN_TOL, the bound of the other engine tests."""
+    ref = reference_engines[f"fan_in_{case}"]
+    _, cfg = _serve_cfgs()
+    eng = ServingEngine(cfg, to_torch(reference_engines["fan_in_params"], device="cpu"), EngineConfig(**_engine_kw()),
+                        device="cpu")
+    done = eng.run(_requests(Request), switch_schedule=SCHEDULE if case == "switch" else None)
+    assert len(done) == len(NEW_TOKENS) and eng.stats.switches == (len(SCHEDULE) if case == "switch" else 0)
+    assert {r.req_id: r.generated for r in done} == ref["tokens"] == reference_engines["fan_in_fixed"]["tokens"]
+    for rid, steps in ref["logits"].items():
+        assert len(eng.logit_trace[rid]) == len(steps) == NEW_TOKENS[rid]
+        for g, w in zip(eng.logit_trace[rid], steps):
+            np.testing.assert_allclose(g, w, **FAN_IN_TOL, err_msg=f"request {rid}")
     assert not any(eng.moe_dropped().values())
 
 
@@ -555,5 +604,27 @@ def _conditioning():
     print("largest: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
 
 
+def _fan_in_readings():
+    """Print the largest logit difference between the port's engine and
+    the reference's on ``_fan_in_params``, fixed and under SCHEDULE, and
+    the largest logit."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _run("engine", f"{tmp}/reference.pkl")
+        with open(f"{tmp}/reference.pkl", "rb") as f:
+            ref = pickle.load(f)
+    _, cfg = _serve_cfgs()
+    for case, schedule in (("fixed", None), ("switch", SCHEDULE)):
+        eng = ServingEngine(cfg, to_torch(ref["fan_in_params"], device="cpu"), EngineConfig(**_engine_kw()),
+                            device="cpu")
+        eng.run(_requests(Request), switch_schedule=schedule)
+        want = ref[f"fan_in_{case}"]["logits"]
+        diff = max(np.abs(g - w).max() for rid in want for g, w in zip(eng.logit_trace[rid], want[rid]))
+        top = max(np.abs(w).max() for steps in want.values() for w in steps)
+        print(f"{case}: max |port - reference| {diff:.3g}, max |logit| {top:.3g}")
+
+
 if __name__ == "__main__":
-    {"engine": lambda: _reference_engines(sys.argv[2]), "conditioning": _conditioning}[sys.argv[1]]()
+    {"engine": lambda: _reference_engines(sys.argv[2]), "conditioning": _conditioning,
+     "fan_in": _fan_in_readings}[sys.argv[1]]()
