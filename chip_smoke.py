@@ -128,6 +128,17 @@ Phases; any failure raises and the script exits non-zero:
      planner's plan for two tiers on 8 chips (at most 8 used); 16 requests
      served and scored with ``GoodputMeter``; ``MigrationModel(hw=H100)``
      beside phase 3's ``migrate_pages``.
+ 11. the serving simulator on the card's numbers (host code, in spawned
+     worker processes; every kernel's launch count must stay as it was):
+     the 24 cases of ``testing.sim_equivalence`` at V5E held to the
+     reference's goldens (benchmarks/results/sim_golden.json) at
+     DEFAULT_RTOL, the fault cases with the KV audit armed; the Fig. 9
+     matrix (benchmarks/fig9_goodput.py's six systems on the two-tier
+     servegen and azure traces, rps_scale 0.5/1/2, 300 s, 16 chips) under
+     phase 10's tabulated model and under ``PerfModel(cfg, H100)``,
+     printed; phase 10's 16 served requests replayed through static-tp1
+     on 1 chip, the predicted p50 TTFT/TPOT and requests met beside the
+     measured ones, printed.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
@@ -146,6 +157,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -234,23 +246,32 @@ def profiled(torch, fn):
     return ev, wall_us
 
 
-def kernels_in_one_call(torch, fn):
+PROFILER_SESSIONS = {"sessions": 0, "empty": 0}  # of kernels_in_one_call; empty: no device time seen
+
+
+def kernels_in_one_call(torch, fn, sessions: int = 12):
     """{kernel name: count} of one call under torch.profiler (after one
     untraced call), or None when the profiler sees no device time in any of
-    three sessions (a session on the card has come back empty after a run
-    of earlier ones)."""
+    ``sessions`` sessions. On the card a session now and then comes back
+    empty, a few in a row (repro_torch.testing.profiler_sessions measures
+    how often); each empty session is counted in PROFILER_SESSIONS and
+    retried after a pause that grows with the attempt."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(sessions):
+        if attempt:
+            time.sleep(0.01 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         kernels = {e.key[:60]: e.count for e in prof.key_averages()
                    if (getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)) > 0}
+        PROFILER_SESSIONS["sessions"] += 1
         if kernels:
             return kernels
+        PROFILER_SESSIONS["empty"] += 1
     return None
 
 
@@ -626,7 +647,7 @@ def check_one_launch(torch, dev, log):
                     torch, lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode))
                 del x, w
     for key, kernels in seen.items():
-        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
+        check(kernels is not None, f"{key}: the profiler saw device time in one of twelve sessions")
         check(sum(kernels.values()) == 1 and not any("splitk_reduce" in k for k in kernels),
               f"one {key} tp_shard_matmul call launches one kernel, no splitk_reduce: {kernels}")
     log(f"tp_shard_matmul: one decode or prefill call under torch.profiler launches one kernel: {json.dumps(seen)}")
@@ -780,7 +801,7 @@ def check_paged_one_launch(torch, dev, cfg, log):
     tables = torch.arange(128, dtype=torch.int32, device=dev).view(8, 16)
     lens = torch.tensor([1, 64, 65, 100, 128, 129, 192, 256], dtype=torch.int32, device=dev)
     kernels = kernels_in_one_call(torch, lambda: paged_decode_attention(q, kp, vp, tables, lens))
-    check(kernels is not None, "paged_decode_attention: the profiler saw device time in one of three sessions")
+    check(kernels is not None, "paged_decode_attention: the profiler saw device time in one of twelve sessions")
     check(sum(kernels.values()) == 1 and all("paged_decode" in k for k in kernels),
           f"one paged_decode_attention call launches one kernel: {kernels}")
     log(f"paged_decode_attention: one call (rows of 1 to 4 splits) under torch.profiler launches {kernels}")
@@ -957,7 +978,7 @@ def check_windowed_one_launch(torch, dev, log):
             torch, lambda: tp_shard_matmul(x, w, 0, n_out=cfg.vocab_padded, mode="col_t", out_dtype=torch.float32))
         del w, x
     for key, kernels in seen.items():
-        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
+        check(kernels is not None, f"{key}: the profiler saw device time in one of twelve sessions")
         check(sum(kernels.values()) == 1, f"one {key} call launches one kernel: {kernels}")
     log(f"new instances under torch.profiler, one kernel per call: {json.dumps(seen)}")
     return seen
@@ -1168,7 +1189,7 @@ def check_new_one_launch(torch, dev, log):
                 torch, lambda: tp_shard_matmul(x, w, 0, n_out=n, mode=mode))
             del w, x
     for key, kernels in seen.items():
-        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
+        check(kernels is not None, f"{key}: the profiler saw device time in one of twelve sessions")
         check(sum(kernels.values()) == 1, f"one {key} call launches one kernel: {kernels}")
     log(f"phase 7 and 8 instances under torch.profiler, one kernel per call: {json.dumps(seen)}")
     return seen
@@ -2225,7 +2246,7 @@ def check_mamba_one_launch(torch, dev, log):
         seen[key] = kernels_in_one_call(torch, lambda: tp_shard_matmul(x, w, off if tp > 1 else 0, n_out=n, mode=mode))
         del w, x
     for key, kernels in seen.items():
-        check(kernels is not None, f"{key}: the profiler saw device time in one of three sessions")
+        check(kernels is not None, f"{key}: the profiler saw device time in one of twelve sessions")
         check(sum(kernels.values()) == 1, f"one {key} call launches one kernel: {kernels}")
     log(f"phase 9 instances under torch.profiler, one kernel per call ({len(seen)} calls): {json.dumps(seen)}")
     return seen
@@ -2476,7 +2497,9 @@ def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
     at most 8, mixed groups counted); 16 requests (half each tier) served at TP 1 and scored with
     GoodputMeter (arrival at admission, as the engine stamps it: TTFT
     excludes waiting for a slot); MigrationModel(hw=H100) beside phase 3's
-    measured migrate_pages. Returns (launches, record)."""
+    measured migrate_pages. Returns (launches, record, the TP 1 table, the
+    tiers); the record's ``served`` holds the 16 requests' stamps for
+    phase 11."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2573,6 +2596,9 @@ def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
     done = eng.run(reqs)
     horizon = time.perf_counter() - t1
     check(len(done) == 16 and all(len(r.generated) == 24 for r in done), "phase 10: 16 requests served")
+    rec["served"] = {"run_start_s": t1, "requests": [
+        {"tier": r.tier, "arrival_s": r.arrival_s, "first_token_s": r.first_token_s, "finish_s": r.finish_s,
+         "prompt_len": r.prompt_len, "tokens_out": len(r.generated)} for r in done]}
     meter = GoodputMeter({t.name: t for t in tiers})
     for r in done:
         meter.add(RequestRecord(r.req_id, r.tier, r.arrival_s, r.prompt_len, len(r.generated), r.first_token_s,
@@ -2600,7 +2626,188 @@ def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
     gc.collect()
     torch.cuda.empty_cache()
     rec["wall_s"] = time.perf_counter() - t0
-    return launches, rec
+    return launches, rec, tp1, tiers
+
+
+# phase 11: the serving simulator on the card's numbers
+# ---------------------------------------------------------------------------
+FIG9_SYSTEMS = ("nitsum", "sglang", "sglang-pd", "split", "llumnix", "chiron")  # benchmarks/fig9_goodput.py
+FIG9_TRACES = ("servegen", "azure")
+FIG9_SCALES = (0.5, 1.0, 2.0)
+FIG9_HORIZON_S = 300.0
+FIG9_CHIPS = 16  # benchmarks/common.py's pool for llama3-8b
+SIM_WORKERS = min(8, os.cpu_count() or 1)
+
+
+def sim_pool():
+    """Worker processes for the simulator's replays (host code, numpy):
+    spawned, so that none inherits the parent's CUDA context, and each with
+    its own perf-model memo."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=SIM_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+
+def golden_case(name):
+    from repro_torch.testing import sim_equivalence as eq
+
+    return eq.run_case(name)
+
+
+def fig9_perf(kind, model, table):
+    """A fresh perf model after a cleared memo: tabulated models of one
+    config share it (ROADMAP, Reference notes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.profiles.perf_model import H100, PerfModel, clear_perf_caches
+    from repro_torch.profiles.profiler import TabulatedPerfModel
+    from repro_torch.profiles.slo import derive_tiers
+
+    clear_perf_caches()
+    cfg = get_config(model)
+    perf = TabulatedPerfModel(cfg, table, hw=H100) if kind == "tabulated" else PerfModel(cfg, H100)
+    return perf, derive_tiers(perf, prompt_len=900, ctx_len=1000, candidate_tps=(1, 2, 4, 8))
+
+
+def fig9_cell(kind, model, table, trace, scale, system):
+    """One run of the Fig. 9 matrix (benchmarks/fig9_goodput.py): azure at
+    rps_scale x 10, as fig9 does."""
+    from repro_torch.serving.simulator import run_system
+    from repro_torch.traces.azure import azure_two_tier
+    from repro_torch.traces.servegen import servegen_two_tier
+
+    perf, tiers = fig9_perf(kind, model, table)
+    wl = (servegen_two_tier(horizon_s=FIG9_HORIZON_S, rps_scale=scale) if trace == "servegen"
+          else azure_two_tier(horizon_s=FIG9_HORIZON_S, rps_scale=scale * 10))
+    sim, _ = run_system(system, perf, tiers, FIG9_CHIPS, wl)
+    res = sim.result(wl.horizon_s)
+    return {"goodput": res.goodput, "per_tier": res.per_tier_goodput, "finished": res.finished,
+            "reconfig_count": res.reconfig_count, "spill_total": res.spill_total, "n_requests": len(wl.requests),
+            "rps": wl.rps, "horizon_s": wl.horizon_s}
+
+
+def check_goldens(pool, card, log):
+    """Every case of the port's sim_equivalence at V5E against the
+    reference's committed goldens (benchmarks/results/sim_golden.json),
+    with check_case at DEFAULT_RTOL; the fault cases run with the KV audit
+    armed. Any violation raises."""
+    from repro_torch.testing import sim_equivalence as eq
+
+    golden = eq.load_golden()
+    names = list(eq.CASES)
+    out, bad = {}, []
+    for name, got in zip(names, pool.map(golden_case, names)):
+        bad += eq.check_case(name, golden, got=got)
+        out[name] = {"goodput": got["goodput"], "golden_goodput": golden["cases"][name]["goodput"],
+                     "finished": got["finished"], "golden_finished": golden["cases"][name]["finished"]}
+    check(not bad, f"phase 11: the simulator's goldens: {bad}")
+    log(f"[{card}] phase 11: {len(out)} of {len(names)} golden cases within rtol {eq.DEFAULT_RTOL} of "
+        f"{eq.GOLDEN_PATH.relative_to(ROOT)} (V5E, the fault cases with the KV audit armed)")
+    return out
+
+
+def fig9_matrix(pool, kind, label, model, table, card, log):
+    """The Fig. 9 comparison: six systems on servegen_two_tier and
+    azure_two_tier, rps_scale 0.5/1/2, a 300 s horizon, 16 chips, tiers
+    from derive_tiers(perf, prompt_len=900, ctx_len=1000). Goodput per
+    system and tier, and nitsum's ratio to the best baseline at each load;
+    the checks are finite values and each run's own accounting."""
+    _, tiers = fig9_perf(kind, model, table)
+    out = {"tiers": [dataclasses.asdict(t) for t in tiers], "traces": {}}
+    log(f"[{card}] phase 11 fig9 ({label}): tiers {json.dumps(out['tiers'])}")
+    cells = [(tr, sc, sy) for tr in FIG9_TRACES for sc in FIG9_SCALES for sy in FIG9_SYSTEMS]
+    runs = dict(zip(cells, pool.map(fig9_cell, *zip(*[(kind, model, table, *c) for c in cells]))))
+    for (trace, scale, system), r in runs.items():
+        good = [r["goodput"], *r["per_tier"].values()]
+        n_good = round(r["goodput"] * r["horizon_s"])
+        check(all(math.isfinite(g) and g >= 0 for g in good)
+              and n_good == sum(round(v * r["horizon_s"]) for v in r["per_tier"].values())
+              and n_good <= r["finished"] <= r["n_requests"],
+              f"phase 11 fig9 {label} {trace} x{scale} {system}: {r}")
+    for trace in FIG9_TRACES:
+        rows = out["traces"][trace] = []
+        for scale in FIG9_SCALES:
+            systems = {sy: runs[(trace, scale, sy)] for sy in FIG9_SYSTEMS}
+            base = max(FIG9_SYSTEMS[1:], key=lambda sy: systems[sy]["goodput"])
+            best = systems[base]["goodput"]
+            row = {"rps_scale": scale, "rps": systems["nitsum"]["rps"], "n_requests": systems["nitsum"]["n_requests"],
+                   "systems": {sy: {k: v for k, v in r.items() if k not in ("rps", "n_requests", "horizon_s")}
+                               for sy, r in systems.items()},
+                   "best_baseline": base,
+                   "nitsum_over_best_baseline": systems["nitsum"]["goodput"] / best if best > 0 else None}
+            rows.append(row)
+            log(f"[{card}] phase 11 fig9 ({label}) {trace} rps_scale {scale} ({row['rps']:.4f} req/s, "
+                f"{row['n_requests']} requests): goodput req/s " + ", ".join(
+                    f"{sy} {r['goodput']:.4f} ({', '.join(f'{t} {g:.4f}' for t, g in r['per_tier'].items())})"
+                    for sy, r in row["systems"].items())
+                + f"; nitsum / best baseline ({base}) {row['nitsum_over_best_baseline']}")
+    return out
+
+
+def simulator_fit(perf, tiers, served, card, log):
+    """Phase 10's 16 served requests replayed through the simulator
+    (static-tp1 on 1 chip, all arriving at 0, the same tiers and lengths):
+    predicted per-tier p50 TTFT, p50 TPOT and requests met beside the
+    measured ones, TTFT measured from admission (as the engine stamps it)
+    and from the run's start (like for like with the simulator's arrival
+    0)."""
+    from repro_torch.core.goodput import GoodputMeter, RequestRecord
+    from repro_torch.serving.simulator import run_system
+    from repro_torch.traces.workload import TraceRequest, Workload
+
+    reqs = served["requests"]
+    wl = Workload("phase10-replay", [TraceRequest(i, r["tier"], 0.0, r["prompt_len"], r["tokens_out"])
+                                     for i, r in enumerate(reqs)], horizon_s=60.0)
+    _, predicted = run_system("static-tp1", perf, tiers, 1, wl)
+    check(len(predicted.records) == len(reqs), f"phase 11 fit: {len(predicted.records)} of {len(reqs)} replayed")
+    by_tier = {t.name: t for t in tiers}
+    meters = {"predicted": predicted}
+    for name, start in (("measured_from_admission", None), ("measured_from_run_start", served["run_start_s"])):
+        m = meters[name] = GoodputMeter(by_tier)
+        for i, r in enumerate(reqs):
+            m.add(RequestRecord(i, r["tier"], r["arrival_s"] if start is None else start, r["prompt_len"],
+                                r["tokens_out"], r["first_token_s"], r["finish_s"], r["tokens_out"]))
+    out = {name: {t: {**m.latency_percentiles(t, q=(50,)),
+                      "met": sum(m.meets_slo(r) for r in m.records if r.tier == t),
+                      "n": sum(r.tier == t for r in m.records)} for t in by_tier}
+           for name, m in meters.items()}
+    log(f"[{card}] phase 11 fit: {len(reqs)} requests of phase 10 (prompt {reqs[0]['prompt_len']}, "
+        f"{reqs[0]['tokens_out']} tokens) through static-tp1 on 1 chip at the tabulated model vs the engine: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def simulator_phase(cfg, table, tiers, served, card, log):
+    """Phase 11: host code only, the replays in SIM_WORKERS spawned
+    processes. The goldens (asserted), the Fig. 9 matrix of the full model
+    under TabulatedPerfModel(cfg, table, hw=H100) and PerfModel(cfg, H100)
+    (printed; ``table`` is phase 10's, or the committed one when --layers
+    cut the depth), and the one-card fit of phase 10's ``cfg``, ``table``
+    and tiers against its served requests (printed). Asserts that every
+    kernel's launch count stays as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.profiles.perf_model import H100, clear_perf_caches
+    from repro_torch.profiles.profiler import ProfileTable, TabulatedPerfModel
+
+    t0 = time.perf_counter()
+    before = {k.__name__: k.launches for k in _build.COUNTED}
+    full = get_config(cfg.name)
+    fig9_table = table if cfg.num_layers == full.num_layers else ProfileTable.load(str(TABLES / f"{cfg.name}_h100.json"))
+    with sim_pool() as pool:
+        rec = {"workers": SIM_WORKERS, "goldens": check_goldens(pool, card, log), "fig9": {}}
+        for kind, label in (("tabulated", "tabulated: H100 TP 1 table, analytic past it"),
+                            ("analytic", "analytic: PerfModel(cfg, H100)")):
+            rec["fig9"][label] = fig9_matrix(pool, kind, label, full.name, fig9_table, card, log)
+    clear_perf_caches()
+    rec["fit"] = simulator_fit(TabulatedPerfModel(cfg, table, hw=H100), tiers, served, card, log)
+    clear_perf_caches()
+    after = {k.__name__: k.launches for k in _build.COUNTED}
+    check(after == before, f"phase 11 launches no kernel: {before} -> {after}")
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[{card}] phase 11: {rec['wall_s']:.1f} s on {SIM_WORKERS} worker processes, launch counts unchanged "
+        f"{json.dumps(after)}")
+    return rec
 
 
 def main() -> int:
@@ -2707,7 +2914,9 @@ def main() -> int:
     record["mamba_matmul"] = measure_matmul_cases(torch, dev, mamba_matmul_cases(torch), flush, log, None, seed=23)
     record["mamba_launches_per_call"] = check_mamba_one_launch(torch, dev, log)
     check_kv_sweeps(torch, dev, cfg, log)
-    log(f"phase 2: {time.perf_counter() - t0:.1f} s")
+    record["profiler_sessions"] = dict(PROFILER_SESSIONS)
+    log(f"phase 2: {time.perf_counter() - t0:.1f} s; one-launch checks: {PROFILER_SESSIONS['empty']} of "
+        f"{PROFILER_SESSIONS['sessions']} profiler sessions came back empty and were retried")
 
     # ---- phase 3: paged KV migration (kv counts reset just before each migrate_pages, read just after) ----
     kv_launches, record["migration"] = migration_phase(torch, dev, cfg, flush, log)
@@ -2768,9 +2977,12 @@ def main() -> int:
     main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
 
     # ---- phase 10: the H100's profile, then the plan (counts reset just before the profile, read just after) ----
-    got, record["profile_plan"] = profile_plan_phase(torch, dev, cfg, log, main_mm, record["migration"])
+    got, record["profile_plan"], table, tiers = profile_plan_phase(torch, dev, cfg, log, main_mm, record["migration"])
     add_paths({f"{cfg.name} bf16 profile ({cfg.num_layers} layers)": got})
     log(f"phase 10: {record['profile_plan']['wall_s']:.1f} s")
+
+    # ---- phase 11: the simulator on the card's numbers (host code: every launch count must stay as it is) ----
+    record["simulator"] = simulator_phase(cfg, table, tiers, record["profile_plan"]["served"], card, log)
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}
