@@ -139,13 +139,33 @@ Phases; any failure raises and the script exits non-zero:
      printed; phase 10's 16 served requests replayed through static-tp1
      on 1 chip, the predicted p50 TTFT/TPOT and requests met beside the
      measured ones, printed.
+ 12. training: (a) h2o-danube-1.8b at full width and 2 layers in f32,
+     batch 4 x 256: one loss_fn gradient through the kernel and through its
+     plain version on the same CUDA tensors, every leaf within 1e-4 of its
+     max |g| (the CPU tests' tolerance against the reference), and the
+     matmul's autograd (row and col_t at a TP 2 rank's offset) against the
+     plain version's; (b) check_train_step (reduced h2o-danube, data 2 x
+     model 2, ZeRO-1 moments, against one rank); (c) h2o-danube-1.8b at
+     full width and depth (24 layers, 1.831 B parameters) trained in f32
+     with the layer recompute for 20 steps of SyntheticDataset(8, 512)
+     through make_train_step: finite losses, the mean of the last 5 below
+     the first; step times, tokens/s, peak memory against the reckoning,
+     the matmul's launches per step (forward with the recompute, backward
+     dX) and one step under torch.profiler split into the matmul kernel,
+     the attention, the optimizer, the library's other GEMMs and the rest;
+     (d) train_loop at 2 layers: 8 steps with a checkpoint every 4, a run
+     failing at step 6 and a resumed run; step 4's checkpoint loads back
+     onto the card bit for bit, the resumed losses within 2e-4 of the
+     uninterrupted run's; save and load seconds.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
 phases 7-9 for the others; after the engines' warm-up, so that the counts
 are the replays') and read just after. The kernels line's ``launches``
 adds phase 5's counts (phase 4's when phase 5 is skipped) and those of
-phases 6-10 (phase 10: the profile's replays), with the split in
+phases 6-10 (phase 10: the profile's replays) and 12 (the training
+steps of (c): "train" the forward's and the recompute's launches, "train
+backward" the backward's dX launches), with the split in
 ``launches_by_path``; ``instances`` holds the new instances' rows. The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
@@ -153,6 +173,7 @@ line, the card line and the contract line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1635,21 +1656,21 @@ def engine_conf(torch, cfg, dtype):
 PER_LAYER_FAN_IN = ("jamba-v0.1-52b",)
 
 
-def weight_defs(cfg):
+def weight_defs(cfg, own_fan_in=None):
     """The parameter defs an engine's weights are drawn from. The
     reference's rule (``init_params``) fills an unset scale with
     1/sqrt(shape[0]), which for a leaf stacked over the pattern's periods is
     the number of periods: jamba at one or two periods (8 or 16 layers)
     then draws every projection at std 1 or 0.71, and its f32 activations
-    overflow. For the models in PER_LAYER_FAN_IN each stacked leaf takes
-    the rule applied to its layer's own shape (shape[1:]): 1/sqrt(fan-in) of
-    the layer's weight."""
+    overflow. For the models in PER_LAYER_FAN_IN (or with ``own_fan_in``,
+    as phase 12 trains) each stacked leaf takes the rule applied to its
+    layer's own shape (shape[1:]): 1/sqrt(fan-in) of the layer's weight."""
     from repro_torch.models import model_param_defs
     from repro_torch.models.params import ParamDef, tree_map
     from repro_torch.parallel.sharding import make_exec_config
 
     defs = model_param_defs(cfg, make_exec_config(cfg, 1))
-    if cfg.name not in PER_LAYER_FAN_IN:
+    if not (cfg.name in PER_LAYER_FAN_IN if own_fan_in is None else own_fan_in):
         return defs
 
     def own(d):
@@ -2810,6 +2831,401 @@ def simulator_phase(cfg, table, tiers, served, card, log):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training
+# ---------------------------------------------------------------------------
+TRAIN_MODEL = "h2o-danube-1.8b"
+GRAD_TOL = 1e-4  # per leaf, of the leaf's max |g|: the CPU tests' bound against the reference
+TRAIN_LOSS_RTOL = 2e-4  # the resumed run's losses against the uninterrupted run's (check_train_step's bound)
+
+
+class PlainMatmul:
+    """Within the block the model's projections take tp_shard_matmul's plain
+    version (autograd through torch ops) instead of the kernel: the
+    comparison run of phase 12 (a)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+        from repro_torch.models import layers
+
+        self.layers, self.kernel = layers, layers.tp_shard_matmul
+        layers.tp_shard_matmul = lambda x, w, off, *, n_out, mode="col", out_dtype=None: tp_shard_matmul_ref(
+            x, w, off, mode=mode, n_out=n_out, out_dtype=out_dtype)
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.tp_shard_matmul = self.kernel
+
+
+def train_params(torch, dev, cfg):
+    """f32 weights from seed 0, each layer's leaves at its own fan-in, and the
+    bytes they take."""
+    from repro_torch.models import init_params
+
+    params = init_params(weight_defs(cfg, own_fan_in=True), torch.Generator(device=dev).manual_seed(0))
+    return params
+
+
+def tree_bytes(tree):
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.training.optimizer import Zero1Shards
+
+    return sum(sum(p.numel() * p.element_size() for p in (x.parts if isinstance(x, Zero1Shards) else [x]))
+               for x in tree_leaves(tree))
+
+
+def grad_check(torch, dev, cfg, log, batch=4, seq=256):
+    """(a) One loss_fn gradient of ``cfg`` through the kernel and through
+    the plain version on the same CUDA tensors, per leaf within GRAD_TOL of
+    the leaf's max |g|; then the matmul's autograd (row and col_t at a TP 2
+    rank's offset, the shapes of wo and the tied head's embedding rows)
+    against the plain version's autograd."""
+    from repro_torch.core.weight_store import WeightStore
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.kernels.tp_shard_matmul.ref import tp_shard_matmul_ref
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.training.data import synthetic_batch
+    from repro_torch.training.train_step import batch_to
+
+    ec = make_exec_config(cfg, 1)
+    params = train_params(torch, dev, cfg)
+    leaves = [t for _, t in tree_leaves_with_path(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    store = WeightStore(cfg, weight_defs(cfg, own_fan_in=True), [dev])
+    bound = store.rebind(store.build(params), 1)
+    tb = batch_to(synthetic_batch(cfg, batch, seq, 0), dev, torch.float32)
+    kw = dict(seq_chunk=min(256, seq), block_q=128, block_k=128)
+    grads, losses, counts = {}, {}, {}
+    for which in ("kernel", "plain"):
+        for t in leaves:
+            t.grad = None
+        tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
+        with PlainMatmul() if which == "plain" else contextlib.nullcontext():
+            loss, _ = loss_fn(bound, cfg, ec, tb, **kw)
+            loss.backward()
+        sync(torch, dev)
+        counts[which] = {"forward": tp_shard_matmul.launches, "backward": tp_shard_matmul.backward_launches}
+        losses[which] = float(loss.detach())
+        grads[which] = {"/".join(p): t.grad.clone() for p, t in tree_leaves_with_path(params)}
+    check(counts["kernel"]["forward"] > 0 and counts["kernel"]["backward"] > 0 and not any(counts["plain"].values()),
+          f"(a) the kernel ran in the kernel pass alone: {counts}")
+    errs = {}
+    for path, want in grads["plain"].items():
+        got, scale = grads["kernel"][path], want.abs().max().item()
+        check(scale > 0 and got.abs().max().item() > 0, f"(a) {path} has a gradient in both passes")
+        errs[path] = (got - want).abs().max().item() / scale
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= GRAD_TOL, f"(a) per-leaf gradient within {GRAD_TOL} of max|g|: {worst} {errs[worst]:.2e}")
+    check(abs(losses["kernel"] - losses["plain"]) <= 1e-5 * abs(losses["plain"]), f"(a) losses {losses}")
+    del grads, params, bound, store, leaves
+    gc.collect()
+    # the matmul's autograd at a TP 2 rank's offset: row (wo's rows, dX a col_t launch), col_t (the
+    # embedding's vocab rows as the tied head reads them, dX a row launch)
+    g = torch.Generator(device=dev).manual_seed(5)
+    M, d, hd_all, V = batch * seq, cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.vocab_padded
+    modes = {}
+    for mode, w_shape, x_shape, off, n_out in (("row", (hd_all, d), (M, hd_all // 2), hd_all // 2, d),
+                                               ("col_t", (V, d), (M, d), V // 2, V // 2)):
+        w0 = torch.randn(*w_shape, generator=g, device=dev) * d ** -0.5
+        x0 = torch.randn(*x_shape, generator=g, device=dev)
+        gy = torch.randn(M, n_out, generator=g, device=dev)
+        out = {}
+        for which in ("kernel", "plain"):
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            fn = tp_shard_matmul if which == "kernel" else (
+                lambda x, w, off, *, n_out, mode, out_dtype: tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out,
+                                                                                  out_dtype=out_dtype))
+            (fn(x, w, off, n_out=n_out, mode=mode, out_dtype=torch.float32) * gy).sum().backward()
+            out[which] = (x.grad, w.grad)
+        sync(torch, dev)
+        e = {}
+        for name, got, want in zip(("dx", "dw"), out["kernel"], out["plain"]):
+            e[name] = (got - want).abs().max().item() / want.abs().max().item()
+            check(e[name] <= 1e-5, f"(a) {mode} at a TP 2 rank's offset: {name} within 1e-5 of the scale: {e[name]:.2e}")
+        outside = out["kernel"][1].clone()
+        outside.narrow(0, off, x_shape[1] if mode == "row" else n_out).zero_()
+        check(not bool(outside.any()), f"(a) {mode}: the storage's gradient is zero outside the shard")
+        modes[mode] = {"shape": f"x {x_shape}, w {w_shape}, offset {off}", **e}
+    rec = {"model": f"{cfg.name} ({cfg.num_layers} layers, d {cfg.d_model})", "batch": [batch, seq],
+           "loss": losses, "launches": counts, "worst_leaf": worst, "worst_err": errs[worst],
+           "errs": errs, "autograd_tp2": modes}
+    log(f"phase 12 (a) {rec['model']} f32, batch {batch} x {seq}: loss kernel {losses['kernel']:.6f} plain "
+        f"{losses['plain']:.6f}; worst per-leaf gradient error {errs[worst]:.2e} of max|g| ({worst}; tolerance "
+        f"{GRAD_TOL}); the kernel's launches {counts['kernel']}; autograd at a TP 2 offset {json.dumps(modes)}")
+    return rec
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_train_step(torch, dev, run):
+    """One train step under torch.profiler (CPU and CUDA activity): device ms
+    by what ran: the matmul kernel (forward, recompute and backward dX
+    launches), the attention (``_blockwise``'s ops in the forward and the
+    recompute and their backward nodes, its einsums included), the
+    optimizer (clip and AdamW), the library's other GEMMs (the backward's
+    dW and col dX products, the CE head's) and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import attention
+    from repro_torch.training import train_step
+
+    labelled = {}
+
+    def label(mod, name, tag):
+        fn = getattr(mod, name)
+        labelled[(mod, name)] = fn
+
+        def wrapped(*a, **k):
+            with record_function(tag):
+                return fn(*a, **k)
+        setattr(mod, name, wrapped)
+
+    label(attention, "_blockwise", "train.attention")
+    label(train_step, "clip_by_global_norm", "train.optimizer")
+    label(train_step, "adamw_update", "train.optimizer")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    try:
+        sync(torch, dev)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in labelled.items():
+            setattr(mod, name, fn)
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(e.time_range.elapsed_us() for e in device)
+
+    def tagged(e, tag):
+        while e is not None:
+            if e.name == tag:
+                return True
+            e = e.cpu_parent
+        return False
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU and not e.is_async]
+    attn_seq = {e.sequence_nr for e in cpu if e.sequence_nr >= 0 and tagged(e, "train.attention")}
+
+    def backward_of_attention(e):
+        while e is not None:
+            if e.name.startswith("autograd::engine::evaluate_function") and e.sequence_nr in attn_seq:
+                return True
+            e = e.cpu_parent
+        return False
+
+    split = {"tp_shard_matmul": 0.0, "attention": 0.0, "optimizer": 0.0, "library_gemm": 0.0}
+    split["tp_shard_matmul"] = sum(e.time_range.elapsed_us() for e in device if any(k in e.name for k in MATMUL_KERNELS))
+    for e in cpu:
+        for k in e.kernels:
+            if any(m in k.name for m in MATMUL_KERNELS):
+                continue
+            if tagged(e, "train.optimizer"):
+                split["optimizer"] += k.duration
+            elif tagged(e, "train.attention") or backward_of_attention(e):
+                split["attention"] += k.duration
+            elif any(m in k.name.lower() for m in LIBRARY_GEMM):
+                split["library_gemm"] += k.duration
+    split["rest"] = total - sum(split.values())
+    out = {k: v / 1e3 for k, v in split.items()}
+    out.update(device_ms=total / 1e3, traced_wall_ms=wall * 1e3, busy_share=total / 1e6 / wall if wall else 0.0)
+    return out
+
+
+def train_full(torch, dev, cfg, log, steps=20, batch=8, seq=512):
+    """(c) ``cfg`` trained for ``steps`` steps of SyntheticDataset(batch, seq)
+    in f32 through make_train_step (the layer recompute; seq_chunk 256,
+    blocks 128): finite losses, the mean of the last 5 below the first;
+    step times, tokens/s, peak memory against the reckoning, the matmul's
+    launches per step (counts set to 0 just before the steps, read just
+    after), then one step profiled."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.models.params import count_params
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.training.data import SyntheticDataset
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainStepConfig, init_opt_state, make_train_step
+
+    t0 = time.perf_counter()
+    n_params = count_params(weight_defs(cfg, own_fan_in=True))
+    params = train_params(torch, dev, cfg)
+    tcfg = TrainStepConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=5), seq_chunk=min(256, seq), block_q=128,
+                           block_k=128)
+    step, _ = make_train_step(cfg, make_exec_config(cfg, 1), params, tcfg)
+    opt = init_opt_state(params, tcfg)
+    reckoned = {"params": tree_bytes(params), "grads": tree_bytes(params), "moments": tree_bytes(opt)}
+    reckoned["before_activations"] = sum(reckoned.values())
+    ds = SyntheticDataset(cfg, batch, seq)
+    sync(torch, dev)
+    made_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, ds.at(i))
+        losses.append(float(m["loss"]))  # the sync
+        times.append(time.perf_counter() - t0)
+    launches = {"forward": tp_shard_matmul.launches, "backward": tp_shard_matmul.backward_launches}
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    check(all(math.isfinite(x) for x in losses), f"(c) finite losses: {losses}")
+    check(sum(losses[-5:]) / 5 < losses[0], f"(c) the mean of the last 5 losses below the first: {losses}")
+    check(launches["forward"] > 0 and launches["backward"] > 0, f"(c) tp_shard_matmul launched: {launches}")
+    split = profile_train_step(torch, dev, lambda: float(step(params, opt, ds.at(steps))[2]["loss"]))
+    st = sorted(times[1:]) if len(times) > 1 else times
+    med = st[len(st) // 2]
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params, "steps": steps, "batch": [batch, seq],
+           "losses": losses, "step_s": times, "step_s_median": med, "step_s_min": st[0], "step_s_max": st[-1],
+           "first_step_s": times[0], "tokens_per_s": batch * seq / med, "peak_bytes": peak,
+           "reckoned_bytes": reckoned, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()}, "profiled_step": split,
+           "setup_s": made_s}
+    log(f"phase 12 (c) {cfg.name} f32, {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters, batch {batch} x "
+        f"{seq}, {steps} steps: losses {[round(x, 4) for x in losses]}; step {med:.3f} s median (min {st[0]:.3f}, max "
+        f"{st[-1]:.3f}; first {times[0]:.3f}), {batch * seq / med:.0f} tokens/s; peak "
+        f"{(peak or 0) / 1e9:.2f} GB (reckoned before activations {reckoned['before_activations'] / 1e9:.2f}: params "
+        f"{reckoned['params'] / 1e9:.2f}, grads {reckoned['grads'] / 1e9:.2f}, moments {reckoned['moments'] / 1e9:.2f}); "
+        f"tp_shard_matmul launches per step {rec['launches_per_step']}; one step under the profiler {json.dumps(split)}")
+    del params, opt, step
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rec
+
+
+def checkpoint_round_trip(torch, dev, cfg, log, steps=8, every=4, fail_at=6, batch=8, seq=512):
+    """(d) train_loop over ``cfg``: ``steps`` steps with a checkpoint every
+    ``every``; a second run that fails at ``fail_at``; a resumed run from
+    its latest checkpoint, which must load back onto the card bit for bit
+    (against a copy taken as it was saved) and give the uninterrupted run's
+    losses within TRAIN_LOSS_RTOL (CUDA's atomics in the embedding's and the
+    CE's backward keep it from being bitwise). The save and load seconds
+    are timed; the directory is removed after."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.training import loop
+    from repro_torch.training.data import SyntheticDataset
+    from repro_torch.training.optimizer import AdamWConfig, Zero1Shards
+    from repro_torch.training.train_step import TrainStepConfig, init_opt_state, make_train_step
+
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    tcfg = TrainStepConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=5), seq_chunk=min(256, seq), block_q=128,
+                           block_k=128)
+    ds = SyntheticDataset(cfg, batch, seq)
+    saves, loads, snapshot = [], [], {}
+    save, load = loop.save_checkpoint, loop.load_checkpoint
+
+    def host_copy(tree):
+        return [(x.full() if isinstance(x, Zero1Shards) else x).detach().cpu().clone() for x in tree_leaves(tree)]
+
+    def timed_save(d, step, tree):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        path = save(d, step, tree)
+        saves.append({"step": step, "s": time.perf_counter() - t0})
+        if d.endswith("b") and step == every:
+            snapshot["leaves"] = host_copy(tree)
+        return path
+
+    def timed_load(path, target):
+        t0 = time.perf_counter()
+        out = load(path, target)
+        sync(torch, dev)
+        loads.append(time.perf_counter() - t0)
+        got = host_copy(out[0])
+        snapshot["bitwise"] = len(got) == len(snapshot["leaves"]) and all(
+            torch.equal(a, b) for a, b in zip(got, snapshot["leaves"]))
+        return out
+
+    def fresh():
+        params = train_params(torch, dev, cfg)
+        step, _ = make_train_step(cfg, make_exec_config(cfg, 1), params, tcfg)
+        return step, params, init_opt_state(params, tcfg)
+
+    loop.save_checkpoint, loop.load_checkpoint = timed_save, timed_load
+    try:
+        step, p, o = fresh()
+        ref = loop.train_loop(step, p, o, ds, loop.LoopConfig(total_steps=steps, ckpt_every=every,
+                                                              ckpt_dir=str(root / "a")))
+        ckpt_bytes = tree_bytes((p, o))
+        del step, p, o, ref.params, ref.opt_state
+        shutil.rmtree(root / "a")
+        step, p, o = fresh()
+        failed = False
+        try:
+            loop.train_loop(step, p, o, ds, loop.LoopConfig(total_steps=steps, ckpt_every=every,
+                                                            ckpt_dir=str(root / "b")), fail_at=fail_at)
+        except loop.SimulatedFailure:
+            failed = True
+        check(failed, f"(d) the run failed at step {fail_at}")
+        del step, p, o
+        gc.collect()
+        step, p, o = fresh()
+        res = loop.train_loop(step, p, o, ds, loop.LoopConfig(total_steps=steps, ckpt_every=every,
+                                                              ckpt_dir=str(root / "b")))
+        del step, p, o, res.params, res.opt_state
+    finally:
+        loop.save_checkpoint, loop.load_checkpoint = save, load
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    check(res.resumed_from == every and res.step == steps, f"(d) resumed from {res.resumed_from}, ended at {res.step}")
+    check(snapshot.get("bitwise") is True, f"(d) step {every}'s checkpoint loaded back onto the card bit for bit")
+    diffs = [abs(a - b) / abs(a) for a, b in zip(ref.losses[every:], res.losses)]
+    check(len(diffs) == steps - every and max(diffs) <= TRAIN_LOSS_RTOL,
+          f"(d) the resumed losses within {TRAIN_LOSS_RTOL} of the uninterrupted run's: {ref.losses} vs {res.losses}")
+    rec = {"model": f"{cfg.name} ({cfg.num_layers} layers)", "checkpoint_bytes": ckpt_bytes, "saves": saves,
+           "load_s": loads, "losses": ref.losses, "resumed_losses": res.losses, "max_rel_diff": max(diffs),
+           "bitwise_equal_resumed": res.losses == ref.losses[every:]}
+    log(f"phase 12 (d) {rec['model']}: checkpoint {ckpt_bytes / 1e9:.2f} GB; saves "
+        f"{[round(x['s'], 2) for x in saves]} s, load {[round(x, 2) for x in loads]} s; step {every} loaded back bit "
+        f"for bit; resumed losses {res.losses} against {ref.losses[every:]} (max relative difference "
+        f"{max(diffs):.2e}, bitwise equal: {rec['bitwise_equal_resumed']})")
+    return rec
+
+
+def training_phase(torch, dev, log, cfg=None, steps=20, batch=8, seq=512, small_batch=(4, 256)):
+    """Phase 12: (a) grad_check on ``cfg`` cut to 2 layers, (b)
+    check_train_step, (c) train_full at ``cfg``'s depth, (d)
+    checkpoint_round_trip at 2 layers. Returns ({"train": forward launches,
+    "train backward": backward launches} of (c), the record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.testing.multidev_checks import check_train_step
+
+    cfg = cfg or get_config(TRAIN_MODEL)
+    t_phase = time.perf_counter()
+    rec = {}
+    t0 = time.perf_counter()
+    rec["grad_check"] = grad_check(torch, dev, cut(cfg, 2), log, *small_batch)
+    rec["grad_check"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["check_train_step"] = check_train_step(dev)
+    rec["check_train_step"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12 (b) check_train_step (reduced {TRAIN_MODEL}, data 2 x model 2, ZeRO-1, 5 steps) holds in "
+        f"{rec['check_train_step']['wall_s']:.1f} s: {json.dumps(rec['check_train_step'])}")
+    t0 = time.perf_counter()
+    launches, rec["train"] = train_full(torch, dev, cfg, log, steps, batch, seq)
+    rec["train"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["checkpoint"] = checkpoint_round_trip(torch, dev, cut(cfg, 2), log, batch=batch, seq=seq)
+    rec["checkpoint"]["wall_s"] = time.perf_counter() - t0
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return {"train": launches["forward"], "train backward": launches["backward"]}, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
@@ -2983,6 +3399,11 @@ def main() -> int:
 
     # ---- phase 11: the simulator on the card's numbers (host code: every launch count must stay as it is) ----
     record["simulator"] = simulator_phase(cfg, table, tiers, record["profile_plan"]["served"], card, log)
+
+    # ---- phase 12: training (counts reset just before (c)'s steps, read just after) ----
+    got, record["training"] = training_phase(torch, dev, log)
+    add_paths({name: {"tp_shard_matmul": n} for name, n in got.items()})
+    log(f"phase 12: {record['training']['wall_s']:.1f} s")
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}

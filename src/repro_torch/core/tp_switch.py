@@ -10,6 +10,7 @@ which graphs are replayed. Weights never move (``WeightStore.rebind``).
 """
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -112,8 +113,18 @@ class ExecutableCache:
         counted = tuple(_build.COUNTED)
         before = [w.launches for w in counted]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            outputs = fn(*inputs)
+        # torch.cuda.graph collects garbage before it starts; a collection
+        # that Python starts inside the capture could run the teardown of
+        # another CUDA graph (an engine dropped in a reference cycle), which
+        # a capturing stream does not allow: the capture is invalidated
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                outputs = fn(*inputs)
+        finally:
+            if collecting:
+                gc.enable()
         launches = [(w, w.launches - b) for w, b in zip(counted, before) if w.launches != b]
         for w, n in launches:  # the capture launched nothing; each replay adds these
             w.launches -= n

@@ -9,7 +9,9 @@ launches one kernel, split-K reduced in the same launch (bf16 ``wgmma_mm``;
 f32 ``skinny_mm`` at M <= 8 and ``fma_mm`` above). A call inside a CUDA
 graph capture launches nothing: the graph's owner
 (``core.tp_switch.ExecutableCache``) takes it back off the count and adds it
-again at every replay.
+again at every replay. Under autograd (an input that requires grad) a call
+goes through ``_ShardMatmul``, whose forward is the same launch and whose
+backward's own launches count in ``tp_shard_matmul.backward_launches``.
 """
 from __future__ import annotations
 
@@ -75,17 +77,14 @@ def tp_shard_matmul(
     if mode == "col":
         if rows != k or not 0 <= offset <= cols - n_out:
             raise ValueError(f"col: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
-        base = offset
     elif mode == "row":
         if cols != n_out or not 0 <= offset <= rows - k:
             raise ValueError(f"row: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
-        base = offset * cols
     elif mode == "col_t":
         if cols != k or not 0 <= offset <= rows - n_out:
             raise ValueError(f"col_t: x {tuple(x.shape)}, w_store {tuple(w_store.shape)}, offset {offset}, n_out {n_out}")
         if out_dtype != torch.float32:
             raise TypeError(f"col_t computes the tied head's logits: out_dtype must be float32, got {out_dtype}")
-        base = offset * cols
     else:
         raise ValueError(f"mode must be 'col', 'row' or 'col_t', got {mode!r}")
 
@@ -95,7 +94,21 @@ def tp_shard_matmul(
         raise ValueError(f"x and w_store must lie on one CUDA device, got {x.device} and {w_store.device}")
     if not (x.is_contiguous() and w_store.is_contiguous()):
         raise ValueError("x and w_store must be contiguous")
+    if torch.is_grad_enabled() and (x.requires_grad or w_store.requires_grad):
+        y = _ShardMatmul.apply(x, w_store, offset, n_out, mode, out_dtype)
+    else:
+        y = _launch(x, w_store, offset, n_out, mode, out_dtype)
+    if y.numel() and k:
+        tp_shard_matmul.launches += 1
+    return y
 
+
+def _launch(x: torch.Tensor, w_store: torch.Tensor, offset: int, n_out: int, mode: str,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors (see tp_shard_matmul);
+    an empty product launches nothing."""
+    m, k = x.shape
+    cols = w_store.shape[1]
     y = torch.empty((m, n_out), dtype=out_dtype, device=x.device)
     if y.numel() == 0 or k == 0:
         return y.zero_()
@@ -103,6 +116,7 @@ def tp_shard_matmul(
     dt = _DTYPES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ws, cnt = _build.scratch("tp_shard_matmul", x.device, stream)
+    base = offset if mode == "col" else offset * cols
     w_ptr = w_store.data_ptr() + base * w_store.element_size()
     args = (x.data_ptr(), w_ptr, y.data_ptr())
     trans = int(mode == "col_t")
@@ -114,8 +128,61 @@ def tp_shard_matmul(
         ws, cnt = _grow_scratch(lib, x.device, stream, m, n_out, k, dt, trans)
         rc = lib.tp_shard_matmul(*args, ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(), *tail)
     _build.check(lib, rc, "tp_shard_matmul")
-    tp_shard_matmul.launches += 1
     return y
 
 
+def _shard(w_store: torch.Tensor, offset: int, width: int, mode: str) -> torch.Tensor:
+    """The shard a call reads, as a view of the storage: (K, N) for col and
+    row, (N, K) for col_t."""
+    return w_store.narrow(1 if mode == "col" else 0, offset, width)
+
+
+class _ShardMatmul(torch.autograd.Function):
+    """The kernel under autograd, on CUDA tensors.
+
+    Forward is one launch. Backward gives dX and the gradient of the whole
+    storage tensor, zero but for the shard the call read. The reference's
+    backward products come from XLA's autodiff, outside any Pallas kernel;
+    here dX of a row call is a col_t launch over the same rows and dX of a
+    col_t call a row launch (``tp_shard_matmul.backward_launches`` counts
+    them), and the rest are ``torch.matmul`` on the shard's view, which
+    needs TF32 off for f32. Sums are in f32; each gradient is cast to its
+    input's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w_store, offset, n_out, mode, out_dtype):
+        ctx.save_for_backward(x, w_store)
+        ctx.conf = (offset, n_out, mode)
+        return _launch(x, w_store, offset, n_out, mode, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w_store = ctx.saved_tensors
+        offset, n_out, mode = ctx.conf
+        k = x.shape[1]
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("tp_shard_matmul's backward runs in full f32: set "
+                               "torch.backends.cuda.matmul.allow_tf32 = False")
+        gy = gy.contiguous()
+        width = k if mode == "row" else n_out
+        shard = _shard(w_store, offset, width, mode)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            if mode == "col":  # gy (M, N) @ columns.T
+                dx = torch.matmul(gy.float(), shard.float().t())
+            else:  # gy @ rows.T (row) or gy @ rows (col_t): the same rows read the other way
+                dx = _launch(gy.to(x.dtype), w_store, offset, k, "col_t" if mode == "row" else "row",
+                             torch.float32 if mode == "row" else x.dtype)
+                tp_shard_matmul.backward_launches += int(gy.numel() > 0 and k > 0)
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            xf, gf = x.float(), gy.float()
+            part = torch.matmul(gf.t(), xf) if mode == "col_t" else torch.matmul(xf.t(), gf)
+            dw = torch.zeros_like(w_store)
+            _shard(dw, offset, width, mode).copy_(part)
+        return dx, dw, None, None, None, None
+
+
 _build.counted(tp_shard_matmul)
+tp_shard_matmul.backward_launches = 0

@@ -2,7 +2,9 @@
 optional qk-norm (mirrors repro/models/attention.py).
 
 Prefill runs the reference's blockwise streaming softmax as plain torch ops,
-every Q block of the sequence at once against one KV block at a time.
+every Q block of the sequence at once against one KV block at a time; train
+mode runs the same loop without writing into a tensor that autograd saved,
+and builds no cache.
 Decode writes the new token's K/V into the dense slot cache (at its
 position, or at position % window in a windowed layer's rotating buffer),
 views that cache as pages, and runs the ``paged_decode_attention`` kernel
@@ -75,7 +77,14 @@ def live_blocks(positions: torch.Tensor, window: Optional[int], block_q: int, bl
     return live
 
 
-def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k):
+def _with_rows(t: torch.Tensor, dim: int, i0: int, i1: int, rows: torch.Tensor) -> torch.Tensor:
+    """``t`` with its Q blocks i0:i1 along ``dim`` replaced by ``rows``, as a
+    new tensor: the train path's update, which leaves every tensor that
+    autograd saved as it was."""
+    return torch.cat([t.narrow(dim, 0, i0), rows, t.narrow(dim, i1, t.shape[dim] - i1)], dim)
+
+
+def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k, differentiable=False):
     """q: (B,S,KV,G,hd); k,v: (B,S,KV,hd); positions (S,); ``live`` from
     ``live_blocks`` over the same positions, window and blocks.
 
@@ -86,6 +95,11 @@ def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k):
     exactly nothing for it (p = 0 and the rescale is 1 once a row has a live
     key; before that its sums are zeroed by the first live block's rescale,
     exp(-1e30 - m) = 0, and every row's own position is a live key).
+
+    Prefill writes the running max, sum and accumulator of the Q blocks a
+    KV block reaches in place. ``differentiable`` (train mode) makes new
+    tensors instead (``_with_rows``), so that backward finds what it saved:
+    the same arithmetic in the same order, so the same bits.
     """
     B, S, KV, G, hd = q.shape
     bq, bk = _block_sizes(S, block_q, block_k)
@@ -116,9 +130,15 @@ def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k):
         m_new = torch.maximum(m_i, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_i - m_new)
-        l[..., i0:i1, :] = l[..., i0:i1, :] * corr + p.sum(-1)
-        acc[..., i0:i1, :, :] = acc[..., i0:i1, :, :] * corr[..., None] + torch.einsum("bkgnqs,bskh->bkgnqh", p, v_j)
-        m[..., i0:i1, :] = m_new
+        l_new = l[..., i0:i1, :] * corr + p.sum(-1)
+        acc_new = acc[..., i0:i1, :, :] * corr[..., None] + torch.einsum("bkgnqs,bskh->bkgnqh", p, v_j)
+        if differentiable:
+            m, l = _with_rows(m, -2, i0, i1, m_new), _with_rows(l, -2, i0, i1, l_new)
+            acc = _with_rows(acc, -3, i0, i1, acc_new)
+        else:
+            l[..., i0:i1, :] = l_new
+            acc[..., i0:i1, :, :] = acc_new
+            m[..., i0:i1, :] = m_new
     out = acc / l.clamp_min(1e-30)[..., None]  # (B,KV,G,nq,bq,hd)
     return out.permute(0, 3, 4, 1, 2, 5).reshape(B, S, KV, G, hd)
 
@@ -152,11 +172,11 @@ def attn_apply(
     ec: ExecConfig,
     positions: torch.Tensor,  # (S,) for prefill; (B,) for decode
     window: Optional[int],
-    mode: str,  # prefill | decode
+    mode: str,  # train | prefill | decode
     cache: Optional[dict] = None,  # decode: {"k","v"}: (B,Sc,KV,hd), written in place
     block_tables: Optional[torch.Tensor] = None,
     seq_lens: Optional[torch.Tensor] = None,
-    live: Optional[torch.Tensor] = None,  # prefill: live_blocks(positions, window, block_q, block_k)
+    live: Optional[torch.Tensor] = None,  # train/prefill: live_blocks(positions, window, block_q, block_k)
     block_q: int = 512,
     block_k: int = 512,
 ):
@@ -180,10 +200,12 @@ def attn_apply(
     q = apply_rope(q, rope_pos, cfg.attn.rope_theta)
     k = apply_rope(k, rope_pos, cfg.attn.rope_theta)
 
-    if mode == "prefill":
-        o = _blockwise(q.view(B, S, KV, G, hd), k, v, positions, live, window=window,
-                       cap=cap, block_q=block_q, block_k=block_k).to(x.dtype)
-        if window is not None and S > window:  # the rotating buffer of the last window positions
+    if mode in ("train", "prefill"):
+        o = _blockwise(q.view(B, S, KV, G, hd), k, v, positions, live, window=window, cap=cap,
+                       block_q=block_q, block_k=block_k, differentiable=mode == "train").to(x.dtype)
+        if mode == "train":
+            new_cache = None
+        elif window is not None and S > window:  # the rotating buffer of the last window positions
             slots = swa_cache_slots(window, S, x.device)
             new_cache = {}
             for name, t in (("k", k), ("v", v)):
@@ -201,7 +223,7 @@ def attn_apply(
                              block_tables, seq_lens, cap)
         new_cache = cache
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
 
     # rank r's query heads are the r-th contiguous block of the concatenation
     o2 = o.reshape(B * S, -1)

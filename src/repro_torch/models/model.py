@@ -8,13 +8,16 @@ in place. The reference's scan over pattern periods is a Python loop over
 layers; layer i runs the pattern's template i % period, which sets its
 mixer (attention with its window: full, sliding, or gemma-2's alternating
 local/global; or a Mamba layer, ``models.mamba``) and its FFN (dense
-SwiGLU, MoE through ``models.moe``, or none).
+SwiGLU, MoE through ``models.moe``, or none). Train mode recomputes each
+layer in backward and returns the MoE aux losses; ``loss_fn`` is the
+reference's chunked cross-entropy over it.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attn_apply, attn_cache_defs, attn_param_defs, live_blocks
@@ -124,8 +127,9 @@ def forward(
     pool: Optional[int] = None,
     moe_drops: Optional[torch.Tensor] = None,
     moe_mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, List[dict]]:
-    """Returns (hidden (B,S,D) after the final norm, per-layer caches).
+) -> Tuple[torch.Tensor, Union[List[dict], Dict[str, torch.Tensor]]]:
+    """Returns (hidden (B,S,D) after the final norm, per-layer caches), or
+    in train mode (hidden, aux).
 
     The input is ``tokens`` (B,S), looked up in the embedding, or ``embeds``
     (B,S,D), taken as the first hidden state (a frontend's frame embeddings).
@@ -142,9 +146,14 @@ def forward(
     pool of ``pool`` ranks (default: that TP level); ``moe_drops``, a (1,)
     int64 tensor, gains the assignments they drop of the tokens ``moe_mask``
     (B,S) holds (every token without a mask).
+    train: prefill's arithmetic, differentiable, with no cache; each layer
+    is recomputed in backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` around its period body). ``aux`` holds the MoE
+    router's load-balancing and z losses summed over the layers, {"lb",
+    "z"} (0-d f32, zero without MoE layers), as the reference's aux does.
     """
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     if (tokens is None) == (embeds is None):
         raise ValueError("forward takes exactly one of tokens and embeds")
     if embeds is None:
@@ -158,7 +167,7 @@ def forward(
     templates = layer_templates(cfg)
     attn_windows = {w for t, w in zip(templates, windows) if t.mixer.startswith("attn")}
     live = {}
-    if mode == "prefill":  # the block pairs each window leaves live, from host positions: no sync per layer
+    if mode != "decode":  # the block pairs each window leaves live, from host positions: no sync per layer
         host_pos = torch.arange(S) if positions is None else positions.cpu()
         live = {w: live_blocks(host_pos, w, block_q, block_k) for w in attn_windows}
     elif attn_windows:
@@ -170,8 +179,10 @@ def forward(
     if positions is None:
         positions = torch.arange(S, device=h.device)
     mamba_apply = _mamba_defs(cfg)[2] if cfg.mamba is not None else None
-    new_cache = []
-    for i, (lp, t, window) in enumerate(zip(params["layers"], templates, windows)):
+    train = mode == "train"
+
+    def apply_layer(h, i, lp, t, window):
+        """One layer: (h, its cache, its MoE aux or None)."""
         hn = rmsnorm(h, lp["norm1"], cfg.norm_eps)
         lc = cache[i] if cache is not None else None
         if t.mixer.startswith("attn"):
@@ -181,28 +192,90 @@ def forward(
                 seq_lens=seq_lens[i] if mode == "decode" else None,
                 live=live.get(window), block_q=block_q, block_k=block_k,
             )
-        else:
-            y, nc = mamba_apply(lp["mixer"], hn, cfg=cfg, mode=mode, cache=lc)
+        else:  # train runs prefill's scan; its cache is dropped
+            y, nc = mamba_apply(lp["mixer"], hn, cfg=cfg, mode="prefill" if train else mode, cache=lc)
         h = h + y
+        a = None
         if t.ffn != "none":
             hn = rmsnorm(h, lp["norm2"], cfg.norm_eps)
             if t.ffn == "moe":
-                y, _ = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=False, drops=moe_drops, mask=moe_mask)
+                y, a = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=train, drops=moe_drops, mask=moe_mask)
             else:
                 y = mlp_apply(lp["ffn"], hn)
             h = h + y
-        new_cache.append(nc)
-    return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_cache
+        return h, (None if train else nc), a
+
+    new_cache = []
+    aux = {"lb": torch.zeros((), dtype=torch.float32, device=h.device),
+           "z": torch.zeros((), dtype=torch.float32, device=h.device)}
+    for i, (lp, t, window) in enumerate(zip(params["layers"], templates, windows)):
+        if train:  # recomputed in backward: only the layer boundaries are kept
+            h, _, a = checkpoint(apply_layer, h, i, lp, t, window, use_reentrant=False, preserve_rng_state=False)
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in aux}
+        else:
+            h, nc, _ = apply_layer(h, i, lp, t, window)
+            new_cache.append(nc)
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps), (aux if train else new_cache)
 
 
-def logits_for(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """h: (B,S,D) -> logits (B,S,V_padded) in f32 (+ final softcap). A tied
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (M, D) -> logits (M, V_padded) in f32 (+ final softcap). A tied
     head is the embedding read transposed: rank r's logits are
-    h @ embed[r's vocab rows].T."""
-    B, S, d = h.shape
-    x = h.reshape(B * S, d)
+    x @ embed[r's vocab rows].T."""
     if cfg.tie_embeddings:
         parts = tied_head(x, params["embed"])
     else:
         parts = col_parallel(x, params["lm_head"], out_dtype=torch.float32)
-    return softcap(torch.cat(parts, dim=-1).view(B, S, -1), cfg.final_logit_softcap)
+    return softcap(torch.cat(parts, dim=-1), cfg.final_logit_softcap)
+
+
+def logits_for(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """h: (B,S,D) -> logits (B,S,V_padded) in f32 (+ final softcap)."""
+    B, S, d = h.shape
+    return _head(params, cfg, h.reshape(B * S, d)).view(B, S, -1)
+
+
+def loss_fn(
+    params: dict,
+    cfg: ModelConfig,
+    ec: ExecConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    seq_chunk: int = 512,
+    block_q: int = 512,
+    block_k: int = 512,
+    pool: Optional[int] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked cross-entropy train loss (mirrors repro/models/model.py::loss_fn).
+
+    ``batch``: "tokens" (B,S) (or "embeds" (B,S,D)), "targets" (B,S) and an
+    optional f32 "mask" (B,S). The head's logits are made ``seq_chunk``
+    positions of every sequence at a time, so the full (B,S,V) logits are
+    never held; an MoE model adds the router's aux terms over the number of
+    periods. Returns (loss, {"ce", "lb", "z"}).
+    """
+    targets = batch["targets"]
+    B, S = targets.shape
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=targets.device)
+    embeds = batch.get("embeds")
+    h, aux = forward(params, cfg, ec, tokens=None if embeds is not None else batch["tokens"], embeds=embeds,
+                     mode="train", block_q=block_q, block_k=block_k, pool=pool)
+    ck = min(seq_chunk, S)
+    if S % ck:
+        raise ValueError(f"seq_chunk {ck} does not divide the sequence length {S}")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(S // ck):
+        cols = slice(c * ck, (c + 1) * ck)
+        logits = _head(params, cfg, h[:, cols].reshape(B * ck, -1))
+        lse = torch.logsumexp(logits, -1)
+        tgt = logits.gather(-1, targets[:, cols].reshape(-1, 1).long())[:, 0]
+        tot = tot + ((lse - tgt) * mask[:, cols].reshape(-1)).sum()
+    ce = tot / mask.sum().clamp_min(1.0)
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux["lb"] / cfg.num_periods
+        loss = loss + cfg.moe.router_z_weight * aux["z"] / cfg.num_periods
+    return loss, {"ce": ce, **aux}

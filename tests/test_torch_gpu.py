@@ -1127,3 +1127,103 @@ def test_time_fn_waits_for_the_device(cuda):
     args = (torch.zeros((8, 1), dtype=torch.int64, device=cuda), torch.full((8,), 64, dtype=torch.int64, device=cuda))
     decode = eng.cache.get(1, "decode")
     assert time_fn(decode, *args, iters=5) * 1e3 >= 0.9 * event_ms(decode, *args)
+
+
+# ---------------------------------------------------------------------------
+# training: the matmul under autograd, loss_fn's backward, check_train_step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["col", "row", "col_t"])
+@pytest.mark.parametrize("tp,rank", [(1, 0), (2, 1), (4, 2)])
+def test_tp_shard_matmul_autograd_matches_plain(cuda, mode, tp, rank):
+    """dX and the storage's gradient of one call at TP tp's rank offset,
+    against the plain version's autograd on the same CUDA tensors (1e-5 of
+    the scale, f32): the gradient is zero outside the shard; a row call's
+    dX is one col_t launch and a col_t call's one row launch."""
+    m, k, n = 96, 256, 384  # n: the whole weight's output width (col, col_t) or input rows (row)
+    width = n // tp
+    if mode == "col":
+        w_shape, x_shape, n_out = (k, n), (m, k), width
+    elif mode == "row":
+        w_shape, x_shape, n_out = (n, k), (m, width), k
+    else:
+        w_shape, x_shape, n_out = (n, k), (m, k), width
+    out_dtype = torch.float32
+    grads = {}
+    for which in ("kernel", "plain"):
+        x = torch.randn(*x_shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda).requires_grad_()
+        w = torch.randn(*w_shape, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda).requires_grad_()
+        gy = torch.randn(m, n_out, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+        before = (tp_shard_matmul.launches, tp_shard_matmul.backward_launches)
+        if which == "kernel":
+            y = tp_shard_matmul(x, w, rank * width, n_out=n_out, mode=mode, out_dtype=out_dtype)
+        else:
+            y = tp_shard_matmul_ref(x, w, rank * width, mode=mode, n_out=n_out, out_dtype=out_dtype)
+        (y * gy).sum().backward()
+        torch.cuda.synchronize()
+        grads[which] = (x.grad, w.grad)
+        if which == "kernel":
+            assert tp_shard_matmul.launches - before[0] == 1
+            assert tp_shard_matmul.backward_launches - before[1] == (mode != "col")
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+    dw = grads["kernel"][1]
+    outside = dw.clone()
+    outside.narrow(1 if mode == "col" else 0, rank * width, width).zero_()
+    assert not outside.any()
+
+
+@pytest.mark.parametrize("name", ["h2o-danube-1.8b", "gemma2-2b", "moonshot-v1-16b-a3b"])
+def test_loss_backward_on_card_reaches_every_weight(cuda, monkeypatch, name):
+    """loss_fn's backward on CUDA tensors at TP 2 through the kernel under
+    autograd gives every storage leaf a gradient (the kernel's output has an
+    autograd edge), the one the plain version gives on the same tensors to
+    the CPU tests' tolerance against the reference, of each leaf's max |g|:
+    1e-4, and 5e-4 for the MoE model, whose f32 gradients are that far from
+    an f64 evaluation (routing equal, kernel against plain measured 3.5e-4
+    for moonshot, 2.3e-5 for gemma2, 2.6e-5 for h2o-danube); the forward
+    and the layers' recompute launch the kernel."""
+    from repro_torch.core.weight_store import WeightStore
+    from repro_torch.models import layers
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.training.data import synthetic_batch
+
+    cfg = reduced(get_config(name))
+    ec = make_exec_config(cfg, 2)
+    defs = model_param_defs(cfg, ec)
+    params = init_params(defs, torch.Generator(device=cuda).manual_seed(0))
+    for _, t in tree_leaves_with_path(params):
+        t.requires_grad_()
+    store = WeightStore(cfg, defs, [cuda] * 2)
+    bound = store.rebind(store.build(params), 2)
+    tb = {k: torch.from_numpy(v).long().to(cuda) for k, v in synthetic_batch(cfg, 4, 32, 0).items()}
+    grads = {}
+    for which in ("kernel", "plain"):
+        if which == "plain":
+            monkeypatch.setattr(layers, "tp_shard_matmul", lambda x, w, off, *, n_out, mode="col", out_dtype=None:
+                                tp_shard_matmul_ref(x, w, off, mode=mode, n_out=n_out, out_dtype=out_dtype))
+        for _, t in tree_leaves_with_path(params):
+            t.grad = None
+        fwd = tp_shard_matmul.launches
+        loss, _ = loss_fn(bound, cfg, ec, tb, seq_chunk=16, block_q=16, block_k=16)
+        mid = tp_shard_matmul.launches
+        loss.backward()
+        torch.cuda.synchronize()
+        if which == "kernel":
+            assert mid > fwd and 0 < tp_shard_matmul.launches - mid < mid - fwd  # the layers' recompute, not the head's
+        else:
+            assert tp_shard_matmul.launches == mid == fwd
+        grads[which] = {p: t.grad.clone() for p, t in tree_leaves_with_path(params)}
+    for path, want in grads["plain"].items():
+        got = grads["kernel"][path]
+        scale = want.abs().max().item()
+        assert scale > 0 and got.abs().max().item() > 0, path
+        assert (got - want).abs().max().item() <= (5e-4 if cfg.moe else 1e-4) * scale, path
+
+
+def test_check_train_step_on_card(cuda):
+    from repro_torch.testing.multidev_checks import check_train_step
+
+    out = check_train_step(cuda)
+    assert out["zero1_split_leaves"] == out["leaves"]
