@@ -157,15 +157,34 @@ Phases; any failure raises and the script exits non-zero:
      failing at step 6 and a resumed run; step 4's checkpoint loads back
      onto the card bit for bit, the resumed losses within 2e-4 of the
      uninterrupted run's; save and load seconds.
+ 13. the launchers and examples on the card, each module's ``main(argv)`` called
+     in-process: (a) ``launch.serve`` with the demo defaults, then
+     llama3-8b in bf16 at full width and depth (TP 1/2/4/8, 24 requests,
+     a switch every 8 steps), then the same requests in f32 at phase 4's
+     depth under that schedule and at fixed TP 1 (``serve.serve``): every
+     token equal; (b) ``launch.train`` on h2o-danube-1.8b at full width in
+     f32, cut to LAUNCH_TRAIN_LAYERS layers, batch 8 x 256: N steps with a
+     checkpoint, the same argv with 2N (must resume from N), and an uncut
+     2N-step run (losses within 2e-4 relative); (c) the four examples
+     (``plan_trace`` is host code); (d) the length-regime gate at V5E
+     (must pass, as the reference's CI requires) and at the H100 table
+     (verdict and violations printed), in host workers.
+ 14. the dry run: every applicable cell of the 10 x 4 grid on the 16x16
+     mesh counted on ``meta`` in host workers (started with phase 13), each
+     cell's counts and H100 roofline terms printed, the sweep's wall time;
+     then llama3-8b's bf16 prefill of 128 tokens and 8-slot decode step at
+     TP 1 counted by ``launch.op_cost`` at phase 5's shapes, over phase 5's
+     profiled device ms: the model-FLOPs share of 989 TFLOP/s, in (0, 1].
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
 phases 7-9 for the others; after the engines' warm-up, so that the counts
 are the replays') and read just after. The kernels line's ``launches``
 adds phase 5's counts (phase 4's when phase 5 is skipped) and those of
-phases 6-10 (phase 10: the profile's replays) and 12 (the training
+phases 6-10 (phase 10: the profile's replays), 12 (the training
 steps of (c): "train" the forward's and the recompute's launches, "train
-backward" the backward's dX launches), with the split in
+backward" the backward's dX launches) and 13 (each launcher's and
+example's run, warm-up included), with the split in
 ``launches_by_path``; ``instances`` holds the new instances' rows. The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
@@ -3226,6 +3245,314 @@ def training_phase(torch, dev, log, cfg=None, steps=20, batch=8, seq=512, small_
     return {"train": launches["forward"], "train backward": launches["backward"]}, rec
 
 
+# ---------------------------------------------------------------------------
+# phases 13 and 14: the launchers, the examples, the gate and the dry run
+# ---------------------------------------------------------------------------
+# the train launcher's run: h2o-danube-1.8b at full width, cut to this depth, N then 2N steps
+LAUNCH_TRAIN_LAYERS, LAUNCH_TRAIN_STEPS = 4, 5
+
+
+HOST_WORKERS = max(1, min(8, os.cpu_count() or 1) - 2)
+
+
+def lowest_priority():
+    os.nice(19)
+
+
+@contextlib.contextmanager
+def host_pool(workers):
+    """Spawned worker processes for host code (the gates, the dry run), at
+    the lowest priority, so that the process driving the card keeps its
+    core: none inherits the parent's CUDA context or touches the card. If
+    the body raises, the workers are terminated at once."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(workers, initializer=lowest_priority)
+    try:
+        yield pool
+    except BaseException:
+        pool.terminate()
+        raise
+    finally:
+        pool.close()
+        pool.join()
+
+
+def gate_run(hw):
+    """In a worker: the length-regime gate at ``hw``, (exit code, its lines, seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch.testing import length_regime_gate
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = length_regime_gate.main(["--hw", hw])
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def dryrun_cell(arch, shape, out_dir):
+    """In a worker: one dry-run cell, (its JSON or None, its lines or the traceback)."""
+    import traceback
+
+    from repro_torch.launch import dryrun
+
+    lines = []
+    try:
+        return dryrun.run_cell(arch, shape, False, out_dir, log=lines.append), lines
+    except Exception:  # noqa: BLE001 - reported per cell; any failure fails phase 14
+        return None, [traceback.format_exc()]
+
+
+def start_host_work(pool):
+    """Submit the gates and every applicable cell of the dry-run grid (the
+    longest first); returns the futures and the submission time."""
+    from repro_torch.launch.cells import all_cells
+
+    from repro_torch.configs import SHAPES, get_config
+
+    def cost(cell):
+        """A rough count of the cell's ops: layers x the step's work, the
+        selective scan's chunks (mamba-1) four times as many."""
+        cfg = get_config(cell[0])
+        per_layer = {"train": 8, "prefill": 2, "decode": 0.1}[SHAPES[cell[1]].kind]
+        return cfg.num_layers * per_layer * (4 if cfg.mamba is not None and cfg.mamba.version == 1 else 1)
+
+    cells = sorted((c for c in all_cells() if c[2]), key=cost, reverse=True)
+    out_dir = str(ROOT / "chiprun_out" / "dryrun")
+    futures = {"gate": {hw: pool.apply_async(gate_run, (hw,)) for hw in ("v5e", "h100")},
+               "cells": {(a, sh): pool.apply_async(dryrun_cell, (a, sh, out_dir)) for a, sh, _ in cells},
+               "skipped": [(a, sh) for a, sh, ok in all_cells() if not ok]}
+    return futures, time.perf_counter()
+
+
+def kernel_counts():
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    return {"tp_shard_matmul": tp_shard_matmul.launches, "paged_decode_attention": paged_decode_attention.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+
+    tp_shard_matmul.launches = paged_decode_attention.launches = tp_shard_matmul.backward_launches = 0
+
+
+def free_card(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_launcher_phase(torch, cfg, log):
+    """Phase 13 (a): launch.serve's main with the demo defaults, then
+    llama3-8b in bf16 at full width and depth (TP 1/2/4/8, 24 requests, a
+    switch every 8 steps); then in f32 at ``cfg``'s depth (phase 4's) the
+    same requests under that schedule and at fixed TP 1 through
+    ``serve.serve``: identical tokens. Counts set to 0 just before each run
+    and read just after."""
+    from repro_torch.launch import serve
+
+    paths, rec = {}, {}
+    for name, argv in (("demo", []), ("llama3-8b bf16", ["--arch", "llama3-8b", "--dtype", "bfloat16", "--tps",
+                                                          "1,2,4,8", "--requests", "24", "--switch-every", "8"])):
+        zero_counts()
+        t0 = time.perf_counter()
+        check(serve.main(argv) == 0, f"launch.serve {name}")
+        torch.cuda.synchronize()
+        paths[f"launch.serve {name}"] = kernel_counts()
+        rec[name] = {"argv": argv, "wall_s": time.perf_counter() - t0, "launches": paths[f"launch.serve {name}"]}
+        check(all(n > 0 for n in paths[f"launch.serve {name}"].values()), f"launch.serve {name} launched both kernels")
+        free_card(torch)
+    base = ["--arch", "llama3-8b", "--dtype", "float32", "--layers", str(cfg.num_layers), "--requests", "24"]
+    args_sw = serve.parse_args(base + ["--tps", "1,2,4,8", "--switch-every", "8"])
+    args_fx = serve.parse_args(base + ["--tps", "1", "--switch-every", "0"])
+    t0 = time.perf_counter()
+    mcfg, params = serve.build(args_sw)
+    zero_counts()
+    done_sw, st_sw = serve.serve(mcfg, params, args_sw)
+    done_fx, st_fx = serve.serve(mcfg, params, args_fx)
+    torch.cuda.synchronize()
+    paths[f"launch.serve llama3-8b f32 ({cfg.num_layers} layers, switched and fixed)"] = kernel_counts()
+    sw = {r.req_id: list(r.generated) for r in done_sw}
+    fx = {r.req_id: list(r.generated) for r in done_fx}
+    changed = sorted(i for i in fx if sw.get(i) != fx[i])
+    check(len(sw) == len(fx) == 24 and not changed,
+          f"launch.serve llama3-8b f32: tokens under the switch schedule equal fixed TP 1's (changed: {changed})")
+    check(st_sw["switches"] > 0 and st_fx["switches"] == 0, "the switch run switched, the fixed run did not")
+    rec["llama3-8b f32"] = {"layers": cfg.num_layers, "switches": st_sw["switches"], "steps": [st_sw["steps"],
+                            st_fx["steps"]], "tokens_equal": True, "wall_s": time.perf_counter() - t0}
+    log(f"phase 13 (a) launch.serve llama3-8b f32 ({cfg.num_layers} layers): 24 requests, {st_sw['switches']} switches "
+        f"over TP {st_sw['tps']}: every token equal to fixed TP 1's; {rec['llama3-8b f32']['wall_s']:.1f} s")
+    del params, done_sw, done_fx
+    free_card(torch)
+    return paths, rec
+
+
+def train_launcher_phase(torch, log):
+    """Phase 13 (b): launch.train's main on h2o-danube-1.8b at full width in
+    f32, cut to LAUNCH_TRAIN_LAYERS layers: N steps with a checkpoint, the
+    same argv with 2N steps (must resume from N), and an uncut 2N-step run;
+    the losses within 2e-4 relative (on the card the backward adds with
+    atomics: phase 12 (d)'s tolerance)."""
+    import shutil
+
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.launch import train
+
+    n = LAUNCH_TRAIN_STEPS
+    cut_dir, whole_dir = ROOT / "build" / "train_launch_ckpt", ROOT / "build" / "train_launch_whole"
+    argv = ["--arch", "h2o-danube-1.8b", "--layers", str(LAUNCH_TRAIN_LAYERS), "--batch", "8", "--seq", "256",
+            "--ckpt-every", str(n)]
+    t0 = time.perf_counter()
+    zero_counts()
+    first = train.main(argv + ["--steps", str(n), "--ckpt-dir", str(cut_dir), "--fresh"]).losses
+    resumed = train.main(argv + ["--steps", str(2 * n), "--ckpt-dir", str(cut_dir)])
+    torch.cuda.synchronize()
+    got = {"launch.train h2o-danube-1.8b f32": tp_shard_matmul.launches,
+           "launch.train h2o-danube-1.8b f32 backward": tp_shard_matmul.backward_launches}
+    check(resumed.resumed_from == n and resumed.step == 2 * n, f"the second run resumed from step {n}")
+    resumed_losses = list(resumed.losses)
+    del resumed
+    free_card(torch)
+    whole = train.main(argv + ["--steps", str(2 * n), "--ckpt-dir", str(whole_dir), "--fresh"]).losses
+    diffs = [abs(a - b) / abs(b) for a, b in zip(first + resumed_losses, whole)]
+    check(len(diffs) == 2 * n and max(diffs) <= 2e-4 and all(math.isfinite(x) for x in whole),
+          f"resumed losses within 2e-4 of the uncut run's: {first + resumed_losses} against {whole}")
+    for d in (cut_dir, whole_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    rec = {"layers": LAUNCH_TRAIN_LAYERS, "steps": [n, 2 * n], "resumed_from": n, "losses": whole,
+           "max_rel_diff": max(diffs), "launches": got, "wall_s": time.perf_counter() - t0}
+    log(f"phase 13 (b) launch.train h2o-danube-1.8b f32 ({LAUNCH_TRAIN_LAYERS} layers, batch 8 x 256): {n} steps, "
+        f"then {2 * n} resumed from step {n}; losses within {max(diffs):.2e} of an uncut run's {whole}; "
+        f"launches {got}; {rec['wall_s']:.1f} s")
+    free_card(torch)
+    return {k: {"tp_shard_matmul": v} for k, v in got.items()}, rec
+
+
+def examples_phase(torch, card, log):
+    """Phase 13 (c): the four examples' mains on the card (plan_trace is
+    host code). Counts set to 0 just before each and read just after."""
+    from repro_torch.examples import plan_trace, quickstart, serve_adaptive_tp, train_tiny
+
+    paths, rec = {}, {}
+    for name, fn in (("quickstart", lambda: quickstart.main([])),
+                     ("serve_adaptive_tp", lambda: serve_adaptive_tp.main([])),
+                     ("train_tiny", lambda: train_tiny.main(["--steps", "100", "--ckpt-dir",
+                                                             str(ROOT / "build" / "train_tiny_ckpt")]))):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[f"examples.{name}"] = kernel_counts()
+        rec[name] = {"wall_s": time.perf_counter() - t0, "launches": paths[f"examples.{name}"]}
+        check(paths[f"examples.{name}"]["tp_shard_matmul"] > 0, f"examples.{name} launched the matmul")
+        if name == "serve_adaptive_tp":
+            rec[name].update(out)
+            log(f"{card}: examples.serve_adaptive_tp p50 TTFT / TPOT per tier on the host clock: "
+                f"{json.dumps(out['latency'])}")
+        if name == "train_tiny":
+            rec[name]["losses_first_last"] = [out.losses[0], out.losses[-1]]
+        free_card(torch)
+    import shutil
+
+    shutil.rmtree(ROOT / "build" / "train_tiny_ckpt", ignore_errors=True)
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    plan_trace.main(["--horizon", "30"])
+    rec["plan_trace"] = {"wall_s": time.perf_counter() - t0}
+    check(kernel_counts() == before, "plan_trace (host code) launched nothing")
+    return paths, rec
+
+
+def gate_phase(futures, card, log):
+    """Phase 13 (d): the gates' results from the host workers. v5e must
+    pass (the reference's CI gate); h100's verdict and violations are a
+    reading of the system priced at this card's table, printed."""
+    rec = {}
+    for hw, fut in futures["gate"].items():
+        rc, text, secs = fut.get()
+        rec[hw] = {"rc": rc, "seconds": secs, "lines": text.splitlines()}
+        prefix = card + ": " if hw == "h100" else "V5E spec (parity, not a measurement): "
+        for line in text.splitlines():
+            log(f"  {prefix}{line}")
+        log(f"phase 13 (d) length_regime_gate --hw {hw}: {'passed' if rc == 0 else 'FAILED'} in {secs:.1f} s")
+    check(rec["v5e"]["rc"] == 0, "the length-regime gate passes at V5E, as the reference's CI requires")
+    return rec
+
+
+def dryrun_phase(torch, cfg, futures, t_submit, engine_bf16, card, log):
+    """Phase 14: the dry run's grid on the single-pod mesh (host workers):
+    each cell's counts and H100 roofline terms, and the sweep's wall time;
+    then llama3-8b's bf16 prefill of 128 tokens and 8-slot decode step at
+    TP 1 counted with op_cost at phase 5's shapes, over phase 5's profiled
+    device ms: the step's model-FLOPs share of 989 TFLOP/s."""
+    from repro_torch.launch import op_cost
+    from repro_torch.models import model_param_defs
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.serving.engine import ServingEngine
+
+    rec = {"cells": {}, "skipped": [f"{a} x {sh}" for a, sh in futures["skipped"]]}
+    failed = []
+    for (arch, shape), fut in futures["cells"].items():
+        info, lines = fut.get()
+        for line in lines:
+            log("  " + line)
+        if info is None:
+            failed.append(f"{arch} x {shape}")
+            continue
+        r = info["roofline"]
+        rec["cells"][f"{arch} x {shape}"] = {
+            "flops_per_device": r["flops_per_device"], "hbm_bytes_per_device": r["hbm_bytes_per_device"],
+            "collective_bytes_per_device": r["collective_bytes_per_device"], "compute_s": r["compute_s"],
+            "memory_s": r["memory_s"], "collective_s": r["collective_s"], "dominant": r["dominant"],
+            "count_by_kind": info["collectives"]["count_by_kind"], "count_s": info["count_s"],
+            "ops": info["ops_counted"]}
+    rec["sweep_wall_s"] = time.perf_counter() - t_submit
+    log(f"phase 14 dry run: {len(rec['cells'])} cells counted on meta (16x16 mesh, TP 16 groups), "
+        f"{len(rec['skipped'])} skipped ({', '.join(rec['skipped'])}), {len(failed)} failed; sweep "
+        f"{rec['sweep_wall_s']:.1f} s wall on {HOST_WORKERS} host workers from submission (before phase 6) to "
+        f"here; the cells' own count seconds sum to {sum(c['count_s'] for c in rec['cells'].values()):.1f}; collective_s "
+        f"uses NVLink's published figures, not measured ones")
+    check(not failed and len(rec["cells"]) == len(futures["cells"]), f"every applicable cell counted: failed {failed}")
+
+    meta = torch.device("meta")
+    params = tree_map(lambda d: torch.empty(d.shape, dtype=torch.bfloat16, device=meta),
+                      model_param_defs(cfg, make_exec_config(cfg, 1)))
+    eng = ServingEngine(cfg, params, engine_conf(torch, cfg, torch.bfloat16), device=meta)
+    bound = eng.ctl.bindings[1]
+
+    def idx(*shape):
+        return torch.empty(shape, dtype=torch.int64, device=meta)
+
+    with torch.no_grad():
+        _, pre = op_cost.count(eng._prefill, bound, idx(1, 128), idx(1), idx(1))
+        _, dec = op_cost.count(eng._decode, bound, idx(8, 1), idx(8))
+    rec["engine_counts"] = {"prefill_128": {"flops": pre.dot_flops, "hbm_bytes": pre.hbm_bytes},
+                            "decode_8": {"flops": dec.dot_flops, "hbm_bytes": dec.hbm_bytes}}
+    shares = {}
+    if engine_bf16 is None:
+        log("phase 14 model-FLOPs share: not measured (phase 5 was skipped)")
+    else:
+        ms = {"prefill_128": engine_bf16["prefill_profile"]["128"].get("device_ms"),
+              "decode_8": engine_bf16["profile"]["1"].get("device_ms_per_step")}
+        for key, cost in (("prefill_128", pre), ("decode_8", dec)):
+            if not isinstance(ms[key], float):
+                shares[key] = f"not measured ({ms[key]})"
+                continue
+            share = op_cost.model_flops_share(cost.dot_flops, ms[key] / 1e3)
+            check(0 < share <= 1, f"{key}: model-FLOPs share {share} in (0, 1]")
+            shares[key] = {"flops": cost.dot_flops, "device_ms": ms[key], "share_of_989_tflops": share}
+        log(f"{card}: phase 14 model-FLOPs share of llama3-8b bf16 at TP 1 ({cfg.num_layers} layers; counted "
+            f"operations over phase 5's profiled device ms, against 989 TFLOP/s): {json.dumps(shares)}")
+    rec["model_flops_share"] = shares
+    del eng, params, bound
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
@@ -3356,54 +3683,78 @@ def main() -> int:
                 launches[k] += n
                 by_path[k][path] = n
 
-    # ---- phase 6: the windowed models (counts reset just before each f32 model's runs, read just after) ----
-    record["windowed"] = {}
-    for name in WINDOWED[::-1]:  # gemma2-2b first
+    # the gates (phase 13) and the dry run's grid (phase 14) are host code: they run from here on in
+    # HOST_WORKERS spawned processes at the lowest priority, beside phases 6-13
+    with host_pool(HOST_WORKERS) as pool:
+        futures, t_submit = start_host_work(pool)
+        # ---- phase 6: the windowed models (counts reset just before each f32 model's runs, read just after) ----
+        record["windowed"] = {}
+        for name in WINDOWED[::-1]:  # gemma2-2b first
+            t0 = time.perf_counter()
+            wcfg = get_config(name)
+            got, rec = engine_windowed_f32(torch, dev, wcfg, log)
+            add_paths({f"{name} f32": got})
+            if not args.skip_timed:
+                rec["bf16"] = engine_windowed_bf16_timed(torch, dev, wcfg, log)
+            rec["wall_s"] = time.perf_counter() - t0
+            record["windowed"][name] = rec
+            log(f"phase 6 {name}: {rec['wall_s']:.1f} s")
+
+        # ---- phase 7: the dense family's remainder (counts reset just before each path's runs, read just after) ----
         t0 = time.perf_counter()
-        wcfg = get_config(name)
-        got, rec = engine_windowed_f32(torch, dev, wcfg, log)
-        add_paths({f"{name} f32": got})
-        if not args.skip_timed:
-            rec["bf16"] = engine_windowed_bf16_timed(torch, dev, wcfg, log)
-        rec["wall_s"] = time.perf_counter() - t0
-        record["windowed"][name] = rec
-        log(f"phase 6 {name}: {rec['wall_s']:.1f} s")
+        paths, record["dense_remainder"] = dense_remainder_phase(torch, dev, log, args.skip_timed)
+        add_paths(paths)
+        log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 7: the dense family's remainder (counts reset just before each path's runs, read just after) ----
-    t0 = time.perf_counter()
-    paths, record["dense_remainder"] = dense_remainder_phase(torch, dev, log, args.skip_timed)
-    add_paths(paths)
-    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+        # ---- phase 8: MoE (counts reset just before each path's runs, read just after) ----
+        t0 = time.perf_counter()
+        paths, record["moe"] = moe_phase(torch, dev, log, args.skip_timed)
+        add_paths(paths)
+        log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 8: MoE (counts reset just before each path's runs, read just after) ----
-    t0 = time.perf_counter()
-    paths, record["moe"] = moe_phase(torch, dev, log, args.skip_timed)
-    add_paths(paths)
-    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+        # ---- phase 9: the Mamba family (counts reset just before each path's runs, read just after) ----
+        t0 = time.perf_counter()
+        got, record["mamba2"] = mamba2_phase(torch, dev, log, args.skip_timed)
+        add_paths({"mamba2-2.7b f32 (64 layers, forward)": got})
+        paths, record["jamba"] = jamba_phase(torch, dev, log, args.skip_timed)
+        add_paths(paths)
+        log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 9: the Mamba family (counts reset just before each path's runs, read just after) ----
-    t0 = time.perf_counter()
-    got, record["mamba2"] = mamba2_phase(torch, dev, log, args.skip_timed)
-    add_paths({"mamba2-2.7b f32 (64 layers, forward)": got})
-    paths, record["jamba"] = jamba_phase(torch, dev, log, args.skip_timed)
-    add_paths(paths)
-    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+        # main-path entries: the bf16 decode shapes that take the most time per step
+        main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
 
-    # main-path entries: the bf16 decode shapes that take the most time per step
-    main_mm = next(r for r in mm_rows if (r["name"], r["dtype"], r["m"], r["tp"]) == ("w_gate/w_in col", "bfloat16", 8, 1))
+        # ---- phase 10: the H100's profile, then the plan (counts reset just before the profile, read just after) ----
+        got, record["profile_plan"], table, tiers = profile_plan_phase(torch, dev, cfg, log, main_mm, record["migration"])
+        add_paths({f"{cfg.name} bf16 profile ({cfg.num_layers} layers)": got})
+        log(f"phase 10: {record['profile_plan']['wall_s']:.1f} s")
 
-    # ---- phase 10: the H100's profile, then the plan (counts reset just before the profile, read just after) ----
-    got, record["profile_plan"], table, tiers = profile_plan_phase(torch, dev, cfg, log, main_mm, record["migration"])
-    add_paths({f"{cfg.name} bf16 profile ({cfg.num_layers} layers)": got})
-    log(f"phase 10: {record['profile_plan']['wall_s']:.1f} s")
+        # ---- phase 11: the simulator on the card's numbers (host code: every launch count must stay as it is) ----
+        record["simulator"] = simulator_phase(cfg, table, tiers, record["profile_plan"]["served"], card, log)
 
-    # ---- phase 11: the simulator on the card's numbers (host code: every launch count must stay as it is) ----
-    record["simulator"] = simulator_phase(cfg, table, tiers, record["profile_plan"]["served"], card, log)
+        # ---- phase 12: training (counts reset just before (c)'s steps, read just after) ----
+        got, record["training"] = training_phase(torch, dev, log)
+        add_paths({name: {"tp_shard_matmul": n} for name, n in got.items()})
+        log(f"phase 12: {record['training']['wall_s']:.1f} s")
 
-    # ---- phase 12: training (counts reset just before (c)'s steps, read just after) ----
-    got, record["training"] = training_phase(torch, dev, log)
-    add_paths({name: {"tp_shard_matmul": n} for name, n in got.items()})
-    log(f"phase 12: {record['training']['wall_s']:.1f} s")
+        # ---- phase 13: the launchers and examples on the card (counts reset just before each run, read after) ----
+        t0 = time.perf_counter()
+        record["launchers"] = {}
+        paths, record["launchers"]["serve"] = serve_launcher_phase(torch, cfg, log)
+        add_paths(paths)
+        paths, record["launchers"]["train"] = train_launcher_phase(torch, log)
+        add_paths(paths)
+        paths, record["launchers"]["examples"] = examples_phase(torch, card, log)
+        add_paths(paths)
+        record["launchers"]["gate"] = gate_phase(futures, card, log)
+        record["launchers"]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 13: {record['launchers']['wall_s']:.1f} s")
+
+        # ---- phase 14: the dry run (host code on meta: no launch count may move) ----
+        t0 = time.perf_counter()
+        before = kernel_counts()
+        record["dryrun"] = dryrun_phase(torch, cfg, futures, t_submit, record.get("engine_bf16"), card, log)
+        check(kernel_counts() == before, "the dry run launched nothing")
+        log(f"phase 14: {time.perf_counter() - t0:.1f} s after phase 13")
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}

@@ -171,6 +171,34 @@ def ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# ---------------------------------------------------------------------------
+# Input shapes of the dry run's cells (seq_len x global_batch), the
+# reference's (repro/configs/base.py). decode_* / long_* run a serve step
+# (one token against a seq_len-deep cache), not a train step.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> bool:
+    """long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k":
+        return cfg.subquadratic
+    return True
+
+
 _REGISTRY: dict = {}
 
 

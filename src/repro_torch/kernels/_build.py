@@ -36,6 +36,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # every kernel wrapper with a ``launches`` count, registered by its module
 COUNTED: List[Callable] = []
 
+# devices whose tensors take a kernel's plain version: the CPU, and "meta"
+# (shapes without data: the dry run counts a program's work on it)
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def counted(wrapper: Callable) -> Callable:
     """Give ``wrapper`` a launch count at 0 and register it in ``COUNTED``."""

@@ -1,7 +1,7 @@
 """Wrappers of paged-KV gather and scatter (csrc/kv_gather.cu).
 
-CPU tensors take the plain versions in ref.py; CUDA tensors launch the
-kernel or raise. ``kv_gather.launches`` and ``kv_scatter.launches`` count
+CPU and meta tensors take the plain versions in ref.py; CUDA tensors launch
+the kernel or raise. ``kv_gather.launches`` and ``kv_scatter.launches`` count
 kernel launches. Page ids come from the host (a numpy array, a list or a CPU
 integer tensor), as the reference's ``ops.py`` takes numpy: they are checked
 there and then copied to the card as int32.
@@ -68,7 +68,7 @@ def kv_gather(pool: torch.Tensor, page_ids) -> torch.Tensor:
     """
     _check_pool(pool)
     ids = _host_ids(page_ids, pool.shape[0], distinct=False)
-    if pool.device.type == "cpu":
+    if pool.device.type in _build.PLAIN_DEVICES:
         return kv_gather_ref(pool, ids)
     if pool.device.type != "cuda":
         raise ValueError(f"pool on {pool.device}: expected a CPU or CUDA tensor")
@@ -111,7 +111,7 @@ def kv_scatter(pool: torch.Tensor, staged: torch.Tensor, page_ids) -> torch.Tens
         raise ValueError(f"staged on {staged.device}, pool on {pool.device}")
     if not staged.is_contiguous():
         raise ValueError("staged must be contiguous")
-    if pool.device.type == "cpu":
+    if pool.device.type in _build.PLAIN_DEVICES:
         return kv_scatter_ref(pool, staged, ids)
     if pool.device.type != "cuda":
         raise ValueError(f"pool on {pool.device}: expected a CPU or CUDA tensor")

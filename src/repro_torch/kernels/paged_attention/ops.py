@@ -1,7 +1,7 @@
 """Wrapper of paged flash-decode (csrc/paged_attention.cu).
 
-CPU tensors take the plain version in ref.py; CUDA tensors launch the
-kernel or raise. ``paged_decode_attention.launches`` counts kernel launches:
+CPU and meta tensors take the plain version in ref.py; CUDA tensors launch
+the kernel or raise. ``paged_decode_attention.launches`` counts kernel launches:
 one per call, the splits of a sequence merged in the same launch. A call
 inside a CUDA graph capture launches nothing: the graph's owner
 (``core.tp_switch.ExecutableCache``) takes it back off the count and adds it
@@ -72,7 +72,7 @@ def paged_decode_attention(
     if block_tables.dim() != 2 or block_tables.shape[0] != B or tuple(seq_lens.shape) != (B,):
         raise ValueError(f"tables {tuple(block_tables.shape)} / lens {tuple(seq_lens.shape)} for batch {B}")
 
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens, softcap=softcap)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k_pages, v_pages, block_tables, seq_lens)):

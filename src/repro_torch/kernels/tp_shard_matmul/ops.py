@@ -1,7 +1,7 @@
 """Wrapper of the TP-shard-selecting matmul (csrc/tp_shard_matmul.cu).
 
-CPU tensors take the plain version in ref.py; CUDA tensors launch the
-kernel or raise. Modes: "col" and "row" select a column or row shard of a
+CPU and meta tensors take the plain version in ref.py; CUDA tensors launch
+the kernel or raise. Modes: "col" and "row" select a column or row shard of a
 (K, N) weight; "col_t" selects rows of a weight stored transposed, (N, K),
 as the tied LM head reads the embedding's vocab rows.
 ``tp_shard_matmul.launches`` counts wrapper calls that launched: every call
@@ -88,7 +88,7 @@ def tp_shard_matmul(
     else:
         raise ValueError(f"mode must be 'col', 'row' or 'col_t', got {mode!r}")
 
-    if x.device.type == "cpu" and w_store.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES and w_store.device == x.device:
         return tp_shard_matmul_ref(x, w_store, offset, mode=mode, n_out=n_out, out_dtype=out_dtype)
     if x.device.type != "cuda" or w_store.device != x.device:
         raise ValueError(f"x and w_store must lie on one CUDA device, got {x.device} and {w_store.device}")

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.collectives import nbytes, stand_in
 from repro_torch.parallel.sharding import ShardView
 
 
@@ -70,6 +71,7 @@ def row_parallel(xs: List[torch.Tensor], w: ShardView) -> torch.Tensor:
     for x, m, off in zip(xs, w.mats, w.offsets):
         part = tp_shard_matmul(x, m, off, n_out=m.shape[1], mode="row")
         y = part if y is None else y + part
+    stand_in("all-reduce", nbytes(y), len(xs))
     return y
 
 
@@ -90,9 +92,10 @@ def vocab_parallel_embed(tokens: torch.Tensor, w: ShardView) -> torch.Tensor:
     for r, (m, off) in enumerate(zip(w.mats, w.offsets)):
         local = tokens - r * w.width
         mine = (local >= 0) & (local < w.width)
-        rows = m[off + local.clamp(0, w.width - 1)]
+        rows = m.narrow(0, off, w.width)[local.clamp(0, w.width - 1)]
         part = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
         out = part if out is None else out + part
+    stand_in("all-reduce", nbytes(out), w.tp)
     return out
 
 

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoESpec
 from repro_torch.models.layers import mlp_apply
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.collectives import stand_in
 
 
 def moe_param_defs(cfg: ModelConfig) -> dict:
@@ -226,8 +227,11 @@ def moe_apply_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *
     def blocks(t: torch.Tensor) -> torch.Tensor:  # (B, S, ...) -> (dp*tp, Bl*Sl, ...), block (data i, model j)
         return t.reshape(dp, Bl, tp, Sl, *t.shape[2:]).transpose(1, 2).reshape(dp * tp, Bl * Sl, *t.shape[2:])
 
-    y, aux = _moe_groups(blocks(x), p, m, _capacity(Bl * Sl, m), with_aux=with_aux, drops=drops,
+    C = _capacity(Bl * Sl, m)
+    y, aux = _moe_groups(blocks(x), p, m, C, with_aux=with_aux, drops=drops,
                          mask=None if mask is None else blocks(mask))
+    for _ in ("dispatch", "return"):  # each block's (E, C, D) rows to the experts' ranks and back
+        stand_in("all-to-all", m.num_experts * C * D * x.element_size(), dp * tp)
     y = y.view(dp, tp, Bl, Sl, D).transpose(1, 2).reshape(B, S, D)
     return _finish(p, x, y, m), aux
 
@@ -243,6 +247,7 @@ def _moe_apply_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *
     G = B // B_loc
     y, aux = _moe_groups(x.reshape(G, B_loc * S, D), p, m, _capacity(B_loc * S, m), with_aux=with_aux,
                          drops=drops, mask=mask)
+    stand_in("all-reduce", B_loc * S * D * x.element_size(), n_pool)  # each group's ranks sum their experts'
     return _finish(p, x, y.view(B, S, D), m), aux
 
 

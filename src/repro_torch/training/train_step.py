@@ -48,10 +48,11 @@ class TrainStepConfig:
 
 
 def batch_to(batch: Dict[str, np.ndarray], device: torch.device, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """A numpy batch on ``device``: token ids as int64, a mask in f32,
-    frame embeddings in the params' dtype."""
+    """A numpy batch (or one of tensors) on ``device``: token ids as int64,
+    a mask in f32, frame embeddings in the params' dtype."""
     kinds = {"tokens": torch.int64, "targets": torch.int64, "mask": torch.float32, "embeds": dtype}
-    return {k: torch.as_tensor(np.asarray(v)).to(device=device, dtype=kinds[k]) for k, v in batch.items()}
+    return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))).to(device=device, dtype=kinds[k])
+            for k, v in batch.items()}
 
 
 def make_train_step(
@@ -70,7 +71,8 @@ def make_train_step(
     storage TP 1, keeps the tensors themselves). step_fn(params,
     opt_state, batch) -> (params, opt_state, metrics) updates that same
     tree and the state in place; the batch is numpy (``data.py``) with B
-    a multiple of dp x accum_steps; metrics are 0-d tensors on the device.
+    a multiple of dp x accum_steps (or tensors: the dry run's meta batch);
+    metrics are 0-d tensors on the device.
     """
     defs = model_param_defs(cfg, ec)
     leaves = [t for _, t in tree_leaves_with_path(params)]

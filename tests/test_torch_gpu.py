@@ -1227,3 +1227,49 @@ def test_check_train_step_on_card(cuda):
 
     out = check_train_step(cuda)
     assert out["zero1_split_leaves"] == out["leaves"]
+
+
+def test_serve_launcher_on_card_matches_cpu(cuda):
+    """launch.serve on the card (the demo model, a TP switch every 3 steps)
+    against the same weights served on the CPU (plain versions): the same
+    tokens, the counts the launcher prints, both kernels launched."""
+    from repro_torch.launch import serve
+    from repro_torch.models.params import tree_map
+
+    argv = ["--tps", "1,2,4", "--requests", "6", "--max-new", "8", "--switch-every", "3"]
+    args = serve.parse_args(argv)
+    cfg, params = serve.build(args)
+    tp_shard_matmul.launches = paged_decode_attention.launches = 0
+    done, stats = serve.serve(cfg, params, args)
+    assert tp_shard_matmul.launches > 0 and paged_decode_attention.launches > 0
+    cpu_args = serve.parse_args(argv + ["--device", "cpu"])
+    cpu_done, cpu_stats = serve.serve(cfg, tree_map(lambda t: t.cpu(), params), cpu_args)
+    assert {r.req_id: r.generated for r in done} == {r.req_id: r.generated for r in cpu_done}
+    assert {k: stats[k] for k in ("switches", "steps", "final_tp")} == {
+        k: cpu_stats[k] for k in ("switches", "steps", "final_tp")}
+    assert stats["switches"] > 0
+
+
+def test_op_cost_on_card_equals_meta(cuda):
+    """A plain PyTorch program counts the same on CUDA tensors as on meta:
+    operations, bytes and ops (a kernel wrapper's launch is not an aten op,
+    which is why the dry run counts on meta, where the wrappers take their
+    plain versions)."""
+    from repro_torch.launch import op_cost
+
+    def program(x, ws, b):
+        h = x
+        for w in ws:
+            h = torch.nn.functional.silu(h @ w) + b
+        return torch.bmm(h.view(4, 8, -1), h.view(4, 8, -1).transpose(1, 2)).softmax(-1)
+
+    counts = {}
+    for dev in (cuda, torch.device("meta")):
+        g = torch.Generator(device="cpu").manual_seed(0)
+        x = torch.randn(32, 64, generator=g).to(dev)
+        ws = [torch.randn(64, 64, generator=g).to(dev) for _ in range(3)]
+        b = torch.randn(64, generator=g).to(dev)
+        _, cost = op_cost.count(program, x, ws, b)
+        counts[dev.type] = (cost.dot_flops, cost.hbm_bytes, cost.ops)
+    assert counts["cuda"] == counts["meta"]
+    assert counts["meta"][0] == 3 * 2 * 32 * 64 * 64 + 2 * 4 * 8 * 8 * 64
