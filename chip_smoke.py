@@ -175,6 +175,17 @@ Phases; any failure raises and the script exits non-zero:
      then llama3-8b's bf16 prefill of 128 tokens and 8-slot decode step at
      TP 1 counted by ``launch.op_cost`` at phase 5's shapes, over phase 5's
      profiled device ms: the model-FLOPs share of 989 TFLOP/s, in (0, 1].
+ 15. the engine across processes: ``torch.cuda.device_count()`` processes
+     spawned, one per card, joined by NCCL (``collectives.init_pool``; on
+     one card, world 1), each drawing phase 4's f32 weights on its own card
+     (the ranks' checksums must agree) and serving phase 4's 10 requests
+     through the process-group path (every collective a real NCCL call,
+     captured in the graphs) at fixed TP 1, then, with more than one card,
+     under phase 4's schedule over the TP levels the pool divides: the
+     tokens must equal phase 4's one-process engine's, every launch a graph
+     replay, no storage data_ptr moved. The four-card legs are
+     ``python -m repro_torch.testing.multicard`` and
+     ``python -m repro_torch.testing.multidev_checks all 4 cuda``.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
@@ -185,7 +196,8 @@ phases 6-10 (phase 10: the profile's replays), 12 (the training
 steps of (c): "train" the forward's and the recompute's launches, "train
 backward" the backward's dX launches) and 13 (each launcher's and
 example's run, warm-up included), with the split in
-``launches_by_path``; ``instances`` holds the new instances' rows. The full
+``launches_by_path``; ``instances`` holds the new instances' rows. Phase 15's
+launches are made in its processes and added as its own path. The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
 """
@@ -1793,7 +1805,7 @@ def engine_f32(torch, dev, cfg, log, must_match=True, extras=True):
            "switch_run_s": t_b, "warmup_s": warm, "rebind_s_total": st.rebind_s, "migrate_s_total": st.migrate_s,
            "graphs": graphs, "matmul_launches_by_stage": by_stage, "switch_run_prefills": prefills,
            "changed_requests": changed,
-           "first_tokens": base[0]}
+           "first_tokens": base[0], "trajectories": {str(k): v for k, v in base.items()}}
     if cfg.moe is not None:
         rec.update(capacity_factor=cfg.moe.capacity_factor, moe_dropped=dropped)
     if extras:
@@ -3327,6 +3339,45 @@ def start_host_work(pool):
     return futures, time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the engine across processes
+# ---------------------------------------------------------------------------
+def pool_phase(torch, cfg, phase4, card, log):
+    """Phase 4's f32 engine through the process-group path, one process per
+    card (on one card, world 1): tokens equal to phase 4's. Returns the
+    ranks' launches ({path: {kernel: n}}, rank 0's) and the record."""
+    from repro_torch.testing.multidev_checks import spawn
+
+    world = torch.cuda.device_count()
+    prompts = [r.prompt for r in make_requests(cfg)]
+    runs = {"fixed TP 1": {"tps": (1,)}}
+    if world > 1:
+        runs["schedule"] = {"tps": (1, 2, 4, 8), "schedule": F32_SCHEDULE}
+    rec, paths = {"world": world, "backend": "nccl"}, {}
+    for name, extra in runs.items():
+        t0 = time.perf_counter()
+        ranks = spawn(world, "cuda", task="repro_torch.testing.multicard:serve_f32",
+                      inputs={"layers": cfg.num_layers, "prompts": prompts, **extra}, timeout=900)
+        res = [r["repro_torch.testing.multicard:serve_f32"] for r in ranks]
+        wall = time.perf_counter() - t0
+        want = {int(k): v for k, v in phase4["trajectories"].items()}
+        check(all(r["trajectories"] == want for r in res),
+              f"phase 15 {name}: every rank's tokens equal phase 4's one-process engine's")
+        check(all(r["backend"] == "nccl" and r["world"] == world for r in res), f"phase 15 {name}: NCCL, world {world}")
+        check(all(r["launches"] == r["replayed"] and r["launches"].get("tp_shard_matmul", 0) > 0
+                  and r["launches"].get("paged_decode_attention", 0) > 0 for r in res),
+              f"phase 15 {name}: both kernels launched, every launch by a graph replay: {[r['launches'] for r in res]}")
+        check(all(r["ptrs_unchanged"] for r in res), f"phase 15 {name}: no storage data_ptr moved on any card")
+        keep = ("tps", "schedule", "switches", "steps", "warmup_s", "run_s", "launches", "graphs")
+        rec[name] = {"wall_s": wall, **{k: res[0][k] for k in keep}}
+        paths[f"{cfg.name} f32 across processes ({name}, world {world})"] = res[0]["launches"]
+        log(f"[{card}] phase 15 {name}: {world} process(es) on {world} card(s), NCCL, TP levels {res[0]['tps']}, "
+            f"{res[0]['switches']} switches, {res[0]['steps']} steps; tokens of all 10 requests equal phase 4's "
+            f"one-process engine's on every rank; launches (rank 0, all by graph replays) {res[0]['launches']}; "
+            f"warmup {res[0]['warmup_s']:.1f} s, run {res[0]['run_s']:.2f} s, {wall:.1f} s with the spawn")
+    return paths, rec
+
+
 def kernel_counts():
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
@@ -3755,6 +3806,12 @@ def main() -> int:
         record["dryrun"] = dryrun_phase(torch, cfg, futures, t_submit, record.get("engine_bf16"), card, log)
         check(kernel_counts() == before, "the dry run launched nothing")
         log(f"phase 14: {time.perf_counter() - t0:.1f} s after phase 13")
+
+    # ---- phase 15: the engine across processes, one per card (counts in the ranks, after their warm-up) ----
+    t0 = time.perf_counter()
+    got, record["pool"] = pool_phase(torch, cfg, record["engine_f32"], card, log)
+    add_paths(got)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}

@@ -88,6 +88,13 @@ class ExecutableCache:
     inputs, the weights and the KV cache are allocated outside the
     captures, so outside the pool. A graph replays fixed addresses: the
     weights, the KV cache and the static inputs must keep theirs.
+
+    Across processes a step holds NCCL collectives, and every rank captures
+    the same steps in the same order, so the graphs hold the same
+    collectives in the same order on every card. The pool warmed each
+    group's communicator with an eager collective before any capture, and
+    the warm-up run on the capture stream runs each step's collectives
+    eagerly once more.
     """
 
     def __init__(self):
@@ -95,6 +102,9 @@ class ExecutableCache:
         self.capture_s: Dict[Tuple[int, Any], float] = {}
         self.pool = None
         self.stream = None
+        # "thread_local" across processes: NCCL's watchdog thread queries
+        # events while this thread captures, which the "global" mode forbids
+        self.capture_error_mode = "global"
 
     def put(self, tp: int, key: Any, fn: Callable, inputs: Sequence[torch.Tensor]) -> None:
         """fn(*inputs) -> tuple of tensors. On CUDA, inputs are the static
@@ -120,7 +130,8 @@ class ExecutableCache:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode=self.capture_error_mode):
                 outputs = fn(*inputs)
         finally:
             if collecting:
@@ -175,6 +186,11 @@ class TPSwitchController:
     So the work the reference's ``switch`` times as ``rebind`` (building the
     per-rank views) is done here at install and timed per TP level in
     ``bind_s``; a switch's ``rebind_s`` is only the lookup of that binding.
+
+    Across processes every rank runs the same switches in lockstep: the
+    bindings are each card's own views, and a ``migrate_fn`` that reshards
+    across ranks (``migration.migrate_cache`` with a pool) fails on every
+    rank or on none, so every rank rolls back together.
     """
 
     def __init__(self, store: WeightStore, candidate_tps: Sequence[int]):

@@ -10,10 +10,19 @@ that position's storage shard, at
 
 so switching TP moves no weight byte: ``rebind`` only makes new views.
 
-On one card every rank is the same device, and positions that hold the
+In one process every rank is the same device, and positions that hold the
 same canonical shard on the same device share one tensor, so the weights
 take their canonical size, not N copies. With s = 1, ``build`` keeps the
 caller's tensors themselves.
+
+Across processes (``pool``: one process per pool position, each on its own
+card) ``build`` lays out only this process's position, the counterpart of
+the reference's ``storage_shardings``: the other positions' entries are
+None. ``rebind`` then binds, on every card, the one rank this process runs
+at TP t: model coordinate d // (N/t) of position d, reading its own storage
+at that coordinate's offset (the formula above with r = d // (N/t); its
+canonical shard floor(d*s/N) is the one the offset assumes). No weight byte
+moves on any card.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import tree_leaves_with_path
+from repro_torch.parallel.collectives import Pool
 from repro_torch.parallel.sharding import ShardView, model_dim_of
 
 Path = Tuple[str, ...]
@@ -62,13 +72,16 @@ def _as_matrix(w: torch.Tensor, dim: int) -> Tuple[torch.Tensor, int]:
 
 class WeightStore:
     def __init__(self, cfg: ModelConfig, canonical_defs: dict, devices: Sequence[torch.device],
-                 storage_tp: int = 1):
+                 storage_tp: int = 1, pool: Optional[Pool] = None):
         self.cfg = cfg
         self.devices = [torch.device(d) for d in devices]
         self.N = len(self.devices)
         self.s = storage_tp
+        self.pool = pool
         if not self.N or self.N % storage_tp:
             raise ValueError(f"storage_tp {storage_tp} must divide the pool size {self.N}")
+        if pool is not None and pool.world != self.N:
+            raise ValueError(f"a store of {self.N} positions over a pool of {pool.world} processes")
         self.canonical_defs = canonical_defs
         self.plans: Dict[Path, _LeafPlan] = {}
         for path, d in tree_leaves_with_path(canonical_defs):
@@ -79,13 +92,18 @@ class WeightStore:
     def build(self, canonical_params: dict) -> dict:
         """Lay canonical params out in storage: each leaf becomes a tuple of
         N tensors, one per pool position, shared where the canonical shard
-        and the device coincide."""
+        and the device coincide. Across processes only this process's
+        position is laid out; the others are None."""
         out: dict = {}
+        mine = range(self.N) if self.pool is None else (self.pool.rank,)
         for path, plan in self.plans.items():
             x = _get(canonical_params, path)
             shared: Dict[Tuple[int, torch.device], torch.Tensor] = {}
             per_pos = []
             for j, dev in enumerate(self.devices):
+                if j not in mine:
+                    per_pos.append(None)
+                    continue
                 shard = 0 if plan.dim is None else j * self.s // self.N
                 if (shard, dev) not in shared:
                     t = x
@@ -112,6 +130,8 @@ class WeightStore:
         s = min(self.s, len(devs))
         while len(devs) % s:
             s -= 1
+        if self.pool is not None:
+            raise NotImplementedError("shrinking a pool of processes is not ported: a lost card ends its process")
         return WeightStore(self.cfg, self.canonical_defs, devs, storage_tp=s)
 
     # ---- execution-time shard selection ---------------------------------
@@ -143,8 +163,11 @@ class WeightStore:
         embeddings are tied, ``lm_head`` (a tied head reads ``embed``'s
         ShardView in place); every model-sharded weight is a ``ShardView``
         of the storage tensors, so every ``data_ptr()`` is the storage's own.
+        Across processes each ShardView holds this process's rank at TP ``tp``
+        and that level of the pool.
         """
         sel = self.select(tp)
+        level = None if self.pool is None else self.pool.level(tp)
         n_pos = len(self.cfg.layer_pattern)
         bound: dict = {"layers": [dict() for _ in range(self.cfg.num_layers)]}
         for path, plan in self.plans.items():
@@ -154,25 +177,26 @@ class WeightStore:
                 dim = None if plan.dim is None else plan.dim - 1
                 items = []
                 for i in range(self.cfg.num_periods):
-                    layer = {id(t): t[i] for t in per_pos}  # shared tensors keep one view
+                    layer = {id(t): t[i] for t in per_pos if t is not None}  # shared tensors keep one view
                     items.append((bound["layers"][i * n_pos + pos], path[2:],
-                                  tuple(layer[id(t)] for t in per_pos), dim))
+                                  tuple(None if t is None else layer[id(t)] for t in per_pos), dim))
             else:
                 items = [(bound, path, per_pos, plan.dim)]
             for tree, sub, tensors, dim in items:
                 if dim is None:
-                    _put(tree, sub, tensors[0])
+                    _put(tree, sub, next(t for t in tensors if t is not None))
                     continue
                 mats: Dict[int, Tuple[torch.Tensor, int]] = {}
                 views, offsets = [], []
-                for position, off, width in sel[path]:
+                ranks = sel[path] if level is None else [(self.pool.rank, *sel[path][level.model_rank][1:])]
+                for position, off, width in ranks:
                     key = id(tensors[position])
                     if key not in mats:
                         mats[key] = _as_matrix(tensors[position], dim)
                     mat, unit = mats[key]
                     views.append(mat)
                     offsets.append(off * unit)
-                _put(tree, sub, ShardView(tuple(views), tuple(offsets), width * unit))
+                _put(tree, sub, ShardView(tuple(views), tuple(offsets), width * unit, level))
         return bound
 
     # ---- memory accounting ----------------------------------------------

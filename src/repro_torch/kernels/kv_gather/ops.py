@@ -86,8 +86,9 @@ def _gather(pool: torch.Tensor, dev_ids: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dev_ids must be 1-D int32 on {pool.device}, got {dev_ids.dtype} on {dev_ids.device}")
     staged = torch.empty((dev_ids.numel(), pool.shape[1]), dtype=pool.dtype, device=pool.device)
     lib = _lib()
-    rc = lib.kv_gather(pool.data_ptr(), staged.data_ptr(), dev_ids.data_ptr(), dev_ids.numel(),
-                       pool.shape[1] * pool.element_size(), torch.cuda.current_stream(pool.device).cuda_stream)
+    with torch.cuda.device(pool.device):  # the launch goes to the pool's card, whichever is current
+        rc = lib.kv_gather(pool.data_ptr(), staged.data_ptr(), dev_ids.data_ptr(), dev_ids.numel(),
+                           pool.shape[1] * pool.element_size(), torch.cuda.current_stream(pool.device).cuda_stream)
     _build.check(lib, rc, "kv_gather")
     kv_gather.launches += 1
     return staged
@@ -119,8 +120,9 @@ def kv_scatter(pool: torch.Tensor, staged: torch.Tensor, page_ids) -> torch.Tens
         return pool
     dev_ids = _device_ids(ids, pool.device)
     lib = _lib()
-    rc = lib.kv_scatter(pool.data_ptr(), staged.data_ptr(), dev_ids.data_ptr(), ids.size,
-                        pool.shape[1] * pool.element_size(), torch.cuda.current_stream(pool.device).cuda_stream)
+    with torch.cuda.device(pool.device):
+        rc = lib.kv_scatter(pool.data_ptr(), staged.data_ptr(), dev_ids.data_ptr(), ids.size,
+                            pool.shape[1] * pool.element_size(), torch.cuda.current_stream(pool.device).cuda_stream)
     _build.check(lib, rc, "kv_scatter")
     kv_scatter.launches += 1
     return pool

@@ -5,6 +5,7 @@ repro/launch/serve.py).
         --devices 8 --tps 1,2,4 --requests 24 [--switch-every 6] [--max-new 24]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --dtype bfloat16 --tps 1,2,4,8 [--layers 4] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --nproc 4 [--arch ...] [--device cpu]
 
 Runs the engine (continuous batching, zero-copy TP switching, KV
 migration, one CUDA graph per TP level and stage) with the reference's
@@ -20,6 +21,11 @@ keeps that filter. On one card every rank is the card, and the engine's
 pool is the largest TP level kept, not N: a dense model's tokens do not
 depend on N, an MoE model's dispatch path and capacity (which follow the
 data groups of N/t ranks) follow the pool.
+
+``--nproc N`` serves across N cards instead, one process each, joined by
+NCCL (gloo with ``--device cpu``): every process draws the same weights on
+its card and runs the same engine (``ServingEngine(pool=...)``), over the
+TP levels that divide N. Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -60,6 +66,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     ap.add_argument("--layers", type=int, default=None, help="cut the model's depth")
     ap.add_argument("--device", default=None, help="default: the CUDA device")
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="serve across N cards, one process each (NCCL; gloo with --device cpu)")
     return ap.parse_args(argv)
 
 
@@ -96,21 +104,23 @@ def switch_schedule(tps: Sequence[int], every: int) -> dict:
     return schedule
 
 
-def serve(cfg: ModelConfig, params: dict, args: argparse.Namespace, *, record_logits: bool = False):
+def serve(cfg: ModelConfig, params: dict, args: argparse.Namespace, *, record_logits: bool = False,
+          pool=None):
     """Serve the launcher's requests; returns (finished requests, stats):
     the engine's counts and seconds, "final_tp", "warmup_s", "seconds" and,
-    with ``record_logits``, "logits" ({request: per-step logits})."""
+    with ``record_logits``, "logits" ({request: per-step logits}). With a
+    ``pool`` this process is one rank of the engine across processes."""
     tps = tuple(int(t) for t in args.tps.split(","))
     dtype = next(t for _, t in tree_leaves_with_path(params)).dtype
     econf = EngineConfig(
         candidate_tps=[t for t in tps if t <= args.devices], n_slots=8, max_len=128,
         prefill_buckets=(16, 32, 64), dtype=dtype, record_logits=record_logits,
     )
-    eng = ServingEngine(cfg, params, econf=econf, device=args.device)
+    eng = ServingEngine(cfg, params, econf=econf, device=args.device, pool=pool)
     warm = eng.warmup()
     reqs = make_requests(cfg, args.requests, args.max_new)
     t0 = time.perf_counter()
-    done = eng.run(reqs, switch_schedule=switch_schedule(tps, args.switch_every))
+    done = eng.run(reqs, switch_schedule=switch_schedule([t for t in tps if t in eng.tps], args.switch_every))
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     st = eng.stats
@@ -121,21 +131,46 @@ def serve(cfg: ModelConfig, params: dict, args: argparse.Namespace, *, record_lo
     return done, stats
 
 
+def serve_rank(pool, inputs: dict) -> dict:
+    """One rank of ``--nproc``: the launcher's model on this process's card,
+    served by the engine across the pool."""
+    args = argparse.Namespace(**{**inputs, "device": str(pool.device)})
+    cfg, params = build(args)
+    done, st = serve(cfg, params, args, pool=pool)
+    return {"done": len(done), "stats": st, "cfg": cfg.name, "layers": cfg.num_layers,
+            "where": torch.cuda.get_device_name(pool.device) if pool.device.type == "cuda" else "the CPU"}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    if args.nproc > 1:
+        from repro_torch.testing.multidev_checks import spawn
+
+        kind = "cpu" if args.device is not None and torch.device(args.device).type == "cpu" else "cuda"
+        rank0 = spawn(args.nproc, kind, task="repro_torch.launch.serve:serve_rank", inputs=vars(args),
+                      timeout=3600)[0]["repro_torch.launch.serve:serve_rank"]
+        st = rank0["stats"]
+        print(f"{rank0['cfg']} ({rank0['layers']} layers, {args.dtype}) on {args.nproc} x {rank0['where']}, "
+              f"one process each")
+        _report(st, len(st["tps"]), rank0["done"])
+        return 0
     cfg, params = build(args)
     done, st = serve(cfg, params, args)
     dev = resolve_device(args.device)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "the CPU"
-    sw = max(st["switches"], 1)
     print(f"{cfg.name} ({cfg.num_layers} layers, {args.dtype}) on {where}")
-    print(f"warmed {len(st['tps'])} TP levels (prefill+decode executables) in {st['warmup_s']:.1f}s — "
+    _report(st, len(st["tps"]), len(done))
+    return 0
+
+
+def _report(st: dict, n_levels: int, n_done: int) -> None:
+    sw = max(st["switches"], 1)
+    print(f"warmed {n_levels} TP levels (prefill+decode executables) in {st['warmup_s']:.1f}s — "
           f"offline CUDA-graph capture")
-    print(f"served {len(done)} requests in {st['seconds']:.1f}s across {st['switches']} TP switches")
+    print(f"served {n_done} requests in {st['seconds']:.1f}s across {st['switches']} TP switches")
     print(f"  switch cost: rebind {st['rebind_s'] * 1e3 / sw:.2f} ms avg (zero-copy), "
           f"migrate {st['migrate_s'] * 1e3 / sw:.1f} ms avg")
     print(f"  decode steps: {st['steps']}; final TP {st['final_tp']}")
-    return 0
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ and builds no cache.
 Decode writes the new token's K/V into the dense slot cache (at its
 position, or at position % window in a windowed layer's rotating buffer),
 views that cache as pages, and runs the ``paged_decode_attention`` kernel
-over it.
+over it. The heads are those of the ranks this process holds: all of them
+in one process, one model coordinate's across processes, whose cache then
+holds that coordinate's KV heads (the reference's ``act_kv -> model``).
 """
 from __future__ import annotations
 
@@ -182,16 +184,18 @@ def attn_apply(
 ):
     B, S, d = x.shape
     hd = cfg.head_dim
-    KV, G = ec.kv_exec, ec.q_per_kv
+    wq = p["wq"]
+    n_held = len(wq.mats)  # ranks of the group this process holds: their heads
+    H, KV, G = ec.heads_exec * n_held // wq.tp, ec.kv_exec * n_held // wq.tp, ec.q_per_kv
     cap = cfg.attn.logit_softcap
     x2 = x.reshape(B * S, d)
-    qs = col_parallel(x2, p["wq"])
+    qs = col_parallel(x2, wq)
     q = torch.cat(qs, dim=-1).view(B, S, -1, hd)
     k = torch.cat(col_parallel(x2, p["wk"]), dim=-1).view(B, S, -1, hd)
     v = torch.cat(col_parallel(x2, p["wv"]), dim=-1).view(B, S, -1, hd)
-    if q.shape[2] != ec.heads_exec or k.shape[2] != KV:
+    if q.shape[2] != H or k.shape[2] != KV:
         raise ValueError(f"bound weights give {q.shape[2]} q / {k.shape[2]} kv heads; {ec} expects "
-                         f"{ec.heads_exec} / {KV}")
+                         f"{H} / {KV} on {n_held} of {wq.tp} ranks")
     if cfg.attn.qk_norm:
         q = _qk_norm(q, p["q_norm"])
         k = _qk_norm(k, p["k_norm"])

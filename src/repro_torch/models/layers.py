@@ -3,9 +3,12 @@ tensor-parallel projections every model-sharded weight goes through.
 
 Mirrors repro/models/layers.py. A TP-bound weight is a ``ShardView``: each
 rank's product runs through the ``tp_shard_matmul`` kernel at that rank's
-offset into the shared storage tensor. Column-parallel outputs stay per rank
-(or are concatenated in rank order); row-parallel partials are summed in
-rank order, the port's counterpart of the reference's psum.
+offset into the shared storage tensor. The functions work on the ranks this
+process holds (every rank of the group in one process, its own rank across
+processes). Column-parallel outputs stay per rank (or are concatenated in
+rank order); row-parallel partials are summed in rank order and, across
+processes, over the model group (``collectives.reduce_ranks``, the
+reference's psum).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.collectives import nbytes, stand_in
+from repro_torch.parallel.collectives import reduce_ranks
 from repro_torch.parallel.sharding import ShardView
 
 
@@ -66,13 +69,9 @@ def col_parallel(x: torch.Tensor, w: ShardView, out_dtype=None) -> List[torch.Te
 
 
 def row_parallel(xs: List[torch.Tensor], w: ShardView) -> torch.Tensor:
-    """Per-rank inputs (M, width) -> sum over ranks, in rank order."""
-    y = None
-    for x, m, off in zip(xs, w.mats, w.offsets):
-        part = tp_shard_matmul(x, m, off, n_out=m.shape[1], mode="row")
-        y = part if y is None else y + part
-    stand_in("all-reduce", nbytes(y), len(xs))
-    return y
+    """Per-rank inputs (M, width) -> sum over the group's ranks, in rank order."""
+    parts = [tp_shard_matmul(x, m, off, n_out=m.shape[1], mode="row") for x, m, off in zip(xs, w.mats, w.offsets)]
+    return reduce_ranks(parts, w.level, w.tp)
 
 
 def tied_head(x: torch.Tensor, embed: ShardView) -> List[torch.Tensor]:
@@ -88,15 +87,13 @@ def tied_head(x: torch.Tensor, embed: ShardView) -> List[torch.Tensor]:
 def vocab_parallel_embed(tokens: torch.Tensor, w: ShardView) -> torch.Tensor:
     """Embedding lookup with the table sharded over the vocab: rank r owns
     global rows r*width..(r+1)*width and contributes only those tokens."""
-    out = None
-    for r, (m, off) in enumerate(zip(w.mats, w.offsets)):
+    parts = []
+    for r, m, off in zip(w.ranks, w.mats, w.offsets):
         local = tokens - r * w.width
         mine = (local >= 0) & (local < w.width)
         rows = m.narrow(0, off, w.width)[local.clamp(0, w.width - 1)]
-        part = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-        out = part if out is None else out + part
-    stand_in("all-reduce", nbytes(out), w.tp)
-    return out
+        parts.append(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)))
+    return reduce_ranks(parts, w.level, w.tp)
 
 
 # ---------------------------------------------------------------------------

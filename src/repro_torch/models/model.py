@@ -29,6 +29,7 @@ from repro_torch.models.mamba import (
 )
 from repro_torch.models.moe import moe_apply, moe_param_defs
 from repro_torch.models.params import ParamDef, stack_defs
+from repro_torch.parallel.collectives import gather_ranks
 from repro_torch.parallel.sharding import ExecConfig
 
 
@@ -222,12 +223,15 @@ def forward(
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (M, D) -> logits (M, V_padded) in f32 (+ final softcap). A tied
     head is the embedding read transposed: rank r's logits are
-    x @ embed[r's vocab rows].T."""
+    x @ embed[r's vocab rows].T. The ranks' vocab shards are joined in rank
+    order; across processes they are gathered over the model group, so
+    every rank holds the same logits and takes the same argmax."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     if cfg.tie_embeddings:
-        parts = tied_head(x, params["embed"])
+        parts = tied_head(x, w)
     else:
-        parts = col_parallel(x, params["lm_head"], out_dtype=torch.float32)
-    return softcap(torch.cat(parts, dim=-1), cfg.final_logit_softcap)
+        parts = col_parallel(x, w, out_dtype=torch.float32)
+    return softcap(gather_ranks(parts, w.level, -1), cfg.final_logit_softcap)
 
 
 def logits_for(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

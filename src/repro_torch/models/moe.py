@@ -15,10 +15,16 @@ model = t), and picks its path and its capacity from t, N and the shape:
               at ``_capacity(B_loc*S)``; each rank computes only its E/t
               experts and the ranks' partial outputs are summed (psum).
 
-The port runs every rank of the group in one process, so the sharded and
-decode paths are loops over the ranks: rank r runs its E/t experts (the
-bound ``ShardView``'s ``block(r, ...)``, a view of the stored experts) over
-every group's rows.
+In one process the sharded and decode paths are loops over the ranks: rank
+r runs its E/t experts (the bound ``ShardView``'s ``block(r, ...)``, a view
+of the stored experts) over every group's rows. Across processes (weights
+bound to a level of a ``collectives.Pool``) each process is one rank and
+holds its data group's rows: the sharded path dispatches its own (B/dp) x
+(S/t) block, moves each expert shard's rows to its rank and back with two
+real all-to-alls over the model group and gathers the blocks back along
+the sequence; the decode path runs its E/t experts on its group's rows and
+all-reduces the combined outputs over the model group; at TP 1 the data
+groups' rows are gathered, dispatched together and cut back.
 
 Dispatch gathers each expert's rows (no scatter), and on every path the
 combine sums a token's K contributions from zero in ascending expert order,
@@ -52,7 +58,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoESpec
 from repro_torch.models.layers import mlp_apply
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.collectives import stand_in
+from repro_torch.parallel.collectives import all_gather, all_reduce, all_to_all, stand_in
 
 
 def moe_param_defs(cfg: ModelConfig) -> dict:
@@ -136,10 +142,57 @@ def _capacity(T: int, m: MoESpec, floor: int = 8) -> int:
     return max(int(c), floor)
 
 
+def _rank_ffn(p: dict, i: int, b: torch.Tensor, m: MoESpec) -> torch.Tensor:
+    """The expert FFN of the i-th rank this process holds over its experts'
+    rows b (E/t, rows, D)."""
+    D, Fe = b.shape[-1], m.d_ff_expert
+    return _expert_ffn(b, p["w_gate"].block(i, D, Fe), p["w_in"].block(i, D, Fe), p["w_out"].block(i, Fe, D))
+
+
+def _experts_in_process(buf: torch.Tensor, p: dict, m: MoESpec) -> torch.Tensor:
+    """buf (G, E, C, D) -> each expert's output rows, (E*G*C, D) in (e, g,
+    c) order: every rank of the group in this process, rank r its E/t
+    experts over every group's rows."""
+    G, E, C, D = buf.shape
+    t = p["w_gate"].tp
+    E_loc = E // t
+    outs = []
+    for r in range(t):
+        outs.append(_rank_ffn(p, r, buf[:, r * E_loc:(r + 1) * E_loc].transpose(0, 1).reshape(E_loc, G * C, D), m))
+    return (torch.cat(outs, 0) if t > 1 else outs[0]).reshape(E * G * C, D)
+
+
+def _experts_own(buf: torch.Tensor, p: dict, m: MoESpec) -> torch.Tensor:
+    """Across processes, the decode path: this rank's E/t experts over every
+    group's rows, the other experts' rows zero (the model group's all-reduce
+    of the combined outputs adds them)."""
+    G, E, C, D = buf.shape
+    lv = p["w_gate"].level
+    E_loc = E // lv.tp
+    e0 = lv.model_rank * E_loc
+    own = _rank_ffn(p, 0, buf[:, e0:e0 + E_loc].transpose(0, 1).reshape(E_loc, G * C, D), m)
+    out = torch.zeros((E, G * C, D), dtype=own.dtype, device=own.device)
+    out[e0:e0 + E_loc] = own
+    return out.reshape(E * G * C, D)
+
+
+def _experts_all_to_all(buf: torch.Tensor, p: dict, m: MoESpec) -> torch.Tensor:
+    """Across processes, the sharded path (one group of this rank's tokens):
+    each expert shard's (E/t, C, D) rows to the rank that holds it and back,
+    two all-to-alls over the model group, as the reference's."""
+    _, E, C, D = buf.shape
+    lv = p["w_gate"].level
+    t, E_loc = lv.tp, E // lv.tp
+    got = all_to_all(buf.reshape(t, E_loc, C, D), lv.model)  # [k]: rank k's tokens for this rank's experts
+    out = _rank_ffn(p, 0, got.transpose(0, 1).reshape(E_loc, t * C, D), m)
+    back = all_to_all(out.view(E_loc, t, C, D).transpose(0, 1), lv.model)  # [k]: expert rank k's outputs
+    return back.reshape(E * C, D)
+
+
 def _moe_groups(xg: torch.Tensor, p: dict, m: MoESpec, C: int, *, with_aux: bool,
-                drops: Optional[torch.Tensor], mask: Optional[torch.Tensor]):
-    """Dispatch -> per-rank expert FFN -> combine for G groups of tokens,
-    each group dispatched on its own at capacity C.
+                drops: Optional[torch.Tensor], mask: Optional[torch.Tensor], expert_fn=_experts_in_process):
+    """Dispatch -> expert FFN (``expert_fn``) -> combine for G groups of
+    tokens, each group dispatched on its own at capacity C.
 
     xg: (G, Tg, D). ``drops``, a (1,)
     int64 tensor, gains the dropped assignments of the tokens ``mask``
@@ -147,8 +200,6 @@ def _moe_groups(xg: torch.Tensor, p: dict, m: MoESpec, C: int, *, with_aux: bool
     """
     G, Tg, D = xg.shape
     E, K = m.num_experts, m.top_k
-    t = p["w_gate"].tp
-    E_loc, Fe = E // t, m.d_ff_expert
     dev = xg.device
     top_p, top_i, aux = _route(xg, p["router"], m, with_aux)
     dest, tok, keep, order, sorted_e = _sorted_dispatch(top_i, E, C)
@@ -164,11 +215,7 @@ def _moe_groups(xg: torch.Tensor, p: dict, m: MoESpec, C: int, *, with_aux: bool
     rows = torch.gather(xg, 1, src[..., None].expand(G, E * C, D))
     buf = torch.where(filled[..., None], rows, torch.zeros((), dtype=xg.dtype, device=dev)).view(G, E, C, D)
 
-    outs = []
-    for r in range(t):  # rank r: its E/t experts over every group's rows
-        b = buf[:, r * E_loc:(r + 1) * E_loc].transpose(0, 1).reshape(E_loc, G * C, D)
-        outs.append(_expert_ffn(b, p["w_gate"].block(r, D, Fe), p["w_in"].block(r, D, Fe), p["w_out"].block(r, Fe, D)))
-    out = (torch.cat(outs, 0) if t > 1 else outs[0]).reshape(E * G * C, D)  # row (e, g, c)
+    out = expert_fn(buf, p, m)  # row (e, g, c)
 
     # combine: each token's picks in ascending expert order, from its sorted position
     perm = top_i.sort(-1).indices
@@ -215,14 +262,28 @@ def moe_apply_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *, with_aux: boo
 def moe_apply_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *, with_aux: bool = True,
                       drops: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None):
     """The reference's sharded train/prefill path at TP t over a pool of
-    ``n_pool`` ranks; falls back to the decode path as the reference does."""
+    ``n_pool`` ranks; falls back to the decode path as the reference does.
+    Across processes ``x`` is this rank's data group's rows."""
     m = cfg.moe
     B, S, D = x.shape
+    lv = p["w_gate"].level
     tp = p["w_gate"].tp
     dp = n_pool // tp
+    if lv is not None:
+        B, dp = B * lv.dp, lv.dp  # the whole batch, over the pool's data groups
     if S % tp != 0 or B % dp != 0:  # decode / tiny shapes: replicated dispatch per data group
         return _moe_apply_decode(p, x, cfg, n_pool, with_aux=with_aux, drops=drops, mask=mask)
     Bl, Sl = B // dp, S // tp
+    if lv is not None:  # this rank's block (its data group's rows, its model coordinate's positions)
+        cols = slice(lv.model_rank * Sl, (lv.model_rank + 1) * Sl)
+        C = _capacity(Bl * Sl, m)
+        y, aux = _moe_groups(x[:, cols].reshape(1, Bl * Sl, D), p, m, C, with_aux=with_aux, drops=drops,
+                             mask=None if mask is None else mask[:, cols].reshape(1, Bl * Sl),
+                             expert_fn=_experts_all_to_all)
+        for _ in ("dispatch", "return"):
+            stand_in("all-to-all", m.num_experts * C * D * x.element_size(), dp * tp)
+        y = all_gather(y.view(Bl, Sl, D), lv.model, dim=1)  # the residual stream whole on the model group
+        return _finish(p, x, y, m), _pool_mean(aux, lv)
 
     def blocks(t: torch.Tensor) -> torch.Tensor:  # (B, S, ...) -> (dp*tp, Bl*Sl, ...), block (data i, model j)
         return t.reshape(dp, Bl, tp, Sl, *t.shape[2:]).transpose(1, 2).reshape(dp * tp, Bl * Sl, *t.shape[2:])
@@ -242,23 +303,50 @@ def _moe_apply_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *
     the ranks' outputs combined (the reference's psum)."""
     m = cfg.moe
     B, S, D = x.shape
+    lv = p["w_gate"].level
     dp = n_pool // p["w_gate"].tp
     B_loc = B // dp if B % dp == 0 else B
+    if lv is not None:  # across processes x is already this data group's rows
+        B_loc = B
     G = B // B_loc
     y, aux = _moe_groups(x.reshape(G, B_loc * S, D), p, m, _capacity(B_loc * S, m), with_aux=with_aux,
-                         drops=drops, mask=mask)
+                         drops=drops, mask=mask, expert_fn=_experts_in_process if lv is None else _experts_own)
     stand_in("all-reduce", B_loc * S * D * x.element_size(), n_pool)  # each group's ranks sum their experts'
+    if lv is not None:
+        all_reduce(y, lv.model)
+        aux = _pool_mean(aux, lv)
     return _finish(p, x, y.view(B, S, D), m), aux
+
+
+def _pool_mean(aux: dict, lv) -> dict:
+    """Across processes, each aux loss averaged over the pool (the
+    reference's pmean over model and data): summed over the model group,
+    then over the data group, which sums every rank once."""
+    out = {}
+    for k, v in aux.items():
+        v = v.clone()
+        all_reduce(all_reduce(v, lv.model), lv.data)
+        out[k] = v / (lv.tp * lv.dp)
+    return out
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: Optional[int] = None, *, with_aux: bool = True,
               drops: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """x (B, S, D) at the TP level of the bound weights ``p``, in a pool of
-    ``n_pool`` ranks (default: the TP level, one data group)."""
+    ``n_pool`` ranks (default: the TP level, one data group). Across
+    processes (the weights bound to a level of a pool) ``x`` is this rank's
+    data group's rows, the same on its model group, and so is the output."""
     tp = p["w_gate"].tp
-    n_pool = tp if n_pool is None else n_pool
+    lv = p["w_gate"].level
+    n_pool = (tp if n_pool is None else n_pool) if lv is None else lv.tp * lv.dp
     if n_pool % tp:
         raise ValueError(f"TP {tp} does not divide the pool of {n_pool} ranks")
+    if tp == 1 and lv is not None and lv.dp > 1:  # the reference dispatches the whole batch at TP 1
+        B = x.shape[0]
+        whole = all_gather(x, lv.data, 0)
+        y, aux = moe_apply_local(p, whole, cfg, with_aux=with_aux, drops=drops,
+                                 mask=None if mask is None else all_gather(mask, lv.data, 0))
+        return y[lv.data_rank * B:(lv.data_rank + 1) * B], aux
     if tp == 1:
         return moe_apply_local(p, x, cfg, with_aux=with_aux, drops=drops, mask=mask)
     return moe_apply_sharded(p, x, cfg, n_pool, with_aux=with_aux, drops=drops, mask=mask)

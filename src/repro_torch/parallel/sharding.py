@@ -4,9 +4,12 @@ model-sharded, and how an architecture resolves against a TP degree.
 Tensors carry *logical* axis names; a ``ShardingRules`` table maps each
 logical axis to zero or more mesh axes (the reference's MaxText-style
 tables, copied). The reference lets XLA partition the program by them. The
-port runs every rank of a TP group in one process, so what its model code
-needs of the table is which logical axes the "model" mesh axis shards
-(``MODEL_AXES``); the whole table, ``pspec_for`` and ``local_shape`` serve
+port runs a TP group's ranks in one process, or one per process over a pool
+(``parallel.collectives``, whose ``coords`` gives a rank's data and model
+coordinates at each TP level); either way what its model code needs of the
+table is which logical axes the "model" mesh axis shards (``MODEL_AXES``),
+and, across processes, that the slot cache's batch follows "data"
+(``core.migration.cache_shardings``); the whole table, ``pspec_for`` and ``local_shape`` serve
 the dry run (``launch.cells``), which sizes each device's share of a cell
 on a mesh that is only described: an ordered {axis name: size} dict.
 ``ShardView`` is how a TP-bound weight reaches the model code: each rank
@@ -21,6 +24,7 @@ from typing import Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, ceil_to
+from repro_torch.parallel.collectives import Level
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -180,34 +184,44 @@ def make_exec_config(cfg: ModelConfig, tp: int) -> ExecConfig:
 class ShardView:
     """One model-sharded weight bound at TP t.
 
-    Rank r multiplies by ``mats[r]`` (a 2-D view of a storage tensor) from
-    ``offsets[r]`` for ``width`` columns (column-parallel) or rows
-    (row-parallel). Ranks that share a storage tensor share the same
-    ``mats`` entry, so binding copies nothing.
+    Each rank this process holds multiplies by its ``mats`` entry (a 2-D
+    view of a storage tensor) from its ``offsets`` entry for ``width``
+    columns (column-parallel) or rows (row-parallel). In one process the
+    entries are all t ranks', in rank order, and ranks that share a storage
+    tensor share the same ``mats`` entry, so binding copies nothing. Across
+    processes (``level`` given) there is one entry, this process's rank's,
+    and ``level`` names its model coordinate and groups.
     """
 
     mats: Tuple[torch.Tensor, ...]
     offsets: Tuple[int, ...]
     width: int
+    level: Optional[Level] = None
 
     @property
     def tp(self) -> int:
-        return len(self.mats)
+        return len(self.mats) if self.level is None else self.level.tp
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The model coordinates of the entries this process holds."""
+        return tuple(range(len(self.mats))) if self.level is None else (self.level.model_rank,)
 
     def block(self, r: int, *inner: int) -> torch.Tensor:
-        """Rank r's rows of a weight sharded on its first dim, as a view of
-        shape (-1, *inner): an expert leaf's (E/t, D, F) shard, or a 1-D
-        leaf's (n/t,) slice."""
+        """The rows of this process's r-th entry of a weight sharded on its
+        first dim, as a view of shape (-1, *inner): an expert leaf's (E/t,
+        D, F) shard, or a 1-D leaf's (n/t,) slice."""
         return self.mats[r].narrow(0, self.offsets[r], self.width).view(-1, *inner)
 
     def joined(self, dim: int) -> torch.Tensor:
-        """The ranks' shards joined in rank order along ``dim`` of the 2-D
-        views (0: rows, 1: columns): the whole leaf as a matrix. A view
+        """The shards this process holds joined in rank order along ``dim``
+        of the 2-D views (0: rows, 1: columns): in one process the whole
+        leaf as a matrix. A view
         when the shards tile one storage tensor in order, as at storage TP
         1 on one card; else a copy."""
         first, off = self.mats[0], self.offsets[0]
         if all(m is first and o == off + r * self.width for r, (m, o) in enumerate(zip(self.mats, self.offsets))):
-            return first.narrow(dim, off, self.width * self.tp)
+            return first.narrow(dim, off, self.width * len(self.mats))
         return torch.cat([m.narrow(dim, o, self.width) for m, o in zip(self.mats, self.offsets)], dim)
 
 

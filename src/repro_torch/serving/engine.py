@@ -5,15 +5,30 @@ greedy decode, and a TP switch that rebinds the weights without moving
 them and migrates the KV cache. Greedy decoding keeps trajectories
 deterministic, so a mid-stream switch must leave them unchanged.
 
-The TP group's ranks are a list of devices, ``[device] * max(candidate_tps)``:
-on one card all ranks are that card, and the reference's psum is a sum of
-the ranks' partial products in rank order. Every projection runs once per
-rank through the ``tp_shard_matmul`` kernel; decode attention runs through
-the ``paged_decode_attention`` kernel. The ranks are the reference's pool
-of N devices: at TP t its mesh is (data = N/t, model = t), and an MoE layer
-picks its dispatch path and capacity from t and N as the reference does
-(``models.moe``), so its drops depend on the TP level as the reference's
-do; ``moe_dropped`` reads the dropped assignments per (TP level, stage).
+In one process (the default) the TP group's ranks are a list of devices,
+``[device] * max(candidate_tps)``: on one card all ranks are that card, and
+the reference's psum is a sum of the ranks' partial products in rank order.
+Every projection runs once per rank through the ``tp_shard_matmul`` kernel;
+decode attention runs through the ``paged_decode_attention`` kernel. The
+ranks are the reference's pool of N devices: at TP t its mesh is (data =
+N/t, model = t), and an MoE layer picks its dispatch path and capacity from
+t and N as the reference does (``models.moe``), so its drops depend on the
+TP level as the reference's do; ``moe_dropped`` reads the dropped
+assignments per (TP level, stage).
+
+Across processes (``pool``, a ``collectives.Pool`` of N processes, one card
+each) the same engine runs on every rank (SPMD). The host logic (admission,
+slots, lengths, the switch schedule) is replicated and deterministic. Each
+rank holds its pool position's weights and, at TP t, its block of the slot
+cache: its data group's n_slots/(N/t) slots x its model group's KV heads,
+in buffers of its own per TP level, allocated once, which a switch
+reshards into (``migrate_cache``) and graphs read in place. Each data group
+decodes its own slots; the next tokens are gathered over the data groups,
+so every rank's request state stays identical. Prefill runs the prompt on
+every data group, as the reference's prefill of one sequence does; the
+group that owns the slot inserts its K/V, and its token is the one every
+rank takes. The pool runs dense models (full and windowed attention);
+MoE and Mamba layers are refused there.
 
 As the reference compiles one executable per TP level for decode and one
 per (TP level, bucket) for prefill and warms them all up front, ``warmup``
@@ -34,11 +49,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.migration import migrate_cache
+from repro_torch.core.migration import cache_shardings, migrate_cache
 from repro_torch.core.tp_switch import TPSwitchController
 from repro_torch.core.weight_store import WeightStore
 from repro_torch.device import resolve_device
 from repro_torch.models.model import forward, logits_for, model_param_defs
+from repro_torch.parallel.collectives import Pool, all_gather, check_replicated
 from repro_torch.parallel.sharding import make_exec_config
 from repro_torch.serving.kv_cache import SlotCache
 from repro_torch.serving.request import Request, RequestState
@@ -70,23 +86,44 @@ class ServingEngine:
         canonical_params: dict,
         econf: EngineConfig = EngineConfig(),
         device: Optional[Union[str, torch.device]] = None,
+        pool: Optional[Pool] = None,
     ):
         self.cfg = cfg
         self.econf = econf
-        self.device = resolve_device(device)
-        self.tps = list(econf.candidate_tps)
+        self.pool = pool
+        self.device = resolve_device(device) if pool is None else pool.device
+        # the reference keeps the TP levels its pool of devices can run
+        self.tps = list(econf.candidate_tps) if pool is None else [t for t in econf.candidate_tps if pool.world % t == 0]
         if cfg.num_kv_heads < max(self.tps):
             raise ValueError("the engine keeps kv_exec constant across TP levels; use a config "
                              "with num_kv_heads >= the largest candidate TP")
         if cfg.moe is not None and cfg.moe.num_experts < max(self.tps):
             raise ValueError(f"{cfg.name}: {cfg.moe.num_experts} experts cannot shard over TP {max(self.tps)}")
-        self.ranks = [self.device] * max(self.tps)
+        if pool is None:
+            self.ranks = [self.device] * max(self.tps)
+        else:
+            if cfg.moe is not None or cfg.mamba is not None:
+                raise NotImplementedError(f"{cfg.name}: the engine across processes runs dense models only")
+            if econf.n_slots % pool.world:
+                raise ValueError(f"{econf.n_slots} slots do not split over {pool.world} data groups")
+            check_replicated(canonical_params, pool)
+            self.ranks = list(pool.devices)
         defs = model_param_defs(cfg, make_exec_config(cfg, 1))
-        self.store = WeightStore(cfg, defs, self.ranks, storage_tp=1)
+        self.store = WeightStore(cfg, defs, self.ranks, storage_tp=1, pool=pool)
         self.ctl = TPSwitchController(self.store, self.tps)
+        if pool is not None:
+            self.cache.capture_error_mode = "thread_local"
         self.ctl.install(canonical_params, self.tps[0])
         self.ec = make_exec_config(cfg, max(self.tps))  # cache layout fixed at max-TP kv_exec
-        self.slots = SlotCache.create(cfg, self.ec, econf.n_slots, econf.max_len, econf.dtype, self.device)
+        self.slots = SlotCache.create(cfg, self.ec, econf.n_slots, econf.max_len, econf.dtype, self.device,
+                                      level=None if pool is None else pool.level(self.tps[0]))
+        self.level_slots = {self.tps[0]: self.slots}  # across processes: each TP level's cache buffers
+        if pool is not None:
+            for tp in self.tps[1:]:
+                c = SlotCache.create(cfg, self.ec, econf.n_slots, econf.max_len, econf.dtype, self.device,
+                                     level=pool.level(tp))
+                c.lengths, c.free = self.slots.lengths, self.slots.free  # one host bookkeeping for all levels
+                self.level_slots[tp] = c
         self.slot_req: List[Optional[Request]] = [None] * econf.n_slots
         self.next_tokens = np.zeros(econf.n_slots, np.int64)
         self.stats = StepStats()
@@ -110,7 +147,7 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _prefill(self, params: dict, tokens: torch.Tensor, last: torch.Tensor, slot: torch.Tensor,
-                 drops: Optional[torch.Tensor] = None):
+                 drops: Optional[torch.Tensor] = None, slots: Optional[SlotCache] = None):
         """Prefill one prompt padded to its bucket and insert its K/V into a
         slot's first rows (L of them, or a windowed layer's rotating buffer
         when L > window), and each Mamba layer's final state and conv tail
@@ -119,34 +156,68 @@ class ServingEngine:
         position; slot (1,): index tensors, so that one captured graph
         serves every prompt length and slot of the bucket. ``drops`` gains
         the MoE assignments dropped of the prompt's tokens (not the
-        padding's). Returns the next token (1,) and the logits (1, vocab)."""
+        padding's). Returns the next token (1,) and the logits (1, vocab).
+
+        Across processes every data group runs the prompt; only the group
+        that owns the slot writes its rows (a masked write, the same graph
+        on every rank), and the token and logits are the owner's, gathered
+        over the data groups. ``slots``: the cache written (default: the
+        current one; across processes each TP level's graphs get their
+        level's)."""
+        slots = self.slots if slots is None else slots
         mask = None if drops is None else torch.arange(tokens.shape[1], device=tokens.device)[None] <= last[:, None]
         h, kv = forward(params, self.cfg, self.ec, tokens=tokens, mode="prefill", block_q=64, block_k=64,
                         pool=len(self.ranks), moe_drops=drops, moe_mask=mask)
         logits = logits_for(params, self.cfg, h.index_select(1, last))[:, 0, : self.cfg.vocab_size]
-        for layer, c in zip(self.slots.layers, kv):
+        lv = slots.level
+        if lv is not None:
+            lo, hi = slots.slot_range()
+            own = ((slot >= lo) & (slot < hi)).view(-1, 1, 1, 1)
+            row = (slot - lo).clamp(0, hi - lo - 1)
+        for layer, c in zip(slots.layers, kv):
             if "k" not in c:  # a Mamba layer: the slot's state and conv tail
                 for name, t in c.items():
                     layer[name][slot] = t.to(layer[name].dtype)
                 continue
             n = c["k"].shape[1]
             for name in ("k", "v"):
-                layer[name][slot, :n] = c[name][0].to(layer[name].dtype)
-        return logits.argmax(-1), logits
+                new = c[name][0].to(layer[name].dtype)
+                if lv is None:
+                    layer[name][slot, :n] = new
+                else:
+                    layer[name][row, :n] = torch.where(own, new, layer[name][row, :n])
+        nxt = logits.argmax(-1)
+        if lv is not None:
+            owner = slot // (hi - lo)
+            nxt = all_gather(nxt, lv.data).index_select(0, owner)
+            if self.econf.record_logits:
+                logits = all_gather(logits, lv.data).index_select(0, owner)
+        return nxt, logits
 
     def _decode(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor,
-                drops: Optional[torch.Tensor] = None):
+                drops: Optional[torch.Tensor] = None, slots: Optional[SlotCache] = None):
         """One decode step of every slot: tokens (n_slots, 1), positions
         (n_slots,); the block tables are fixed and seq_lens come from the
         positions on the device; Mamba layers update their slots' states in
         place. ``drops`` gains the MoE assignments
-        dropped, idle slots' included (the reference dispatches them too)."""
-        tables, lens = self.slots.page_tables(positions)
+        dropped, idle slots' included (the reference dispatches them too).
+        Across processes this rank steps its data group's slots and the
+        next tokens (and, recording, the logits) are gathered over the data
+        groups. ``slots`` as in ``_prefill``."""
+        slots = self.slots if slots is None else slots
+        lo, hi = slots.slot_range()
+        tokens, positions = tokens[lo:hi], positions[lo:hi]
+        tables, lens = slots.page_tables(positions)
         h, _ = forward(params, self.cfg, self.ec, tokens=tokens, positions=positions,
-                       cache=self.slots.layers, block_tables=tables, seq_lens=lens, mode="decode",
+                       cache=slots.layers, block_tables=tables, seq_lens=lens, mode="decode",
                        pool=len(self.ranks), moe_drops=drops)
         logits = logits_for(params, self.cfg, h)[:, 0, : self.cfg.vocab_size]
-        return logits.argmax(-1), logits
+        nxt = logits.argmax(-1)
+        if slots.level is not None:
+            nxt = all_gather(nxt, slots.level.data)
+            if self.econf.record_logits:
+                logits = all_gather(logits, slots.level.data)
+        return nxt, logits
 
     def warmup(self) -> float:
         """Make the executables: the decode step at every candidate TP level
@@ -162,9 +233,9 @@ class ServingEngine:
         t0 = time.perf_counter()
         n, dev = self.econf.n_slots, self.device
         for tp in self.tps:
-            params = self.ctl.bindings[tp]
-            decode = functools.partial(self._decode, params, drops=self._drops.get((tp, "decode")))
-            prefill = functools.partial(self._prefill, params, drops=self._drops.get((tp, "prefill")))
+            params, slots = self.ctl.bindings[tp], self.level_slots.get(tp, self.slots)
+            decode = functools.partial(self._decode, params, drops=self._drops.get((tp, "decode")), slots=slots)
+            prefill = functools.partial(self._prefill, params, drops=self._drops.get((tp, "prefill")), slots=slots)
             self.cache.put(tp, "decode", decode,
                            (torch.zeros((n, 1), dtype=torch.int64, device=dev),
                             torch.zeros((n,), dtype=torch.int64, device=dev)))
@@ -199,6 +270,8 @@ class ServingEngine:
         while graphs exist, since they read the cache at its addresses."""
         if tp == self.tp:
             return {"rebind_s": 0.0, "migrate_s": 0.0}
+        if self.pool is not None:
+            return self._switch_pool(tp)
 
         def migrate(_tp):
             moved, seconds = migrate_cache(self.slots.layers, self.device)
@@ -208,6 +281,27 @@ class ServingEngine:
             return moved, seconds
 
         self.slots.layers = self.ctl.switch(tp, migrate_fn=migrate)
+        st = self.ctl.stats
+        self.stats.switches += 1
+        self.stats.rebind_s += st.last_rebind_s
+        self.stats.migrate_s += st.last_migrate_s
+        return {"rebind_s": st.last_rebind_s, "migrate_s": st.last_migrate_s}
+
+    def _switch_pool(self, tp: int) -> dict:
+        """The switch across processes, on every rank together: the weights
+        rebound (each card's own views), the slot cache resharded from this
+        level's buffers into the new level's (one all-to-all over the pool;
+        a failure on any rank rolls every rank back)."""
+        defs = self.slots.cache_defs()
+        src, dst = self.slots, self.level_slots[tp]
+
+        def migrate(_tp):
+            _, seconds = migrate_cache(src.layers, cache_shardings(defs, self.pool.world, tp),
+                                       source=cache_shardings(defs, self.pool.world, self.tp), pool=self.pool,
+                                       into=dst.layers)
+            return dst, seconds
+
+        self.slots = self.ctl.switch(tp, migrate_fn=migrate)
         st = self.ctl.stats
         self.stats.switches += 1
         self.stats.rebind_s += st.last_rebind_s

@@ -30,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_cache_defs
+from repro_torch.parallel.collectives import Level
 from repro_torch.parallel.sharding import ExecConfig
 
 PAGE_SIZE = 16  # tokens per page of the paged view, at most
@@ -51,13 +52,19 @@ class SlotCache:
     lengths: np.ndarray  # host-side per-slot lengths
     free: Deque[int]
     tables: Dict[int, torch.Tensor]  # Sc -> (n_slots, Sc / page_for(Sc)) int32 identity block table
+    level: Optional[Level] = None  # across processes: the TP level whose share ``layers`` holds
 
     @classmethod
-    def create(cls, cfg, ec, n_slots: int, max_len: int, dtype: torch.dtype, device) -> "SlotCache":
-        layers = [
-            {k: torch.zeros(d.shape, dtype=dtype, device=device) for k, d in layer.items()}
-            for layer in init_cache_defs(cfg, ec, n_slots, max_len)
-        ]
+    def create(cls, cfg, ec, n_slots: int, max_len: int, dtype: torch.dtype, device,
+               level: Optional[Level] = None) -> "SlotCache":
+        """In one process ``layers`` holds every slot and KV head. Given a
+        ``level`` of a pool it holds this rank's share of them: its data
+        group's n_slots/dp slots and its model group's kv/t KV heads (the
+        reference's ``batch -> data``, ``act_kv -> model``). The host
+        bookkeeping (lengths, free slots) is the whole pool's, the same on
+        every rank."""
+        layers = alloc_layers(cfg, ec, n_slots, max_len, dtype, device, level)
+        n_loc = n_slots // (1 if level is None else level.dp)
         tables = {}
         for layer in layers:
             if "k" not in layer:  # a Mamba layer's state
@@ -65,13 +72,26 @@ class SlotCache:
             Sc = layer["k"].shape[1]
             if Sc not in tables:
                 n_pages = Sc // page_for(Sc)
-                tables[Sc] = torch.arange(n_slots * n_pages, dtype=torch.int32, device=device).view(n_slots, n_pages)
-        return cls(cfg, ec, n_slots, max_len, layers, np.zeros(n_slots, np.int64), deque(range(n_slots)), tables)
+                tables[Sc] = torch.arange(n_loc * n_pages, dtype=torch.int32, device=device).view(n_loc, n_pages)
+        return cls(cfg, ec, n_slots, max_len, layers, np.zeros(n_slots, np.int64), deque(range(n_slots)), tables,
+                   level)
+
+    def cache_defs(self) -> List[dict]:
+        """The whole cache's ParamDefs (every slot and KV head), whose
+        logical axes say how a level of a pool splits it."""
+        return init_cache_defs(self.cfg, self.ec, self.n_slots, self.max_len)
+
+    def slot_range(self) -> Tuple[int, int]:
+        """The slots ``layers`` holds: [lo, hi)."""
+        if self.level is None:
+            return 0, self.n_slots
+        n = self.n_slots // self.level.dp
+        return self.level.data_rank * n, (self.level.data_rank + 1) * n
 
     def page_tables(self, positions: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Per layer, its identity block table and seq_lens = min(position +
-        1, Sc) for a decode step that writes each slot at ``positions``
-        (None for a Mamba layer)."""
+        1, Sc) for a decode step that writes each slot ``layers`` holds at
+        ``positions`` (None for a Mamba layer)."""
         lens = {Sc: (positions + 1).clamp(max=Sc).to(torch.int32) for Sc in self.tables}
         sizes = [layer["k"].shape[1] if "k" in layer else None for layer in self.layers]
         return [self.tables.get(Sc) for Sc in sizes], [lens.get(Sc) for Sc in sizes]
@@ -82,6 +102,29 @@ class SlotCache:
     def release(self, slot: int) -> None:
         self.lengths[slot] = 0
         self.free.append(slot)
+
+
+def rank_shape(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...], level: Optional[Level]) -> Tuple[int, ...]:
+    """One rank's share of a cache leaf at ``level``: "batch" split over the
+    data groups, "act_kv" over the model groups, the rest whole."""
+    if level is None:
+        return tuple(shape)
+    ways = {"batch": level.dp, "act_kv": level.tp}
+    out = []
+    for n, ax in zip(shape, axes):
+        w = ways.get(ax, 1)
+        if n % w:
+            raise ValueError(f"cache axis {ax} of {n} does not split {w} ways")
+        out.append(n // w)
+    return tuple(out)
+
+
+def alloc_layers(cfg: ModelConfig, ec: ExecConfig, n_slots: int, max_len: int, dtype: torch.dtype, device,
+                 level: Optional[Level] = None) -> List[dict]:
+    """Zeroed cache tensors per layer: the whole cache, or one rank's share
+    at ``level``."""
+    return [{k: torch.zeros(rank_shape(d.shape, d.axes, level), dtype=dtype, device=device) for k, d in layer.items()}
+            for layer in init_cache_defs(cfg, ec, n_slots, max_len)]
 
 
 # ---------------------------------------------------------------------------

@@ -1273,3 +1273,78 @@ def test_op_cost_on_card_equals_meta(cuda):
         counts[dev.type] = (cost.dot_flops, cost.hbm_bytes, cost.ops)
     assert counts["cuda"] == counts["meta"]
     assert counts["meta"][0] == 3 * 2 * 32 * 64 * 64 + 2 * 4 * 8 * 8 * 64
+
+
+# ---------------------------------------------------------------------------
+# across cards: one process per card, joined by NCCL
+# ---------------------------------------------------------------------------
+def _cards(n):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+
+
+def _pool(world, names):
+    from repro_torch.testing.multidev_checks import spawn
+
+    return [{n: r[n]["summary"] for n in names} for r in spawn(world, "cuda", names)]
+
+
+def test_nccl_collectives_match_one_process_sums(cuda):
+    """all-reduce, all-gather, all-to-all and the uneven exchange over every
+    TP level's groups, against one process's sums and joins of the ranks'
+    tensors (check_collectives)."""
+    _cards(2)
+    world = min(torch.cuda.device_count(), 4)
+    ranks = _pool(world, ["collectives"])
+    assert all(r["collectives"]["backend"] == "nccl" for r in ranks)
+    assert sorted(ranks[0]["collectives"]["levels"]) == [str(t) for t in (1, 2, 4) if world % t == 0]
+
+
+def test_migrate_pages_between_cards_matches_plain(cuda):
+    """migrate_pages from a pool on cuda:0 into one on cuda:1 in one process
+    (the transfer a copy between the cards), then between two ranks of a
+    pool (gather and send on card 0, receive and scatter on card 1): the
+    pages equal kv_gather / kv_scatter's plain versions bit for bit."""
+    _cards(2)
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    src = PagedPool(num_pages=64, page_size=16, kv_heads=8, head_dim=128, n_layers=3, dtype=torch.bfloat16, device=a)
+    dst = PagedPool(num_pages=64, page_size=16, kv_heads=8, head_dim=128, n_layers=3, dtype=torch.bfloat16, device=b)
+    g = torch.Generator(device=a).manual_seed(0)
+    src.k_pages.normal_(generator=g)
+    src.v_pages.normal_(generator=g)
+    for s in range(4):
+        src.alloc_seq(s, 16)
+    for _ in range(5):
+        for s in range(4):
+            src.extend_seq(s, 16)
+    dst.alloc_seq(9, 40)
+    seqs = [0, 1, 2, 3]
+    g0, s0 = kv_gather.launches, kv_scatter.launches
+    tables, _ = migrate_pages(src, dst, seqs)
+    assert (kv_gather.launches - g0, kv_scatter.launches - s0) == (2, 2)
+    for k in ("k", "v"):
+        plain = kv_scatter_ref(torch.zeros_like(dst.page_rows(k).cpu()),
+                               kv_gather_ref(src.page_rows(k).cpu(), src.row_ids(src.migration_page_ids(seqs))),
+                               dst.row_ids(dst.migration_page_ids(seqs)))
+        rows = dst.row_ids(dst.migration_page_ids(seqs))
+        assert torch.equal(dst.page_rows(k).cpu()[rows], plain[rows])
+    ranks = _pool(2, ["migration"])
+    assert ranks[1]["migration"]["pages"]["bit_identical"]
+
+
+def test_engine_across_four_cards_equals_one_card(cuda):
+    """check_engine at world 4 (TP 1/2/4, the reference's switch schedule)
+    and at world 1: the same tokens, equal to the one-process engine's."""
+    from repro_torch.testing.multidev_checks import SCHEDULE, engine_requests, serve_cfg, spawn
+
+    _cards(4)
+    four = spawn(4, "cuda", ["engine"])
+    one = spawn(1, "cuda", ["engine"])
+    cfg = serve_cfg()
+    params = init_params(model_param_defs(cfg, make_exec_config(cfg, 1)), torch.Generator(cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96,
+                                                  prefill_buckets=(16, 32)), device=cuda)
+    base = {r.req_id: list(r.generated) for r in eng.run(engine_requests(Request), switch_schedule=SCHEDULE)}
+    assert four[0]["engine"]["summary"]["switches"] == 4
+    for r in four + one:
+        assert r["engine"]["arrays"]["trajectories"] == base
