@@ -183,8 +183,12 @@ Phases; any failure raises and the script exits non-zero:
      captured in the graphs) at fixed TP 1, then, with more than one card,
      under phase 4's schedule over the TP levels the pool divides: the
      tokens must equal phase 4's one-process engine's, every launch a graph
-     replay, no storage data_ptr moved. The four-card legs are
-     ``python -m repro_torch.testing.multicard`` and
+     replay, no storage data_ptr moved; then, in the same processes,
+     moonshot-v1-16b-a3b (4 layers) and jamba-v0.1-52b (8 layers, weights
+     at each layer's own fan-in) in f32 at capacity factor 8.0, phases 8
+     and 9's 14 requests at fixed TP 1: the tokens must equal those phases'
+     one-process engine's (MoE drops printed), with the same checks. The
+     four-card legs are ``python -m repro_torch.testing.multicard`` and
      ``python -m repro_torch.testing.multidev_checks all 4 cuda``.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
@@ -1495,11 +1499,10 @@ def make_requests(cfg, n=10, new_tokens=24):
             for i in range(len(counts))]
 
 
-# an MoE model's f32 runs: 14 requests, of which the first 8 fill the slots and two each end after 5, 9 and
-# 15 tokens, so that under F32_SCHEDULE requests 8-13 are prefilled two each at TP 2, 4 and 8 (steps 4, 8
-# and 14): the reference's prefill path and capacity change with the TP level
+# an MoE model's f32 runs take multicard.MOE_NEW_TOKENS' 14 requests: under F32_SCHEDULE requests 8-13 are
+# prefilled two each at TP 2, 4 and 8 (steps 4, 8 and 14), where the reference's prefill path and capacity
+# change with the TP level
 F32_SCHEDULE = {3: 2, 7: 4, 13: 8, 19: 1}
-MOE_NEW_TOKENS = (5, 5, 9, 9, 15, 15) + (24,) * 8
 
 
 def storage_ptrs(eng):
@@ -1683,35 +1686,6 @@ def engine_conf(torch, cfg, dtype):
     return EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128), dtype=dtype)
 
 
-# the models whose weights take each layer's own fan-in (below)
-PER_LAYER_FAN_IN = ("jamba-v0.1-52b",)
-
-
-def weight_defs(cfg, own_fan_in=None):
-    """The parameter defs an engine's weights are drawn from. The
-    reference's rule (``init_params``) fills an unset scale with
-    1/sqrt(shape[0]), which for a leaf stacked over the pattern's periods is
-    the number of periods: jamba at one or two periods (8 or 16 layers)
-    then draws every projection at std 1 or 0.71, and its f32 activations
-    overflow. For the models in PER_LAYER_FAN_IN (or with ``own_fan_in``,
-    as phase 12 trains) each stacked leaf takes the rule applied to its
-    layer's own shape (shape[1:]): 1/sqrt(fan-in) of the layer's weight."""
-    from repro_torch.models import model_param_defs
-    from repro_torch.models.params import ParamDef, tree_map
-    from repro_torch.parallel.sharding import make_exec_config
-
-    defs = model_param_defs(cfg, make_exec_config(cfg, 1))
-    if not (cfg.name in PER_LAYER_FAN_IN if own_fan_in is None else own_fan_in):
-        return defs
-
-    def own(d):
-        layer = d.shape[1:]
-        fan_in = layer[0] if len(layer) > 1 else layer[-1]
-        return d if d.scale is not None else ParamDef(d.shape, d.axes, d.init, fan_in ** -0.5)
-
-    return {k: tree_map(own, v) if k == "periods" else v for k, v in defs.items()}
-
-
 def engine_f32_profiled(torch, dev, cfg, log):
     """An f32 engine warmed up, then f32_step_profile (for --timings-of)."""
     from repro_torch.models import init_params, model_param_defs
@@ -1745,6 +1719,7 @@ def engine_f32(torch, dev, cfg, log, must_match=True, extras=True):
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models import init_params
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.testing.multicard import MOE_NEW_TOKENS, weight_defs
 
     econf = engine_conf(torch, cfg, torch.float32)
     what = f"engine {cfg.name} f32 ({cfg.num_layers} layers)"
@@ -1855,6 +1830,7 @@ def engine_bf16_timed(torch, dev, cfg, log):
     from repro_torch.models import init_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
+    from repro_torch.testing.multicard import weight_defs
 
     econf = engine_conf(torch, cfg, torch.bfloat16)
     params = init_params(weight_defs(cfg), torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
@@ -2566,6 +2542,7 @@ def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
     from repro_torch.profiles.slo import derive_tiers
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
+    from repro_torch.testing.multicard import weight_defs
 
     t0 = time.perf_counter()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -2892,6 +2869,7 @@ def train_params(torch, dev, cfg):
     """f32 weights from seed 0, each layer's leaves at its own fan-in, and the
     bytes they take."""
     from repro_torch.models import init_params
+    from repro_torch.testing.multicard import weight_defs
 
     params = init_params(weight_defs(cfg, own_fan_in=True), torch.Generator(device=dev).manual_seed(0))
     return params
@@ -2917,6 +2895,7 @@ def grad_check(torch, dev, cfg, log, batch=4, seq=256):
     from repro_torch.models.model import loss_fn
     from repro_torch.models.params import tree_leaves_with_path
     from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.testing.multicard import weight_defs
     from repro_torch.training.data import synthetic_batch
     from repro_torch.training.train_step import batch_to
 
@@ -3081,6 +3060,7 @@ def train_full(torch, dev, cfg, log, steps=20, batch=8, seq=512):
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models.params import count_params
     from repro_torch.parallel.sharding import make_exec_config
+    from repro_torch.testing.multicard import weight_defs
     from repro_torch.training.data import SyntheticDataset
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import TrainStepConfig, init_opt_state, make_train_step
@@ -3342,39 +3322,53 @@ def start_host_work(pool):
 # ---------------------------------------------------------------------------
 # phase 15: the engine across processes
 # ---------------------------------------------------------------------------
-def pool_phase(torch, cfg, phase4, card, log):
+def pool_phase(torch, cfg, phase4, families, card, log):
     """Phase 4's f32 engine through the process-group path, one process per
-    card (on one card, world 1): tokens equal to phase 4's. Returns the
-    ranks' launches ({path: {kernel: n}}, rank 0's) and the record."""
+    card (on one card, world 1): tokens equal to phase 4's; then moonshot
+    (4 layers) and jamba (8 layers) in f32 at capacity factor 8.0 at fixed
+    TP 1, tokens equal to phases 8 and 9's one-process engine's
+    (``families``: {name: (config, that run's record)}). One spawn serves
+    every run. Returns the ranks' launches ({path: {kernel: n}}, rank 0's)
+    and the record."""
+    from repro_torch.testing.multicard import MOE_NEW_TOKENS
     from repro_torch.testing.multidev_checks import spawn
 
     world = torch.cuda.device_count()
     prompts = [r.prompt for r in make_requests(cfg)]
-    runs = {"fixed TP 1": {"tps": (1,)}}
+    runs = {"fixed TP 1": {"layers": cfg.num_layers, "prompts": prompts, "tps": (1,)}}
     if world > 1:
-        runs["schedule"] = {"tps": (1, 2, 4, 8), "schedule": F32_SCHEDULE}
-    rec, paths = {"world": world, "backend": "nccl"}, {}
-    for name, extra in runs.items():
-        t0 = time.perf_counter()
-        ranks = spawn(world, "cuda", task="repro_torch.testing.multicard:serve_f32",
-                      inputs={"layers": cfg.num_layers, "prompts": prompts, **extra}, timeout=900)
-        res = [r["repro_torch.testing.multicard:serve_f32"] for r in ranks]
-        wall = time.perf_counter() - t0
-        want = {int(k): v for k, v in phase4["trajectories"].items()}
-        check(all(r["trajectories"] == want for r in res),
-              f"phase 15 {name}: every rank's tokens equal phase 4's one-process engine's")
-        check(all(r["backend"] == "nccl" and r["world"] == world for r in res), f"phase 15 {name}: NCCL, world {world}")
+        runs["schedule"] = {"layers": cfg.num_layers, "prompts": prompts, "tps": (1, 2, 4, 8), "schedule": F32_SCHEDULE}
+    want = {name: {int(k): v for k, v in phase4["trajectories"].items()} for name in runs}
+    for name, (fcfg, frec) in families.items():
+        reqs = make_requests(fcfg, new_tokens=MOE_NEW_TOKENS)
+        runs[f"{name} fixed TP 1"] = {"model": name, "layers": fcfg.num_layers, "capacity_factor": 8.0,
+                                      "prompts": [r.prompt for r in reqs],
+                                      "new_tokens": [r.max_new_tokens for r in reqs], "tps": (1,)}
+        want[f"{name} fixed TP 1"] = {int(k): v for k, v in frec["trajectories"].items()}
+    t0 = time.perf_counter()
+    ranks = spawn(world, "cuda", task="repro_torch.testing.multicard:serve_runs", inputs={"runs": runs}, timeout=900)
+    wall = time.perf_counter() - t0
+    rec, paths = {"world": world, "backend": "nccl", "wall_s": wall}, {}
+    for name in runs:
+        res = [r["repro_torch.testing.multicard:serve_runs"][name] for r in ranks]
+        model, run = res[0]["model"], name.removeprefix(res[0]["model"] + " ")
+        what = f"phase 15 {model} f32 ({res[0]['layers']} layers) {run}"
+        check(all(r["trajectories"] == want[name] for r in res),
+              f"{what}: every rank's tokens equal the one-process engine's (phase {4 if name in ('fixed TP 1', 'schedule') else '8/9'})")
+        check(all(r["backend"] == "nccl" and r["world"] == world for r in res), f"{what}: NCCL, world {world}")
         check(all(r["launches"] == r["replayed"] and r["launches"].get("tp_shard_matmul", 0) > 0
                   and r["launches"].get("paged_decode_attention", 0) > 0 for r in res),
-              f"phase 15 {name}: both kernels launched, every launch by a graph replay: {[r['launches'] for r in res]}")
-        check(all(r["ptrs_unchanged"] for r in res), f"phase 15 {name}: no storage data_ptr moved on any card")
-        keep = ("tps", "schedule", "switches", "steps", "warmup_s", "run_s", "launches", "graphs")
-        rec[name] = {"wall_s": wall, **{k: res[0][k] for k in keep}}
-        paths[f"{cfg.name} f32 across processes ({name}, world {world})"] = res[0]["launches"]
-        log(f"[{card}] phase 15 {name}: {world} process(es) on {world} card(s), NCCL, TP levels {res[0]['tps']}, "
-            f"{res[0]['switches']} switches, {res[0]['steps']} steps; tokens of all 10 requests equal phase 4's "
-            f"one-process engine's on every rank; launches (rank 0, all by graph replays) {res[0]['launches']}; "
-            f"warmup {res[0]['warmup_s']:.1f} s, run {res[0]['run_s']:.2f} s, {wall:.1f} s with the spawn")
+              f"{what}: both kernels launched, every launch by a graph replay: {[r['launches'] for r in res]}")
+        check(all(r["ptrs_unchanged"] for r in res), f"{what}: no storage data_ptr moved on any card")
+        keep = ("model", "layers", "tps", "schedule", "switches", "steps", "warmup_s", "run_s", "launches", "graphs",
+                "moe_dropped")
+        rec[name] = {k: res[0][k] for k in keep}
+        paths[f"{model} f32 across processes ({run}, world {world})"] = res[0]["launches"]
+        log(f"[{card}] {what}: {world} process(es) on {world} card(s), NCCL, TP levels {res[0]['tps']}, "
+            f"{res[0]['switches']} switches, {res[0]['steps']} steps; tokens of all {len(want[name])} requests equal "
+            f"the one-process engine's on every rank; launches (rank 0, all by graph replays) {res[0]['launches']}; "
+            f"MoE drops {res[0]['moe_dropped']}; warmup {res[0]['warmup_s']:.1f} s, run {res[0]['run_s']:.2f} s")
+    log(f"[{card}] phase 15: {len(runs)} runs in one spawn of {world} process(es), {wall:.1f} s with the spawn")
     return paths, rec
 
 
@@ -3809,7 +3803,12 @@ def main() -> int:
 
     # ---- phase 15: the engine across processes, one per card (counts in the ranks, after their warm-up) ----
     t0 = time.perf_counter()
-    got, record["pool"] = pool_phase(torch, cfg, record["engine_f32"], card, log)
+    families = {}
+    for name, rec_of, layers in (("moonshot-v1-16b-a3b", "moe", F32_CHECK_LAYERS["moonshot-v1-16b-a3b"]),
+                                 ("jamba-v0.1-52b", "jamba", JAMBA_F32_LAYERS)):
+        fcfg = with_capacity(cut(get_config(name), layers), 8.0)
+        families[name] = (fcfg, record[rec_of][f"{name} f32 cf 8.0 ({fcfg.num_layers} layers)"])
+    got, record["pool"] = pool_phase(torch, cfg, record["engine_f32"], families, card, log)
     add_paths(got)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))

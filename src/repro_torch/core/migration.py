@@ -8,8 +8,9 @@ Two paths:
     device it runs on, so a switch moves no cache byte: ``Tensor.to`` of a
     tensor already on the target device returns that tensor. Across
     processes each rank holds one block of the cache, (its data group's
-    slots) x (its model group's KV heads) (``cache_shardings``, the
-    reference's ``batch -> data``, ``act_kv -> model``), so a switch
+    slots) x (its model group's KV heads, or a Mamba state's channels)
+    (``cache_shardings``, the reference's ``batch -> data``, ``act_kv ->
+    model``, ``inner -> model``), so a switch
     reshards: each rank sends every other rank the part of its block that
     the new layout gives that rank and receives its own, in one
     ``all_to_all_single`` over the pool (NCCL between the cards), into the
@@ -50,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter
 from repro_torch.models.params import ParamDef
 from repro_torch.parallel.collectives import Pool, agree, coords, exchange
+from repro_torch.parallel.sharding import pool_axis
 from repro_torch.profiles.perf_model import V5E, HardwareSpec, PerfModel
 from repro_torch.serving.kv_cache import PagedPool
 
@@ -72,7 +74,8 @@ def _map(f, tree):
 class CacheShardings:
     """Where each block of the slot cache lives at TP ``tp`` of a pool of
     ``world`` ranks: rank d holds, of every leaf, the slots of its data
-    coordinate d % (N/t) and the KV heads of its model coordinate
+    coordinate d % (N/t) and, of every axis the rules shard over "model"
+    (KV heads, a Mamba state's channels), the part of its model coordinate
     d // (N/t); every other axis whole."""
 
     defs: tuple  # per layer {name: ParamDef} of the whole cache
@@ -82,10 +85,10 @@ class CacheShardings:
     def block(self, rank: int, d: ParamDef) -> Tuple[Tuple[int, int], ...]:
         """(lo, hi) of every dim of leaf ``d`` that ``rank`` holds."""
         data, model = coords(rank, self.world, self.tp)
-        where = {"batch": (data, self.world // self.tp), "act_kv": (model, self.tp)}
+        where = {"data": (data, self.world // self.tp), "model": (model, self.tp), None: (0, 1)}
         out = []
         for n, ax in zip(d.shape, d.axes):
-            i, ways = where.get(ax, (0, 1))
+            i, ways = where[pool_axis(ax)]
             out.append((i * n // ways, (i + 1) * n // ways))
         return tuple(out)
 

@@ -22,7 +22,8 @@ None. ``rebind`` then binds, on every card, the one rank this process runs
 at TP t: model coordinate d // (N/t) of position d, reading its own storage
 at that coordinate's offset (the formula above with r = d // (N/t); its
 canonical shard floor(d*s/N) is the one the offset assumes). No weight byte
-moves on any card.
+moves on any card. ``shrink`` over a pool makes the survivors' pool and a
+store over it, into which each survivor builds its position again.
 """
 from __future__ import annotations
 
@@ -116,12 +117,15 @@ class WeightStore:
         return out
 
     # ---- pool shrink after a device or host loss ------------------------
-    def shrink(self, surviving_positions: Sequence[int]) -> "WeightStore":
+    def shrink(self, surviving_positions: Sequence[int]) -> Optional["WeightStore"]:
         """New store over the surviving pool positions (in pool order).
 
-        The caller reloads canonical params into it with ``build``.
+        The caller reloads canonical params into it with ``build`` (the
+        reload storm: each survivor lays its position out again).
         ``storage_tp`` is clamped to the largest value that still divides
-        the surviving pool size.
+        the surviving pool size. Across processes every process of the pool
+        calls this together: the survivors get a store over the shrunken
+        pool (``Pool.shrink``), a process that leaves gets None.
         """
         keep = sorted(set(surviving_positions))
         if not keep:
@@ -130,9 +134,12 @@ class WeightStore:
         s = min(self.s, len(devs))
         while len(devs) % s:
             s -= 1
+        pool = None
         if self.pool is not None:
-            raise NotImplementedError("shrinking a pool of processes is not ported: a lost card ends its process")
-        return WeightStore(self.cfg, self.canonical_defs, devs, storage_tp=s)
+            pool = self.pool.shrink(keep)
+            if pool is None:
+                return None
+        return WeightStore(self.cfg, self.canonical_defs, devs, storage_tp=s, pool=pool)
 
     # ---- execution-time shard selection ---------------------------------
     def select(self, tp: int) -> Dict[Path, List[Tuple[int, int, int]]]:

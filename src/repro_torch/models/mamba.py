@@ -5,7 +5,9 @@ algorithm, an intra-chunk attention-like term plus an inter-chunk state
 recurrence. Mamba-1 (selective scan, used by Jamba): a chunked scan.
 
 Tensor parallelism as in the reference: each rank of a TP group owns
-d_inner / t channels (H / t heads for v2). The column-parallel projections
+d_inner / t channels (H / t heads for v2); across processes (weights bound
+to a level of a pool) mamba1 runs on its rank's channels alone and its
+state cache holds only them. The column-parallel projections
 (``w_z``, ``w_x``, ``w_dt``, mamba1's ``dt_proj``) and the row-parallel ones
 (``w_out``, mamba1's ``w_dtr``, ``w_B``, ``w_C``, whose contraction runs over
 the sharded channels; the ranks' partials summed in rank order) run once per
@@ -291,11 +293,15 @@ def mamba1_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
                  cache: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
     """x (B,S,D) -> (out (B,S,D), cache). prefill: a new cache {"h":
     (B,C,N), "conv": (B,K-1,C)} in x's dtype; decode (S = 1): the given
-    cache, updated in place (states kept in its dtype)."""
+    cache, updated in place (states kept in its dtype). C is the channels
+    of the ranks this process holds: d_inner in one process; across
+    processes its rank's d_inner/t, which its column-parallel projections
+    give and its conv, scan and state keep, the row-parallel ones summed
+    over the model group."""
     m = cfg.mamba
     B, S, d = x.shape
-    d_in = cfg.d_inner
-    tp = p["w_out"].tp
+    here = len(p["w_out"].mats)  # the ranks this process holds: the TP group's, or across processes its own
+    d_in = cfg.d_inner * here // p["w_out"].tp  # their channels
     A = -torch.exp(p["A_log"].joined(0).float())  # (C,N)
     D, dt_bias = _vec(p["D"]).float(), _vec(p["dt_bias"]).float()
     conv = p["conv"].joined(1)  # (K, C)
@@ -316,7 +322,7 @@ def mamba1_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     else:
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
 
-    parts = _rank_parts(u.reshape(-1, d_in), tp)
+    parts = _rank_parts(u.reshape(-1, d_in), here)
     dtr = row_parallel(parts, p["w_dtr"])
     dt = F.softplus(_col(dtr, p["dt_proj"]).float() + dt_bias)  # (M, C)
     Bc = row_parallel(parts, p["w_B"]).float()  # (M, N)
@@ -340,7 +346,7 @@ def mamba1_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
         new_cache = {"h": h_final.to(x.dtype), "conv": conv_tail}
 
     y = (y.float() * F.silu(z.float())).to(x.dtype)
-    out = row_parallel(_rank_parts(y.reshape(B * S, d_in), tp), p["w_out"])
+    out = row_parallel(_rank_parts(y.reshape(B * S, d_in), here), p["w_out"])
     return out.view(B, S, d), new_cache
 
 

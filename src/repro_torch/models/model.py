@@ -128,6 +128,7 @@ def forward(
     pool: Optional[int] = None,
     moe_drops: Optional[torch.Tensor] = None,
     moe_mask: Optional[torch.Tensor] = None,
+    moe_replicated: bool = False,
 ) -> Tuple[torch.Tensor, Union[List[dict], Dict[str, torch.Tensor]]]:
     """Returns (hidden (B,S,D) after the final norm, per-layer caches), or
     in train mode (hidden, aux).
@@ -146,7 +147,9 @@ def forward(
     MoE layers run as the reference does at the bound weights' TP level in a
     pool of ``pool`` ranks (default: that TP level); ``moe_drops``, a (1,)
     int64 tensor, gains the assignments they drop of the tokens ``moe_mask``
-    (B,S) holds (every token without a mask).
+    (B,S) holds (every token without a mask). ``moe_replicated``: across
+    processes, the rows are one batch replicated over the data groups (the
+    engine's prefill of one prompt), not each data group's own.
     train: prefill's arithmetic, differentiable, with no cache; each layer
     is recomputed in backward (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint`` around its period body). ``aux`` holds the MoE
@@ -200,7 +203,8 @@ def forward(
         if t.ffn != "none":
             hn = rmsnorm(h, lp["norm2"], cfg.norm_eps)
             if t.ffn == "moe":
-                y, a = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=train, drops=moe_drops, mask=moe_mask)
+                y, a = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=train, drops=moe_drops, mask=moe_mask,
+                                 replicated=moe_replicated)
             else:
                 y = mlp_apply(lp["ffn"], hn)
             h = h + y

@@ -24,7 +24,14 @@ holds its data group's rows: the sharded path dispatches its own (B/dp) x
 real all-to-alls over the model group and gathers the blocks back along
 the sequence; the decode path runs its E/t experts on its group's rows and
 all-reduces the combined outputs over the model group; at TP 1 the data
-groups' rows are gathered, dispatched together and cut back.
+groups' rows are gathered, dispatched together and cut back. Rows that are
+one batch replicated over the data groups (``replicated``: the engine's
+prefill of one prompt, run by every data group) are the reference's batch
+itself, not dp batches: at TP 1 the local path at ``_capacity(B*S)``, at
+1 < t < N the decode path's one group (B % dp != 0), at t = N the sharded
+path. Drops are counted once per dispatch: a dispatch that several ranks
+run alike (a model group's, or every data group's) counts on one of them,
+so the pool's count is the sum over its ranks.
 
 Dispatch gathers each expert's rows (no scatter), and on every path the
 combine sums a token's K contributions from zero in ascending expert order,
@@ -260,17 +267,19 @@ def moe_apply_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *, with_aux: boo
 
 
 def moe_apply_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *, with_aux: bool = True,
-                      drops: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None):
+                      drops: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                      replicated: bool = False):
     """The reference's sharded train/prefill path at TP t over a pool of
     ``n_pool`` ranks; falls back to the decode path as the reference does.
-    Across processes ``x`` is this rank's data group's rows."""
+    Across processes ``x`` is this rank's data group's rows, or with
+    ``replicated`` the whole batch on every data group."""
     m = cfg.moe
     B, S, D = x.shape
     lv = p["w_gate"].level
     tp = p["w_gate"].tp
     dp = n_pool // tp
-    if lv is not None:
-        B, dp = B * lv.dp, lv.dp  # the whole batch, over the pool's data groups
+    if lv is not None:  # the whole batch, over the pool's data groups
+        B, dp = (B if replicated else B * lv.dp), lv.dp
     if S % tp != 0 or B % dp != 0:  # decode / tiny shapes: replicated dispatch per data group
         return _moe_apply_decode(p, x, cfg, n_pool, with_aux=with_aux, drops=drops, mask=mask)
     Bl, Sl = B // dp, S // tp
@@ -306,8 +315,10 @@ def _moe_apply_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *
     lv = p["w_gate"].level
     dp = n_pool // p["w_gate"].tp
     B_loc = B // dp if B % dp == 0 else B
-    if lv is not None:  # across processes x is already this data group's rows
+    if lv is not None:  # across processes x is already this data group's rows (or one replicated group)
         B_loc = B
+        if lv.model_rank:  # the model group's ranks dispatch the same rows: counted on its first
+            drops = None
     G = B // B_loc
     y, aux = _moe_groups(x.reshape(G, B_loc * S, D), p, m, _capacity(B_loc * S, m), with_aux=with_aux,
                          drops=drops, mask=mask, expert_fn=_experts_in_process if lv is None else _experts_own)
@@ -331,22 +342,32 @@ def _pool_mean(aux: dict, lv) -> dict:
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: Optional[int] = None, *, with_aux: bool = True,
-              drops: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+              drops: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+              replicated: bool = False) -> Tuple[torch.Tensor, dict]:
     """x (B, S, D) at the TP level of the bound weights ``p``, in a pool of
     ``n_pool`` ranks (default: the TP level, one data group). Across
     processes (the weights bound to a level of a pool) ``x`` is this rank's
-    data group's rows, the same on its model group, and so is the output."""
+    data group's rows, the same on its model group, and so is the output;
+    with ``replicated`` it is the whole batch, the same on every rank (the
+    engine's prefill of one prompt: a batch the reference does not split
+    over the data groups), and so is the output. In one process
+    ``replicated`` changes nothing: ``x`` is the whole batch."""
     tp = p["w_gate"].tp
     lv = p["w_gate"].level
     n_pool = (tp if n_pool is None else n_pool) if lv is None else lv.tp * lv.dp
     if n_pool % tp:
         raise ValueError(f"TP {tp} does not divide the pool of {n_pool} ranks")
-    if tp == 1 and lv is not None and lv.dp > 1:  # the reference dispatches the whole batch at TP 1
+    if lv is not None and replicated and lv.dp > 1:
+        if tp > 1 and x.shape[0] % lv.dp == 0:
+            raise ValueError(f"replicated rows: a batch of {x.shape[0]} the reference splits over {lv.dp} data groups")
+        if lv.data_rank:  # every data group dispatches the same rows: counted on the first
+            drops = None
+    if tp == 1 and lv is not None and lv.dp > 1 and not replicated:  # the reference dispatches the whole batch
         B = x.shape[0]
         whole = all_gather(x, lv.data, 0)
-        y, aux = moe_apply_local(p, whole, cfg, with_aux=with_aux, drops=drops,
+        y, aux = moe_apply_local(p, whole, cfg, with_aux=with_aux, drops=drops if lv.data_rank == 0 else None,
                                  mask=None if mask is None else all_gather(mask, lv.data, 0))
         return y[lv.data_rank * B:(lv.data_rank + 1) * B], aux
     if tp == 1:
         return moe_apply_local(p, x, cfg, with_aux=with_aux, drops=drops, mask=mask)
-    return moe_apply_sharded(p, x, cfg, n_pool, with_aux=with_aux, drops=drops, mask=mask)
+    return moe_apply_sharded(p, x, cfg, n_pool, with_aux=with_aux, drops=drops, mask=mask, replicated=replicated)

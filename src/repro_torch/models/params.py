@@ -77,3 +77,18 @@ def init_params(defs, gen: torch.Generator, dtype: torch.dtype = torch.float32):
     """Random weights on ``gen.device``: N(0, 1/fan_in) with fan_in =
     shape[0] (the reference's rule, including for stacked leaves)."""
     return tree_map(lambda d: _materialize(d, gen, dtype), defs)
+
+
+def per_layer_fan_in(defs: dict) -> dict:
+    """``defs`` (a model's, with its stacked ``periods``) with each stacked
+    leaf's unset scale set to the init rule applied to its layer's own
+    shape (shape[1:]): 1/sqrt of the layer's fan-in. The reference's rule
+    takes a stacked leaf's shape[0], the number of periods, which draws
+    every projection of a model of one or two periods at std 1 or 0.71:
+    jamba's f32 activations then overflow at full width."""
+    def own(d: ParamDef) -> ParamDef:
+        layer = d.shape[1:]
+        fan_in = layer[0] if len(layer) > 1 else layer[-1]
+        return d if d.scale is not None else ParamDef(d.shape, d.axes, d.init, fan_in ** -0.5)
+
+    return {k: tree_map(own, v) if k == "periods" else v for k, v in defs.items()}

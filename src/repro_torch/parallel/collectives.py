@@ -9,7 +9,9 @@ process is one rank of a pool of N on its own device, joined by
 The pool's layout is the reference's ``make_exec_mesh``: at TP t, rank d has
 model coordinate d // (N/t) and data coordinate d % (N/t); its model group
 is the t ranks of its data coordinate, its data group the N/t ranks of its
-model coordinate, each in coordinate order.
+model coordinate, each in coordinate order. After a loss the survivors form
+a smaller pool of their own (``Pool.shrink``: new groups over the
+surviving processes).
 
 Both ways go through the functions below (``reduce_ranks``,
 ``gather_ranks``, ``all_to_all``, ...). Given ``level=None`` they leave the
@@ -98,36 +100,53 @@ def data_ranks(world: int, tp: int, model: int) -> Tuple[int, ...]:
 class Pool:
     """This process's rank in a pool of ``world`` processes, one device each,
     with the model and data groups of every candidate TP level (made once,
-    by every process in one order, as ``new_group`` requires)."""
+    by every process in one order, as ``new_group`` requires).
 
-    def __init__(self, world: int, rank: int, device: torch.device, backend: str, tps: Sequence[int]):
-        import torch.distributed as dist
+    ``members``: the processes (global ranks) at the pool's positions, in
+    order; default every process of the job, position j being rank j. A
+    ``Group``'s ranks are pool positions. Process r runs on card r."""
 
+    def __init__(self, world: int, rank: int, device: torch.device, backend: str, tps: Sequence[int],
+                 members: Optional[Sequence[int]] = None):
         self.world, self.rank, self.device, self.backend = world, rank, torch.device(device), backend
+        self.members = tuple(range(world)) if members is None else tuple(members)
         self.tps = tuple(t for t in tps if world % t == 0)
-        made: Dict[Tuple[int, ...], object] = {tuple(range(world)): dist.group.WORLD}
-
-        def group(ranks: Tuple[int, ...]):
-            if ranks not in made:
-                made[ranks] = dist.new_group(list(ranks), backend=backend)
-            return made[ranks]
-
+        handles = _make_groups(self.members, self.tps, backend)
         self.levels: Dict[int, Level] = {}
         for t in sorted(set(self.tps) | {1, world}):
             data, model = coords(rank, world, t)
-            handles = {}
-            for i in range(world // t):  # every process makes every group, in one order
-                handles[("model", i)] = group(model_ranks(world, t, i))
-            for m in range(t):
-                handles[("data", m)] = group(data_ranks(world, t, m))
             mr, dr = model_ranks(world, t, data), data_ranks(world, t, model)
-            self.levels[t] = Level(t, world // t, model, data,
-                                   Group(mr, mr.index(rank), handles[("model", data)], backend),
-                                   Group(dr, dr.index(rank), handles[("data", model)], backend))
+            self.levels[t] = Level(t, world // t, model, data, Group(mr, mr.index(rank), handles[mr], backend),
+                                   Group(dr, dr.index(rank), handles[dr], backend))
         self.world_group = self.levels[world].model  # at TP N the model group is the pool
-        # pool position j's device: card j, or the CPU for every position under gloo
-        self.devices = [torch.device("cuda", j) if self.device.type == "cuda" else self.device for j in range(world)]
+        # pool position j's device: its process's card, or the CPU for every position under gloo
+        self.devices = [torch.device("cuda", r) if self.device.type == "cuda" else self.device for r in self.members]
         self._warm()
+
+    def shrink(self, survivors: Sequence[int]) -> Optional["Pool"]:
+        """The pool of the ``survivors`` (positions of this pool) after the
+        others are lost, with the model and data groups of every TP level
+        they can run (the candidate levels that divide their number, and 1
+        and that number), warmed as at start-up. Every process of this pool
+        calls it together, as ``new_group`` requires (the lost positions'
+        processes are left out of every group; a process that really died
+        cannot be simulated under NCCL without hanging the others). Returns
+        None on a process that leaves: it gets no pool, and waits at the
+        end (e.g. in this pool's ``barrier``) for the survivors to finish.
+        Only a pool of every process of the job shrinks."""
+        import torch.distributed as dist
+
+        keep = sorted(set(survivors))
+        if not keep or not all(0 <= j < self.world for j in keep):
+            raise ValueError(f"survivors {list(survivors)} of a pool of {self.world}")
+        if self.world != dist.get_world_size():
+            raise ValueError("only a pool of every process of the job shrinks")
+        members = tuple(self.members[j] for j in keep)
+        tps = tuple(t for t in self.tps if len(keep) % t == 0)
+        if self.rank not in keep:
+            _make_groups(members, tps, self.backend)  # the leaver's part of every new_group call
+            return None
+        return Pool(len(keep), keep.index(self.rank), self.device, self.backend, tps, members)
 
     def level(self, tp: int) -> Level:
         return self.levels[tp]
@@ -152,6 +171,24 @@ class Pool:
 
         dist.barrier(group=self.world_group.handle,
                      **({"device_ids": [self.device.index]} if self.device.type == "cuda" else {}))
+
+
+def _make_groups(members: Tuple[int, ...], tps: Sequence[int], backend: str) -> Dict[Tuple[int, ...], object]:
+    """The process group of every model and data group (as tuples of pool
+    positions) of every TP level a pool of ``members`` runs. Every process
+    of the job calls this with the same arguments, making the groups in one
+    order; a process outside a group gets a handle it does not use."""
+    import torch.distributed as dist
+
+    world = len(members)
+    handles: Dict[Tuple[int, ...], object] = {}
+    if world == dist.get_world_size():  # the whole job: its default group
+        handles[tuple(range(world))] = dist.group.WORLD
+    for t in sorted(set(tps) | {1, world}):
+        for ranks in [model_ranks(world, t, i) for i in range(world // t)] + [data_ranks(world, t, m) for m in range(t)]:
+            if ranks not in handles:
+                handles[ranks] = dist.new_group([members[j] for j in ranks], backend=backend)
+    return handles
 
 
 def init_pool(world: int, rank: int, device: Union[str, torch.device] = "cuda",
@@ -297,10 +334,24 @@ def _leaves(tree) -> List[torch.Tensor]:
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
+_CHUNK = 1 << 26  # elements summed at once: the int64 temporary of a chunk is 512 MiB
+
+
+def _bit_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum (int64, wrapping) of ``t``'s elements' bit patterns, a chunk
+    at a time: the int64 temporary of a whole leaf (a model's stacked
+    experts) would not fit beside it."""
+    flat = t.detach().contiguous().view(_BITS[t.element_size()]).view(-1)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for chunk in flat.split(_CHUNK):
+        total += chunk.sum(dtype=torch.int64)
+    return total
+
+
 def checksums(tree) -> torch.Tensor:
     """One int64 checksum per tensor of ``tree`` (keys in sorted order): the
     sum of its elements' bit patterns, so equal tensors give equal sums."""
-    sums = [t.detach().contiguous().view(_BITS[t.element_size()]).sum(dtype=torch.int64) for t in _leaves(tree)]
+    sums = [_bit_sum(t) for t in _leaves(tree)]
     return torch.stack(sums) if sums else torch.zeros(0, dtype=torch.int64)
 
 

@@ -86,6 +86,16 @@ DEFAULT_RULES = ShardingRules(
 MODEL_AXES = frozenset(ax for ax, m in DEFAULT_RULES.table.items() if m == "model")
 
 
+def pool_axis(logical: Optional[str]) -> Optional[str]:
+    """The axis of a pool (``collectives.Level``) that splits a cache axis:
+    "data" for the batch (the slot cache's ``batch -> data``), "model" for
+    an axis in MODEL_AXES (attention's KV heads, a Mamba state's channels),
+    else None (whole on every rank)."""
+    if logical == "batch":
+        return "data"
+    return "model" if logical in MODEL_AXES else None
+
+
 def _axes_in_mesh(mesh: Mapping[str, int], axes: MeshAxes) -> MeshAxes:
     """Drop mesh axes the mesh doesn't have (e.g. 'pod' single-pod)."""
     if axes is None:

@@ -27,8 +27,12 @@ decodes its own slots; the next tokens are gathered over the data groups,
 so every rank's request state stays identical. Prefill runs the prompt on
 every data group, as the reference's prefill of one sequence does; the
 group that owns the slot inserts its K/V, and its token is the one every
-rank takes. The pool runs dense models (full and windowed attention);
-MoE and Mamba layers are refused there.
+rank takes. An MoE layer is told that the prompt's rows are one sequence
+replicated over the data groups, so each (TP level, stage) takes the
+reference's path and capacity (``models.moe``); a Mamba layer holds its
+model group's d_inner/t channels of the slot's state and conv tail, which
+the owner's masked write inserts as it does K/V. ``moe_dropped`` adds the
+ranks' counts, each dispatch counted once.
 
 As the reference compiles one executable per TP level for decode and one
 per (TP level, bucket) for prefill and warms them all up front, ``warmup``
@@ -36,12 +40,15 @@ captures one CUDA graph per (TP level, stage, bucket) into the
 controller's ``ExecutableCache``; ``step`` and ``admit`` only copy their
 inputs in and replay (on a CUDA device there is no eager path). The step
 functions ``_decode`` and ``_prefill`` are what is captured; on the CPU the
-cache calls them directly.
+cache calls them directly. The executables hold the engine weakly, so an
+engine and its graphs go when the last reference to the engine goes, with
+no garbage collection (a graph that captured NCCL collectives must be gone
+before the pool's communicators are).
 """
 from __future__ import annotations
 
-import functools
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -54,7 +61,7 @@ from repro_torch.core.tp_switch import TPSwitchController
 from repro_torch.core.weight_store import WeightStore
 from repro_torch.device import resolve_device
 from repro_torch.models.model import forward, logits_for, model_param_defs
-from repro_torch.parallel.collectives import Pool, all_gather, check_replicated
+from repro_torch.parallel.collectives import Pool, all_gather, all_reduce, check_replicated
 from repro_torch.parallel.sharding import make_exec_config
 from repro_torch.serving.kv_cache import SlotCache
 from repro_torch.serving.request import Request, RequestState
@@ -77,6 +84,19 @@ class StepStats:
     rebind_s: float = 0.0
     migrate_s: float = 0.0
     warmup_s: float = 0.0
+
+
+def _weak(method, *args, **kw):
+    """``functools.partial(method, *args, **kw)`` holding the method's
+    object weakly: the executables it goes into belong to that object, and
+    a strong reference back would keep the engine and its CUDA graphs alive
+    in a reference cycle until a garbage collection."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*a):
+        return ref()(*args, *a, **kw)
+
+    return call
 
 
 class ServingEngine:
@@ -102,8 +122,6 @@ class ServingEngine:
         if pool is None:
             self.ranks = [self.device] * max(self.tps)
         else:
-            if cfg.moe is not None or cfg.mamba is not None:
-                raise NotImplementedError(f"{cfg.name}: the engine across processes runs dense models only")
             if econf.n_slots % pool.world:
                 raise ValueError(f"{econf.n_slots} slots do not split over {pool.world} data groups")
             check_replicated(canonical_params, pool)
@@ -167,17 +185,21 @@ class ServingEngine:
         slots = self.slots if slots is None else slots
         mask = None if drops is None else torch.arange(tokens.shape[1], device=tokens.device)[None] <= last[:, None]
         h, kv = forward(params, self.cfg, self.ec, tokens=tokens, mode="prefill", block_q=64, block_k=64,
-                        pool=len(self.ranks), moe_drops=drops, moe_mask=mask)
+                        pool=len(self.ranks), moe_drops=drops, moe_mask=mask, moe_replicated=self.pool is not None)
         logits = logits_for(params, self.cfg, h.index_select(1, last))[:, 0, : self.cfg.vocab_size]
         lv = slots.level
         if lv is not None:
             lo, hi = slots.slot_range()
-            own = ((slot >= lo) & (slot < hi)).view(-1, 1, 1, 1)
+            own = (slot >= lo) & (slot < hi)
             row = (slot - lo).clamp(0, hi - lo - 1)
         for layer, c in zip(slots.layers, kv):
-            if "k" not in c:  # a Mamba layer: the slot's state and conv tail
+            if "k" not in c:  # a Mamba layer: the slot's state and conv tail (this rank's channels)
                 for name, t in c.items():
-                    layer[name][slot] = t.to(layer[name].dtype)
+                    new = t.to(layer[name].dtype)
+                    if lv is None:
+                        layer[name][slot] = new
+                    else:
+                        layer[name][row] = torch.where(own.view(-1, *[1] * (new.dim() - 1)), new, layer[name][row])
                 continue
             n = c["k"].shape[1]
             for name in ("k", "v"):
@@ -185,7 +207,7 @@ class ServingEngine:
                 if lv is None:
                     layer[name][slot, :n] = new
                 else:
-                    layer[name][row, :n] = torch.where(own, new, layer[name][row, :n])
+                    layer[name][row, :n] = torch.where(own.view(-1, 1, 1, 1), new, layer[name][row, :n])
         nxt = logits.argmax(-1)
         if lv is not None:
             owner = slot // (hi - lo)
@@ -234,8 +256,8 @@ class ServingEngine:
         n, dev = self.econf.n_slots, self.device
         for tp in self.tps:
             params, slots = self.ctl.bindings[tp], self.level_slots.get(tp, self.slots)
-            decode = functools.partial(self._decode, params, drops=self._drops.get((tp, "decode")), slots=slots)
-            prefill = functools.partial(self._prefill, params, drops=self._drops.get((tp, "prefill")), slots=slots)
+            decode = _weak(self._decode, params, drops=self._drops.get((tp, "decode")), slots=slots)
+            prefill = _weak(self._prefill, params, drops=self._drops.get((tp, "prefill")), slots=slots)
             self.cache.put(tp, "decode", decode,
                            (torch.zeros((n, 1), dtype=torch.int64, device=dev),
                             torch.zeros((n,), dtype=torch.int64, device=dev)))
@@ -254,8 +276,17 @@ class ServingEngine:
 
     def moe_dropped(self) -> Dict[tuple, int]:
         """MoE assignments dropped so far over capacity, per (TP level,
-        "prefill" | "decode"); empty for a dense model."""
-        return {key: int(n.item()) for key, n in self._drops.items()}
+        "prefill" | "decode"); empty for a dense model. Across processes the
+        pool's count, which every rank calls for together: each dispatch is
+        counted on one rank (``models.moe``), and the ranks' counts are
+        added over the pool."""
+        keys = list(self._drops)
+        if not keys:
+            return {}
+        counts = torch.cat([self._drops[k] for k in keys])
+        if self.pool is not None:
+            counts = all_reduce(counts, self.pool.world_group)
+        return {k: int(n) for k, n in zip(keys, counts.tolist())}
 
     def _executable(self, key):
         if not self.cache.has(self.tp, key):

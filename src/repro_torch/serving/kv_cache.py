@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_cache_defs
 from repro_torch.parallel.collectives import Level
-from repro_torch.parallel.sharding import ExecConfig
+from repro_torch.parallel.sharding import ExecConfig, pool_axis
 
 PAGE_SIZE = 16  # tokens per page of the paged view, at most
 
@@ -59,8 +59,10 @@ class SlotCache:
                level: Optional[Level] = None) -> "SlotCache":
         """In one process ``layers`` holds every slot and KV head. Given a
         ``level`` of a pool it holds this rank's share of them: its data
-        group's n_slots/dp slots and its model group's kv/t KV heads (the
-        reference's ``batch -> data``, ``act_kv -> model``). The host
+        group's n_slots/dp slots and its model group's kv/t KV heads, and of
+        a Mamba-1 layer's state and conv tail its d_inner/t channels (the
+        reference's ``batch -> data``, ``act_kv -> model``, ``inner ->
+        model``). The host
         bookkeeping (lengths, free slots) is the whole pool's, the same on
         every rank."""
         layers = alloc_layers(cfg, ec, n_slots, max_len, dtype, device, level)
@@ -106,13 +108,14 @@ class SlotCache:
 
 def rank_shape(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...], level: Optional[Level]) -> Tuple[int, ...]:
     """One rank's share of a cache leaf at ``level``: "batch" split over the
-    data groups, "act_kv" over the model groups, the rest whole."""
+    data groups, every axis the rules shard over "model" ("act_kv", a Mamba
+    state's "inner") over the model groups, the rest whole."""
     if level is None:
         return tuple(shape)
-    ways = {"batch": level.dp, "act_kv": level.tp}
+    ways = {"data": level.dp, "model": level.tp, None: 1}
     out = []
     for n, ax in zip(shape, axes):
-        w = ways.get(ax, 1)
+        w = ways[pool_axis(ax)]
         if n % w:
             raise ValueError(f"cache axis {ax} of {n} does not split {w} ways")
         out.append(n // w)

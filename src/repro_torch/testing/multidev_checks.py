@@ -2,7 +2,7 @@
 (mirrors repro/testing/multidev_checks.py).
 
     PYTHONPATH=src python -m repro_torch.testing.multidev_checks <check|all> <nproc> [cpu|cuda] \
-        [--inputs IN.pkl] [--out OUT.pkl]
+        [--inputs IN.pkl] [--out OUT.pkl] [--model NAME]
     PYTHONPATH=src python -m repro_torch.testing.multidev_checks train_step [cpu|cuda]
 
 A pool check spawns ``nproc`` processes, one rank each (``collectives.
@@ -22,20 +22,30 @@ weight_store — the paper's §3.2.1 invariant: the same storage serves TP
     data_ptrs do not change).
 moe_sharded — the sharded MoE path on a (data 2, model 2) mesh, with the
     real all-to-all, against ``moe_apply_local``: y within 5e-4, the
-    load-balancing loss within 5e-2 relative.
+    load-balancing loss within 5e-2 relative of the local path's (reduced
+    moonshot), or, with ``lb_held_to`` "sharded loop" in its inputs (at
+    full routing width), within 1e-4 of the one-process sharded loop's.
 migration — the slot cache resharded TP 1 -> 2 -> 4 -> 1 across the
-    ranks: every block bit-identical; and ``migrate_pages`` from rank 0's
-    pool to rank 1's, pages bit-identical.
+    ranks: every block bit-identical (the tiny dense model's K/V, or with
+    ``--model`` a reduced config's, e.g. jamba's K/V, Mamba states and conv
+    tails); and ``migrate_pages`` from rank 0's pool to rank 1's, pages
+    bit-identical.
 collectives — the pool's all-reduce, all-gather, all-to-all and uneven
     exchange over every TP level's groups against one process's sums and
     joins of every rank's tensors.
-fault_abort — parts 1 and 2 of the reference's: a switch whose migration
+fault_abort — the reference's three parts: a switch whose migration
     fails on one rank rolls back on every rank (then serves the reference
     logits, and a retry succeeds); a reshard that fails on one rank raises
-    on every rank and leaves every source block intact.
+    on every rank and leaves every source block intact; a weight reload on
+    a shrunken pool (``WeightStore.shrink`` over ``Pool.shrink``): half the
+    ranks survive, rebuild their positions from the canonical weights and
+    serve at TP 2 within 2e-4 of the TP 1 logits of the whole pool.
 engine — the reference's check_engine: greedy trajectories under the
     switch schedule {3: 2, 7: 4, 13: 1, 19: 2} equal to fixed TP 1, no
-    storage data_ptr moved.
+    storage data_ptr moved; on the reference's tiny dense model, or with
+    ``--model`` on a reduced config of the port (moonshot-v1-16b-a3b,
+    jamba-v0.1-52b: ``engine_cfg``); an MoE model's drops per (TP level,
+    stage) reported.
 train_step — one process: a (data 2 x model 2) train step with ZeRO-1
     moments equals a single-rank step over 5 steps of reduced
     h2o-danube-1.8b, at the reference's tolerances (losses within 2e-4
@@ -54,6 +64,7 @@ import sys
 import tempfile
 import time
 import traceback
+from dataclasses import replace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -74,6 +85,7 @@ LOSS_RTOL = 2e-4
 PARAM_TOL = dict(rtol=5e-3, atol=5e-4)
 LOGIT_TOL = 2e-4  # the reference's across TP levels (f32)
 MOE_TOL, LB_RTOL = 5e-4, 5e-2
+SHARDED_LB_RTOL = 1e-4  # the same blocks' lb across processes and in one: f32 rounding of the router's product
 SCHEDULE = {3: 2, 7: 4, 13: 1, 19: 2}
 
 
@@ -175,16 +187,29 @@ def check_weight_store(pool: Pool, inputs: Optional[dict] = None) -> dict:
             "arrays": {"logits": {tp: o.cpu().numpy() for tp, o in outs.items()}}}
 
 
-def check_moe_sharded(pool: Pool, inputs: Optional[dict] = None, cfg: Optional[ModelConfig] = None,
-                      lb_rtol: Optional[float] = LB_RTOL) -> dict:
-    """TP 2 over the pool (world 4: data 2 x model 2); ``cfg`` defaults to
-    the reference's reduced moonshot-v1-16b-a3b (capacity factor 8: nothing
-    drops, so the paths' capacities do not matter). ``lb_rtol`` None: the
-    load-balancing loss is reported, not held."""
+def check_moe_sharded(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """TP 2 over the pool (world 4: data 2 x model 2) of the reference's
+    reduced moonshot-v1-16b-a3b (capacity factor 8: nothing drops, so the
+    paths' capacities do not matter), or of ``inputs["full_width"]``, a
+    config taken unreduced, with ``inputs["moe"]``'s MoESpec fields (e.g.
+    moonshot's routing at full width with a narrow ``d_ff_expert``).
+    ``inputs["lb_held_to"]`` says what the load-balancing loss is held to:
+    "local" (default), the local path's within LB_RTOL; or "sharded loop",
+    the port's one-process sharded loop over the same blocks
+    (``moe_apply_sharded`` over 4 ranks in this process) within
+    SHARDED_LB_RTOL. A block's lb is its own estimate of the global
+    statistic, so the sharded lb is the blocks' mean, not the local path's
+    (8-token blocks over 64 experts: ~20% apart, as the reference's own
+    sharded path gives)."""
     from repro_torch.core.weight_store import WeightStore
     from repro_torch.models.moe import moe_apply_local, moe_apply_sharded, moe_param_defs
 
-    cfg = cfg or reduced(get_config("moonshot-v1-16b-a3b"))
+    inputs = inputs or {}
+    held_to = inputs.get("lb_held_to", "local")
+    if held_to not in ("local", "sharded loop"):
+        raise ValueError(f"lb_held_to {held_to!r}: 'local' or 'sharded loop'")
+    cfg = get_config(inputs["full_width"]) if "full_width" in inputs else reduced(get_config("moonshot-v1-16b-a3b"))
+    cfg = replace(cfg, moe=replace(cfg.moe, **inputs.get("moe", {})))
     dev, tp = pool.device, 2
     defs = moe_param_defs(cfg)
     params = _weights(inputs, "params", defs, dev)
@@ -204,11 +229,18 @@ def check_moe_sharded(pool: Pool, inputs: Optional[dict] = None, cfg: Optional[M
     seconds = time.perf_counter() - t0
     diff = _close(y, y_local, MOE_TOL, "moe_sharded y against moe_apply_local")
     lb, lb_local = float(aux["lb"]), float(aux_local["lb"])
-    if lb_rtol is not None and not abs(lb - lb_local) <= lb_rtol * abs(lb_local):
-        raise AssertionError(f"moe_sharded lb {lb} against local {lb_local}")
-    return {"summary": {"mesh": {"data": lv.dp, "model": lv.tp}, "max_abs_diff": diff, "lb": lb, "lb_local": lb_local,
-                        "path_s": seconds, "d_model": cfg.d_model, "experts": cfg.moe.num_experts},
-            "arrays": {"y": y.cpu().numpy(), "lb": lb}}
+    summary = {"mesh": {"data": lv.dp, "model": lv.tp}, "max_abs_diff": diff, "lb": lb, "lb_local": lb_local,
+               "lb_held_to": held_to, "path_s": seconds, "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+               "block_tokens": x.shape[0] // lv.dp * x.shape[1] // tp}
+    want, rtol = lb_local, LB_RTOL
+    if held_to == "sharded loop":
+        four = WeightStore(cfg, defs, [dev] * pool.world)  # the one-process sharded loop: every rank here
+        _, aux_loop = moe_apply_sharded(four.rebind(four.build(params), tp), x, cfg, pool.world)
+        want = summary["lb_one_process_sharded"] = float(aux_loop["lb"])
+        rtol = SHARDED_LB_RTOL
+    if not abs(lb - want) <= rtol * abs(want):
+        raise AssertionError(f"moe_sharded lb {lb} against the {held_to} path's {want}")
+    return {"summary": summary, "arrays": {"y": y.cpu().numpy(), "lb": lb}}
 
 
 def _full_cache(defs: List[dict], dev: torch.device) -> List[dict]:
@@ -223,9 +255,13 @@ def _blocks(full: List[dict], layout, rank: int) -> List[dict]:
 
 
 def check_migration(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """``inputs["model"]``: the cache of ``engine_cfg(model)`` (e.g. reduced
+    jamba: K/V and each Mamba layer's state and conv tail) in place of the
+    tiny dense model's."""
     from repro_torch.core.migration import cache_shardings, migrate_cache, migrate_pages, moved_bytes
 
-    cfg, dev = tiny_cfg(), pool.device
+    model = (inputs or {}).get("model")
+    cfg, dev = (tiny_cfg() if model is None else engine_cfg(model)), pool.device
     defs = init_cache_defs(cfg, make_exec_config(cfg, 4), 8, 32)  # KV heads re-expanded to 4
     full = _full_cache(defs, dev)
     path = [t for t in (1, 2, 4, 1) if pool.world % t == 0]
@@ -242,7 +278,8 @@ def check_migration(pool: Pool, inputs: Optional[dict] = None) -> dict:
                     raise AssertionError(f"TP {layout.tp} -> {tp}: {k} block changed")
         if any(not torch.equal(a[k], b[k]) for a, b in zip(cache, before) for k in a):
             raise AssertionError("the reshard wrote its source")
-        steps.append({"from": layout.tp, "to": tp, "ms": seconds * 1e3, "bytes_between_ranks": moved_bytes(layout, target, 4)})
+        steps.append({"from": layout.tp, "to": tp, "ms": seconds * 1e3, "bytes_between_ranks": moved_bytes(layout, target, 4),
+                      "blocks": {k: list(t.shape) for layer in moved for k, t in layer.items()}})  # a shape per kind
         cache, layout = moved, target
     return {"summary": {"reshards": steps, "pages": _pages_between_ranks(pool, migrate_pages)}, "arrays": {}}
 
@@ -357,47 +394,127 @@ def check_fault_abort(pool: Pool, inputs: Optional[dict] = None) -> dict:
         pass
     if any(not torch.equal(a[k], b[k]) for a, b in zip(cache, before) for k in a):
         raise AssertionError("the aborted reshard touched its source")
+
+    # 3. weight reload on a shrunken pool (half the pool lost): the survivors rebuild their positions from the
+    # canonical weights and serve at TP 2; the others leave and wait at the end
+    survivors = list(range(pool.world // 2))
+    t0 = time.perf_counter()
+    small = store.shrink(survivors)
+    shrunk = {"survivors": len(survivors), "left": small is None}
+    arrays = {}
+    if small is not None:
+        reloaded = small.build(params)  # the reload storm
+        shrink_s = time.perf_counter() - t0
+        tp = min(2, small.N)
+        logits = _prefill_logits(small.pool, cfg, small.rebind(reloaded, tp), tp, tokens)
+        shrunk.update(pool=small.N, tp=tp, storage_tp=small.s, bytes_per_device=small.bytes_per_device(4),
+                      shrink_and_reload_s=shrink_s,
+                      diff=_close(logits, ref, LOGIT_TOL, f"shrunken pool of {small.N} at TP {tp}"))
+        arrays["shrunk_logits"] = logits.cpu().numpy()
+        del reloaded, small
+    pool.barrier()  # the leavers wait here for the survivors
     return {"summary": {"rolled_back": True, "rolled_back_diff": rolled, "retry_switched": True,
-                        "source_cache_intact": True, "failing_rank": failing}, "arrays": {}}
+                        "source_cache_intact": True, "failing_rank": failing, "shrunk": shrunk}, "arrays": arrays}
 
 
-def check_engine(pool: Pool, inputs: Optional[dict] = None) -> dict:
+def engine_cfg(model: Optional[str] = None, capacity_factor: Optional[float] = None) -> ModelConfig:
+    """check_engine's model: the reference's tiny dense one (``serve_cfg``),
+    or a config of the port by name reduced with ``reduced()`` and given 4
+    KV heads (so that the engine takes TP 4), as the port's CPU tests serve
+    moonshot-v1-16b-a3b and jamba-v0.1-52b; ``capacity_factor`` replaces
+    an MoE model's."""
+    if model is None:
+        return serve_cfg()
+    cfg = replace(reduced(get_config(model)), num_kv_heads=4)
+    if capacity_factor is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def engine_params(cfg: ModelConfig, dev: torch.device, inputs: Optional[dict] = None) -> dict:
+    """check_engine's weights: the reference's (``inputs["params"]``), or
+    drawn from seed 0 on ``dev`` from ``multicard.weight_defs`` (jamba at
+    each layer's own fan-in, where reduced jamba is well conditioned in
+    f32), as the full-width legs draw them."""
+    from repro_torch.testing.multicard import weight_defs
+
+    return _weights(inputs, "params", weight_defs(cfg), dev)
+
+
+def _engine_case(pool: Pool, inputs: dict) -> dict:
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.request import Request
 
-    cfg, dev = serve_cfg(), pool.device
-    params = _weights(inputs, "params", model_param_defs(cfg, make_exec_config(cfg, 1)), dev)
-    econf = EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96, prefill_buckets=(16, 32),
-                         dtype=torch.float32, record_logits=True)
-    eng_a = ServingEngine(cfg, params, econf, pool=pool)
-    warm = eng_a.warmup()
-    base = {r.req_id: list(r.generated) for r in eng_a.run(engine_requests(Request))}
-    logits_fixed = {k: np.stack(v) for k, v in eng_a.logit_trace.items()}
-    del eng_a  # one engine's graphs at a time
-    eng_b = ServingEngine(cfg, params, econf, pool=pool)
-    eng_b.warmup()
-    ptrs = _storage_ptrs(eng_b.storage)
-    schedule = {k: v for k, v in SCHEDULE.items() if v in eng_b.tps}  # the levels this pool runs
-    done = eng_b.run(engine_requests(Request), switch_schedule=schedule)
-    if eng_b.stats.switches < sum(1 for a, b in zip([1] + list(schedule.values()), schedule.values()) if a != b):
-        raise AssertionError(f"{eng_b.stats.switches} switches of {schedule}")
-    changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
-    if changed:
-        rid = changed[0]
-        got = next(list(r.generated) for r in done if r.req_id == rid)
-        i = next(j for j, (a, b) in enumerate(zip(got, base[rid])) if a != b)
-        top = np.sort(logits_fixed[rid][i])[-2:]
-        raise AssertionError(f"trajectories changed across TP switches for requests {changed}; request {rid} "
-                             f"step {i}: {got[i]} for {base[rid][i]}, fixed-TP top-2 margin {top[1] - top[0]}")
-    if _storage_ptrs(eng_b.storage) != ptrs:
-        raise AssertionError("a switch moved a storage tensor")
+    cfg, dev = engine_cfg(inputs.get("model"), inputs.get("capacity_factor")), pool.device
+    params = engine_params(cfg, dev, inputs)
+    kw = dict(candidate_tps=(1, 2, 4), n_slots=8, max_len=96, prefill_buckets=(16, 32), record_logits=True)
+    econf = EngineConfig(**{**kw, **inputs.get("engine", {})}, dtype=torch.float32)
+
+    def requests():
+        if "requests" not in inputs:
+            return engine_requests(Request)
+        return [Request(i, "strict", np.asarray(prompt, np.int32), n) for i, (prompt, n) in enumerate(inputs["requests"])]
+
+    def run(schedule):
+        eng = ServingEngine(cfg, params, econf, pool=pool)
+        warm = eng.warmup()
+        ptrs = _storage_ptrs(eng.storage)
+        done = eng.run(requests(), switch_schedule=schedule)
+        if _storage_ptrs(eng.storage) != ptrs:
+            raise AssertionError("a switch moved a storage tensor")
+        return eng, warm, done  # one engine's graphs at a time: the caller drops it before the next
+
+    fixed = inputs.get("fixed", True)
+    base, logits_fixed, dropped = None, None, {}
+    if fixed:
+        eng, _, done = run(None)
+        base = {r.req_id: list(r.generated) for r in done}
+        logits_fixed = {k: np.stack(v) for k, v in eng.logit_trace.items()}
+        dropped["fixed"] = eng.moe_dropped()
+        del eng
+    schedule = {k: v for k, v in inputs.get("schedule", SCHEDULE).items()
+                if v in econf.candidate_tps and pool.world % v == 0}  # the levels this pool runs
+    eng_b, warm, done = run(schedule)
     st = eng_b.stats
-    return {"summary": {"requests": len(done), "switches": st.switches, "steps": st.steps, "warmup_s": warm,
-                        "rebind_ms_total": st.rebind_s * 1e3, "migrate_ms_total": st.migrate_s * 1e3,
-                        "tps": eng_b.tps, "graphs": eng_b.cache.graphs()},
-            "arrays": {"trajectories": {r.req_id: list(r.generated) for r in done},
-                       "logits_fixed": logits_fixed,
-                       "logits_switched": {k: np.stack(v) for k, v in eng_b.logit_trace.items()}}}
+    if st.switches < sum(1 for a, b in zip([1] + list(schedule.values()), schedule.values()) if a != b):
+        raise AssertionError(f"{st.switches} switches of {schedule}")
+    dropped["switched"] = eng_b.moe_dropped()
+    if base is not None:
+        changed = [r.req_id for r in done if base[r.req_id] != list(r.generated)]
+        if changed:
+            rid = changed[0]
+            got = next(list(r.generated) for r in done if r.req_id == rid)
+            i = next(j for j, (a, b) in enumerate(zip(got, base[rid])) if a != b)
+            top = np.sort(logits_fixed[rid][i])[-2:]
+            raise AssertionError(f"trajectories changed across TP switches for requests {changed}; request {rid} "
+                                 f"step {i}: {got[i]} for {base[rid][i]}, fixed-TP top-2 margin {top[1] - top[0]}")
+    arrays = {"trajectories": {r.req_id: list(r.generated) for r in done},
+              "logits_switched": {k: np.stack(v) for k, v in eng_b.logit_trace.items()},
+              "moe_dropped": {run: {f"{tp}/{stage}": n for (tp, stage), n in d.items()} for run, d in dropped.items()}}
+    if logits_fixed is not None:
+        arrays["logits_fixed"] = logits_fixed
+    summary = {"model": cfg.name, "requests": len(done), "switches": st.switches, "steps": st.steps,
+               "warmup_s": warm, "rebind_ms_total": st.rebind_s * 1e3, "migrate_ms_total": st.migrate_s * 1e3,
+               "tps": eng_b.tps, "graphs": eng_b.cache.graphs(), "moe_dropped": arrays["moe_dropped"]}
+    return {"summary": summary, "arrays": arrays}
+
+
+def check_engine(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """One engine case, or each of ``inputs["cases"]`` ({name: inputs}) in
+    turn. A case's inputs (all optional): "model" and "capacity_factor"
+    (``engine_cfg``), "params" (the reference's tree), "engine"
+    (EngineConfig fields over check_engine's own), "requests" ([(prompt,
+    new tokens)], default ``engine_requests``), "schedule" (default
+    SCHEDULE; the levels the pool does not divide left out) and "fixed"
+    (default True: also serve at fixed TP 1 and require the same
+    trajectories; False where the reference's own trajectory may change
+    with the TP level, an MoE model at a capacity factor that drops)."""
+    inputs = inputs or {}
+    if "cases" not in inputs:
+        return _engine_case(pool, inputs)
+    out = {name: _engine_case(pool, case) for name, case in inputs["cases"].items()}
+    return {"summary": {name: r["summary"] for name, r in out.items()},
+            "arrays": {name: r["arrays"] for name, r in out.items()}}
 
 
 def check_collectives(pool: Pool, inputs: Optional[dict] = None) -> dict:
@@ -453,6 +570,7 @@ POOL_CHECKS = {
     "fault_abort": (check_fault_abort, 8),
     "engine": (check_engine, 4),
 }
+MODEL_CHECKS = ("engine", "migration")  # the checks ``--model`` gives a reduced config (``engine_cfg``)
 
 
 # ---------------------------------------------------------------------------
@@ -585,7 +703,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"OK {name}: {out}")
         return 0
     opts: Dict[str, str] = {}
-    for flag in ("--inputs", "--out"):
+    for flag in ("--inputs", "--out", "--model"):
         if flag in argv:
             i = argv.index(flag)
             opts[flag] = argv[i + 1]
@@ -597,6 +715,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if "--inputs" in opts:
         with open(opts["--inputs"], "rb") as f:
             inputs = pickle.load(f)
+    if "--model" in opts:  # the reduced model of check_engine and check_migration (engine_cfg)
+        takes = [n for n in names if n in MODEL_CHECKS]
+        if not takes:
+            raise SystemExit(f"--model applies to {', '.join(MODEL_CHECKS)} only")
+        inputs = inputs or {}
+        for n in takes:
+            inputs.setdefault(n, {})["model"] = opts["--model"]
     t0 = time.perf_counter()
     results = spawn(world, device, names, inputs)
     for n in names:

@@ -123,3 +123,25 @@ def test_prefill_step_gathers_the_last_token_and_inserts_into_the_slot(params, t
         for name in ("k", "v"):
             assert torch.equal(layer[name][2, :16], c[name][0])
             assert not layer[name][[0, 1, 3]].any() and not layer[name][2, 16:].any()
+
+
+def test_engine_goes_without_a_garbage_collection(params):
+    """The executables hold their engine weakly: an engine warmed up and
+    served goes, with its executables (on the card its CUDA graphs, whose
+    NCCL kernels must be gone before a pool's communicators are), when its
+    last reference does, with the collector off."""
+    import gc
+    import weakref
+
+    eng = ServingEngine(CFG, params, ECONF, device="cpu")
+    eng.warmup()
+    eng.run([Request(0, "strict", np.arange(5, dtype=np.int32), 3)], switch_schedule={1: 2})
+    gone = [weakref.ref(eng), weakref.ref(eng.cache), weakref.ref(eng.cache.get(2, "decode"))]
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del eng
+        assert [r() for r in gone] == [None, None, None]
+    finally:
+        if collecting:
+            gc.enable()

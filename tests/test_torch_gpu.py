@@ -1348,3 +1348,25 @@ def test_engine_across_four_cards_equals_one_card(cuda):
     assert four[0]["engine"]["summary"]["switches"] == 4
     for r in four + one:
         assert r["engine"]["arrays"]["trajectories"] == base
+
+
+@pytest.mark.parametrize("model", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b"])
+def test_family_engine_across_four_cards_equals_one_card(cuda, model):
+    """check_engine on reduced moonshot (MoE) and reduced jamba (Mamba-1,
+    attention and MoE) at world 4 (TP 1/2/4, the reference's switch
+    schedule): on every card the one-process engine's tokens at fixed TP 1
+    and under the schedule, and the pool's MoE drops per (TP level, stage)
+    equal to the one-process engine's."""
+    from repro_torch.testing.multidev_checks import SCHEDULE, engine_cfg, engine_params, engine_requests, spawn
+
+    _cards(4)
+    four = spawn(4, "cuda", ["engine"], inputs={"engine": {"model": model}})
+    cfg = engine_cfg(model)
+    eng = ServingEngine(cfg, engine_params(cfg, cuda), EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96,
+                                                                     prefill_buckets=(16, 32)), device=cuda)
+    base = {r.req_id: list(r.generated) for r in eng.run(engine_requests(Request), switch_schedule=SCHEDULE)}
+    dropped = {f"{tp}/{stage}": n for (tp, stage), n in eng.moe_dropped().items()}
+    for r in four:
+        assert r["engine"]["summary"]["switches"] == 4
+        assert r["engine"]["arrays"]["trajectories"] == base
+        assert r["engine"]["arrays"]["moe_dropped"]["switched"] == dropped

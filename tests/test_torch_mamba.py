@@ -6,7 +6,9 @@ reduced mamba2-2.7b's forward (prefill S, then decode 1); the weight store's
 1-D and conv leaves, the weight carry, the state path of the migration byte
 count; the engine's refusal of mamba2; and, on a mesh of 4 host devices, the
 serving engine on reduced jamba-v0.1-52b (mamba1 + attention + MoE) against
-the reference engine at fixed TP 1 and under a switch schedule, and the
+the reference engine at fixed TP 1 and under a switch schedule (in one
+process, and at each layer's own fan-in also across a pool of 4 processes
+under gloo, each Mamba layer on its rank's d_inner/t channels), and the
 reference's padded-bucket behaviour (a prompt prefilled in a longer bucket
 carries the padding into its recurrent state).
 
@@ -495,6 +497,45 @@ def test_jamba_engine_matches_reference_engine_at_own_fan_in(reference_engines, 
         for g, w in zip(eng.logit_trace[rid], steps):
             np.testing.assert_allclose(g, w, **FAN_IN_TOL, err_msg=f"request {rid}")
     assert not any(eng.moe_dropped().values())
+
+
+@pytest.fixture(scope="module")
+def pool_engines(reference_engines, tmp_path_factory):
+    """The port's engine across processes on reduced jamba at its own
+    fan-in: ``multidev_checks engine`` on a pool of 4 processes under gloo,
+    fixed TP 1 and under SCHEDULE, on the reference's ``_fan_in_params``."""
+    case = {"model": JAMBA, "params": reference_engines["fan_in_params"], "engine": _engine_kw(),
+            "schedule": SCHEDULE, "requests": [(r.prompt, r.max_new_tokens) for r in _requests(Request)]}
+    tmp = tmp_path_factory.mktemp("jamba_pool")
+    with open(tmp / "inputs.pkl", "wb") as f:
+        pickle.dump({"engine": case}, f)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.testing.multidev_checks", "engine", str(N_POOL), "cpu",
+                        "--inputs", str(tmp / "inputs.pkl"), "--out", str(tmp / "out.pkl")], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert r.returncode == 0 and "OK engine" in r.stdout, f"engine failed:\n{r.stdout}\n{r.stderr}"
+    with open(tmp / "out.pkl", "rb") as f:
+        return [rank["engine"] for rank in pickle.load(f)]
+
+
+@pytest.mark.parametrize("case", ["fixed", "switch"])
+def test_jamba_pool_engine_matches_reference_engine_at_own_fan_in(reference_engines, pool_engines, case):
+    """The engine across a pool of 4 processes (gloo) on reduced jamba at
+    each layer's own fan-in: each Mamba layer runs on its rank's d_inner/t
+    channels and keeps only their state, which a switch reshards with the
+    KV. On every rank, at fixed TP 1 and under SCHEDULE, the reference
+    engine's tokens and every step's logits within FAN_IN_TOL; nothing
+    dropped (capacity factor 8.0)."""
+    ref = reference_engines[f"fan_in_{case}"]
+    key = "logits_fixed" if case == "fixed" else "logits_switched"
+    for rank in pool_engines:
+        s, a = rank["summary"], rank["arrays"]
+        assert s["switches"] == len(SCHEDULE) and s["requests"] == len(NEW_TOKENS) and s["tps"] == [1, 2, 4]
+        assert a["trajectories"] == ref["tokens"] == reference_engines["fan_in_fixed"]["tokens"]
+        for rid, steps in ref["logits"].items():
+            assert len(a[key][rid]) == len(steps) == NEW_TOKENS[rid]
+            np.testing.assert_allclose(a[key][rid], np.stack(steps), **FAN_IN_TOL, err_msg=f"request {rid}")
+        assert not any(n for run in a["moe_dropped"].values() for n in run.values())
 
 
 def test_jamba_slot_holds_the_prefill_state(reference_engines):

@@ -6,7 +6,9 @@ mesh of 4 host devices, the sharded and decode paths of a TP group against
 the reference's at every (TP level, shape) the engine reaches, and the
 serving engine on reduced moonshot-v1-16b-a3b against the reference engine
 under a TP switch schedule, at capacity factors 8.0 and 1.25 and with 16
-slots (where decode can drop).
+slots (where decode can drop): in one process, and across a pool of 4
+processes under gloo (``multidev_checks engine``), whose drops per (TP
+level, stage) must equal the one-process engine's.
 
 The mesh checks run in a subprocess, ``python tests/test_torch_moe.py
 <check> [out]``, whose XLA_FLAGS ask for 4 host devices before JAX starts,
@@ -397,8 +399,23 @@ def reference_engines(tmp_path_factory):
         return pickle.load(f)
 
 
+@pytest.fixture(scope="module")
+def port_engines(reference_engines):
+    """The port's one-process engine per case, on the reference's weights,
+    under SCHEDULE: its switches, tokens, logits and drops."""
+    out = {}
+    for case, (cf, n_slots, n_req) in ENGINE_CASES.items():
+        _, cfg = _serve_cfgs(cf)
+        eng = ServingEngine(cfg, to_torch(reference_engines[case]["params"], device="cpu"),
+                            EngineConfig(**_engine_kw(n_slots)), device="cpu")
+        done = eng.run(_requests(Request, n_req), switch_schedule=SCHEDULE)
+        out[case] = {"switches": eng.stats.switches, "tokens": {r.req_id: r.generated for r in done},
+                     "logits": eng.logit_trace, "dropped": eng.moe_dropped()}
+    return out
+
+
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
-def test_engine_matches_reference_engine(reference_engines, case):
+def test_engine_matches_reference_engine(reference_engines, port_engines, case):
     """The port's engine over a pool of 4 ranks (TP 1/2/4) against the
     reference engine over 4 host devices, both under SCHEDULE: the same
     greedy tokens and every step's logits within 2e-4. At 1.25 some prefill
@@ -406,17 +423,14 @@ def test_engine_matches_reference_engine(reference_engines, case):
     nothing drops; with 16 slots the decode groups of TP 2 (two data groups
     of 8) are the reference's."""
     cf, n_slots, n_req = ENGINE_CASES[case]
-    ref = reference_engines[case]
-    _, cfg = _serve_cfgs(cf)
-    eng = ServingEngine(cfg, to_torch(ref["params"], device="cpu"), EngineConfig(**_engine_kw(n_slots)), device="cpu")
-    done = eng.run(_requests(Request, n_req), switch_schedule=SCHEDULE)
-    assert eng.stats.switches == len(SCHEDULE) and len(done) == n_req
-    assert {r.req_id: r.generated for r in done} == ref["tokens"]
+    ref, eng = reference_engines[case], port_engines[case]
+    assert eng["switches"] == len(SCHEDULE) and len(eng["tokens"]) == n_req
+    assert eng["tokens"] == ref["tokens"]
     for rid, steps in ref["logits"].items():
-        assert len(eng.logit_trace[rid]) == len(steps) == 24
-        for g, w in zip(eng.logit_trace[rid], steps):
+        assert len(eng["logits"][rid]) == len(steps) == 24
+        for g, w in zip(eng["logits"][rid], steps):
             np.testing.assert_allclose(g, w, **ENGINE_TOL, err_msg=f"request {rid}")
-    dropped = eng.moe_dropped()
+    dropped = eng["dropped"]
     assert sorted(dropped) == sorted((tp, s) for tp in (1, 2, 4) for s in ("prefill", "decode"))
     if cf == 8.0:
         assert not any(dropped.values()), dropped
@@ -425,6 +439,49 @@ def test_engine_matches_reference_engine(reference_engines, case):
     assert dropped[(2, "decode")] == 0  # groups of n_slots / 2 tokens never overflow a capacity of 8
     if n_slots == 16:  # one group of 16 tokens at capacity 10 at TP 1 and 4: decode drops there
         assert dropped[(1, "decode")] > 0 and dropped[(4, "decode")] > 0, dropped
+
+
+@pytest.fixture(scope="module")
+def pool_engines(reference_engines, tmp_path_factory):
+    """The port's engine across processes: ``multidev_checks engine`` on a
+    pool of 4 processes under gloo, every case of ENGINE_CASES in one pool,
+    on the reference's weights, under SCHEDULE only (at 1.25 the
+    reference's own trajectory may change with the TP level)."""
+    cases = {case: {"model": MOONSHOT, "capacity_factor": cf, "params": reference_engines[case]["params"],
+                    "engine": _engine_kw(n_slots), "schedule": SCHEDULE, "fixed": False,
+                    "requests": [(r.prompt, r.max_new_tokens) for r in _requests(Request, n_req)]}
+             for case, (cf, n_slots, n_req) in ENGINE_CASES.items()}
+    tmp = tmp_path_factory.mktemp("moe_pool")
+    with open(tmp / "inputs.pkl", "wb") as f:
+        pickle.dump({"engine": {"cases": cases}}, f)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.testing.multidev_checks", "engine", str(N_POOL), "cpu",
+                        "--inputs", str(tmp / "inputs.pkl"), "--out", str(tmp / "out.pkl")], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert r.returncode == 0 and "OK engine" in r.stdout, f"engine failed:\n{r.stdout}\n{r.stderr}"
+    with open(tmp / "out.pkl", "rb") as f:
+        return [rank["engine"] for rank in pickle.load(f)]
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_pool_engine_matches_reference_engine(reference_engines, port_engines, pool_engines, case):
+    """The engine across a pool of 4 processes (gloo; at TP t each rank one
+    of t model and 4/t data coordinates) against the reference engine over
+    4 host devices, under SCHEDULE: on every rank the reference's tokens,
+    every step's logits within 2e-4, and the pool's drops per (TP level,
+    stage), each dispatch counted once, equal to the one-process engine's
+    (which the test above holds to the reference's paths)."""
+    _, _, n_req = ENGINE_CASES[case]
+    ref = reference_engines[case]
+    want_drops = {f"{tp}/{stage}": n for (tp, stage), n in port_engines[case]["dropped"].items()}
+    for rank in pool_engines:
+        s, a = rank["summary"][case], rank["arrays"][case]
+        assert s["switches"] == len(SCHEDULE) and s["requests"] == n_req and s["tps"] == [1, 2, 4]
+        assert a["trajectories"] == ref["tokens"]
+        for rid, steps in ref["logits"].items():
+            np.testing.assert_allclose(a["logits_switched"][rid], np.stack(steps), **ENGINE_TOL,
+                                       err_msg=f"request {rid}")
+        assert a["moe_dropped"] == {"switched": want_drops}, case
 
 
 if __name__ == "__main__":
