@@ -190,6 +190,20 @@ Phases; any failure raises and the script exits non-zero:
      one-process engine's (MoE drops printed), with the same checks. The
      four-card legs are ``python -m repro_torch.testing.multicard`` and
      ``python -m repro_torch.testing.multidev_checks all 4 cuda``.
+ 16. training across processes: the pool of phase 15 (a new spawn; world
+     1 on one card; data N/2 x model 2 on an even pool) trains
+     h2o-danube-1.8b at full width and 2 layers in f32 through
+     ``make_train_step(pool=)``, phase 12's step config and
+     SyntheticDataset(8, 512), in phase 12 (d)'s round trip through the
+     pool's elastic checkpoint (rank 0 writes every leaf whole): 8 steps
+     with a checkpoint every 4, then a run failing at step 6, resumed from
+     step 4, whose checkpoint loads back bit for bit against each rank's
+     state as it was saved, the resumed losses within 2e-4 of the
+     uninterrupted run's. The uninterrupted run's losses are held within
+     2e-4 relative, and its parameters within rtol 5e-3, atol 5e-4 and
+     within 1e-2 of their update, of the one-process step (run first on
+     card 0); after every step the parameters bit-equal across each data
+     group and the replicated leaves across each model group.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
@@ -200,8 +214,9 @@ phases 6-10 (phase 10: the profile's replays), 12 (the training
 steps of (c): "train" the forward's and the recompute's launches, "train
 backward" the backward's dX launches) and 13 (each launcher's and
 example's run, warm-up included), with the split in
-``launches_by_path``; ``instances`` holds the new instances' rows. Phase 15's
-launches are made in its processes and added as its own path. The full
+``launches_by_path``; ``instances`` holds the new instances' rows. Phases 15
+and 16's launches are made in their processes and added as their own
+paths (16: the round trip's three runs, forward and backward). The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
 """
@@ -3113,98 +3128,45 @@ def train_full(torch, dev, cfg, log, steps=20, batch=8, seq=512):
     return launches, rec
 
 
-def checkpoint_round_trip(torch, dev, cfg, log, steps=8, every=4, fail_at=6, batch=8, seq=512):
-    """(d) train_loop over ``cfg``: ``steps`` steps with a checkpoint every
-    ``every``; a second run that fails at ``fail_at``; a resumed run from
-    its latest checkpoint, which must load back onto the card bit for bit
-    (against a copy taken as it was saved) and give the uninterrupted run's
-    losses within TRAIN_LOSS_RTOL (CUDA's atomics in the embedding's and the
-    CE's backward keep it from being bitwise). The save and load seconds
-    are timed; the directory is removed after."""
-    import shutil
-
-    from repro_torch.checkpoint.checkpoint import tree_leaves
+def checkpoint_round_trip(torch, dev, cfg, log, batch=8, seq=512):
+    """(d) ``multidev_checks.checkpoint_round_trip`` over ``cfg`` in one
+    process: train_loop runs 8 steps with a checkpoint every 4; a second
+    run fails at step 6 and is resumed from its latest checkpoint, which
+    must load back onto the card bit for bit (against a copy taken as it
+    was saved) and give the uninterrupted run's losses within
+    TRAIN_LOSS_RTOL (CUDA's atomics in the embedding's and the CE's
+    backward keep it from being bitwise). The save and load seconds are
+    timed; the directory is removed after."""
     from repro_torch.parallel.sharding import make_exec_config
-    from repro_torch.training import loop
+    from repro_torch.testing.multidev_checks import checkpoint_round_trip as round_trip
     from repro_torch.training.data import SyntheticDataset
-    from repro_torch.training.optimizer import AdamWConfig, Zero1Shards
+    from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import TrainStepConfig, init_opt_state, make_train_step
 
-    root = ROOT / "build" / "train_ckpt"
-    shutil.rmtree(root, ignore_errors=True)
     tcfg = TrainStepConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=5), seq_chunk=min(256, seq), block_q=128,
                            block_k=128)
-    ds = SyntheticDataset(cfg, batch, seq)
-    saves, loads, snapshot = [], [], {}
-    save, load = loop.save_checkpoint, loop.load_checkpoint
-
-    def host_copy(tree):
-        return [(x.full() if isinstance(x, Zero1Shards) else x).detach().cpu().clone() for x in tree_leaves(tree)]
-
-    def timed_save(d, step, tree):
-        sync(torch, dev)
-        t0 = time.perf_counter()
-        path = save(d, step, tree)
-        saves.append({"step": step, "s": time.perf_counter() - t0})
-        if d.endswith("b") and step == every:
-            snapshot["leaves"] = host_copy(tree)
-        return path
-
-    def timed_load(path, target):
-        t0 = time.perf_counter()
-        out = load(path, target)
-        sync(torch, dev)
-        loads.append(time.perf_counter() - t0)
-        got = host_copy(out[0])
-        snapshot["bitwise"] = len(got) == len(snapshot["leaves"]) and all(
-            torch.equal(a, b) for a, b in zip(got, snapshot["leaves"]))
-        return out
 
     def fresh():
         params = train_params(torch, dev, cfg)
         step, _ = make_train_step(cfg, make_exec_config(cfg, 1), params, tcfg)
         return step, params, init_opt_state(params, tcfg)
 
-    loop.save_checkpoint, loop.load_checkpoint = timed_save, timed_load
-    try:
-        step, p, o = fresh()
-        ref = loop.train_loop(step, p, o, ds, loop.LoopConfig(total_steps=steps, ckpt_every=every,
-                                                              ckpt_dir=str(root / "a")))
-        ckpt_bytes = tree_bytes((p, o))
-        del step, p, o, ref.params, ref.opt_state
-        shutil.rmtree(root / "a")
-        step, p, o = fresh()
-        failed = False
-        try:
-            loop.train_loop(step, p, o, ds, loop.LoopConfig(total_steps=steps, ckpt_every=every,
-                                                            ckpt_dir=str(root / "b")), fail_at=fail_at)
-        except loop.SimulatedFailure:
-            failed = True
-        check(failed, f"(d) the run failed at step {fail_at}")
-        del step, p, o
-        gc.collect()
-        step, p, o = fresh()
-        res = loop.train_loop(step, p, o, ds, loop.LoopConfig(total_steps=steps, ckpt_every=every,
-                                                              ckpt_dir=str(root / "b")))
-        del step, p, o, res.params, res.opt_state
-    finally:
-        loop.save_checkpoint, loop.load_checkpoint = save, load
-        shutil.rmtree(root, ignore_errors=True)
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-    check(res.resumed_from == every and res.step == steps, f"(d) resumed from {res.resumed_from}, ended at {res.step}")
-    check(snapshot.get("bitwise") is True, f"(d) step {every}'s checkpoint loaded back onto the card bit for bit")
-    diffs = [abs(a - b) / abs(a) for a, b in zip(ref.losses[every:], res.losses)]
-    check(len(diffs) == steps - every and max(diffs) <= TRAIN_LOSS_RTOL,
-          f"(d) the resumed losses within {TRAIN_LOSS_RTOL} of the uninterrupted run's: {ref.losses} vs {res.losses}")
-    rec = {"model": f"{cfg.name} ({cfg.num_layers} layers)", "checkpoint_bytes": ckpt_bytes, "saves": saves,
-           "load_s": loads, "losses": ref.losses, "resumed_losses": res.losses, "max_rel_diff": max(diffs),
-           "bitwise_equal_resumed": res.losses == ref.losses[every:]}
-    log(f"phase 12 (d) {rec['model']}: checkpoint {ckpt_bytes / 1e9:.2f} GB; saves "
-        f"{[round(x['s'], 2) for x in saves]} s, load {[round(x, 2) for x in loads]} s; step {every} loaded back bit "
-        f"for bit; resumed losses {res.losses} against {ref.losses[every:]} (max relative difference "
-        f"{max(diffs):.2e}, bitwise equal: {rec['bitwise_equal_resumed']})")
+    a, ck = round_trip(fresh, SyntheticDataset(cfg, batch, seq), str(ROOT / "build" / "train_ckpt"))
+    del a
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    check(not ck["failures"], f"(d) the round trip through the checkpoint: {ck['failures']}")
+    check(ck["max_rel_diff"] <= TRAIN_LOSS_RTOL, f"(d) resumed within {TRAIN_LOSS_RTOL}: {ck['max_rel_diff']}")
+    rec = {"model": f"{cfg.name} ({cfg.num_layers} layers)", "checkpoint_bytes": ck["state_bytes"],
+           "saves": ck["saves"], "load_s": ck["load_s"], "losses": ck["losses"],
+           "resumed_losses": ck["resumed_losses"], "max_rel_diff": ck["max_rel_diff"],
+           "bitwise_equal_resumed": ck["bitwise_equal_resumed"]}
+    log(f"phase 12 (d) {rec['model']}: checkpoint {rec['checkpoint_bytes'] / 1e9:.2f} GB; saves "
+        f"{[round(x['s'], 2) for x in ck['saves']]} s, load {[round(x, 2) for x in ck['load_s']]} s; step "
+        f"{ck['every']} loaded back bit for bit; resumed losses {ck['resumed_losses']} against "
+        f"{ck['losses'][ck['every']:]} (max relative difference {ck['max_rel_diff']:.2e}, bitwise equal: "
+        f"{rec['bitwise_equal_resumed']})")
     return rec
 
 
@@ -3370,6 +3332,54 @@ def pool_phase(torch, cfg, phase4, families, card, log):
             f"MoE drops {res[0]['moe_dropped']}; warmup {res[0]['warmup_s']:.1f} s, run {res[0]['run_s']:.2f} s")
     log(f"[{card}] phase 15: {len(runs)} runs in one spawn of {world} process(es), {wall:.1f} s with the spawn")
     return paths, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training across processes
+# ---------------------------------------------------------------------------
+POOL_TRAIN_LAYERS = 2
+
+
+def pool_train_phase(torch, card, log):
+    """Phase 16: the pool of phase 15 (one process per card; world 1 on
+    one card) trains h2o-danube-1.8b at full width and POOL_TRAIN_LAYERS
+    layers in f32 with phase 12's step config through
+    ``make_train_step(pool=)`` (``multicard.train_phase``): phase 12 (d)'s
+    round trip through the pool's checkpoint (8 steps; a failure at step
+    6, resumed from step 4: loaded back bit for bit, the losses within
+    TRAIN_LOSS_RTOL), the kernel's launches counted in the ranks over its
+    three runs (set to 0 just before, read just after), the uninterrupted
+    run held to the one-process step on card 0 within check_train_step's
+    tolerances. Returns ({path: {"tp_shard_matmul": n}} of rank 0, the
+    record)."""
+    from repro_torch.testing.multidev_checks import spawn
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainStepConfig
+
+    world = torch.cuda.device_count()
+    tcfg = TrainStepConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=5), seq_chunk=256, block_q=128, block_k=128)
+    t0 = time.perf_counter()
+    ranks = spawn(world, "cuda", task="repro_torch.testing.multicard:train_phase", timeout=600,
+                  inputs={"layers": POOL_TRAIN_LAYERS, "tcfg": tcfg, "ckpt_dir": str(ROOT / "build" / "pool_train_ckpt")})
+    res = [r["repro_torch.testing.multicard:train_phase"] for r in ranks]
+    rec = {**res[0], "world": world, "spawn_wall_s": time.perf_counter() - t0}
+    what = f"phase 16 {rec['model']} f32 ({rec['layers']} layers) across {world} process(es), data {rec['mesh'][0]} x model {rec['mesh'][1]}"
+    for r in res:
+        check(not r["failures"], f"{what}: {r['failures']}")
+        check(r["launches"]["forward"] > 0 and r["launches"]["backward"] > 0, f"{what}: tp_shard_matmul launched: "
+              f"{r['launches']}")
+    one, ck = rec["one_process"], rec["checkpoint"]
+    log(f"[{card}] {what}: losses {[round(x, 4) for x in rec['losses']]} within {one['loss_rel']:.2e} (relative) "
+        f"of the one-process step's, parameters within {one['param_abs']:.2e} (update distance "
+        f"{one['update_rel']:.2e}); tp_shard_matmul launches (rank 0) {rec['launches']}; the three runs "
+        f"{rec['wall_s']:.1f} s, {rec['spawn_wall_s']:.1f} s with the spawn")
+    log(f"[{card}] {what}: checkpoint every {ck['every']} steps, failure at step {ck['fail_at']}, resumed from "
+        f"step {ck['resumed_from']} (loaded back bit for bit: {ck['loaded_bit_for_bit']}); resumed losses within "
+        f"{ck['max_rel_diff']:.2e} of the uninterrupted run's; saves {[round(x['s'], 2) for x in ck['saves']]} s, "
+        f"load {[round(x, 2) for x in ck['load_s']]} s")
+    path = f"h2o-danube-1.8b f32 train across processes ({rec['layers']} layers, world {world})"
+    return {path: {"tp_shard_matmul": rec["launches"]["forward"]},
+            f"{path} backward": {"tp_shard_matmul": rec["launches"]["backward"]}}, rec
 
 
 def kernel_counts():
@@ -3811,6 +3821,12 @@ def main() -> int:
     got, record["pool"] = pool_phase(torch, cfg, record["engine_f32"], families, card, log)
     add_paths(got)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 16: training across processes (counts in the ranks, set to 0 just before the steps) ----
+    t0 = time.perf_counter()
+    got, record["pool_train"] = pool_train_phase(torch, card, log)
+    add_paths(got)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     main_pa = next(r for r in pa_rows if r["shape"].startswith("bfloat16"))
     # the kv kernels at the larger payload (4.295 GB at full depth), K rows
     main_kv = {r["name"]: r for r in record["migration"]["2048"]["kernels"]}

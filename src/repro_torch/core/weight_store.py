@@ -107,13 +107,29 @@ class WeightStore:
                     continue
                 shard = 0 if plan.dim is None else j * self.s // self.N
                 if (shard, dev) not in shared:
-                    t = x
-                    if plan.dim is not None and self.s > 1:
-                        w = plan.n_units // self.s
-                        t = x.narrow(plan.dim, shard * w, w).contiguous()
-                    shared[(shard, dev)] = t.to(dev).contiguous()
+                    shared[(shard, dev)] = self.lay(path, x, j)
                 per_pos.append(shared[(shard, dev)])
             _put(out, path, tuple(per_pos))
+        return out
+
+    def lay(self, path: Path, x: torch.Tensor, j: int) -> torch.Tensor:
+        """Pool position ``j``'s storage of the canonical leaf ``x`` at
+        ``path``: its storage shard, a tensor of its own on its device (a
+        view would keep the whole leaf alive), or ``x`` itself where it is
+        whole and already so."""
+        plan = self.plans[path]
+        if plan.dim is not None and self.s > 1:
+            w = plan.n_units // self.s
+            x = x.narrow(plan.dim, (j * self.s // self.N) * w, w).clone(memory_format=torch.contiguous_format)
+        return x.to(self.devices[j]).contiguous()
+
+    def storage_of(self, mine: dict) -> dict:
+        """The storage ``build`` makes across processes, from this
+        position's tensors (a tree of ``lay``'s results: a train step's
+        parameters, each the leaf that requires grad)."""
+        out: dict = {}
+        for path in self.plans:
+            _put(out, path, tuple(_get(mine, path) if j == self.pool.rank else None for j in range(self.N)))
         return out
 
     # ---- pool shrink after a device or host loss ------------------------

@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models.layers import apply_rope, col_parallel, row_parallel
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.collectives import enter_model_group
 from repro_torch.parallel.sharding import ExecConfig
 
 NEG_INF = -1e30
@@ -188,17 +189,17 @@ def attn_apply(
     n_held = len(wq.mats)  # ranks of the group this process holds: their heads
     H, KV, G = ec.heads_exec * n_held // wq.tp, ec.kv_exec * n_held // wq.tp, ec.q_per_kv
     cap = cfg.attn.logit_softcap
-    x2 = x.reshape(B * S, d)
-    qs = col_parallel(x2, wq)
+    x2 = enter_model_group(x.reshape(B * S, d), wq.level)  # q, k and v share one gradient all-reduce
+    qs = col_parallel(x2, wq, entered=True)
     q = torch.cat(qs, dim=-1).view(B, S, -1, hd)
-    k = torch.cat(col_parallel(x2, p["wk"]), dim=-1).view(B, S, -1, hd)
-    v = torch.cat(col_parallel(x2, p["wv"]), dim=-1).view(B, S, -1, hd)
+    k = torch.cat(col_parallel(x2, p["wk"], entered=True), dim=-1).view(B, S, -1, hd)
+    v = torch.cat(col_parallel(x2, p["wv"], entered=True), dim=-1).view(B, S, -1, hd)
     if q.shape[2] != H or k.shape[2] != KV:
         raise ValueError(f"bound weights give {q.shape[2]} q / {k.shape[2]} kv heads; {ec} expects "
                          f"{H} / {KV} on {n_held} of {wq.tp} ranks")
-    if cfg.attn.qk_norm:
-        q = _qk_norm(q, p["q_norm"])
-        k = _qk_norm(k, p["k_norm"])
+    if cfg.attn.qk_norm:  # a rank's heads give its part of the scales' gradient
+        q = _qk_norm(q, enter_model_group(p["q_norm"], wq.level))
+        k = _qk_norm(k, enter_model_group(p["k_norm"], wq.level))
 
     rope_pos = positions[:, None] if mode == "decode" else positions[None, :]
     q = apply_rope(q, rope_pos, cfg.attn.rope_theta)

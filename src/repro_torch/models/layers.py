@@ -8,7 +8,10 @@ process holds (every rank of the group in one process, its own rank across
 processes). Column-parallel outputs stay per rank (or are concatenated in
 rank order); row-parallel partials are summed in rank order and, across
 processes, over the model group (``collectives.reduce_ranks``, the
-reference's psum).
+reference's psum). Under autograd across processes a column-parallel
+product's replicated input goes through ``enter_model_group`` first, so
+that its gradient sums every rank's part (Megatron's *f*; the psum is its
+*g*).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.collectives import reduce_ranks
+from repro_torch.parallel.collectives import enter_model_group, reduce_ranks
 from repro_torch.parallel.sharding import ShardView
 
 
@@ -60,8 +63,12 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Tensor-parallel projections
 # ---------------------------------------------------------------------------
-def col_parallel(x: torch.Tensor, w: ShardView, out_dtype=None) -> List[torch.Tensor]:
-    """x (M, K) -> one (M, width) output per rank."""
+def col_parallel(x: torch.Tensor, w: ShardView, out_dtype=None, entered: bool = False) -> List[torch.Tensor]:
+    """x (M, K) -> one (M, width) output per rank. ``entered``: x went
+    through ``enter_model_group`` already (one input shared by several
+    projections takes one all-reduce of its gradient)."""
+    if not entered:
+        x = enter_model_group(x, w.level)
     return [
         tp_shard_matmul(x, m, off, n_out=w.width, mode="col", out_dtype=out_dtype)
         for m, off in zip(w.mats, w.offsets)
@@ -78,6 +85,7 @@ def tied_head(x: torch.Tensor, embed: ShardView) -> List[torch.Tensor]:
     """The tied LM head per rank, in f32: rank r's logits are
     x @ embed[r's vocab rows].T, the embedding's (vocab, d) rows read in
     place at the rank's offset."""
+    x = enter_model_group(x, embed.level)
     return [
         tp_shard_matmul(x, m, off, n_out=embed.width, mode="col_t", out_dtype=torch.float32)
         for m, off in zip(embed.mats, embed.offsets)
@@ -109,6 +117,7 @@ def mlp_param_defs(d_model: int, d_ff: int) -> dict:
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    hs = [F.silu(g) * u for g, u in zip(col_parallel(x2, p["w_gate"]), col_parallel(x2, p["w_in"]))]
+    x2 = enter_model_group(x.reshape(-1, x.shape[-1]), p["w_gate"].level)
+    hs = [F.silu(g) * u for g, u in zip(col_parallel(x2, p["w_gate"], entered=True),
+                                        col_parallel(x2, p["w_in"], entered=True))]
     return row_parallel(hs, p["w_out"]).reshape(*lead, -1)

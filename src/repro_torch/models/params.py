@@ -40,6 +40,14 @@ def tree_map(f: Callable, tree):
     return f(tree)
 
 
+def tree_map_with_path(f: Callable, tree, prefix: Tuple[str, ...] = ()):
+    """``f(path, leaf)`` over a nested dict's leaves (in ``tree_map``'s
+    order), in the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(f, v, prefix + (k,)) for k, v in tree.items()}
+    return f(prefix, tree)
+
+
 def count_params(defs) -> int:
     return sum(math.prod(d.shape) for _, d in tree_leaves_with_path(defs))
 
@@ -73,10 +81,18 @@ def _materialize(d: ParamDef, gen: torch.Generator, dtype: torch.dtype) -> torch
     return out
 
 
-def init_params(defs, gen: torch.Generator, dtype: torch.dtype = torch.float32):
+def init_params(defs, gen: torch.Generator, dtype: torch.dtype = torch.float32,
+                place: Optional[Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor]] = None):
     """Random weights on ``gen.device``: N(0, 1/fan_in) with fan_in =
-    shape[0] (the reference's rule, including for stacked leaves)."""
-    return tree_map(lambda d: _materialize(d, gen, dtype), defs)
+    shape[0] (the reference's rule, including for stacked leaves).
+    ``place(path, leaf)``, if given, takes each leaf as it is drawn and
+    returns what the tree keeps (e.g. one card's shard of it), so that the
+    whole tree is never held at once; the draws are the same."""
+    def draw(path, d):
+        leaf = _materialize(d, gen, dtype)
+        return leaf if place is None else place(path, leaf)
+
+    return tree_map_with_path(draw, defs)  # tree_map's order: the draws' order
 
 
 def per_layer_fan_in(defs: dict) -> dict:

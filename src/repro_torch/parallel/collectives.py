@@ -16,7 +16,13 @@ surviving processes).
 Both ways go through the functions below (``reduce_ranks``,
 ``gather_ranks``, ``all_to_all``, ...). Given ``level=None`` they leave the
 one-process sums to the caller; given a ``Level`` they run the collective
-over its group. Each point where the reference runs a collective also calls
+over its group. Under autograd (training across processes) the model
+group's collectives are ``torch.autograd.Function``s: the psum passes its
+gradient through, the gather hands each rank its slice, and
+``enter_model_group`` (Megatron's *f*) all-reduces the gradient of a
+replicated activation before column-parallel products. Where no gradient
+is taken (the engine's steps and graphs) they launch what the plain calls
+did: the psum in place, the gather's one all-gather, *f* nothing. Each point where the reference runs a collective also calls
 ``stand_in`` with that collective. Nothing listens unless a counter is
 installed (``launch.op_cost`` does so while it counts a program), so a call
 costs one test of an empty list.
@@ -24,8 +30,9 @@ costs one test of an empty list.
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -46,6 +53,31 @@ def stand_in(kind: str, each_bytes: int, n: int) -> None:
         return
     for f in LISTENERS:
         f(kind, each_bytes, n)
+
+
+# bytes of each real collective's result on this device, by kind, while a
+# dict is installed here (``count_traffic``); None: nothing is counted
+TRAFFIC: Optional[Dict[str, Tuple[int, int]]] = None
+
+
+def note(kind: str, each_bytes: int) -> None:
+    """A collective of ``kind`` ran across processes, giving this device a
+    result of ``each_bytes``."""
+    if TRAFFIC is not None:
+        calls, total = TRAFFIC.get(kind, (0, 0))
+        TRAFFIC[kind] = (calls + 1, total + each_bytes)
+
+
+@contextmanager
+def count_traffic() -> Iterator[Dict[str, Tuple[int, int]]]:
+    """``with count_traffic() as t:`` t is {kind: (calls, bytes)} of the
+    collectives this process ran across the pool inside the block."""
+    global TRAFFIC
+    outer, TRAFFIC = TRAFFIC, {}
+    try:
+        yield TRAFFIC
+    finally:
+        TRAFFIC = outer
 
 
 # ---------------------------------------------------------------------------
@@ -233,19 +265,73 @@ def close_pool() -> None:
 # ---------------------------------------------------------------------------
 # The collectives
 # ---------------------------------------------------------------------------
+class _AllReduce(torch.autograd.Function):
+    """All-reduce forward (into a new tensor), identity backward: the
+    reference's psum of a row-parallel product, whose every input rank
+    gets the same gradient of the sum (every model rank computes the same
+    loss)."""
+
+    @staticmethod
+    def forward(ctx, y, handle):
+        import torch.distributed as dist
+
+        y = y.clone()
+        dist.all_reduce(y, group=handle)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _EnterModelGroup(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient over the model group in
+    backward (Megatron's *f*): a replicated activation feeding column-
+    parallel products gets each rank's part of its gradient, summed."""
+
+    @staticmethod
+    def forward(ctx, x, handle):
+        ctx.handle = handle
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.handle)
+        note("all-reduce (backward)", nbytes(g))
+        return g, None
+
+
 def reduce_ranks(parts: Sequence[torch.Tensor], level: Optional[Level], n: int) -> torch.Tensor:
     """The sum of a row-parallel product's partials over a TP group of ``n``
     ranks (the reference's psum): the parts this process holds, summed in
-    rank order, then over the level's model group when there is one."""
+    rank order, then over the level's model group when there is one (under
+    autograd into a new tensor, the gradient passed through unchanged)."""
     y = parts[0]
     for part in parts[1:]:
         y = y + part
     stand_in("all-reduce", nbytes(y), n)
     if level is not None:
+        note("all-reduce", nbytes(y))
+        if torch.is_grad_enabled() and y.requires_grad:  # into a new tensor, which autograd sees
+            return _AllReduce.apply(y, level.model.handle)
         import torch.distributed as dist
 
         dist.all_reduce(y, group=level.model.handle)
     return y
+
+
+def enter_model_group(x: torch.Tensor, level: Optional[Level]) -> torch.Tensor:
+    """``x``, a replicated activation about to enter this rank's column-
+    parallel products: under autograd across processes its gradient is
+    all-reduced over the level's model group in backward (each rank's
+    products give only its part of dX). Its forward launches nothing; in
+    one process it is ``x`` itself."""
+    if level is None or level.tp == 1:
+        return x
+    return _EnterModelGroup.apply(x, level.model.handle)
 
 
 def _gather_into(t: torch.Tensor, group: Group) -> torch.Tensor:
@@ -274,11 +360,45 @@ def all_gather(t: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward takes this rank's slice of
+    the gradient (every model rank computes the same loss on the gathered
+    tensor, so each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, y, group, dim):
+        ctx.conf = (group.index, y.shape[dim], dim)
+        return all_gather(y, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        index, n, dim = ctx.conf
+        return g.narrow(dim, index * n, n), None, None
+
+
 def gather_ranks(parts: Sequence[torch.Tensor], level: Optional[Level], dim: int = -1) -> torch.Tensor:
     """Column-parallel outputs joined in rank order along ``dim``: the parts
-    this process holds, then the model group's when there is one."""
+    this process holds, then the model group's when there is one (under
+    autograd, each rank's slice of the gradient goes back to its part)."""
     y = torch.cat(list(parts), dim) if len(parts) > 1 else parts[0]
-    return y if level is None else all_gather(y, level.model, dim)
+    if level is None:
+        return y
+    note("all-gather", nbytes(y) * level.tp)
+    return _Gather.apply(y, level.model, dim % y.dim())
+
+
+def gather_first(t: torch.Tensor, group: Group, dim: int) -> Optional[torch.Tensor]:
+    """The group's tensors (of one shape) joined along ``dim`` in group
+    order on its first member, None on the others: a gather, so that only
+    the first holds the whole."""
+    if group.size == 1:
+        return t
+    import torch.distributed as dist
+
+    t = t.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in range(group.size)] if group.index == 0 else None
+    dist.gather(t, parts, dst=dist.get_global_rank(group.handle, 0), group=group.handle)
+    return None if parts is None else torch.cat(parts, dim)
 
 
 def all_to_all(t: torch.Tensor, group: Group) -> torch.Tensor:
@@ -355,15 +475,40 @@ def checksums(tree) -> torch.Tensor:
     return torch.stack(sums) if sums else torch.zeros(0, dtype=torch.int64)
 
 
-def check_replicated(tree, pool: "Pool") -> None:
-    """Raise unless every rank of ``pool`` holds the same bits in ``tree``
-    (e.g. weights each process drew from one seed on its own card): the
-    ranks' checksums, all-gathered, must agree."""
+def check_replicated(tree, pool: "Pool", group: Optional[Group] = None) -> None:
+    """Raise unless every member of ``group`` (default: the whole pool)
+    holds the same bits in ``tree`` (e.g. weights each process drew from
+    one seed on its own card; a data group's parameters after a train
+    step): the members' checksums, all-gathered, must agree."""
+    group = pool.world_group if group is None else group
     mine = checksums(tree).to(pool.device)
-    every = all_gather(mine[None], pool.world_group, 0)
+    every = all_gather(mine[None], group, 0)
     differ = (every != every[:1]).any(0).nonzero().flatten().tolist()
     if differ:
-        raise RuntimeError(f"{len(differ)} of {mine.numel()} tensors differ between the ranks of the pool")
+        raise RuntimeError(f"{len(differ)} of {mine.numel()} tensors differ between the ranks {list(group.ranks)} "
+                           f"of the pool")
+
+
+def all_reduce_leaves(leaves: Sequence[torch.Tensor], group: Group) -> None:
+    """Sum each tensor over ``group`` in place, one collective a leaf (a
+    model's leaves are stacked over its layers: a handful of large
+    tensors): the data-parallel gradient sum."""
+    if group.size == 1:
+        return
+    import torch.distributed as dist
+
+    for t in leaves:
+        dist.all_reduce(t, group=group.handle)
+        note("all-reduce (gradients)", nbytes(t))
+
+
+def gather_into(t: torch.Tensor, part: torch.Tensor, group: Group, dim: int) -> None:
+    """Write the group's parts, joined along ``dim`` in group order, into
+    ``t`` (whose slice ``part`` is this member's): the all-gather of a
+    ZeRO-1 update's slices."""
+    whole = all_gather(part, group, dim)
+    note("all-gather (parameters)", nbytes(whole))
+    t.copy_(whole)
 
 
 def rendezvous_file(directory: str) -> str:

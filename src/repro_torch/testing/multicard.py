@@ -50,6 +50,23 @@ default; ``--only`` / ``--skip`` take comma-separated names):
        the bf16 leg's timings (TTFT at 128 tokens), the drops per (TP level,
        stage), and the reshard's bytes of K/V and of the Mamba state.
 
+  train_f32  h2o-danube-1.8b at full width and depth (``--layers`` cuts it)
+       in f32, SyntheticDataset(8, 512), trained at (data N/2, model 2)
+       through ``make_train_step(pool=)`` with check_train_step's optimizer
+       (lr 1e-3, warm-up 100): held to the one-card run (TP 1, dp 1, rank 0
+       on card 0 first) within check_train_step's tolerances and each leaf
+       within UPDATE_RTOL (1e-2) of its update, the one-card (TP 2, dp 2)
+       run's distance reported; the replication checked after every step;
+       step seconds (the first apart: it waits for every rank's build, and
+       NCCL connects at first use), tokens/s, per-card peak memory against the reckoning and one
+       card's 36.72 GB, the moments' bytes per card, each collective's
+       bytes per step and the NCCL kernels' share of a step's device time;
+  train_llama  llama3-8b at full width and depth in f32 at (data N/2,
+       model 2), 10 steps at lr 3e-4 (warm-up 5, phase 12's): ~48 GB a card
+       before activations by the reckoning, which one card cannot hold;
+       finite losses, the replication, the mean of the last 3 losses below
+       the first; timed as train_f32.
+
 Prints one JSON line per leg prefixed with the card's name and power
 limit; writes everything to ``--out``, and each rank's legs so far to
 ``--out``.rank<r>.json after each leg (what is left if a later leg fails).
@@ -73,7 +90,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.model import model_param_defs
-from repro_torch.models.params import init_params, per_layer_fan_in, tree_leaves_with_path
+from repro_torch.models.params import init_params, per_layer_fan_in, tree_leaves_with_path, tree_map
 from repro_torch.parallel.collectives import Pool, all_gather, checksums
 from repro_torch.parallel.sharding import make_exec_config
 
@@ -585,12 +602,253 @@ def moe(pool: Pool, inputs: dict) -> dict:
         return {"failures": [f"moe: {e}"]}
 
 
+# ---------------------------------------------------------------------------
+# training across cards
+# ---------------------------------------------------------------------------
+TRAIN_MODEL = "h2o-danube-1.8b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_F32_STEPS, TRAIN_LLAMA_STEPS = 6, 10
+ONE_CARD_PEAK_GB = 36.72  # h2o-danube-1.8b's f32 step, 24 layers, 8 x 512, one NVIDIA H100 80GB HBM3 at 700 W
+
+
+def _train_tcfg(lr: float = 1e-3, warmup: int = 100):
+    """check_train_step's optimizer (lr 1e-3, the default warm-up of 100),
+    chunks of 256, attention blocks of 128 (phase 12's)."""
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainStepConfig
+
+    return TrainStepConfig(opt=AdamWConfig(lr=lr, warmup_steps=warmup), seq_chunk=256, block_q=128, block_k=128)
+
+
+def _bytes(tree) -> int:
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.training.optimizer import Zero1Shards
+
+    return sum(sum(p.numel() * p.element_size() for p in (x.parts if isinstance(x, Zero1Shards) else [x]))
+               for x in tree_leaves(tree))
+
+
+def _draw(cfg, dev):
+    """The weights every training leg starts from: seed 0, each layer at its
+    own fan-in where the model asks for it, as ``train_params`` takes
+    them."""
+    return weight_defs(cfg, own_fan_in=True), torch.Generator(device=dev).manual_seed(0), torch.float32
+
+
+def one_card_train(cfg, dev, tp: int, dp: int, tcfg, steps: int) -> dict:
+    """The one-process train step on one card at (TP ``tp``, dp ``dp``) from
+    ``_draw``'s weights: losses, step seconds, peak memory, the parameters
+    on the host and each leaf's update ||p - p0||."""
+    from repro_torch.testing.multidev_checks import moved_from, single_train
+    from repro_torch.training.data import SyntheticDataset
+
+    defs, gen, dtype = _draw(cfg, dev)
+    params = init_params(defs, gen, dtype)
+    start = {path: t.detach().to("cpu", copy=True) for path, t in tree_leaves_with_path(params)}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = single_train(cfg, tp, dp, params, tcfg, SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ), steps)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    out = {"tp": tp, "dp": dp, "losses": losses, "step_s": times, "peak_gb": peak / 1e9,
+           "moved": moved_from(params, start), "params": tree_map(lambda t: t.detach().cpu(), params)}
+    del params, start
+    _free()
+    return out
+
+
+def held_to(losses: list, whole: dict, one: dict) -> dict:
+    """The pool's losses and gathered parameters against a one-card run's
+    (``one_card_train``): the losses' greatest relative difference
+    ("loss_rel") and ``multidev_checks.param_distance``'s "param_abs",
+    "outside" (the first leaf outside PARAM_TOL) and "update_rel" (1.0 for
+    a pool that left its parameters where they started)."""
+    from repro_torch.testing.multidev_checks import param_distance
+
+    return {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])),
+            **param_distance(whole, one["params"], one["moved"])}
+
+
+def _within(d: dict) -> bool:
+    from repro_torch.testing.multidev_checks import LOSS_RTOL, UPDATE_RTOL
+
+    return d["loss_rel"] < LOSS_RTOL and d["outside"] is None and d["update_rel"] < UPDATE_RTOL
+
+
+def _collective_share(pool: Pool, run) -> dict:
+    """One call of ``run`` under torch.profiler: the device ms of the NCCL
+    kernels by collective (all-reduce, all-gather) and of everything, on
+    this rank (an NCCL kernel's time holds its wait for the other ranks)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(pool)
+    pool.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        _sync(pool)
+    total, by = 0.0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        us = e.time_range.elapsed_us()
+        total += us
+        name = e.name.lower()
+        if "nccl" in name:
+            kind = "all-gather" if "allgather" in name else "all-reduce" if "allreduce" in name else "other"
+            by[kind] = by.get(kind, 0.0) + us
+    if total == 0:
+        return {"measured": False}
+    return {"measured": True, "device_ms": total / 1e3, "nccl_ms": {k: v / 1e3 for k, v in by.items()},
+            "nccl_share": {k: v / total for k, v in by.items()}}
+
+
+def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[dict] = None,
+                   check_loss_falls: bool = False) -> dict:
+    """``steps`` steps of ``cfg`` across the pool at (data N/tp, model tp)
+    from ``_draw``'s weights (``multidev_checks.pool_train``, the
+    replication checked after every step): losses, step seconds (the first
+    apart: it waits for every rank to finish building, and NCCL connects
+    at first use), peak memory against the reckoning, the moments' bytes.
+    With ``ones`` (rank 0's one-card runs by (TP, dp), empty on the other
+    ranks) the parameters after the steps are gathered whole and held to
+    the one-card runs' (``held_to``; the one-card (TP 1, dp 1) run within
+    ``_within``). Then one more step with the collectives' bytes counted
+    and one under the profiler (the NCCL kernels' share)."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.parallel.collectives import count_traffic
+    from repro_torch.testing.multidev_checks import pool_train
+    from repro_torch.training.data import SyntheticDataset
+    from repro_torch.training.train_step import gather_params
+
+    dev = pool.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ds, times = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ), []
+    tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
+    losses, mine, step, opt = pool_train(pool, cfg, None, tcfg, tp, ds, steps, draw=_draw(cfg, dev),
+                                         on_step=times.append)
+    launches = {"forward": tp_shard_matmul.launches, "backward": tp_shard_matmul.backward_launches}
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    reckoned = {"params": _bytes(mine), "grads": _bytes(mine), "moments": _bytes({"mu": opt["mu"], "nu": opt["nu"]})}
+    reckoned["before_activations"] = sum(reckoned.values())
+    med = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "mesh": {"data": pool.world // tp, "model": tp},
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": tcfg.opt.lr, "warmup": tcfg.opt.warmup_steps, "losses": losses,
+           "step_s": times, "first_step_s": times[0], "step_s_median": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+           "peak_gb": peak / 1e9, "reckoned_gb": {k: v / 1e9 for k, v in reckoned.items()},
+           "moments_gb": reckoned["moments"] / 1e9, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "replicated_after_every_step": True}
+    failures = [] if all(np.isfinite(losses)) else [f"{cfg.name}: losses not finite: {losses}"]
+    if check_loss_falls and not sum(losses[-3:]) / 3 < losses[0]:
+        failures.append(f"{cfg.name}: the loss did not fall: {losses}")
+    if ones is not None:
+        whole = gather_params(mine, step.layout)
+        for (otp, odp), one in ones.items():
+            diff = held_to(losses, whole, one)
+            rec[f"one_card_tp{otp}_dp{odp}"] = {"losses": one["losses"], "step_s_median": statistics.median(
+                one["step_s"][1:]), "peak_gb": one["peak_gb"], "distance": diff}
+            if (otp, odp) == (1, 1) and not _within(diff):
+                failures.append(f"{cfg.name}: the pool against one card (TP 1, dp 1): {diff}")
+        del whole
+        _free()
+    with count_traffic() as traffic:
+        float(step(mine, opt, ds.at(steps))[2]["loss"])
+    rec["collectives_per_step"] = {k: {"calls": c, "bytes": b} for k, (c, b) in traffic.items()}
+    rec["collective_share"] = _collective_share(pool, lambda: float(step(mine, opt, ds.at(steps + 1))[2]["loss"]))
+    rec["failures"] = failures
+    del mine, opt, step
+    _free()
+    return rec
+
+
+def train_f32(pool: Pool, inputs: dict) -> dict:
+    """h2o-danube-1.8b in f32 (``inputs["layers"]`` cuts its depth) at
+    (data N/2, model 2), TRAIN_F32_STEPS steps, against the one-card run at
+    (TP 1, dp 1): held within check_train_step's tolerances (losses 2e-4
+    relative, parameters rtol 5e-3, atol 5e-4, its optimizer) and each
+    leaf within UPDATE_RTOL of its update; the one-card (TP 2, dp 2) run's
+    distance reported."""
+    cfg = get_config(TRAIN_MODEL)
+    if inputs.get("layers") is not None:
+        cfg = dataclasses.replace(cfg, num_layers=inputs["layers"])
+    tcfg, ones = _train_tcfg(), {}
+    if pool.rank == 0:  # one card, every rank of each layout on card 0 in turn
+        for tp, dp in ((1, 1), (2, 2)):
+            ones[(tp, dp)] = one_card_train(cfg, pool.device, tp, dp, tcfg, TRAIN_F32_STEPS)
+    pool.barrier()
+    rec = pool_train_leg(pool, cfg, tcfg, 2 if pool.world % 2 == 0 else 1, TRAIN_F32_STEPS, ones=ones)
+    if pool.rank == 0:
+        rec["one_card_peak_gb_pr23"] = ONE_CARD_PEAK_GB
+    del ones
+    _free()
+    return rec
+
+
+def train_llama(pool: Pool, inputs: dict) -> dict:
+    """llama3-8b in f32 (``inputs["layers"]`` cuts its depth) at (data
+    N/2, model 2), TRAIN_LLAMA_STEPS steps of phase 12's optimizer (lr
+    3e-4, warm-up 5): finite losses, the replication after every step, the
+    mean of the last 3 losses below the first; timed as train_f32."""
+    cfg = model_cfg({"layers": inputs.get("layers")})
+    return pool_train_leg(pool, cfg, _train_tcfg(lr=3e-4, warmup=5), 2 if pool.world % 2 == 0 else 1,
+                          TRAIN_LLAMA_STEPS, check_loss_falls=True)
+
+
+def train_phase(pool: Pool, inputs: dict) -> dict:
+    """chip_smoke's phase 16 on every rank: h2o-danube-1.8b at full width
+    cut to ``inputs["layers"]`` in f32, phase 12's step config
+    (``inputs["tcfg"]``), SyntheticDataset(8, 512), at (data N/t, model t)
+    (t = 2 where the pool is even) through ``make_train_step(pool=)``:
+    ``multidev_checks.checkpoint_round_trip`` (phase 12 (d)) through the
+    pool's checkpoint in ``inputs["ckpt_dir"]``, the replication checked
+    after every step and the kernel's launches counted over its three runs
+    (set to 0 just before, read just after); its uninterrupted run held to
+    the one-process step rank 0 first runs on card 0, within
+    check_train_step's tolerances and UPDATE_RTOL."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.testing.multidev_checks import CKPT_STEPS, checked, checkpoint_round_trip, pool_step
+    from repro_torch.training.data import SyntheticDataset
+    from repro_torch.training.train_step import gather_params
+
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL), num_layers=inputs["layers"])
+    tcfg, dev = inputs["tcfg"], pool.device
+    tp = 2 if pool.world % 2 == 0 else 1
+
+    made = {}
+
+    def fresh():
+        step, params, opt = pool_step(pool, cfg, None, tcfg, tp, _draw(cfg, dev))
+        made["layout"] = step.layout
+        return checked(pool, step), params, opt
+
+    out = {"model": cfg.name, "layers": cfg.num_layers, "mesh": [pool.world // tp, tp]}
+    one = one_card_train(cfg, dev, 1, 1, tcfg, CKPT_STEPS) if pool.rank == 0 else None
+    pool.barrier()
+    _sync(pool)
+    tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
+    t0 = time.perf_counter()
+    a, ck = checkpoint_round_trip(fresh, SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ), inputs["ckpt_dir"])
+    _sync(pool)
+    out.update(wall_s=time.perf_counter() - t0, losses=a.losses, checkpoint=ck, failures=list(ck["failures"]),
+               launches={"forward": tp_shard_matmul.launches, "backward": tp_shard_matmul.backward_launches})
+    whole = gather_params(a.params, made["layout"])
+    if one is not None:
+        out["one_process"] = held_to(a.losses, whole, one)
+        if not _within(out["one_process"]):
+            out["failures"].append(f"the pool against the one-process step: {out['one_process']}")
+    del a, whole, one
+    _free()
+    return out
+
+
 MOON, JAMBA = "moonshot-v1-16b-a3b", "jamba-v0.1-52b"
 LEGS = {"f32": llama_f32, "bf16": bf16_timings, "pages": pages, "moe": moe,
         "moonshot_f32": lambda pool, inputs: family_f32(pool, inputs, MOON),
         "jamba_f32": lambda pool, inputs: family_f32(pool, inputs, JAMBA),
         "moonshot_bf16": lambda pool, inputs: family_bf16(pool, inputs, MOON),
-        "jamba_bf16": lambda pool, inputs: family_bf16(pool, inputs, JAMBA)}
+        "jamba_bf16": lambda pool, inputs: family_bf16(pool, inputs, JAMBA),
+        "train_f32": train_f32, "train_llama": train_llama}
 
 
 def legs(pool: Pool, inputs: dict) -> dict:
@@ -619,7 +877,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nproc", type=int, default=4)
-    ap.add_argument("--layers", type=int, default=None, help="cut llama3-8b's depth (default: all 32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut llama3-8b's depth (default: all 32), and h2o-danube's in train_f32")
     ap.add_argument("--only", default="", help=f"the legs to run, of {','.join(LEGS)} (default: all)")
     ap.add_argument("--skip", default="", help="legs to leave out, e.g. bf16,pages")
     ap.add_argument("--out", default="chiprun_out/multicard.json")

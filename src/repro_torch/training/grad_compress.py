@@ -8,15 +8,25 @@ carried in an error-feedback buffer so compression bias vanishes over steps
 the quantize/dequantize transform is applied in place of the wire: the
 same numerics, no transfer. ``torch.round`` rounds half to even, as
 ``jnp.round`` does.
+
+Across processes (``compress_grads(..., level=)``) the blocks are still
+those of each logical leaf flattened whole: a model shard or a ZeRO slice
+is not a contiguous span of that flattening, so each rank gathers the
+leaf's reduced gradient over the model group and its error over the data
+and model groups, quantizes the whole leaf (every rank the same), and keeps
+its own model shard of the result. The error lives as the reference shards
+it, like the first moment: each rank holds its model shard's ZeRO slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models.params import tree_leaves_with_path, tree_map
+from repro_torch.parallel.collectives import Level, all_gather
+from repro_torch.training.optimizer import Zero1Shards
 
 
 @dataclass(frozen=True)
@@ -45,16 +55,36 @@ def init_error_feedback(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
 
 
-def compress_grads(grads, err_state, cfg: CompressConfig):
+def compress_grads(grads, err_state, cfg: CompressConfig, model_dims: Optional[Dict] = None,
+                   level: Optional[Level] = None):
     """Returns (the gradients as they would arrive after the sum, the new
     error-feedback state). Both trees are written in place (the port owns
-    its gradient buffers) and returned."""
+    its gradient buffers) and returned. Across processes ``level`` is the
+    pool's level and ``model_dims`` {path: the model-sharded dim or None}."""
     if not cfg.enabled:
         return grads, err_state
     errs = dict(tree_leaves_with_path(err_state))
     with torch.no_grad():
         for path, g in tree_leaves_with_path(grads):
-            _, deq, new_err = quantize_leaf(g, errs[path], cfg.block)
+            e = errs[path]
+            if level is None:
+                _, deq, new_err = quantize_leaf(g, e, cfg.block)
+                g.copy_(deq)
+                e.copy_(new_err)
+                continue
+            dim = model_dims[path] if level.tp > 1 else None
+            e_shard = e.full() if isinstance(e, Zero1Shards) else e
+            if dim is None:
+                _, deq, new_err = quantize_leaf(g, e_shard, cfg.block)
+            else:  # the logical leaf, then this rank's shard of the results
+                _, deq, new_err = quantize_leaf(all_gather(g, level.model, dim),
+                                                all_gather(e_shard, level.model, dim), cfg.block)
+                w = g.shape[dim]
+                deq, new_err = (t.narrow(dim, level.model_rank * w, w) for t in (deq, new_err))
             g.copy_(deq)
-            errs[path].copy_(new_err)
+            if isinstance(e, Zero1Shards):
+                n = new_err.shape[e.dim] // e.n
+                e.parts[0].copy_(new_err.narrow(e.dim, e.index * n, n))
+            else:
+                e.copy_(new_err)
     return grads, err_state

@@ -9,6 +9,11 @@ so a resumed run agrees within f32 rounding. The step function updates
 its params in place, so a resume loads the checkpoint into the same
 tensors.
 
+Across processes (a step function made over a pool carries its
+``layout``) the checkpoints are the reference's elastic ones: rank 0 writes
+every leaf whole and all ranks wait for it; a resume places each rank's
+shard and ZeRO slice, whatever layout (or one process) wrote them.
+
 Straggler mitigation: per-step wall times feed an EWMA; steps slower than
 ``straggler_factor`` x the EWMA are counted and surfaced. ``float(loss)``
 is the step's sync.
@@ -58,9 +63,10 @@ def train_loop(
 ) -> LoopState:
     state = LoopState()
     start = 0
+    layout = getattr(step_fn, "layout", None)
     ckpt = latest_checkpoint(loop.ckpt_dir) if loop.resume else None
     if ckpt is not None:
-        loaded, start, _ = load_checkpoint(ckpt, (params, opt_state))
+        loaded, start, _ = load_checkpoint(ckpt, (params, opt_state), layout)
         assign_((params, opt_state), loaded)
         state.resumed_from = start
     ewma = None
@@ -81,7 +87,7 @@ def train_loop(
         if on_step is not None:
             on_step(step, metrics)
         if (step + 1) % loop.ckpt_every == 0 or step + 1 == loop.total_steps:
-            save_checkpoint(loop.ckpt_dir, step + 1, (params, opt_state))
+            save_checkpoint(loop.ckpt_dir, step + 1, (params, opt_state), layout=layout)
     state.params = params
     state.opt_state = opt_state
     return state

@@ -12,16 +12,22 @@ the first that the reference's rules leave unsharded and dp divides
 (``zero1_dim``, the reference's ``zero1_pspec`` under ``DEFAULT_RULES``).
 On one card each rank's slice is a tensor of its own (``Zero1Shards``),
 updated one rank after another against the same slice of the gradient and
-of the parameter.
+of the parameter. Across processes (``adamw_init(..., group=)``, the data
+group of a pool) each data rank holds its own slice alone, updates that
+slice of the parameter, and the slices are all-gathered along the ZeRO dim
+over the data group into every rank's parameter; a leaf ``zero1_dim``
+leaves whole is updated whole on every rank, from the same reduced
+gradient, so it comes out the same.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.models.params import ParamDef, tree_leaves_with_path
+from repro_torch.models.params import ParamDef, tree_leaves_with_path, tree_map_with_path
+from repro_torch.parallel.collectives import Group, all_gather, gather_into
 from repro_torch.parallel.sharding import MODEL_AXES
 
 Path = Tuple[str, ...]
@@ -44,14 +50,27 @@ class AdamWConfig:
 
 @dataclass
 class Zero1Shards:
-    """One moment leaf split over the data ranks: rank r holds ``parts[r]``,
-    the r-th equal slice along ``dim``."""
+    """One moment leaf split over the data ranks along ``dim``: in one
+    process rank r holds ``parts[r]``, the r-th equal slice; across
+    processes (``group``, the data group) ``parts`` holds this rank's
+    slice alone, the ``index``-th."""
 
     dim: int
     parts: List[torch.Tensor]
+    index: int = 0
+    group: Optional[Group] = None
+
+    @property
+    def n(self) -> int:
+        """The number of slices."""
+        return len(self.parts) if self.group is None else self.group.size
 
     def full(self) -> torch.Tensor:
-        return torch.cat(self.parts, self.dim)
+        """The whole leaf (across processes an all-gather over the data
+        group: every member calls it)."""
+        if self.group is None:
+            return torch.cat(self.parts, self.dim)
+        return all_gather(self.parts[0], self.group, self.dim)
 
 
 def zero1_dim(d: ParamDef, dp: int) -> Optional[int]:
@@ -84,25 +103,34 @@ def _split(t: torch.Tensor, dim: Optional[int], dp: int) -> List[Tuple[int, int]
     return [(r * n, n) for r in range(dp)]
 
 
-def adamw_init(params, dtype: torch.dtype = torch.float32, plan: Optional[Zero1Plan] = None):
+def moment_zeros(plan: Optional[Zero1Plan], dtype: torch.dtype, group: Optional[Group] = None):
+    """zeros(path, p): a zero moment of parameter ``p``; with ``plan``, a
+    leaf it splits as a ``Zero1Shards``: every slice here, or with
+    ``group`` (the data group, of ``plan.dp`` ranks) this rank's slice
+    alone."""
+    if group is not None and (plan is None or plan.dp != group.size):
+        raise ValueError(f"a ZeRO-1 plan over {None if plan is None else plan.dp} ranks for a data group of "
+                         f"{group.size}")
+
     def zeros(path, p):
         dim = plan.dims[path] if plan is not None else None
         if dim is None:
             return torch.zeros(p.shape, dtype=dtype, device=p.device)
+        slices = _split(p, dim, plan.dp)
+        if group is not None:
+            slices = slices[group.index:group.index + 1]
         return Zero1Shards(dim, [torch.zeros(p.narrow(dim, s, n).shape, dtype=dtype, device=p.device)
-                                 for s, n in _split(p, dim, plan.dp)])
+                                 for s, n in slices], 0 if group is None else group.index, group)
 
-    def moments():
-        out: dict = {}
-        for path, p in tree_leaves_with_path(params):
-            node = out
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = zeros(path, p)
-        return out
+    return zeros
 
-    return {"mu": moments(), "nu": moments(), "count": torch.zeros((), dtype=torch.int32,
-                                                                   device=_device_of(params))}
+
+def adamw_init(params, dtype: torch.dtype = torch.float32, plan: Optional[Zero1Plan] = None,
+               group: Optional[Group] = None):
+    """Zero moments of ``params`` (``moment_zeros``) and the step count."""
+    zeros = moment_zeros(plan, dtype, group)
+    return {"mu": tree_map_with_path(zeros, params), "nu": tree_map_with_path(zeros, params),
+            "count": torch.zeros((), dtype=torch.int32, device=_device_of(params))}
 
 
 def _device_of(tree) -> torch.device:
@@ -115,17 +143,22 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _pieces(m, v, g: torch.Tensor, p: torch.Tensor):
-    """(g, m, v, p) per data rank: the moments' own tensors against the
-    same slices of the gradient and the parameter."""
+    """(g, m, v, p) per data rank held here: the moments' own tensors
+    against the same slices of the gradient and the parameter."""
     if not isinstance(m, Zero1Shards):
         return [(g, m, v, p)]
+    slices = _split(p, m.dim, m.n)
+    if m.group is not None:
+        slices = slices[m.index:m.index + 1]
     return [(g.narrow(m.dim, s, n), m_r, v_r, p.narrow(m.dim, s, n))
-            for (s, n), m_r, v_r in zip(_split(p, m.dim, len(m.parts)), m.parts, v.parts)]
+            for (s, n), m_r, v_r in zip(slices, m.parts, v.parts)]
 
 
 def adamw_update(grads, state, params, cfg: AdamWConfig):
     """One AdamW step. Writes ``params`` and the moments in place and
-    returns (params, state) with the count advanced."""
+    returns (params, state) with the count advanced. Across processes a
+    leaf's updated ZeRO slices are all-gathered into every data rank's
+    parameter before the next leaf."""
     count = state["count"] + 1
     step = count.float()
     lr = lr_schedule(cfg, step)
@@ -147,18 +180,38 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
                     p.sub_(step_)
                 else:
                     p.copy_((p.to(cfg.dtype) - step_).to(p.dtype))
+            m = mus[path]
+            if isinstance(m, Zero1Shards) and m.group is not None and m.n > 1:
+                gather_into(p_leaf, p, m.group, m.dim)
         state["count"].copy_(count)
     return params, state
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for _, x in tree_leaves_with_path(tree)))
+def global_norm(tree, sharded: Sequence[Path] = (), group: Optional[Group] = None) -> torch.Tensor:
+    """The square root of every leaf's sum of squares. Across processes
+    (``group``, the model group) the leaves at ``sharded`` paths are this
+    rank's model shards: their sums are summed over the group, and each
+    replicated leaf is counted once."""
+    if group is None:
+        return torch.sqrt(sum(torch.sum(x.float() ** 2) for _, x in tree_leaves_with_path(tree)))
+    split = set(sharded)
+    parts = {True: [], False: []}
+    for path, x in tree_leaves_with_path(tree):
+        parts[path in split].append(torch.sum(x.float() ** 2))
+    dev = _device_of(tree)
+    shards, whole = (torch.stack(parts[k]).sum() if parts[k] else torch.zeros((), device=dev) for k in (True, False))
+    if group.size > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(shards, group=group.handle)
+    return torch.sqrt(shards + whole)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sharded: Sequence[Path] = (), group: Optional[Group] = None):
     """Scales ``grads`` in place to a global norm of at most ``max_norm``;
-    returns (grads, the norm before)."""
-    norm = global_norm(grads)
+    returns (grads, the norm before). ``sharded`` and ``group``: as
+    ``global_norm``'s."""
+    norm = global_norm(grads, sharded, group)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     with torch.no_grad():
         for _, g in tree_leaves_with_path(grads):
@@ -167,4 +220,3 @@ def clip_by_global_norm(grads, max_norm: float):
             else:
                 g.copy_((g * scale).to(g.dtype))
     return grads, norm
-

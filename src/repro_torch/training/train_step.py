@@ -1,36 +1,51 @@
 """Train step: loss -> grads -> (compression) -> clip -> AdamW (mirrors
 repro/training/train_step.py).
 
-The step runs over the bound params of a ``WeightStore`` at TP t on one
-device: every projection goes through ``tp_shard_matmul`` at its rank's
-offset into the parameter tensors, and each layer is recomputed in
-backward (``models.model.forward``'s train mode). The reference shards the
-batch over a (data, model) mesh; here dp data groups run their slices of
-the batch one after another, and their gradients add up in data order in
-the parameters' ``.grad``, which stands for the all-reduce. Each group's
-objective is its share of the global loss (its CE sum over the global
-mask's count, its MoE aux terms over dp), so the sum is the reference's
-global loss. With ``accum_steps`` k, microbatch i is rows i*B/k.. of the
-batch, and its gradients accumulate into f32 buffers, each divided by k,
-as the reference's scan does. ZeRO-1 splits the moments over the dp ranks
-(``optimizer.Zero1Plan``).
+The step runs over the bound params of a ``WeightStore`` at TP t: every
+projection goes through ``tp_shard_matmul`` at its rank's offset into the
+parameter tensors, and each layer is recomputed in backward
+(``models.model.forward``'s train mode). The reference shards the batch
+over a (data, model) mesh.
+
+In one process (the default) the t ranks read the one device's tensors,
+and dp data groups run their slices of the batch one after another, their
+gradients adding up in data order in the parameters' ``.grad``, which
+stands for the all-reduce. Each group's objective is its share of the
+global loss (its CE sum over the global mask's count, its MoE aux terms
+over dp), so the sum is the reference's global loss. With ``accum_steps``
+k, microbatch i is rows i*B/k.. of the batch, and its gradients accumulate
+into f32 buffers, each divided by k, as the reference's scan does. ZeRO-1
+splits the moments over the dp ranks (``optimizer.Zero1Plan``).
+
+Across processes (``pool``: one process per card, the reference's mesh at
+TP t, data = N/t) each process holds its rank's parameters as the
+reference's ``param_shardings`` place them (``train_params``: a
+model-sharded leaf's model shard, a replicated leaf whole, at storage TP
+t), runs its data coordinate's share of each microbatch, accumulates
+locally, and sums the gradients over its data group once a step, a
+collective a leaf; the collectives inside the model carry the gradient
+across the model group (``parallel.collectives``). ZeRO-1 keeps each data
+rank's slice of the moments alone and all-gathers the updated slices;
+clipping sums the model shards' squares over the model group. The loss
+metric is summed over the data group: every rank reports the global loss.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.weight_store import WeightStore
-from repro_torch.models.model import loss_fn, model_param_defs
-from repro_torch.models.params import tree_leaves_with_path, tree_map
+from repro_torch.models.model import layer_templates, loss_fn, model_param_defs
+from repro_torch.models.params import tree_leaves_with_path, tree_map, tree_map_with_path
+from repro_torch.parallel.collectives import Level, Pool, all_reduce, all_reduce_leaves
 from repro_torch.parallel.sharding import ExecConfig
 from repro_torch.training.grad_compress import CompressConfig, compress_grads, init_error_feedback
 from repro_torch.training.optimizer import (
-    AdamWConfig, Zero1Plan, adamw_init, adamw_update, clip_by_global_norm, zero1_plan,
+    AdamWConfig, Zero1Plan, adamw_init, adamw_update, clip_by_global_norm, moment_zeros, zero1_plan,
 )
 
 
@@ -55,6 +70,67 @@ def batch_to(batch: Dict[str, np.ndarray], device: torch.device, dtype: torch.dt
             for k, v in batch.items()}
 
 
+@dataclass(frozen=True)
+class PoolLayout:
+    """How a train state lies over a pool at one TP level: each parameter
+    path's model-sharded dim (None: replicated), the level's groups. A
+    moment leaf of a ZeRO-split parameter is a ``Zero1Shards`` over the
+    data group besides."""
+
+    pool: Pool
+    level: Level
+    model_dims: Dict[Tuple[str, ...], Optional[int]]
+
+    def model_dim(self, path: Tuple) -> Optional[int]:
+        """The model-sharded dim of a leaf of a state tree, by its path:
+        that of the parameter path its path ends in (a moment's or an
+        error's key leads), None for any other leaf (the step count)."""
+        if self.level.tp == 1:
+            return None
+        for i in range(len(path)):
+            if tuple(path[i:]) in self.model_dims:
+                return self.model_dims[tuple(path[i:])]
+        return None
+
+
+def train_store(cfg: ModelConfig, ec: ExecConfig, pool: Pool, defs: Optional[dict] = None) -> WeightStore:
+    """The store a train step across ``pool`` binds: storage TP ``ec.tp``,
+    so a card holds its model shard of every model-sharded leaf (the
+    reference's ``param_shardings``) and every replicated leaf whole."""
+    return WeightStore(cfg, defs or model_param_defs(cfg, ec), pool.devices, storage_tp=ec.tp, pool=pool)
+
+
+def train_params(cfg: ModelConfig, ec: ExecConfig, pool: Pool, params: Optional[dict] = None,
+                 draw: Optional[Tuple[dict, torch.Generator, torch.dtype]] = None) -> dict:
+    """This rank's parameters for ``make_train_step(..., pool=)``, tensors
+    of their own: the canonical tree ``params`` (left as it is) laid out at
+    storage TP ``ec.tp``, or drawn leaf by leaf, ``draw`` = (defs,
+    generator, dtype) as ``init_params`` draws them, each leaf cut to this
+    rank's shard as it comes (the whole tree is never held: llama3-8b's f32
+    leaves take 32 GB)."""
+    from repro_torch.models.params import init_params
+
+    store = train_store(cfg, ec, pool)
+    if params is not None:
+        return tree_map_with_path(lambda path, t: store.lay(path, t.detach().clone(), pool.rank), params)
+    defs, gen, dtype = draw
+    return init_params(defs, gen, dtype, place=lambda path, t: store.lay(path, t, pool.rank))
+
+
+def gather_params(params: dict, layout: PoolLayout) -> dict:
+    """The canonical tree of a pool's parameters, in tensors of its own
+    (later steps leave it as it is): every model-sharded leaf gathered over
+    the model group (a collective: every rank calls it), a replicated leaf
+    copied."""
+    from repro_torch.parallel.collectives import all_gather
+
+    def whole(path, t):
+        dim = layout.model_dim(path)
+        return t.detach().clone() if dim is None else all_gather(t.detach(), layout.level.model, dim)
+
+    return tree_map_with_path(whole, params)  # every rank's tree, made by train_params, has one order
+
+
 def make_train_step(
     cfg: ModelConfig,
     ec: ExecConfig,
@@ -62,31 +138,61 @@ def make_train_step(
     tcfg: TrainStepConfig = TrainStepConfig(),
     *,
     dp: int = 1,
+    pool: Optional[Pool] = None,
 ) -> Tuple[Callable, Zero1Plan]:
-    """Returns (step_fn, the ZeRO-1 plan over ``dp`` data ranks).
+    """Returns (step_fn, the ZeRO-1 plan over the dp data ranks).
 
-    ``params`` is a canonical parameter tree (``model_param_defs(cfg, ec)``'s
-    keys and shapes) on one device; it is set to require grad and bound at
-    TP ``ec.tp`` (a ``WeightStore`` of ``ec.tp`` ranks on that device, at
-    storage TP 1, keeps the tensors themselves). step_fn(params,
-    opt_state, batch) -> (params, opt_state, metrics) updates that same
-    tree and the state in place; the batch is numpy (``data.py``) with B
-    a multiple of dp x accum_steps (or tensors: the dry run's meta batch);
-    metrics are 0-d tensors on the device.
+    In one process ``params`` is a canonical parameter tree
+    (``model_param_defs(cfg, ec)``'s keys and shapes) on one device; it is
+    set to require grad and bound at TP ``ec.tp`` (a ``WeightStore`` of
+    ``ec.tp`` ranks on that device, at storage TP 1, keeps the tensors
+    themselves). Across ``pool`` it is this rank's tree
+    (``train_params``), dp is the level's data size, and ``step_fn.layout``
+    is the state's ``PoolLayout`` (``train_loop``'s checkpoints read it).
+    step_fn(params, opt_state, batch) -> (params, opt_state, metrics)
+    updates that same tree and the state in place; the batch is numpy
+    (``data.py``), the global batch, every rank the same, with B a multiple
+    of dp x accum_steps (or tensors: the dry run's meta batch); metrics
+    are 0-d tensors on the device.
     """
     defs = model_param_defs(cfg, ec)
     leaves = [t for _, t in tree_leaves_with_path(params)]
     device, dtype = leaves[0].device, leaves[0].dtype
-    store = WeightStore(cfg, defs, [device] * ec.tp)
+    level, layout = None, None
+    if pool is None:
+        store = WeightStore(cfg, defs, [device] * ec.tp)
+        storage = store.build(params)
+    else:
+        level = pool.level(ec.tp)
+        if dp not in (1, level.dp):
+            raise ValueError(f"dp {dp} on a pool of {pool.world} at TP {ec.tp}: the data size is {level.dp}")
+        dp = level.dp
+        odd = sorted({t.ffn if t.ffn == "moe" else t.mixer for t in layer_templates(cfg)
+                      if t.ffn == "moe" or t.mixer == "mamba"})
+        if odd:
+            raise NotImplementedError(f"{cfg.name}: training across processes runs the dense family; its {odd} "
+                                      f"layers need a differentiable all-to-all, which is not ported yet")
+        store = train_store(cfg, ec, pool, defs)
+        for (path, t), (_, d) in zip(tree_leaves_with_path(params), tree_leaves_with_path(defs)):
+            want = list(d.shape)
+            if store.plans[path].dim is not None:
+                want[store.plans[path].dim] //= ec.tp
+            if list(t.shape) != want:
+                raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)}, not this rank's shard {tuple(want)} "
+                                 f"(train_params lays them out)")
+        storage = store.storage_of(params)
+        layout = PoolLayout(pool, level, {path: plan.dim for path, plan in store.plans.items()})
     for t in leaves:
         t.requires_grad_(True)
-    bound = store.rebind(store.build(params), ec.tp)
+    bound = store.rebind(storage, ec.tp)
     plan = zero1_plan(defs, dp)
     k = tcfg.accum_steps
+    mine = range(dp) if level is None else (level.data_rank,)
 
     def microbatch(mb: Dict[str, torch.Tensor]):
-        """Backward of one microbatch, its dp groups in data order, into
-        the params' .grad; returns (loss, metrics) of the microbatch."""
+        """Backward of one microbatch, its data groups held here in data
+        order, into the params' .grad; returns (loss, metrics) of the
+        microbatch (across processes summed over the data group)."""
         B, S = mb["targets"].shape
         if B % dp:
             raise ValueError(f"batch of {B} rows does not split over {dp} data groups")
@@ -94,7 +200,7 @@ def make_train_step(
         count = (mask.sum() if mask is not None else torch.tensor(float(B * S), device=device)).clamp_min(1.0)
         loss = ce = lb = z = 0.0
         rows = B // dp
-        for g in range(dp):
+        for g in mine:
             part = {key: v[g * rows:(g + 1) * rows] for key, v in mb.items()}
             loss_g, met = loss_fn(bound, cfg, ec, part, seq_chunk=tcfg.seq_chunk, block_q=tcfg.block_q,
                                   block_k=tcfg.block_k)
@@ -109,6 +215,9 @@ def make_train_step(
             ce = ce + share * met["ce"].detach()
             lb = lb + met["lb"].detach() / dp
             z = z + met["z"].detach() / dp
+        if level is not None and dp > 1:  # every rank reports the global loss
+            summed = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=device) for x in (loss, ce, lb, z)])
+            loss, ce, lb, z = all_reduce(summed, level.data).unbind()
         return loss, {"ce": ce, "lb": lb, "z": z}
 
     def step(p, opt_state, batch):
@@ -139,10 +248,16 @@ def make_train_step(
             loss = torch.stack(losses).mean()
             metrics = {key: torch.stack([torch.as_tensor(m[key], device=device) for m in mets]).mean()
                        for key in mets[0]}
+        split = {}
+        if level is not None:  # the data-parallel gradient sum, once a step
+            with torch.no_grad():
+                all_reduce_leaves([g for _, g in tree_leaves_with_path(grads)], level.data)
+            split = dict(sharded=[path for path, d in layout.model_dims.items() if d is not None and level.tp > 1],
+                         group=level.model)
         err = opt_state.get("err")
         if tcfg.compress.enabled:
-            grads, err = compress_grads(grads, err, tcfg.compress)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.opt.grad_clip)
+            grads, err = compress_grads(grads, err, tcfg.compress, None if layout is None else layout.model_dims, level)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.opt.grad_clip, **split)
         inner = {key: opt_state[key] for key in ("mu", "nu", "count")}
         adamw_update(grads, inner, params, tcfg.opt)
         for t in leaves:
@@ -152,6 +267,7 @@ def make_train_step(
         metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
+    step.layout = layout
     return step, plan
 
 
@@ -159,8 +275,17 @@ def _grads(params):
     return tree_map(lambda t: t.grad if t.grad is not None else torch.zeros_like(t), params)
 
 
-def init_opt_state(params, tcfg: TrainStepConfig, plan: Zero1Plan = None):
-    state = adamw_init(params, tcfg.opt.dtype, plan)
+def init_opt_state(params, tcfg: TrainStepConfig, plan: Zero1Plan = None, step_fn: Optional[Callable] = None):
+    """AdamW's state of ``params`` (ZeRO-1 split by ``plan``) and, with
+    compression, the error feedback. Across processes pass the step
+    function: each data rank then holds its own slices of the moments and
+    of the error (which the reference shards like the first moment)."""
+    layout = getattr(step_fn, "layout", None)
+    group = None if layout is None else layout.level.data
+    if group is not None and plan is None:
+        raise ValueError("across processes the state takes the step's ZeRO-1 plan")
+    state = adamw_init(params, tcfg.opt.dtype, plan, group)
     if tcfg.compress.enabled:
-        state["err"] = init_error_feedback(params)
+        state["err"] = init_error_feedback(params) if group is None else tree_map_with_path(
+            moment_zeros(plan, torch.float32, group), params)
     return state

@@ -1370,3 +1370,34 @@ def test_family_engine_across_four_cards_equals_one_card(cuda, model):
         assert r["engine"]["summary"]["switches"] == 4
         assert r["engine"]["arrays"]["trajectories"] == base
         assert r["engine"]["arrays"]["moe_dropped"]["switched"] == dropped
+
+
+def test_train_step_across_four_cards(cuda):
+    """Training across cards: check_train_step's pool check at world 4 on
+    NCCL (reduced h2o-danube-1.8b at data 2 x model 2 against a single-rank
+    step, each leaf within 1e-2 of its update, ZeRO-1 moments on each data
+    rank, the replication after every step: it raises otherwise), the
+    collectives'
+    gradients against the one-process TP 2 ranks (within 1e-6), and
+    multicard's train_f32 leg at 2 layers (h2o-danube-1.8b at full width,
+    8 x 512, against the one-card run within check_train_step's tolerances
+    and each leaf within 1e-2 of its update)."""
+    from repro_torch.testing import multicard
+    from repro_torch.testing.multidev_checks import UPDATE_RTOL, spawn
+
+    _cards(4)
+    ranks = _pool(4, ["train_step", "train_grads"])
+    for r in ranks:
+        case = r["train_step"]["cases"]["plain"]
+        assert r["train_step"]["mesh"] == {"data": 2, "model": 2} and case["replicated_after_every_step"]
+        assert case["zero1_split_leaves"] == case["leaves"] and case["update_rel"] < UPDATE_RTOL
+        assert max(r["train_grads"]["max_abs_err"].values()) <= 1e-6
+    legs = spawn(4, "cuda", task="repro_torch.testing.multicard:legs",
+                 inputs={"layers": 2, "only": ["train_f32"], "skip": []})
+    rec = legs[0]["repro_torch.testing.multicard:legs"]["train_f32"]
+    assert rec["failures"] == [] and rec["mesh"] == {"data": 2, "model": 2}
+    dist = rec["one_card_tp1_dp1"]["distance"]
+    assert dist["loss_rel"] < 2e-4 and dist["outside"] is None and dist["update_rel"] < UPDATE_RTOL
+    assert all(np.isfinite(rec["losses"]))
+    assert rec["launches_per_step"]["forward"] > 0 and rec["launches_per_step"]["backward"] > 0
+    assert multicard.TRAIN_BATCH * multicard.TRAIN_SEQ == 8 * 512
