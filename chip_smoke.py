@@ -3350,7 +3350,11 @@ def pool_train_phase(torch, card, log):
     TRAIN_LOSS_RTOL), the kernel's launches counted in the ranks over its
     three runs (set to 0 just before, read just after), the uninterrupted
     run held to the one-process step on card 0 within check_train_step's
-    tolerances. Returns ({path: {"tp_shard_matmul": n}} of rank 0, the
+    tolerances. Then moonshot-v1-16b-a3b (2 layers) and jamba-v0.1-52b
+    (its Mamba-1 + dense layer) at full width, three steps each through the
+    same pool path (``multicard.phase16_families``), each held to the
+    one-process step at its layout, the launches counted over each model's
+    steps. Returns ({path: {"tp_shard_matmul": n}} of rank 0, the
     record)."""
     from repro_torch.testing.multidev_checks import spawn
     from repro_torch.training.optimizer import AdamWConfig
@@ -3378,8 +3382,23 @@ def pool_train_phase(torch, card, log):
         f"{ck['max_rel_diff']:.2e} of the uninterrupted run's; saves {[round(x['s'], 2) for x in ck['saves']]} s, "
         f"load {[round(x, 2) for x in ck['load_s']]} s")
     path = f"h2o-danube-1.8b f32 train across processes ({rec['layers']} layers, world {world})"
-    return {path: {"tp_shard_matmul": rec["launches"]["forward"]},
-            f"{path} backward": {"tp_shard_matmul": rec["launches"]["backward"]}}, rec
+    paths = {path: {"tp_shard_matmul": rec["launches"]["forward"]},
+             f"{path} backward": {"tp_shard_matmul": rec["launches"]["backward"]}}
+    for name, fam in rec["families"].items():
+        what = f"phase 16 {name} f32 ({fam['layers']} layers: {', '.join(fam['pattern'])}) across {world} process(es)"
+        for r in res:
+            check(r["families"][name]["launches"]["forward"] > 0 and r["families"][name]["launches"]["backward"] > 0,
+                  f"{what}: tp_shard_matmul launched: {r['families'][name]['launches']}")
+        tp, dp = fam["mesh"]["model"], fam["mesh"]["data"]
+        one = fam[f"one_card_tp{tp}_dp{dp}"]["distance"]
+        log(f"[{card}] {what}: losses {[round(x, 4) for x in fam['losses']]} within {one['loss_rel']:.2e} (relative) "
+            f"of the one-process step's (TP {tp}, dp {dp}), parameters within {one['param_abs']:.2e} "
+            f"(update distance {one['update_rel']:.2e}); tp_shard_matmul launches (rank 0) {fam['launches']}; "
+            f"steps {sum(fam['step_s']):.1f} s")
+        path = f"{name} f32 train across processes ({fam['layers']} layers, world {world})"
+        paths[path] = {"tp_shard_matmul": fam["launches"]["forward"]}
+        paths[f"{path} backward"] = {"tp_shard_matmul": fam["launches"]["backward"]}
+    return paths, rec
 
 
 def kernel_counts():

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.collectives import enter_model_group, reduce_ranks
+from repro_torch.parallel.collectives import enter_model_group, reduce_ranks, reduce_shared
 from repro_torch.parallel.sharding import ShardView
 
 
@@ -75,10 +75,13 @@ def col_parallel(x: torch.Tensor, w: ShardView, out_dtype=None, entered: bool = 
     ]
 
 
-def row_parallel(xs: List[torch.Tensor], w: ShardView) -> torch.Tensor:
-    """Per-rank inputs (M, width) -> sum over the group's ranks, in rank order."""
+def row_parallel(xs: List[torch.Tensor], w: ShardView, shared: bool = False) -> torch.Tensor:
+    """Per-rank inputs (M, width) -> sum over the group's ranks, in rank
+    order. ``shared``: each rank then uses the sum in its own way, so under
+    autograd across processes its gradient is summed over the model group
+    too (``collectives.reduce_shared``)."""
     parts = [tp_shard_matmul(x, m, off, n_out=m.shape[1], mode="row") for x, m, off in zip(xs, w.mats, w.offsets)]
-    return reduce_ranks(parts, w.level, w.tp)
+    return (reduce_shared if shared else reduce_ranks)(parts, w.level, w.tp)
 
 
 def tied_head(x: torch.Tensor, embed: ShardView) -> List[torch.Tensor]:

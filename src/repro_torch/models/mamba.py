@@ -6,8 +6,14 @@ recurrence. Mamba-1 (selective scan, used by Jamba): a chunked scan.
 
 Tensor parallelism as in the reference: each rank of a TP group owns
 d_inner / t channels (H / t heads for v2); across processes (weights bound
-to a level of a pool) mamba1 runs on its rank's channels alone and its
-state cache holds only them. The column-parallel projections
+to a level of a pool) a layer runs on its rank's channels alone (mamba1's
+state cache holds only them; mamba2, which the engine refuses, only
+trains there, its heads reading the B/C groups they belong to). Under
+autograd across processes the sums that each rank then uses for its own
+channels (mamba1's B and C, the gated norm's sum of squares) are
+``collectives.reduce_shared``, whose backward sums the ranks' gradients;
+the replicated ``w_BC`` and ``conv_BC`` and the layer's input go through
+``enter_model_group``. The column-parallel projections
 (``w_z``, ``w_x``, ``w_dt``, mamba1's ``dt_proj``) and the row-parallel ones
 (``w_out``, mamba1's ``w_dtr``, ``w_B``, ``w_C``, whose contraction runs over
 the sharded channels; the ranks' partials summed in rank order) run once per
@@ -34,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 from repro_torch.models.layers import col_parallel, row_parallel
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.collectives import Level, enter_model_group, reduce_shared
 from repro_torch.parallel.sharding import ShardView
 
 
@@ -51,23 +58,27 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, tail: Optional[torch.Tensor] =
     return y, xp[:, -(K - 1):]
 
 
-def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, tp: int = 1):
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, tp: int = 1,
+                   level: Optional[Level] = None):
     """RMSNorm of y * silu(z) over the last dim, which ``tp`` ranks share
     in equal contiguous parts: the sum of squares is each rank's partial
-    sum, added in rank order."""
+    sum, added in rank order (``reduce_shared``: in one process over the
+    parts ``y`` holds, all ``tp`` of them; across processes ``y`` is this
+    rank's part alone and the sum runs over the level's model group, whose
+    ranks each normalise their own channels by the total, so that their
+    gradients of it are summed too)."""
     dt = y.dtype
     y = y.float() * F.silu(z.float())
-    parts = (y * y).unflatten(-1, (tp, -1)).sum(-1)  # (..., tp)
-    total = parts[..., 0]
-    for r in range(1, tp):
-        total = total + parts[..., r]
-    var = (total / y.shape[-1])[..., None]
+    here = tp if level is None else tp // level.tp  # the parts this process holds
+    parts = (y * y).unflatten(-1, (here, -1)).sum(-1)  # (..., here)
+    total = reduce_shared(list(parts.unbind(-1)), level, tp)
+    var = (total / (y.shape[-1] * tp // here))[..., None]
     return (y * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
 
 
-def _col(x2: torch.Tensor, w: ShardView) -> torch.Tensor:
+def _col(x2: torch.Tensor, w: ShardView, entered: bool = False) -> torch.Tensor:
     """Column-parallel product, the ranks' outputs joined in rank order."""
-    ys = col_parallel(x2, w)
+    ys = col_parallel(x2, w, entered=entered)
     return ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
 
 
@@ -162,25 +173,36 @@ def mamba2_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     given cache, updated in place (states kept in its dtype)."""
     m = cfg.mamba
     B, S, d = x.shape
-    d_in = cfg.d_inner
+    wo = p["w_out"]
+    here, tp, level = len(wo.mats), wo.tp, wo.level  # the ranks this process holds: the TP group's, or its own
+    d_in = cfg.d_inner * here // tp  # their channels
     H, P, G, N = d_in // m.head_dim, m.head_dim, m.ngroups, m.d_state
-    tp = p["w_out"].tp
+    if mode == "decode" and here != tp:
+        raise NotImplementedError("mamba2 decodes in one process only: the engine refuses it, as the reference's does")
+    rep = cfg.d_inner // m.head_dim // G  # heads per B/C group
+    h0 = wo.ranks[0] * H // here  # this process's first head
+    if H % rep and rep % H:
+        raise NotImplementedError(f"{cfg.name}: {H} heads a process at {rep} heads a B/C group: a process's heads "
+                                  f"must fill whole groups or lie in one, or B/C would reach the wrong heads")
+    g0, g1 = h0 // rep, (h0 + H - 1) // rep + 1  # the groups its heads read (every group in one process)
     A = -torch.exp(_vec(p["A_log"]).float())
     D, dt_bias = _vec(p["D"]).float(), _vec(p["dt_bias"]).float()
     conv_x = p["conv_x"].joined(1)  # (K, d_in)
+    # replicated leaves that feed every rank's heads: each rank's heads give their part of the gradient
+    w_BC, conv_BC = enter_model_group(p["w_BC"], level), enter_model_group(p["conv_BC"], level)
 
-    x2 = x.reshape(B * S, d)
-    z = _col(x2, p["w_z"]).view(B, S, d_in)
-    xs = _col(x2, p["w_x"]).view(B, S, d_in)
-    BC = tp_shard_matmul(x2, p["w_BC"], 0, n_out=2 * G * N, mode="col").view(B, S, 2 * G * N)
-    dt = _col(x2, p["w_dt"]).view(B, S, H)
+    x2 = enter_model_group(x.reshape(B * S, d), level)  # z, x, dt and the shared B/C: one gradient all-reduce
+    z = _col(x2, p["w_z"], entered=True).view(B, S, d_in)
+    xs = _col(x2, p["w_x"], entered=True).view(B, S, d_in)
+    BC = tp_shard_matmul(x2, w_BC, 0, n_out=2 * G * N, mode="col").view(B, S, 2 * G * N)
+    dt = _col(x2, p["w_dt"], entered=True).view(B, S, H)
 
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs the cache")
         win = torch.cat([cache["conv"], torch.cat([xs[:, 0], BC[:, 0]], -1)[:, None]], 1)  # (B,K,conv_dim)
         xs1 = F.silu((win[..., :d_in] * conv_x).sum(1)).view(B, H, P)
-        BC1 = F.silu((win[..., d_in:] * p["conv_BC"]).sum(1))
+        BC1 = F.silu((win[..., d_in:] * conv_BC).sum(1))
         cache["conv"].copy_(win[:, 1:])  # the shifted window; win was read first
         B1 = BC1[:, :G * N].reshape(B, G, N).repeat_interleave(H // G, dim=1)
         C1 = BC1[:, G * N:].reshape(B, G, N).repeat_interleave(H // G, dim=1)
@@ -195,12 +217,12 @@ def mamba2_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
         new_cache = cache
     elif mode == "prefill":
         xs, conv_tail_x = causal_conv(xs, conv_x)
-        BC, conv_tail_bc = causal_conv(BC, p["conv_BC"])
+        BC, conv_tail_bc = causal_conv(BC, conv_BC)
         xs = F.silu(xs)
         BC = F.silu(BC)
         xh = xs.reshape(B, S, H, P)
-        Bh = BC[..., :G * N].reshape(B, S, G, N)
-        Ch = BC[..., G * N:].reshape(B, S, G, N)
+        Bh = BC[..., :G * N].reshape(B, S, G, N)[:, :, g0:g1]
+        Ch = BC[..., G * N:].reshape(B, S, G, N)[:, :, g0:g1]
         dt = F.softplus(dt.float() + dt_bias)
         y, h_final = _ssd_chunked(xh, dt, A, Bh, Ch, min(m.chunk, S))
         y = y + D[None, None, :, None] * xh.float()
@@ -209,8 +231,8 @@ def mamba2_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     else:
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
 
-    y = _gated_rmsnorm(y, z, _vec(p["norm"]), tp=tp)
-    out = row_parallel(_rank_parts(y.reshape(B * S, d_in), tp), p["w_out"])
+    y = _gated_rmsnorm(y, z, _vec(p["norm"]), tp=tp, level=level)
+    out = row_parallel(_rank_parts(y.reshape(B * S, d_in), here), wo)
     return out.view(B, S, d), new_cache
 
 
@@ -306,9 +328,9 @@ def mamba1_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     D, dt_bias = _vec(p["D"]).float(), _vec(p["dt_bias"]).float()
     conv = p["conv"].joined(1)  # (K, C)
 
-    x2 = x.reshape(B * S, d)
-    xs = _col(x2, p["w_x"]).view(B, S, d_in)
-    z = _col(x2, p["w_z"]).view(B, S, d_in)
+    x2 = enter_model_group(x.reshape(B * S, d), p["w_out"].level)  # x and z share one gradient all-reduce
+    xs = _col(x2, p["w_x"], entered=True).view(B, S, d_in)
+    z = _col(x2, p["w_z"], entered=True).view(B, S, d_in)
 
     if mode == "decode":
         if cache is None:
@@ -324,9 +346,9 @@ def mamba1_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
 
     parts = _rank_parts(u.reshape(-1, d_in), here)
     dtr = row_parallel(parts, p["w_dtr"])
-    dt = F.softplus(_col(dtr, p["dt_proj"]).float() + dt_bias)  # (M, C)
-    Bc = row_parallel(parts, p["w_B"]).float()  # (M, N)
-    Cc = row_parallel(parts, p["w_C"]).float()
+    dt = F.softplus(_col(dtr, p["dt_proj"]).float() + dt_bias)  # (M, C); dt_proj's input takes *f*
+    Bc = row_parallel(parts, p["w_B"], shared=True).float()  # (M, N), read by every rank's channels
+    Cc = row_parallel(parts, p["w_C"], shared=True).float()
     uf = u.float()
 
     if mode == "decode":

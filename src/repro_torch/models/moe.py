@@ -33,6 +33,21 @@ path. Drops are counted once per dispatch: a dispatch that several ranks
 run alike (a model group's, or every data group's) counts on one of them,
 so the pool's count is the sum over its ranks.
 
+Across processes every path is differentiable (``make_train_step(...,
+pool=)`` trains through it), each collective a ``parallel.collectives``
+Function: the sharded path's two all-to-alls send each chunk's gradient
+back the way it came; its block of the rows and the router (a replicated
+leaf each rank applies to its own block) enter through
+``enter_model_group``, and its output is gathered along the sequence with
+``gather_ranks`` (each rank's slice of the replicated gradient). The
+decode path's rows and router enter the same way (each rank combines only
+its experts' rows) and its psum is ``reduce_ranks``. At TP 1 the data
+groups' rows are gathered with ``gather_summed``: every data rank's
+objective holds the whole batch's aux losses, so a rank's rows take the
+data group's gradients summed. The aux losses' pmean over the pool is
+``pool_mean``, whose gradient is that of the mean of every block's loss,
+each counted once (the reference's, measured on its mesh).
+
 Dispatch gathers each expert's rows (no scatter), and on every path the
 combine sums a token's K contributions from zero in ascending expert order,
 the order the reference's ``.at[tok].add`` reaches them through the stable
@@ -65,7 +80,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoESpec
 from repro_torch.models.layers import mlp_apply
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.collectives import all_gather, all_reduce, all_to_all, stand_in
+from repro_torch.parallel.collectives import (
+    all_gather, all_to_all, enter_model_group, gather_ranks, gather_summed, pool_mean, reduce_ranks, stand_in,
+)
 
 
 def moe_param_defs(cfg: ModelConfig) -> dict:
@@ -286,12 +303,13 @@ def moe_apply_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *
     if lv is not None:  # this rank's block (its data group's rows, its model coordinate's positions)
         cols = slice(lv.model_rank * Sl, (lv.model_rank + 1) * Sl)
         C = _capacity(Bl * Sl, m)
-        y, aux = _moe_groups(x[:, cols].reshape(1, Bl * Sl, D), p, m, C, with_aux=with_aux, drops=drops,
+        xe, pe = _entered(p, x, lv)
+        y, aux = _moe_groups(xe[:, cols].reshape(1, Bl * Sl, D), pe, m, C, with_aux=with_aux, drops=drops,
                              mask=None if mask is None else mask[:, cols].reshape(1, Bl * Sl),
                              expert_fn=_experts_all_to_all)
         for _ in ("dispatch", "return"):
             stand_in("all-to-all", m.num_experts * C * D * x.element_size(), dp * tp)
-        y = all_gather(y.view(Bl, Sl, D), lv.model, dim=1)  # the residual stream whole on the model group
+        y = gather_ranks([y.view(Bl, Sl, D)], lv, dim=1)  # the residual stream whole on the model group
         return _finish(p, x, y, m), _pool_mean(aux, lv)
 
     def blocks(t: torch.Tensor) -> torch.Tensor:  # (B, S, ...) -> (dp*tp, Bl*Sl, ...), block (data i, model j)
@@ -320,25 +338,34 @@ def _moe_apply_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: int, *
         if lv.model_rank:  # the model group's ranks dispatch the same rows: counted on its first
             drops = None
     G = B // B_loc
-    y, aux = _moe_groups(x.reshape(G, B_loc * S, D), p, m, _capacity(B_loc * S, m), with_aux=with_aux,
+    xe, pe = _entered(p, x, lv)
+    y, aux = _moe_groups(xe.reshape(G, B_loc * S, D), pe, m, _capacity(B_loc * S, m), with_aux=with_aux,
                          drops=drops, mask=mask, expert_fn=_experts_in_process if lv is None else _experts_own)
-    stand_in("all-reduce", B_loc * S * D * x.element_size(), n_pool)  # each group's ranks sum their experts'
-    if lv is not None:
-        all_reduce(y, lv.model)
+    if lv is None:
+        stand_in("all-reduce", B_loc * S * D * x.element_size(), n_pool)  # each group's ranks sum their experts'
+    else:
+        y = reduce_ranks([y], lv, lv.tp)
         aux = _pool_mean(aux, lv)
     return _finish(p, x, y.view(B, S, D), m), aux
 
 
+def _entered(p: dict, x: torch.Tensor, lv) -> Tuple[torch.Tensor, dict]:
+    """Across processes, the rows and the router as the routed experts
+    take them: each model rank's dispatch and combine give only its part of
+    their gradients (its block of the rows, or its experts' share of every
+    row), so both go through ``enter_model_group`` (the router is a
+    replicated leaf, as the qk-norm scales are). The shared experts take
+    ``x`` itself, entered on their own."""
+    if lv is None:
+        return x, p
+    return enter_model_group(x, lv), {**p, "router": enter_model_group(p["router"], lv)}
+
+
 def _pool_mean(aux: dict, lv) -> dict:
     """Across processes, each aux loss averaged over the pool (the
-    reference's pmean over model and data): summed over the model group,
-    then over the data group, which sums every rank once."""
-    out = {}
-    for k, v in aux.items():
-        v = v.clone()
-        all_reduce(all_reduce(v, lv.model), lv.data)
-        out[k] = v / (lv.tp * lv.dp)
-    return out
+    reference's pmean over model and data; ``collectives.pool_mean``, under
+    autograd the gradient of the mean of every rank's loss)."""
+    return {k: pool_mean(v, lv) for k, v in aux.items()}
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: Optional[int] = None, *, with_aux: bool = True,
@@ -364,7 +391,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, n_pool: Optional[int] 
             drops = None
     if tp == 1 and lv is not None and lv.dp > 1 and not replicated:  # the reference dispatches the whole batch
         B = x.shape[0]
-        whole = all_gather(x, lv.data, 0)
+        whole = gather_summed(x, lv.data)  # every data rank's objective holds the whole batch's aux losses
         y, aux = moe_apply_local(p, whole, cfg, with_aux=with_aux, drops=drops if lv.data_rank == 0 else None,
                                  mask=None if mask is None else all_gather(mask, lv.data, 0))
         return y[lv.data_rank * B:(lv.data_rank + 1) * B], aux

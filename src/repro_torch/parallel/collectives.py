@@ -16,13 +16,18 @@ surviving processes).
 Both ways go through the functions below (``reduce_ranks``,
 ``gather_ranks``, ``all_to_all``, ...). Given ``level=None`` they leave the
 one-process sums to the caller; given a ``Level`` they run the collective
-over its group. Under autograd (training across processes) the model
-group's collectives are ``torch.autograd.Function``s: the psum passes its
+over its group. Under autograd (training across processes) the
+collectives are ``torch.autograd.Function``s: the psum passes its
 gradient through, the gather hands each rank its slice, and
 ``enter_model_group`` (Megatron's *f*) all-reduces the gradient of a
-replicated activation before column-parallel products. Where no gradient
-is taken (the engine's steps and graphs) they launch what the plain calls
-did: the psum in place, the gather's one all-gather, *f* nothing. Each point where the reference runs a collective also calls
+replicated activation before column-parallel products; ``reduce_shared``
+is a psum whose backward sums too (a sum each rank uses in its own way),
+``all_to_all`` sends each chunk's gradient back the way it came,
+``gather_summed`` (over a data group) gives each member's rows the sum of
+every member's gradient, and ``pool_mean`` is the MoE aux losses' pmean
+over the pool, each rank's value counted once. Where no gradient is taken
+(the engine's steps and graphs) they launch what the plain calls did: the
+psum in place, the gather's one all-gather, *f* nothing. Each point where the reference runs a collective also calls
 ``stand_in`` with that collective. Nothing listens unless a counter is
 installed (``launch.op_cost`` does so while it counts a program), so a call
 costs one test of an empty list.
@@ -334,6 +339,52 @@ def enter_model_group(x: torch.Tensor, level: Optional[Level]) -> torch.Tensor:
     return _EnterModelGroup.apply(x, level.model.handle)
 
 
+def reduce_shared(parts: Sequence[torch.Tensor], level: Optional[Level], n: int) -> torch.Tensor:
+    """The psum of partials that each rank then uses in its own way (a
+    Mamba-1 layer's B and C, read by each rank's channels; the gated norm's
+    sum of squares): ``reduce_ranks``, then ``enter_model_group``, so that
+    in backward the ranks' gradients of the sum are summed too.
+    ``reduce_ranks`` alone passes each rank only its own part, which is
+    right only where everything after the sum is replicated."""
+    return enter_model_group(reduce_ranks(parts, level, n), level)
+
+
+class _PoolMean(torch.autograd.Function):
+    """Forward: the mean over the pool of a value each rank computes (the
+    reference's pmean over model and data), summed over the model group,
+    then over the data group. Backward: each rank's value counts once in
+    the objective, which is the data groups' objectives summed (each model
+    group computes its own once): its gradient is the data group's
+    gradients of the mean, summed, over N."""
+
+    @staticmethod
+    def forward(ctx, v, level):
+        import torch.distributed as dist
+
+        ctx.level = level
+        v = v.clone()
+        dist.all_reduce(v, group=level.model.handle)
+        dist.all_reduce(v, group=level.data.handle)
+        return v / (level.tp * level.dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        lv = ctx.level
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=lv.data.handle)
+        note("all-reduce (backward)", nbytes(g))
+        return g / (lv.tp * lv.dp), None
+
+
+def pool_mean(v: torch.Tensor, level: Level) -> torch.Tensor:
+    """``v`` averaged over the level's pool, the same on every rank; under
+    autograd as ``_PoolMean`` says (an MoE layer's aux losses)."""
+    note("all-reduce", 2 * nbytes(v))
+    return _PoolMean.apply(v, level)
+
+
 def _gather_into(t: torch.Tensor, group: Group) -> torch.Tensor:
     """(size * t.shape[0], ...): the group's tensors stacked along dim 0 in
     group order."""
@@ -401,15 +452,77 @@ def gather_first(t: torch.Tensor, group: Group, dim: int) -> Optional[torch.Tens
     return None if parts is None else torch.cat(parts, dim)
 
 
-def all_to_all(t: torch.Tensor, group: Group) -> torch.Tensor:
-    """Dim 0 cut in ``group.size`` equal chunks, chunk k sent to member k;
-    returns the chunks received, in member order along dim 0."""
+def _swap_chunks(t: torch.Tensor, group: Group) -> torch.Tensor:
     import torch.distributed as dist
 
     t = t.contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group.handle)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all under autograd. Chunk k of this member's input
+    is chunk (this member) of member k's output: the exchange is its own
+    transpose, so its backward is the same all-to-all of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _swap_chunks(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _swap_chunks(g, ctx.group)
+        note("all-to-all (backward)", nbytes(g))
+        return g, None
+
+
+def all_to_all(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Dim 0 cut in ``group.size`` equal chunks, chunk k sent to member k;
+    returns the chunks received, in member order along dim 0 (under
+    autograd, each chunk's gradient goes back the way it came)."""
+    note("all-to-all", nbytes(t))
+    return _AllToAll.apply(t, group)
+
+
+class _GatherSum(torch.autograd.Function):
+    """All-gather along dim 0 forward; backward sums the members'
+    gradients of the whole and hands each its own rows (a reduce-scatter):
+    every member computes something of its own from the whole tensor
+    (the MoE at TP 1 routes the whole batch on each data rank, and each
+    one's objective holds the whole batch's aux losses)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.conf = (group, t.shape[0])
+        return _gather_into(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        group, n = ctx.conf
+        g = g.contiguous()
+        if group.backend == "nccl":
+            out = torch.empty((n, *g.shape[1:]), dtype=g.dtype, device=g.device)
+            dist.reduce_scatter_tensor(out, g, group=group.handle)
+            note("reduce-scatter (backward)", nbytes(out))
+            return out, None
+        g = g.clone()  # gloo has no reduce-scatter: the sum whole, then this member's rows
+        dist.all_reduce(g, group=group.handle)
+        note("all-reduce (backward)", nbytes(g))
+        return g.narrow(0, group.index * n, n), None
+
+
+def gather_summed(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The group's tensors stacked along dim 0 in group order, on every
+    member; under autograd each member's rows get the sum over the members
+    of their gradients (``_GatherSum``)."""
+    if group.size == 1:
+        return t
+    note("all-gather", nbytes(t) * group.size)
+    return _GatherSum.apply(t, group)
 
 
 def all_reduce(t: torch.Tensor, group: Group, op: str = "sum") -> torch.Tensor:

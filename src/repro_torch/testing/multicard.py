@@ -66,6 +66,20 @@ default; ``--only`` / ``--skip`` take comma-separated names):
        before activations by the reckoning, which one card cannot hold;
        finite losses, the replication, the mean of the last 3 losses below
        the first; timed as train_f32.
+  train_moe  moonshot-v1-16b-a3b in f32 at capacity factor 1.25 (published)
+       at (data N/2, model 2): 4 layers (~46 GB of f32 state on one card)
+       held to the one-card (TP 2, dp 2) run, whose blocks, capacities and
+       block-mean aux losses are the pool's (losses within 2e-4, each leaf
+       within UPDATE_RTOL of its update); then 8 layers (~31 GB a card
+       before activations), 20 steps at lr 1e-3 (warm-up 5): the loss falls,
+       the replication; both timed as train_f32;
+  train_jamba  jamba-v0.1-52b at one period (8 layers, each at its own
+       fan-in) in f32 at (data 1, model N): ~51.5 GB a card before
+       activations at N = 4; as train_llama: the loss falls, the
+       replication, timed, with the all-to-all's bytes and NCCL share;
+  train_mamba2  mamba2-2.7b at full width and depth (64 layers) in f32 at
+       (data N/2, model 2), held to the one-card (TP 2, dp 2) run as
+       train_moe's 4 layers.
 
 Prints one JSON line per leg prefixed with the card's name and power
 limit; writes everything to ``--out``, and each rank's legs so far to
@@ -656,28 +670,16 @@ def one_card_train(cfg, dev, tp: int, dp: int, tcfg, steps: int) -> dict:
     return out
 
 
-def held_to(losses: list, whole: dict, one: dict) -> dict:
-    """The pool's losses and gathered parameters against a one-card run's
-    (``one_card_train``): the losses' greatest relative difference
-    ("loss_rel") and ``multidev_checks.param_distance``'s "param_abs",
-    "outside" (the first leaf outside PARAM_TOL) and "update_rel" (1.0 for
-    a pool that left its parameters where they started)."""
-    from repro_torch.testing.multidev_checks import param_distance
-
-    return {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])),
-            **param_distance(whole, one["params"], one["moved"])}
-
-
-def _within(d: dict) -> bool:
-    from repro_torch.testing.multidev_checks import LOSS_RTOL, UPDATE_RTOL
-
-    return d["loss_rel"] < LOSS_RTOL and d["outside"] is None and d["update_rel"] < UPDATE_RTOL
+# NCCL kernel names by collective: an all-to-all runs as grouped sends and receives
+_NCCL_KINDS = (("allgather", "all-gather"), ("allreduce", "all-reduce"), ("reducescatter", "reduce-scatter"),
+               ("sendrecv", "all-to-all"), ("alltoall", "all-to-all"))
 
 
 def _collective_share(pool: Pool, run) -> dict:
     """One call of ``run`` under torch.profiler: the device ms of the NCCL
-    kernels by collective (all-reduce, all-gather) and of everything, on
-    this rank (an NCCL kernel's time holds its wait for the other ranks)."""
+    kernels by collective (all-reduce, all-gather, reduce-scatter,
+    all-to-all) and of everything, on this rank (an NCCL kernel's time
+    holds its wait for the other ranks)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -694,7 +696,7 @@ def _collective_share(pool: Pool, run) -> dict:
         total += us
         name = e.name.lower()
         if "nccl" in name:
-            kind = "all-gather" if "allgather" in name else "all-reduce" if "allreduce" in name else "other"
+            kind = next((k for key, k in _NCCL_KINDS if key in name), "other")
             by[kind] = by.get(kind, 0.0) + us
     if total == 0:
         return {"measured": False}
@@ -703,20 +705,22 @@ def _collective_share(pool: Pool, run) -> dict:
 
 
 def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[dict] = None,
-                   check_loss_falls: bool = False) -> dict:
+                   check_loss_falls: bool = False, held: tuple = (1, 1), measure: bool = True) -> dict:
     """``steps`` steps of ``cfg`` across the pool at (data N/tp, model tp)
     from ``_draw``'s weights (``multidev_checks.pool_train``, the
     replication checked after every step): losses, step seconds (the first
     apart: it waits for every rank to finish building, and NCCL connects
-    at first use), peak memory against the reckoning, the moments' bytes.
-    With ``ones`` (rank 0's one-card runs by (TP, dp), empty on the other
-    ranks) the parameters after the steps are gathered whole and held to
-    the one-card runs' (``held_to``; the one-card (TP 1, dp 1) run within
-    ``_within``). Then one more step with the collectives' bytes counted
-    and one under the profiler (the NCCL kernels' share)."""
+    at first use), the kernel's launches over the steps (set to 0 just
+    before, read just after), peak memory against the reckoning, the
+    moments' bytes. With ``ones`` (rank 0's one-card runs by (TP, dp),
+    empty on the other ranks) the parameters after the steps are gathered
+    whole and held to the one-card runs' (``multidev_checks.held_to``; the
+    one-card run at ``held``, (TP, dp), ``within`` its tolerances). With
+    ``measure``, then one more step with the collectives' bytes counted and
+    one under the profiler (the NCCL kernels' share)."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.parallel.collectives import count_traffic
-    from repro_torch.testing.multidev_checks import pool_train
+    from repro_torch.testing.multidev_checks import held_to, pool_train, within
     from repro_torch.training.data import SyntheticDataset
     from repro_torch.training.train_step import gather_params
 
@@ -733,11 +737,13 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
     reckoned = {"params": _bytes(mine), "grads": _bytes(mine), "moments": _bytes({"mu": opt["mu"], "nu": opt["nu"]})}
     reckoned["before_activations"] = sum(reckoned.values())
     med = statistics.median(times[1:]) if len(times) > 1 else times[0]
-    rec = {"model": cfg.name, "layers": cfg.num_layers, "mesh": {"data": pool.world // tp, "model": tp},
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "pattern": [f"{t.mixer}+{t.ffn}" for t in cfg.layer_pattern],
+           "mesh": {"data": pool.world // tp, "model": tp},
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": tcfg.opt.lr, "warmup": tcfg.opt.warmup_steps, "losses": losses,
            "step_s": times, "first_step_s": times[0], "step_s_median": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
            "peak_gb": peak / 1e9, "reckoned_gb": {k: v / 1e9 for k, v in reckoned.items()},
-           "moments_gb": reckoned["moments"] / 1e9, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "moments_gb": reckoned["moments"] / 1e9, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
            "replicated_after_every_step": True}
     failures = [] if all(np.isfinite(losses)) else [f"{cfg.name}: losses not finite: {losses}"]
     if check_loss_falls and not sum(losses[-3:]) / 3 < losses[0]:
@@ -748,14 +754,15 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
             diff = held_to(losses, whole, one)
             rec[f"one_card_tp{otp}_dp{odp}"] = {"losses": one["losses"], "step_s_median": statistics.median(
                 one["step_s"][1:]), "peak_gb": one["peak_gb"], "distance": diff}
-            if (otp, odp) == (1, 1) and not _within(diff):
-                failures.append(f"{cfg.name}: the pool against one card (TP 1, dp 1): {diff}")
+            if (otp, odp) == tuple(held) and not within(diff):
+                failures.append(f"{cfg.name}: the pool against one card (TP {otp}, dp {odp}): {diff}")
         del whole
         _free()
-    with count_traffic() as traffic:
-        float(step(mine, opt, ds.at(steps))[2]["loss"])
-    rec["collectives_per_step"] = {k: {"calls": c, "bytes": b} for k, (c, b) in traffic.items()}
-    rec["collective_share"] = _collective_share(pool, lambda: float(step(mine, opt, ds.at(steps + 1))[2]["loss"]))
+    if measure:
+        with count_traffic() as traffic:
+            float(step(mine, opt, ds.at(steps))[2]["loss"])
+        rec["collectives_per_step"] = {k: {"calls": c, "bytes": b} for k, (c, b) in traffic.items()}
+        rec["collective_share"] = _collective_share(pool, lambda: float(step(mine, opt, ds.at(steps + 1))[2]["loss"]))
     rec["failures"] = failures
     del mine, opt, step
     _free()
@@ -795,6 +802,65 @@ def train_llama(pool: Pool, inputs: dict) -> dict:
                           TRAIN_LLAMA_STEPS, check_loss_falls=True)
 
 
+TRAIN_MOE_LAYERS, TRAIN_MOE_DEEP_LAYERS, TRAIN_JAMBA_LAYERS = 4, 8, 8
+# moonshot's deeper run: at phase 12's lr 3e-4 its loss stayed within the batches' noise over 10 steps on
+# 4 H100s (12.502 first, 12.508 the last 3); llama3-8b's began to fall only at step 7 there
+TRAIN_MOE_DEEP_STEPS, TRAIN_MOE_DEEP_LR = 20, 1e-3
+MAMBA2 = "mamba2-2.7b"
+
+
+def _held_to_one_card(pool: Pool, cfg, tcfg, tp: int, steps: int, measure: bool = True) -> dict:
+    """``cfg`` across the pool at (data N/tp, model tp) (``pool_train_leg``,
+    ``measure`` passed on), held to the one-process step at the same (TP,
+    dp) on one card (rank 0 on card 0 first): the layout whose arithmetic
+    the pool's is, blocks and capacities included."""
+    dp, ones = pool.world // tp, {}
+    if pool.rank == 0:
+        ones[(tp, dp)] = one_card_train(cfg, pool.device, tp, dp, tcfg, steps)
+    pool.barrier()
+    rec = pool_train_leg(pool, cfg, tcfg, tp, steps, ones=ones, held=(tp, dp), measure=measure)
+    del ones
+    _free()
+    return rec
+
+
+def train_moe(pool: Pool, inputs: dict) -> dict:
+    """moonshot-v1-16b-a3b in f32 at its published capacity factor 1.25 at
+    (data N/2, model 2): at TRAIN_MOE_LAYERS layers, TRAIN_F32_STEPS steps
+    of check_train_step's optimizer held to the one-card (TP 2, dp 2) run
+    (losses within 2e-4 relative, each leaf within UPDATE_RTOL of its
+    update); then at TRAIN_MOE_DEEP_LAYERS, TRAIN_MOE_DEEP_STEPS steps at lr
+    TRAIN_MOE_DEEP_LR (warm-up 5): finite losses falling, the replication.
+    Both timed as train_f32, the peak beside the reckoning."""
+    cfg, tp = get_config(MOON), 2 if pool.world % 2 == 0 else 1
+    rec = {"held": _held_to_one_card(pool, dataclasses.replace(cfg, num_layers=TRAIN_MOE_LAYERS), _train_tcfg(), tp,
+                                     TRAIN_F32_STEPS),
+           "deep": pool_train_leg(pool, dataclasses.replace(cfg, num_layers=TRAIN_MOE_DEEP_LAYERS),
+                                  _train_tcfg(lr=TRAIN_MOE_DEEP_LR, warmup=5), tp, TRAIN_MOE_DEEP_STEPS,
+                                  check_loss_falls=True)}
+    rec["failures"] = rec["held"]["failures"] + rec["deep"]["failures"]
+    return rec
+
+
+def train_jamba(pool: Pool, inputs: dict) -> dict:
+    """jamba-v0.1-52b at one period (TRAIN_JAMBA_LAYERS layers, each at its
+    own fan-in) in f32 at (data 1, model N): (data 2, model 2) would need
+    ~77 GB a card before activations. TRAIN_LLAMA_STEPS steps of phase 12's
+    optimizer: finite losses falling, the replication; timed as train_f32
+    (the sharded MoE path exchanges over the N ranks)."""
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=TRAIN_JAMBA_LAYERS)
+    return pool_train_leg(pool, cfg, _train_tcfg(lr=3e-4, warmup=5), pool.world, TRAIN_LLAMA_STEPS,
+                          check_loss_falls=True)
+
+
+def train_mamba2(pool: Pool, inputs: dict) -> dict:
+    """mamba2-2.7b at full width and depth in f32 at (data N/2, model 2),
+    TRAIN_F32_STEPS steps of check_train_step's optimizer, held to the
+    one-card (TP 2, dp 2) run as train_moe's first part."""
+    return _held_to_one_card(pool, get_config(MAMBA2), _train_tcfg(), 2 if pool.world % 2 == 0 else 1,
+                             TRAIN_F32_STEPS)
+
+
 def train_phase(pool: Pool, inputs: dict) -> dict:
     """chip_smoke's phase 16 on every rank: h2o-danube-1.8b at full width
     cut to ``inputs["layers"]`` in f32, phase 12's step config
@@ -805,9 +871,14 @@ def train_phase(pool: Pool, inputs: dict) -> dict:
     after every step and the kernel's launches counted over its three runs
     (set to 0 just before, read just after); its uninterrupted run held to
     the one-process step rank 0 first runs on card 0, within
-    check_train_step's tolerances and UPDATE_RTOL."""
+    check_train_step's tolerances and UPDATE_RTOL. Then each model of
+    ``phase16_families`` under "families": PHASE16_STEPS steps held to the
+    one-process step at the same (TP, dp) (``_held_to_one_card``, without
+    the traffic and profiler steps)."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.testing.multidev_checks import CKPT_STEPS, checked, checkpoint_round_trip, pool_step
+    from repro_torch.testing.multidev_checks import (
+        CKPT_STEPS, checked, checkpoint_round_trip, held_to, pool_step, within,
+    )
     from repro_torch.training.data import SyntheticDataset
     from repro_torch.training.train_step import gather_params
 
@@ -835,11 +906,30 @@ def train_phase(pool: Pool, inputs: dict) -> dict:
     whole = gather_params(a.params, made["layout"])
     if one is not None:
         out["one_process"] = held_to(a.losses, whole, one)
-        if not _within(out["one_process"]):
+        if not within(out["one_process"]):
             out["failures"].append(f"the pool against the one-process step: {out['one_process']}")
     del a, whole, one
     _free()
+    out["families"] = {}
+    for cfg in phase16_families():
+        out["families"][cfg.name] = rec = _held_to_one_card(pool, cfg, tcfg, tp, PHASE16_STEPS, measure=False)
+        out["failures"] += rec["failures"]
     return out
+
+
+PHASE16_STEPS = 3  # the MoE and Mamba models' steps in phase 16
+
+
+def phase16_families() -> list:
+    """Phase 16's MoE and Mamba models at full width on one card:
+    moonshot-v1-16b-a3b at 2 layers (~29 GB of f32 training state), and
+    jamba-v0.1-52b cut to its pattern's first layer, Mamba-1 with a dense
+    FFN (~13 GB). One period of jamba (8 layers) is ~206 GB; its (Mamba-1,
+    MoE) layer alone ~55 GB, to which the scan's saved doubling steps at
+    8 x 512 add ~25 GB by the reckoning: it ran out of memory on one H100."""
+    jamba = get_config(JAMBA)
+    return [dataclasses.replace(get_config(MOON), num_layers=2),
+            dataclasses.replace(jamba, pattern=jamba.layer_pattern[:1], num_layers=1)]
 
 
 MOON, JAMBA = "moonshot-v1-16b-a3b", "jamba-v0.1-52b"
@@ -848,7 +938,8 @@ LEGS = {"f32": llama_f32, "bf16": bf16_timings, "pages": pages, "moe": moe,
         "jamba_f32": lambda pool, inputs: family_f32(pool, inputs, JAMBA),
         "moonshot_bf16": lambda pool, inputs: family_bf16(pool, inputs, MOON),
         "jamba_bf16": lambda pool, inputs: family_bf16(pool, inputs, JAMBA),
-        "train_f32": train_f32, "train_llama": train_llama}
+        "train_f32": train_f32, "train_llama": train_llama,
+        "train_moe": train_moe, "train_jamba": train_jamba, "train_mamba2": train_mamba2}
 
 
 def legs(pool: Pool, inputs: dict) -> dict:

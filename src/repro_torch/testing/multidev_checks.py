@@ -57,7 +57,17 @@ train_step — the reference's check_train_step across processes: reduced
     elastic checkpoint (cut at step 3, resumed at data N x model 1).
 train_grads — the collectives under autograd at TP 2: a vocab-parallel
     embedding, two norms before column -> row MLPs and the tied head,
-    every gradient within 1e-6 of the one-process TP 2 ranks'.
+    every gradient within 1e-6 of the one-process TP 2 ranks'; each
+    autograd collective alone (all_to_all, reduce_shared, gather_summed,
+    pool_mean) and the MoE and Mamba layers through them against one
+    process holding every rank's inputs.
+train_moe — the MoE and Mamba families trained across processes: reduced
+    moonshot-v1-16b-a3b at (data 2, model 2), (4, 1) and (1, 4), reduced
+    jamba-v0.1-52b and mamba2-2.7b at (2, 2), each held by rank 0 to the
+    one-process step at its layout (gradients of batch 0, losses,
+    parameters), the replication checked after every step. With
+    ``--inputs``: the reference's weights, and rank 0's gathered gradients
+    and parameters for a caller that holds them to the reference's mesh.
 train_step (one process, ``train_step [cpu|cuda]``) — the same (data 2 x
     model 2) step in one process: the two data groups run one after
     another and the two TP ranks read their shards of the same tensors.
@@ -860,6 +870,115 @@ def _elastic(pool: Pool, cfg: ModelConfig, params0: dict, tp: int, ds, inputs: d
     return summary, ({"state_at_cut": gathered, "resumed_params": _numpy_tree(mine)} if pool.rank == 0 else {})
 
 
+# check_train_moe's cases: name -> (model, TP, steps, weights at each layer's own fan-in); at world 4 the mesh
+# is (data 4/TP, model TP), which the name gives as data x model
+TRAIN_MOE_CASES = {
+    "moonshot_2x2": ("moonshot-v1-16b-a3b", 2, 3, False),
+    "moonshot_4x1": ("moonshot-v1-16b-a3b", 1, 3, False),  # the TP-1 gather of the data groups' rows
+    "moonshot_1x4": ("moonshot-v1-16b-a3b", 4, 3, False),  # the all-to-all over 4 ranks
+    "jamba_2x2": ("jamba-v0.1-52b", 2, 3, True),
+    "jamba_init_2x2": ("jamba-v0.1-52b", 2, 1, False),  # init_params' weights: several steps mean nothing there
+    "mamba2_2x2": ("mamba2-2.7b", 2, 3, False),
+}
+# a gradient's greatest error over its leaf's greatest |g|, against the reference's value_and_grad (the CPU
+# tests') and the pool's against one process
+GRAD_TOL = {"moonshot-v1-16b-a3b": 5e-4, "jamba-v0.1-52b": 5e-4}  # others 1e-4
+
+
+def grad_distance(got: dict, want: dict) -> dict:
+    """Two canonical gradient trees, leaf by leaf: the greatest
+    max|got - want| / max|want| ("rel") and its leaf ("leaf")."""
+    worst, leaf = 0.0, None
+    for (path, a), (_, b) in zip(tree_leaves_with_path(got), tree_leaves_with_path(want)):
+        a, b = a.detach().double(), b.detach().to(a.device).double()
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, leaf = rel, "/".join(path)
+    return {"rel": worst, "leaf": leaf}
+
+
+def one_process_run(cfg: ModelConfig, tp: int, dp: int, params0: dict, tcfg: TrainStepConfig, ds, steps: int) -> dict:
+    """The one-process train step at (TP ``tp``, dp ``dp``) from a copy of
+    ``params0``: its gradients of batch 0 (``step_fn.gradients``), then
+    ``single_train``'s ``steps`` steps; {"grads", "losses", "params",
+    "moved"} (each leaf's ||params - params0||), as ``held_to`` reads
+    them."""
+    params = tree_map(lambda t: t.detach().clone(), params0)
+    step, _ = make_train_step(cfg, make_exec_config(cfg, tp), params, tcfg, dp=dp)
+    grads = tree_map(lambda g: g.detach().clone(), step.gradients(ds.at(0))[2])
+    del step
+    losses, _ = single_train(cfg, tp, dp, params, tcfg, ds, steps)
+    return {"grads": grads, "losses": losses, "params": params,
+            "moved": moved_from(params, dict(tree_leaves_with_path(params0)))}
+
+
+def held_to(losses: list, whole: dict, one: dict) -> dict:
+    """A pool's losses and gathered parameters against a one-process run's
+    (``one_process_run``, ``multicard.one_card_train``): the losses'
+    greatest relative difference ("loss_rel") and ``param_distance``'s
+    "param_abs", "outside" (the first leaf outside PARAM_TOL) and
+    "update_rel" (1.0 for a pool that left its parameters where they
+    started)."""
+    return {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])),
+            **param_distance(whole, one["params"], one["moved"])}
+
+
+def within(d: dict) -> bool:
+    """``held_to``'s distances within LOSS_RTOL, PARAM_TOL and UPDATE_RTOL."""
+    return d["loss_rel"] < LOSS_RTOL and d["outside"] is None and d["update_rel"] < UPDATE_RTOL
+
+
+def check_train_moe(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """The pool's train step on the MoE and Mamba families: each case of
+    TRAIN_MOE_CASES (``inputs["cases"]``: some of them), reduced config at
+    (data N/TP, model TP), check_train_step's optimizer at a warm-up of 2,
+    SyntheticDataset(4, 32): the step's gradients of batch 0
+    (``step_fn.gradients``), then its steps, the replication checked after
+    every one. Rank 0 holds them to the one-process step that computes the
+    reference's mesh step (at (TP t, dp N/t); at TP 1 the one-process step
+    (TP 1, dp 1), whose MoE routes the whole batch as the mesh's does):
+    every leaf's gradient within GRAD_TOL of its greatest element, the
+    losses within LOSS_RTOL, the parameters within PARAM_TOL and each leaf
+    within UPDATE_RTOL of its update. Weights: ``inputs["params"][case]``
+    (the reference's), else seed 0 on this rank's device (at each layer's
+    own fan-in where the case says so, ``per_layer_fan_in``). Rank 0's
+    arrays: each case's gathered gradients, losses and parameters."""
+    from repro_torch.checkpoint.convert import to_torch
+    from repro_torch.models.params import per_layer_fan_in
+    from repro_torch.training.train_step import gather_params
+
+    inputs = inputs or {}
+    dev, tcfg = pool.device, _train_cfg({"warmup_steps": 2})
+    summary, arrays = {}, {}
+    for name in inputs.get("cases", list(TRAIN_MOE_CASES)):
+        model, tp, steps, own = TRAIN_MOE_CASES[name]
+        cfg = reduced(get_config(model))
+        defs = model_param_defs(cfg, make_exec_config(cfg, tp))
+        if name in inputs.get("params", {}):
+            params0 = to_torch(inputs["params"][name], dev)
+        else:
+            params0 = init_params(per_layer_fan_in(defs) if own else defs, torch.Generator(dev).manual_seed(0))
+        ds = SyntheticDataset(cfg, batch=4, seq=32)
+        step, mine, opt = pool_step(pool, cfg, params0, tcfg, tp)
+        grads = gather_params(step.gradients(ds.at(0))[2], step.layout)
+        losses = [float(checked(pool, step)(mine, opt, ds.at(i))[2]["loss"]) for i in range(steps)]
+        whole = gather_params(mine, step.layout)
+        rec = {"model": cfg.name, "mesh": {"data": pool.world // tp, "model": tp}, "losses": losses,
+               "replicated_after_every_step": True}
+        if pool.rank == 0:
+            one_tp, one_dp = (tp, pool.world // tp) if tp > 1 else (1, 1)
+            one = one_process_run(cfg, one_tp, one_dp, params0, tcfg, ds, steps)
+            g, held = grad_distance(grads, one["grads"]), held_to(losses, whole, one)
+            rec["one_process"] = {"tp": one_tp, "dp": one_dp, "losses": one["losses"], "grad_rel": g["rel"],
+                                  "grad_leaf": g["leaf"], **held}
+            if g["rel"] > GRAD_TOL.get(model, 1e-4) or not within(held):
+                raise AssertionError(f"train_moe {name}: the pool against the one-process step: {rec['one_process']}")
+            arrays[name] = {"grads": _numpy_tree(grads), "losses": losses, "params": _numpy_tree(whole)}
+        summary[name] = rec
+        del step, mine, opt, grads, whole
+    return {"summary": summary, "arrays": arrays}
+
+
 def check_train_grads(pool: Pool, inputs: Optional[dict] = None) -> dict:
     """The collectives under autograd at TP 2 across the pool against the
     one process's TP 2 ranks: a vocab-parallel embedding, twice a norm
@@ -908,9 +1027,146 @@ def check_train_grads(pool: Pool, inputs: Optional[dict] = None) -> dict:
         dim = store.plans[(k,)].dim
         w = want[k] if dim is None else want[k].narrow(dim, level.model_rank * gk.shape[dim], gk.shape[dim])
         errs[k] = float((gk - w).abs().max())
-        if errs[k] > 1e-6:
+        if errs[k] > GRAD_ATOL:
             raise AssertionError(f"train_grads: {k}'s gradient {errs[k]} from the one-process TP {tp} ranks'")
-    return {"summary": {"tp": tp, "max_abs_err": errs}, "arrays": {}}
+    return {"summary": {"tp": tp, "max_abs_err": errs, "collectives": _collective_grads(pool),
+                        "layers": _layer_grads(pool)}, "arrays": {}}
+
+
+GRAD_ATOL = 1e-6  # check_train_grads': a gradient across processes against one process's
+# a layer's gradients over their greatest element: f32 sums over another batch split (on 4 H100s mamba2's
+# layer read 1.11e-6 at data 2 x model 2; the CPU <= 5.1e-7)
+LAYER_GRAD_RTOL = 1e-5
+
+
+def _held(errs: dict, name: str, got: torch.Tensor, want: torch.Tensor, scaled: bool = False) -> None:
+    """``got`` within GRAD_ATOL of ``want`` (``scaled``: within
+    LAYER_GRAD_RTOL of the greatest |want|, for a layer's leaves, whose
+    gradients reach ~100); ``errs[name]`` keeps the greatest error."""
+    err = float((got - want).abs().max()) / (float(want.abs().max()) if scaled else 1.0)
+    errs[name] = max(errs.get(name, 0.0), err)
+    if err > (LAYER_GRAD_RTOL if scaled else GRAD_ATOL):
+        raise AssertionError(f"train_grads {name}: the gradient across processes differs by {err}"
+                             f"{' of its greatest element' if scaled else ''} from one process's")
+
+
+def _collective_grads(pool: Pool) -> dict:
+    """The autograd collectives alone at world 2, each against one process
+    holding every rank's inputs: ``all_to_all`` and ``reduce_shared`` over
+    the model group at TP 2 (a loss every model rank computes, summed over
+    the ranks' own parts), ``gather_summed`` over the data group at TP 1
+    and ``pool_mean`` at TP 1 and 2 (the data groups' objectives summed,
+    each a different multiple of the mean), each rank's objective
+    nonlinear in what it received. Returns each one's greatest error."""
+    from repro_torch.parallel.collectives import all_to_all, gather_summed, pool_mean, reduce_ranks, reduce_shared
+
+    dev, errs = pool.device, {}
+
+    def draw(rank: int, salt: int, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=torch.Generator().manual_seed(100 * salt + rank)).to(dev)
+
+    def inputs(n: int, salt: int, shape):
+        return [draw(r, salt, shape).requires_grad_(True) for r in range(n)]
+
+    lv = pool.level(2)
+    t, me = lv.tp, lv.model.index
+    # all_to_all: chunk k of rank r's (t, 3, 4) to rank k
+    xs, ws = inputs(t, 1, (t, 3, 4)), [draw(r, 2, (t, 3, 4)) for r in range(t)]
+    x = xs[me].detach().clone().requires_grad_(True)
+    reduce_ranks([(torch.tanh(all_to_all(x, lv.model)) * ws[me]).sum()], lv, t).backward()
+    sum((torch.tanh(torch.stack([xs[k][r] for k in range(t)])) * ws[r]).sum() for r in range(t)).backward()
+    _held(errs, "all_to_all", x.grad, xs[me].grad)
+    # reduce_shared: the partials' sum, which each rank weighs its own way
+    ps, ws = inputs(t, 3, (3, 4)), [draw(r, 4, (3, 4)) for r in range(t)]
+    part = ps[me].detach().clone().requires_grad_(True)
+    reduce_ranks([(torch.tanh(reduce_shared([part], lv, t)) * ws[me]).sum()], lv, t).backward()
+    whole = ps[0]
+    for q in ps[1:]:
+        whole = whole + q
+    sum((torch.tanh(whole) * ws[r]).sum() for r in range(t)).backward()
+    _held(errs, "reduce_shared", part.grad, ps[me].grad)
+    # gather_summed over the data group at TP 1: each data rank's objective reads every rank's rows
+    lv1 = pool.level(1)
+    n, me1 = lv1.dp, lv1.data.index
+    xs, ws = inputs(n, 5, (2, 5)), [draw(r, 6, (2 * n, 5)) for r in range(n)]
+    x = xs[me1].detach().clone().requires_grad_(True)
+    (torch.tanh(gather_summed(x, lv1.data)) * ws[me1]).sum().backward()
+    sum((torch.tanh(torch.cat(xs)) * ws[d]).sum() for d in range(n)).backward()
+    _held(errs, "gather_summed", x.grad, xs[me1].grad)
+    # pool_mean: every rank's value in the mean once; data group d's objective a_d * mean^2
+    for tp in (1, 2):
+        lvt = pool.level(tp)
+        vs = inputs(pool.world, 7, (3,))
+        a = [1.5 - d for d in range(lvt.dp)]
+        v = vs[pool.rank].detach().clone().requires_grad_(True)
+        (a[lvt.data_rank] * pool_mean(torch.tanh(v).sum(), lvt) ** 2).backward()
+        mean = sum(torch.tanh(u).sum() for u in vs) / pool.world
+        sum(a_d * mean ** 2 for a_d in a).backward()
+        _held(errs, "pool_mean", v.grad, vs[pool.rank].grad)
+    return errs
+
+
+def _layer_grads(pool: Pool) -> dict:
+    """The layers that train across processes through those collectives,
+    at world 2, against one process holding every rank: reduced
+    moonshot's MoE on the sharded path (TP 2), the decode path (TP 2, an
+    odd sequence) and the TP-1 path over two data groups; reduced jamba's
+    Mamba-1 and reduced mamba2's Mamba-2 layer (TP 2). The objective is a
+    fixed linear map of the output plus the aux losses (the data groups'
+    objectives summed at TP 1); every leaf's gradient (this rank's shard
+    of a model-sharded leaf; at TP 1 summed over the data group, as the
+    train step sums) and the input's within LAYER_GRAD_RTOL of its
+    greatest element (f32 rounding of sums taken in another order)."""
+    from repro_torch.core.weight_store import WeightStore
+    from repro_torch.models.mamba import mamba1_apply, mamba1_param_defs, mamba2_apply, mamba2_param_defs
+    from repro_torch.models.moe import moe_apply, moe_param_defs
+    from repro_torch.models.params import tree_map_with_path
+    from repro_torch.parallel.collectives import all_reduce_leaves
+
+    dev, errs = pool.device, {}
+    moon, jamba, mamba2 = (reduced(get_config(n)) for n in ("moonshot-v1-16b-a3b", "jamba-v0.1-52b", "mamba2-2.7b"))
+
+    def moe_fn(cfg):
+        def run(b, x, n_pool):
+            y, aux = moe_apply(b, x, cfg, n_pool)
+            return y, 3.0 * aux["lb"] + 5.0 * aux["z"]
+        return run
+
+    def mamba_fn(apply, cfg):
+        return lambda b, x, n_pool: (apply(b, x, cfg=cfg, mode="prefill")[0], 0.0)
+
+    cases = {"moe_sharded": (moon, moe_param_defs(moon), moe_fn(moon), 2, (2, 8)),
+             "moe_decode": (moon, moe_param_defs(moon), moe_fn(moon), 2, (2, 3)),
+             "moe_tp1": (moon, moe_param_defs(moon), moe_fn(moon), 1, (4, 4)),
+             "mamba1": (jamba, mamba1_param_defs(jamba), mamba_fn(mamba1_apply, jamba), 2, (2, 16)),
+             "mamba2": (mamba2, mamba2_param_defs(mamba2), mamba_fn(mamba2_apply, mamba2), 2, (2, 16))}
+    for name, (cfg, defs, fn, tp, (B, S)) in cases.items():
+        g = torch.Generator().manual_seed(8)
+        params = init_params(defs, g)
+        x0 = torch.randn((B, S, cfg.d_model), generator=g).to(dev)
+        weight = (0.1 * torch.randn((B, S, cfg.d_model), generator=g)).to(dev)
+        lv = pool.level(tp)
+        rows = slice(lv.data_rank * (B // lv.dp), (lv.data_rank + 1) * (B // lv.dp))
+        # one process: every rank of the TP group here, the whole batch; the data groups' objectives summed
+        one = WeightStore(cfg, defs, [dev] * tp)
+        whole = tree_map(lambda t: t.clone().to(dev).requires_grad_(True), params)
+        x = x0.clone().requires_grad_(True)
+        y, aux = fn(one.rebind(one.build(whole), tp), x, pool.world)
+        ((y * weight).sum() + lv.dp * aux).backward()
+        # across the pool: this rank's shards, its data group's rows
+        store = WeightStore(cfg, defs, pool.devices, storage_tp=tp, pool=pool)
+        mine = tree_map_with_path(lambda path, t: store.lay(path, t.to(dev), pool.rank).requires_grad_(True), params)
+        xr = x0[rows].clone().requires_grad_(True)
+        y, aux = fn(store.rebind(store.storage_of(mine), tp), xr, pool.world)
+        ((y * weight[rows]).sum() + aux).backward()
+        _held(errs, name, xr.grad, x.grad[rows], scaled=True)
+        got = list(tree_leaves_with_path(mine))
+        all_reduce_leaves([t.grad for _, t in got], lv.data)
+        for (path, t), (_, w) in zip(got, tree_leaves_with_path(whole)):
+            dim = store.plans[path].dim
+            want = w.grad if dim is None or tp == 1 else w.grad.narrow(dim, lv.model_rank * t.shape[dim], t.shape[dim])
+            _held(errs, name, t.grad, want, scaled=True)
+    return errs
 
 
 POOL_CHECKS = {
@@ -922,6 +1178,7 @@ POOL_CHECKS = {
     "engine": (check_engine, 4),
     "train_step": (check_train_step_pool, 4),
     "train_grads": (check_train_grads, 2),
+    "train_moe": (check_train_moe, 4),
 }
 MODEL_CHECKS = ("engine", "migration")  # the checks ``--model`` gives a reduced config (``engine_cfg``)
 

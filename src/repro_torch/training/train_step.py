@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.weight_store import WeightStore
-from repro_torch.models.model import layer_templates, loss_fn, model_param_defs
+from repro_torch.models.model import loss_fn, model_param_defs
 from repro_torch.models.params import tree_leaves_with_path, tree_map, tree_map_with_path
 from repro_torch.parallel.collectives import Level, Pool, all_reduce, all_reduce_leaves
 from repro_torch.parallel.sharding import ExecConfig
@@ -148,7 +148,9 @@ def make_train_step(
     ``ec.tp`` ranks on that device, at storage TP 1, keeps the tensors
     themselves). Across ``pool`` it is this rank's tree
     (``train_params``), dp is the level's data size, and ``step_fn.layout``
-    is the state's ``PoolLayout`` (``train_loop``'s checkpoints read it).
+    is the state's ``PoolLayout`` (``train_loop``'s checkpoints read it),
+    and ``step_fn.gradients(batch)`` the step's (loss, metrics, grads)
+    without the update.
     step_fn(params, opt_state, batch) -> (params, opt_state, metrics)
     updates that same tree and the state in place; the batch is numpy
     (``data.py``), the global batch, every rank the same, with B a multiple
@@ -167,11 +169,6 @@ def make_train_step(
         if dp not in (1, level.dp):
             raise ValueError(f"dp {dp} on a pool of {pool.world} at TP {ec.tp}: the data size is {level.dp}")
         dp = level.dp
-        odd = sorted({t.ffn if t.ffn == "moe" else t.mixer for t in layer_templates(cfg)
-                      if t.ffn == "moe" or t.mixer == "mamba"})
-        if odd:
-            raise NotImplementedError(f"{cfg.name}: training across processes runs the dense family; its {odd} "
-                                      f"layers need a differentiable all-to-all, which is not ported yet")
         store = train_store(cfg, ec, pool, defs)
         for (path, t), (_, d) in zip(tree_leaves_with_path(params), tree_leaves_with_path(defs)):
             want = list(d.shape)
@@ -220,9 +217,11 @@ def make_train_step(
             loss, ce, lb, z = all_reduce(summed, level.data).unbind()
         return loss, {"ce": ce, "lb": lb, "z": z}
 
-    def step(p, opt_state, batch):
-        if p is not params:
-            raise ValueError("step_fn updates the params tree it was made over in place: pass that tree")
+    def gradients(batch):
+        """(loss, metrics, grads) of the global batch at the params as they
+        are: the reference's ``value_and_grad`` of its loss (across
+        processes this rank's shards, summed over the data group), before
+        compression and clipping."""
         full = batch_to(batch, device, dtype)
         for t in leaves:
             t.grad = None
@@ -248,10 +247,17 @@ def make_train_step(
             loss = torch.stack(losses).mean()
             metrics = {key: torch.stack([torch.as_tensor(m[key], device=device) for m in mets]).mean()
                        for key in mets[0]}
-        split = {}
         if level is not None:  # the data-parallel gradient sum, once a step
             with torch.no_grad():
                 all_reduce_leaves([g for _, g in tree_leaves_with_path(grads)], level.data)
+        return loss, metrics, grads
+
+    def step(p, opt_state, batch):
+        if p is not params:
+            raise ValueError("step_fn updates the params tree it was made over in place: pass that tree")
+        loss, metrics, grads = gradients(batch)
+        split = {}
+        if level is not None:
             split = dict(sharded=[path for path, d in layout.model_dims.items() if d is not None and level.tp > 1],
                          group=level.model)
         err = opt_state.get("err")
@@ -268,6 +274,7 @@ def make_train_step(
         return params, opt_state, metrics
 
     step.layout = layout
+    step.gradients = gradients
     return step, plan
 
 

@@ -1401,3 +1401,26 @@ def test_train_step_across_four_cards(cuda):
     assert all(np.isfinite(rec["losses"]))
     assert rec["launches_per_step"]["forward"] > 0 and rec["launches_per_step"]["backward"] > 0
     assert multicard.TRAIN_BATCH * multicard.TRAIN_SEQ == 8 * 512
+
+
+def test_moe_and_mamba_train_step_across_four_cards(cuda):
+    """The MoE and Mamba families trained across cards: check_train_moe at
+    world 4 on NCCL, reduced moonshot-v1-16b-a3b at (data 2, model 2),
+    (4, 1) and (1, 4), reduced jamba-v0.1-52b (own fan-in, and
+    init_params' weights for one step) and mamba2-2.7b at (2, 2): rank 0
+    holds each to the one-process step at its layout (gradients within
+    5e-4 / 1e-4 of each leaf's greatest element, losses within 2e-4,
+    each leaf within 1e-2 of its update; it raises otherwise), the
+    replication after every step on every rank."""
+    from repro_torch.testing.multidev_checks import TRAIN_MOE_CASES, UPDATE_RTOL
+
+    _cards(4)
+    ranks = _pool(4, ["train_moe"])
+    for r in ranks:
+        assert sorted(r["train_moe"]) == sorted(TRAIN_MOE_CASES)
+        for case, s in r["train_moe"].items():
+            assert s["replicated_after_every_step"] and all(np.isfinite(s["losses"]))
+            assert s["mesh"] == {"data": 4 // TRAIN_MOE_CASES[case][1], "model": TRAIN_MOE_CASES[case][1]}
+    for s in ranks[0]["train_moe"].values():
+        one = s["one_process"]
+        assert one["outside"] is None and one["update_rel"] < UPDATE_RTOL and one["loss_rel"] < 2e-4

@@ -251,6 +251,26 @@ def test_gated_rmsnorm_sums_ranks_in_order():
         _close(mamba._gated_rmsnorm(*map(torch.from_numpy, (y, z, s)), tp=tp).numpy(), want, what=f"tp {tp}")
 
 
+@pytest.mark.parametrize("ngroups,refused", [(3, True), (6, False), (1, False)])
+def test_mamba2_refuses_heads_across_groups(ngroups, refused):
+    """Across processes a rank's heads read the B/C groups they fall in:
+    12 heads at TP 2 give a process 6, which fill whole groups of 2 (6
+    groups) or lie in one of 12 (1 group), but straddle groups of 4 (3
+    groups): that layout is refused before any weight is read."""
+    from types import SimpleNamespace
+
+    cfg = reduced(get_config(MAMBA2))
+    cfg = replace(cfg, d_model=96, mamba=replace(cfg.mamba, ngroups=ngroups))  # 192 channels: 12 heads of 16
+    wo = SimpleNamespace(mats=[None], tp=2, level=None, ranks=[1])  # rank 1's part alone, as across processes
+    x = torch.zeros(1, 4, cfg.d_model)
+    if refused:
+        with pytest.raises(NotImplementedError, match="6 heads a process at 4 heads a B/C group"):
+            mamba.mamba2_apply({"w_out": wo}, x, cfg=cfg, mode="prefill")
+    else:  # past the check: the first weight it reads is missing here
+        with pytest.raises(KeyError, match="A_log"):
+            mamba.mamba2_apply({"w_out": wo}, x, cfg=cfg, mode="prefill")
+
+
 # ---------------------------------------------------------------------------
 # reduced mamba2-2.7b forward
 # ---------------------------------------------------------------------------

@@ -22,7 +22,10 @@ same numpy weights and batches, and holds the pool's to it:
       gathered at the cut;
   the collectives under autograd (world 2): every gradient of a vocab-
       parallel embedding, two norm scales before column -> row MLPs and the
-      tied head equal to the one-process TP 2 ranks' within 1e-6.
+      tied head equal to the one-process TP 2 ranks' within 1e-6; the
+      all-to-all, ``reduce_shared``, ``gather_summed`` and ``pool_mean``
+      alone, and the MoE and Mamba layers through them, against one
+      process holding every rank's inputs.
 """
 import os
 import pickle
@@ -200,12 +203,42 @@ def _nested(params):
     return {k: _nested(v) if isinstance(v, dict) else v.detach().numpy() for k, v in params.items()}
 
 
-def test_collectives_gradients_equal_one_process(tmp_path):
+@pytest.fixture(scope="module")
+def grads_run(tmp_path_factory):
+    """check_train_grads on a pool of 2, every rank's summary."""
+    return [r["summary"] for r in _pool(tmp_path_factory.mktemp("train_grads"), "train_grads", 2, {})]
+
+
+def test_collectives_gradients_equal_one_process(grads_run):
     """world 2: every leaf's gradient (shards and the norm scales whole)
     within 1e-6 of the one-process TP 2 ranks' (the check raises
     otherwise)."""
-    ranks = _pool(tmp_path, "train_grads", 2, {})
-    for r in ranks:
-        errs = r["summary"]["max_abs_err"]
+    for s in grads_run:
+        errs = s["max_abs_err"]
         assert set(errs) == {"embed", "norm1", "norm2", "w1", "w2", "w3", "w4"}
         assert max(errs.values()) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["all_to_all", "reduce_shared", "gather_summed", "pool_mean"])
+def test_autograd_collective_equals_one_process(name, grads_run):
+    """world 2: each collective under autograd, alone, against one process
+    holding every rank's inputs, within 1e-6: the all-to-all (its backward
+    the same exchange), the psum whose backward sums (``reduce_shared``),
+    the data group's gather whose backward is a reduce-scatter, and the
+    aux losses' mean over the pool at TP 1 and 2 (each rank's value counted
+    once though every data group's objective holds it)."""
+    for s in grads_run:
+        assert s["collectives"][name] <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["moe_sharded", "moe_decode", "moe_tp1", "mamba1", "mamba2"])
+def test_layer_gradients_across_processes_equal_one_process(name, grads_run):
+    """world 2: reduced moonshot's MoE layer on the sharded path, the decode
+    path and the TP-1 path over two data groups, reduced jamba's Mamba-1
+    and reduced mamba2's Mamba-2 layer: the input's and every leaf's
+    gradient (this rank's shard; at TP 1 summed over the data group)
+    within 1e-6 of its greatest element from one process's: the CPU's
+    sums hold it tighter than the check's LAYER_GRAD_RTOL, which the
+    card's kernels at another batch split need."""
+    for s in grads_run:
+        assert s["layers"][name] <= 1e-6
