@@ -3354,8 +3354,12 @@ def pool_train_phase(torch, card, log):
     (its Mamba-1 + dense layer) at full width, three steps each through the
     same pool path (``multicard.phase16_families``), each held to the
     one-process step at its layout, the launches counted over each model's
-    steps. Returns ({path: {"tp_shard_matmul": n}} of rank 0, the
-    record)."""
+    steps; and moonshot's one step under the reference's train rules
+    (``multicard.rules_step``: weight and expert-weight FSDP, sequence
+    parallelism), at world 1 its loss and parameters bit for bit those of
+    the same step under DEFAULT_RULES, both under torch's deterministic
+    algorithms (the MoE's backward adds with atomics otherwise). Returns ({path: {"tp_shard_matmul":
+    n}} of rank 0, the record)."""
     from repro_torch.testing.multidev_checks import spawn
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import TrainStepConfig
@@ -3398,6 +3402,21 @@ def pool_train_phase(torch, card, log):
         path = f"{name} f32 train across processes ({fam['layers']} layers, world {world})"
         paths[path] = {"tp_shard_matmul": fam["launches"]["forward"]}
         paths[f"{path} backward"] = {"tp_shard_matmul": fam["launches"]["backward"]}
+    rules = rec["rules"]
+    what = (f"phase 16 {rules['model']} f32 ({rules['layers']} layers) one step under the train rules across {world} "
+            f"process(es)")
+    for r in res:
+        check(r["rules"]["rules_launches"]["forward"] > 0 and r["rules"]["rules_launches"]["backward"] > 0,
+              f"{what}: tp_shard_matmul launched: {r['rules']['rules_launches']}")
+        if world == 1:
+            check(r["rules"]["bitwise"], f"{what}: loss and parameters bit for bit those of DEFAULT_RULES' step")
+    log(f"[{card}] {what}: loss {rules['losses']['rules']!r} (DEFAULT_RULES {rules['losses']['default']!r}), "
+        f"bit for bit: {rules.get('bitwise')}; {len(rules['data_sharded'])} leaves sharded over data; step "
+        f"{rules['rules_step_s']:.2f} s ({rules['default_step_s']:.2f} under DEFAULT_RULES); tp_shard_matmul "
+        f"launches (rank 0) {rules['rules_launches']}")
+    path = f"{rules['model']} f32 train step under the train rules ({rules['layers']} layers, world {world})"
+    paths[path] = {"tp_shard_matmul": rules["rules_launches"]["forward"]}
+    paths[f"{path} backward"] = {"tp_shard_matmul": rules["rules_launches"]["backward"]}
     return paths, rec
 
 

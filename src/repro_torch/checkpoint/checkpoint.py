@@ -11,12 +11,14 @@
     into the other. A ZeRO-1 moment (``Zero1Shards``) is written whole and
     split again on load; a bf16 tensor is written as f32 and cast back;
   * elastic across processes (``layout``, a train step's ``PoolLayout``):
-    each leaf is gathered whole onto rank 0 alone (its ZeRO slices over
-    each data group, then its model shards over rank 0's model group),
-    rank 0 writes the leaves and publishes the directory, and every rank
-    waits for it at a barrier. A load places each whole leaf onto the target as it lies,
-    whatever layout wrote it: across processes each rank reads its model
-    shard and its ZeRO slice, in one process the whole leaf.
+    each leaf is gathered whole onto rank 0 alone (its ZeRO slices, or the
+    blocks of a leaf the rules shard over data, over each data group, then
+    its model shards over rank 0's model group), rank 0 writes the leaves
+    and publishes the directory, and every rank waits for it at a barrier.
+    A load places each whole leaf onto the target as it lies, whatever
+    layout and rules wrote it: across processes each rank reads its model
+    shard, its data block and its ZeRO slice, in one process the whole
+    leaf.
 """
 from __future__ import annotations
 
@@ -72,12 +74,14 @@ def _as_numpy(leaf) -> np.ndarray:
 
 def _whole(path, leaf, layout):
     """The leaf whole on rank 0, None on the other ranks: its ZeRO slices
-    gathered over each data group to the group's first member (data rank
-    0), then its model shards over the model group of those members,
-    rank 0's (collectives: every rank of the pool calls this, leaf by leaf
-    in one order)."""
+    (or its data blocks) gathered over each data group to the group's first
+    member (data rank 0), then its model shards over the model group of
+    those members, rank 0's (collectives: every rank of the pool calls
+    this, leaf by leaf in one order)."""
     if isinstance(leaf, Zero1Shards):
         leaf = leaf.full() if leaf.group is None else gather_first(leaf.parts[0], leaf.group, leaf.dim)
+    elif layout.data_dim(path) is not None:
+        leaf = gather_first(leaf, layout.level.data, layout.data_dim(path))
     dim = layout.model_dim(path)
     if dim is not None and layout.level.data_rank == 0:
         leaf = gather_first(leaf, layout.level.model, dim)
@@ -153,8 +157,8 @@ def _tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 def load_checkpoint(path: str, target_tree, layout=None):
     """Restore into the structure of ``target_tree``, each leaf placed as
     the target's leaf is (device, dtype, ZeRO-1 split; with ``layout``, a
-    train step's ``PoolLayout``, this rank's model shard). Returns (tree,
-    step, metadata)."""
+    train step's ``PoolLayout``, this rank's model shard and data block).
+    Returns (tree, step, metadata)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     targets = list(_leaves_with_path(target_tree))
@@ -163,10 +167,12 @@ def load_checkpoint(path: str, target_tree, layout=None):
     out = []
     for spec, (p, t) in zip(manifest["leaves"], targets):
         arr = np.load(os.path.join(path, spec["path"]), mmap_mode="r")
-        dim = None if layout is None else layout.model_dim(p)
-        if dim is not None:  # this rank's model shard
-            w = arr.shape[dim] // layout.level.tp
-            arr = np.take(arr, range(layout.level.model_rank * w, (layout.level.model_rank + 1) * w), dim)
+        if layout is not None:  # this rank's model shard, and of that its data block
+            for dim, n, i in ((layout.model_dim(p), layout.level.tp, layout.level.model_rank),
+                              (layout.data_dim(p), layout.level.dp, layout.level.data_rank)):
+                if dim is not None:
+                    w = arr.shape[dim] // n
+                    arr = np.take(arr, range(i * w, (i + 1) * w), dim)
         out.append(_like(arr, t))
     return _unflatten(target_tree, iter(out)), manifest["step"], manifest.get("metadata", {})
 

@@ -24,6 +24,12 @@ at that coordinate's offset (the formula above with r = d // (N/t); its
 canonical shard floor(d*s/N) is the one the offset assumes). No weight byte
 moves on any card. ``shrink`` over a pool makes the survivors' pool and a
 store over it, into which each survivor builds its position again.
+
+A train step's store (``rules``: the reference's rules, e.g. ``rules_for(cfg,
+"train")``) lays out each position's (model, data) block: of its storage
+shard, the slice of the dim the rules shard over data (weight FSDP),
+position d's data coordinate d % (N/s) of N/s, the reference's
+``param_shardings`` on the mesh (data N/s, model s).
 """
 from __future__ import annotations
 
@@ -36,7 +42,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import tree_leaves_with_path
 from repro_torch.parallel.collectives import Pool
-from repro_torch.parallel.sharding import ShardView, model_dim_of
+from repro_torch.parallel.sharding import (
+    DataShard, ShardingRules, ShardView, as_matrix, check_train_rules, data_dim_of, model_dim_of,
+)
 
 Path = Tuple[str, ...]
 
@@ -59,21 +67,9 @@ def _put(tree: dict, path: Path, value) -> None:
     tree[path[-1]] = value
 
 
-def _as_matrix(w: torch.Tensor, dim: int) -> Tuple[torch.Tensor, int]:
-    """2-D view of one layer's weight for the shard matmul, and the number
-    of matrix columns (dim > 0) or rows (dim == 0) per unit of the sharded
-    dim. Always a view: binding never copies."""
-    sh = w.shape
-    if w.dim() == 1:  # a 1-D leaf (mamba's A_log, D, dt_bias, norm): one row per unit
-        return w.view(sh[0], 1), 1
-    if dim == 0:  # row-parallel (wo, w_out), the vocab-sharded embedding, or experts (ShardView.block)
-        return w.view(math.prod(sh[:-1]), sh[-1]), math.prod(sh[1:-1])
-    return w.view(sh[0], math.prod(sh[1:])), math.prod(sh[dim + 1:])
-
-
 class WeightStore:
     def __init__(self, cfg: ModelConfig, canonical_defs: dict, devices: Sequence[torch.device],
-                 storage_tp: int = 1, pool: Optional[Pool] = None):
+                 storage_tp: int = 1, pool: Optional[Pool] = None, rules: Optional[ShardingRules] = None):
         self.cfg = cfg
         self.devices = [torch.device(d) for d in devices]
         self.N = len(self.devices)
@@ -88,6 +84,18 @@ class WeightStore:
         for path, d in tree_leaves_with_path(canonical_defs):
             k = model_dim_of(d.axes)
             self.plans[path] = _LeafPlan(k, d.shape[k] if k is not None else 0)
+        # weight FSDP: each leaf's data-sharded dim under ``rules`` on the train mesh (data N/s, model s)
+        self.dp = self.N // storage_tp
+        self.data_dims: Dict[Path, int] = {}
+        if rules is not None and pool is not None:
+            mesh = {"data": self.dp, "model": storage_tp}
+            check_train_rules(rules, mesh)
+            for path, d in tree_leaves_with_path(canonical_defs):
+                k = data_dim_of(d.axes, rules, mesh)
+                if k is not None:
+                    if d.shape[k] % self.dp:
+                        raise ValueError(f"{'/'.join(path)}: {d.shape[k]} does not split over {self.dp} data ranks")
+                    self.data_dims[path] = k
 
     # ---- storage layout -------------------------------------------------
     def build(self, canonical_params: dict) -> dict:
@@ -121,6 +129,10 @@ class WeightStore:
         if plan.dim is not None and self.s > 1:
             w = plan.n_units // self.s
             x = x.narrow(plan.dim, (j * self.s // self.N) * w, w).clone(memory_format=torch.contiguous_format)
+        if path in self.data_dims:  # and of that, its data coordinate's block (``coords``: j % (N/s))
+            k = self.data_dims[path]
+            w = x.shape[k] // self.dp
+            x = x.narrow(k, (j % self.dp) * w, w).clone(memory_format=torch.contiguous_format)
         return x.to(self.devices[j]).contiguous()
 
     def storage_of(self, mine: dict) -> dict:
@@ -187,15 +199,33 @@ class WeightStore:
         ShardView in place); every model-sharded weight is a ``ShardView``
         of the storage tensors, so every ``data_ptr()`` is the storage's own.
         Across processes each ShardView holds this process's rank at TP ``tp``
-        and that level of the pool.
+        and that level of the pool. A leaf the store's rules shard over data
+        binds as a ``DataShard`` of this rank's block, which the model code
+        gathers at use (``sharding.gathered``); such a store binds at its
+        storage TP alone.
         """
+        if self.data_dims and tp != self.s:
+            raise ValueError(f"a store of weights sharded over data binds at its storage TP {self.s}, not {tp}")
         sel = self.select(tp)
         level = None if self.pool is None else self.pool.level(tp)
         n_pos = len(self.cfg.layer_pattern)
         bound: dict = {"layers": [dict() for _ in range(self.cfg.num_layers)]}
         for path, plan in self.plans.items():
             per_pos = _get(storage, path)
-            if path[0] == "periods":  # stacked: one entry per period
+            stacked = path[0] == "periods"
+            if path in self.data_dims:  # gathered over the data group at use
+                mine = per_pos[self.pool.rank]
+                k, dim = self.data_dims[path] - stacked, None if plan.dim is None else plan.dim - stacked
+                name = "/".join(path)
+                if stacked:
+                    pos = int(path[1][len("pos"):])
+                    for i in range(self.cfg.num_periods):
+                        _put(bound["layers"][i * n_pos + pos], path[2:],
+                             DataShard(mine[i], k, dim, level, f"{name}@{i}"))
+                else:
+                    _put(bound, path, DataShard(mine, k, dim, level, name))
+                continue
+            if stacked:  # one entry per period
                 pos = int(path[1][len("pos"):])
                 dim = None if plan.dim is None else plan.dim - 1
                 items = []
@@ -215,7 +245,7 @@ class WeightStore:
                 for position, off, width in ranks:
                     key = id(tensors[position])
                     if key not in mats:
-                        mats[key] = _as_matrix(tensors[position], dim)
+                        mats[key] = as_matrix(tensors[position], dim)
                     mat, unit = mats[key]
                     views.append(mat)
                     offsets.append(off * unit)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -28,10 +28,10 @@ from repro_torch.models.model import forward, init_cache_defs, logits_for, model
 from repro_torch.models.params import ParamDef, tree_leaves_with_path, tree_map
 from repro_torch.parallel.collectives import stand_in
 from repro_torch.parallel.sharding import (
-    ShardingRules, local_shape, make_exec_config, pspec_for, rules_for, spec_ways,
+    ExecConfig, ShardingRules, local_shape, make_exec_config, pspec_for, rules_for, seq_parallel, spec_ways,
 )
 from repro_torch.serving.kv_cache import SlotCache
-from repro_torch.training.optimizer import AdamWConfig
+from repro_torch.training.optimizer import AdamWConfig, zero1_dim
 from repro_torch.training.train_step import TrainStepConfig, init_opt_state, make_train_step
 
 META = torch.device("meta")
@@ -131,8 +131,9 @@ def input_specs(arch: str, shape_name: str, mesh: Dict[str, int], rules: Optiona
 class GroupStep:
     """One TP group's step on meta tensors: ``run()`` is the program that
     ``op_cost.count`` counts (``devices`` = t); ``gathered`` are the group's
-    weights that the rules shard over data; ``output_bytes(out)`` is one
-    device's share of what the step returns."""
+    weights that the rules shard over data, each read of which counts as
+    an all-gather (none in a train step, which stands in its own);
+    ``output_bytes(out)`` is one device's share of what the step returns."""
 
     kind: str
     devices: int
@@ -159,12 +160,75 @@ def _data_sharded(defs, params, rules, mesh) -> List[torch.Tensor]:
     return out
 
 
+def rules_traffic(cfg: ModelConfig, ec: ExecConfig, rules: ShardingRules, mesh: Mapping[str, int], rows: int,
+                  seq: int, accum: int = 1, dtype_bytes: int = 4) -> Dict[str, Tuple[int, int]]:
+    """The collectives that a train step across processes runs for its
+    rules on ``mesh`` ({"data": dp, "model": t}; the dry run's may hold
+    "pod", which shards with "data"), per device and step, as
+    ``collectives.count_traffic`` names them: {kind: (calls, bytes)}.
+    ``rows``: each data rank's rows of a microbatch of ``seq`` positions;
+    ``accum`` microbatches; parameters of ``dtype_bytes``.
+
+    * "all-gather (weights)": each leaf the rules shard over data, gathered
+      whole (its model shard) at each use: a layer's in its forward and in
+      its recompute, the embedding, final norm and head once a microbatch;
+    * "reduce-scatter (gradients)": each such leaf's gradient (a layer's
+      block, each layer on its own) once a microbatch;
+    * "all-reduce (gradients)": every other leaf's, once a step over the
+      data replicas (f32 accumulators when ``accum`` > 1);
+    * "all-gather (parameters)": ZeRO-1's updated slices of each leaf it
+      splits, once a step;
+    * "all-gather (sequence)" and "all-gather (sequence, backward)":
+      sequence parallelism's joins at each period's start, in forward
+      (and once more after the last period) and in recompute, and the
+      backward of its cuts at each period's end (and before the first).
+    """
+    defs = model_param_defs(cfg, ec)
+    data_axes = ("pod", "data")
+    replicas = math.prod(mesh.get(a, 1) for a in data_axes)
+    k = accum
+    out: Dict[str, Tuple[int, int]] = {}
+
+    def add(kind: str, calls: int, each: int) -> None:
+        c, b = out.get(kind, (0, 0))
+        out[kind] = (c + calls, b + calls * each)
+
+    unread = cfg.frontend == "encodec" and not cfg.tie_embeddings  # frame embeddings in: the table is not read
+    for path, d in tree_leaves_with_path(defs):
+        spec = pspec_for(d.axes, rules, mesh)
+        block = math.prod(local_shape(d.shape, d.axes, rules, mesh)) * dtype_bytes
+        ways = math.prod(mesh[a] for m in spec if m is not None for a in ((m,) if isinstance(m, str) else m)
+                         if a in data_axes)
+        if ways > 1:
+            if path == ("embed",) and unread:
+                continue
+            layers = d.shape[0] if path[0] == "periods" else 1
+            add("all-gather (weights)", k * layers * (2 if path[0] == "periods" else 1), block // layers * ways)
+            add("reduce-scatter (gradients)", k * layers, block // layers)
+            continue
+        if replicas > 1:
+            add("all-reduce (gradients)", 1, block // dtype_bytes * (4 if k > 1 else dtype_bytes))
+        if mesh.get("data", 1) > 1 and zero1_dim(d, mesh["data"], rules) is not None:
+            add("all-gather (parameters)", 1, block)
+    if seq_parallel(rules, mesh) and mesh["model"] > 1:
+        h = rows * seq * cfg.d_model * dtype_bytes
+        add("all-gather (sequence)", k * (2 * cfg.num_periods + 1), h)
+        add("all-gather (sequence, backward)", k * (cfg.num_periods + 1), h)
+    return out
+
+
 def build_step(arch: str, shape_name: str, mesh: Dict[str, int], rules: Optional[ShardingRules] = None
                ) -> Tuple[GroupStep, dict, ShardingRules]:
     """Returns (the TP group's step, input_specs, rules). The step runs the
     port's own train step (``make_train_step``), or its prefill or decode
     through ``models.model.forward`` and ``logits_for`` (not the engine's
-    CUDA graphs), at t = mesh["model"] on the batch of one data replica."""
+    CUDA graphs), at t = mesh["model"] on the batch of one data replica.
+    A train step stands in for the collectives that the step across
+    processes runs for the rules (``rules_traffic``: weight
+    FSDP's gathers and reduce-scatters, the data-parallel gradient sum,
+    ZeRO-1's gathers and sequence parallelism's joins and cuts), each as
+    often as that step runs it; the other cells count an all-gather of
+    each read of a weight the rules shard over data (``gathered``)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if not shape_applicable(cfg, shape):
@@ -191,22 +255,23 @@ def build_step(arch: str, shape_name: str, mesh: Dict[str, int], rules: Optional
         step_fn, _ = make_train_step(cfg, ec, params, tcfg)
         opt = init_opt_state(params, tcfg)
         batch = {**inputs(S), "targets": _meta((b_loc, S), torch.int64)}
-        dp = _dp(mesh)
 
         def train():
             out = step_fn(params, opt, batch)
-            for _ in range(k):  # each microbatch's gradients, reduced over the data replicas
-                for (_, d), leaf in zip(tree_leaves_with_path(defs), tree_leaves_with_path(params)):
-                    ways = spec_ways(pspec_for(d.axes, rules, {"model": t}), {"model": t})
-                    each = leaf[1].numel() * leaf[1].element_size() // (math.prod(ways) * dp)
-                    stand_in("reduce-scatter", each, t)
+            for kind, (calls, nbytes) in rules_traffic(cfg, ec, rules, mesh, b_loc // k, S, k,
+                                                       PARAM_DTYPE.itemsize).items():
+                each, rest = divmod(nbytes, calls)
+                for i in range(calls):  # each of the t devices takes part in one (the production meshes' t > 1)
+                    stand_in(kind, each + (rest if i == 0 else 0), t)
             return out
 
         notes = [f"{k} microbatch(es) of {b_loc // k} rows; each layer recomputed in backward",
-                 "gradients: one reduce-scatter of each leaf per microbatch over the data replicas",
+                 "weights the rules shard over data: gathered at each layer's forward and recompute, their "
+                 "gradients reduce-scattered a microbatch; every other gradient all-reduced over the data "
+                 "replicas once a step",
                  "the optimizer updates the group's whole moments, where ZeRO-1 gives each data rank 1/"
                  f"{mesh.get('data', 1)} of them: its bytes are overcounted by that factor"]
-        return (GroupStep("train", t, train, gathered,
+        return (GroupStep("train", t, train, [],
                           lambda out: tensor_bytes(specs["params"]) + tensor_bytes(specs["opt_state"]), notes),
                 specs, rules)
 

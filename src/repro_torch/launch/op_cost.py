@@ -25,7 +25,9 @@ kernel wrapper's launch is not an aten op and is not counted.
   and the vocab-parallel embedding's all-reduce, an MoE layer's all-to-alls
   or its all-reduce), plus an all-gather of each read of a weight that the
   rules shard over data (``gathered``: each op that reads such a tensor
-  gathers what it reads). Bytes are each collective's result on one device.
+  gathers what it reads; prefill and decode cells, while a train cell
+  stands in the gathers its step runs, ``launch.cells.build_step``).
+  Bytes are each collective's result on one device.
   A train step's backward runs no stand-in: the all-reduce of the
   column-parallel projections' input gradients is not counted.
 * No loop-trip machinery: an eager program runs every layer and microbatch,

@@ -14,7 +14,11 @@ from repro_torch.parallel.sharding import ShardingRules, rules_for
 def resolve_rules(name: str, arch: str, shape_name: str) -> ShardingRules:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    base = rules_for(cfg, shape.kind, shape.seq_len, shape.global_batch)
+    return preset(name, rules_for(cfg, shape.kind, shape.seq_len, shape.global_batch))
+
+
+def preset(name: str, base: ShardingRules) -> ShardingRules:
+    """The preset ``name`` over a cell's ``rules_for`` table ``base``."""
     if name == "default":
         return base
     if name == "no-fsdp":  # replicate weights over data (baseline TP-only)

@@ -29,8 +29,8 @@ from repro_torch.models.mamba import (
 )
 from repro_torch.models.moe import moe_apply, moe_param_defs
 from repro_torch.models.params import ParamDef, stack_defs
-from repro_torch.parallel.collectives import gather_ranks
-from repro_torch.parallel.sharding import ExecConfig
+from repro_torch.parallel.collectives import Level, gather_ranks, join_sequence, split_sequence
+from repro_torch.parallel.sharding import ExecConfig, gathered
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -129,6 +129,7 @@ def forward(
     moe_drops: Optional[torch.Tensor] = None,
     moe_mask: Optional[torch.Tensor] = None,
     moe_replicated: bool = False,
+    seq_parallel: Optional[Level] = None,
 ) -> Tuple[torch.Tensor, Union[List[dict], Dict[str, torch.Tensor]]]:
     """Returns (hidden (B,S,D) after the final norm, per-layer caches), or
     in train mode (hidden, aux).
@@ -155,11 +156,22 @@ def forward(
     ``jax.checkpoint`` around its period body). ``aux`` holds the MoE
     router's load-balancing and z losses summed over the layers, {"lb",
     "z"} (0-d f32, zero without MoE layers), as the reference's aux does.
+    Weights a train step's rules shard over data (``DataShard``s) are
+    gathered at use: a layer's inside its recomputed function, so that the
+    recompute gathers them again and the gathered copies die with the
+    layer. ``seq_parallel`` (train mode across processes, the rules'
+    ``seq_res -> model``): the residual stream between periods is this
+    rank's S/t positions (``collectives.split_sequence``), joined whole at
+    the start of each period (``join_sequence``), so each period's saved
+    input is the S/t rows; the layers inside a period keep theirs whole.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     if (tokens is None) == (embeds is None):
         raise ValueError("forward takes exactly one of tokens and embeds")
+    if seq_parallel is not None and mode != "train":
+        raise ValueError("sequence parallelism is a train mode's")
+    params = gathered(params)
     if embeds is None:
         h = vocab_parallel_embed(tokens, params["embed"])
         if cfg.tie_embeddings:  # gemma convention: scale tied embeddings
@@ -184,9 +196,13 @@ def forward(
         positions = torch.arange(S, device=h.device)
     mamba_apply = _mamba_defs(cfg)[2] if cfg.mamba is not None else None
     train = mode == "train"
+    period = len(cfg.layer_pattern)
 
     def apply_layer(h, i, lp, t, window):
         """One layer: (h, its cache, its MoE aux or None)."""
+        if seq_parallel is not None and i % period == 0:  # a period's first layer: the residual stream whole
+            h = join_sequence(h, seq_parallel)
+        lp = gathered(lp)
         hn = rmsnorm(h, lp["norm1"], cfg.norm_eps)
         lc = cache[i] if cache is not None else None
         if t.mixer.startswith("attn"):
@@ -208,11 +224,15 @@ def forward(
             else:
                 y = mlp_apply(lp["ffn"], hn)
             h = h + y
+        if seq_parallel is not None and i % period == period - 1:  # a period boundary: this rank's positions
+            h = split_sequence(h, seq_parallel)
         return h, (None if train else nc), a
 
     new_cache = []
     aux = {"lb": torch.zeros((), dtype=torch.float32, device=h.device),
            "z": torch.zeros((), dtype=torch.float32, device=h.device)}
+    if seq_parallel is not None:
+        h = split_sequence(h, seq_parallel)
     for i, (lp, t, window) in enumerate(zip(params["layers"], templates, windows)):
         if train:  # recomputed in backward: only the layer boundaries are kept
             h, _, a = checkpoint(apply_layer, h, i, lp, t, window, use_reentrant=False, preserve_rng_state=False)
@@ -221,6 +241,8 @@ def forward(
         else:
             h, nc, _ = apply_layer(h, i, lp, t, window)
             new_cache.append(nc)
+    if seq_parallel is not None:
+        h = join_sequence(h, seq_parallel)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps), (aux if train else new_cache)
 
 
@@ -254,6 +276,7 @@ def loss_fn(
     block_q: int = 512,
     block_k: int = 512,
     pool: Optional[int] = None,
+    seq_parallel: Optional[Level] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked cross-entropy train loss (mirrors repro/models/model.py::loss_fn).
 
@@ -261,16 +284,21 @@ def loss_fn(
     optional f32 "mask" (B,S). The head's logits are made ``seq_chunk``
     positions of every sequence at a time, so the full (B,S,V) logits are
     never held; an MoE model adds the router's aux terms over the number of
-    periods. Returns (loss, {"ce", "lb", "z"}).
+    periods. Returns (loss, {"ce", "lb", "z"}). The embedding, the final
+    norm and the head, where the rules shard them over data, are gathered
+    once for the whole loss; ``seq_parallel`` goes to ``forward``.
     """
+    embeds = batch.get("embeds")
+    if embeds is not None and not cfg.tie_embeddings:  # the table is not read
+        params = {k: v for k, v in params.items() if k != "embed"}
+    params = gathered(params)
     targets = batch["targets"]
     B, S = targets.shape
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=targets.device)
-    embeds = batch.get("embeds")
     h, aux = forward(params, cfg, ec, tokens=None if embeds is not None else batch["tokens"], embeds=embeds,
-                     mode="train", block_q=block_q, block_k=block_k, pool=pool)
+                     mode="train", block_q=block_q, block_k=block_k, pool=pool, seq_parallel=seq_parallel)
     ck = min(seq_chunk, S)
     if S % ck:
         raise ValueError(f"seq_chunk {ck} does not divide the sequence length {S}")

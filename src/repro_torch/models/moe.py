@@ -64,10 +64,16 @@ The expert FFN is ``torch.bmm`` on each rank's expert shard: the reference
 computes it with einsum outside any Pallas kernel. The router and an f32
 expert FFN run in full f32, so on the card they need TF32 off (PyTorch's
 default) and raise otherwise. Shared experts are column- then row-parallel
-through ``tp_shard_matmul`` (``layers.mlp_apply``). The expert weights lie
-whole on one card: the reference's FSDP gather of expert weights
-(``expert_embed -> data``) is the identity under the engine's rules and is
-not ported.
+through ``tp_shard_matmul`` (``layers.mlp_apply``). Under a train step's
+rules with ``expert_embed -> data`` (expert-weight FSDP, the reference's
+``_gather_weights``) each card holds its data block of its experts'
+weights, w_gate and w_in split along D (dim 1 of a layer's (E, D, F)),
+w_out along D (dim 2); ``models.model`` gathers them over the data group
+at the start of the layer, as every other leaf the rules shard over data,
+so every path here (the all-to-all at t = N, the TP-1 gather of the data
+groups' rows, the decode path at 1 < t < N) reads them whole, and their
+gradients go back reduce-scattered. The engine's rules shard nothing over
+data: its expert weights lie whole on each card.
 """
 from __future__ import annotations
 

@@ -25,7 +25,12 @@ is a psum whose backward sums too (a sum each rank uses in its own way),
 ``all_to_all`` sends each chunk's gradient back the way it came,
 ``gather_summed`` (over a data group) gives each member's rows the sum of
 every member's gradient, and ``pool_mean`` is the MoE aux losses' pmean
-over the pool, each rank's value counted once. Where no gradient is taken
+over the pool, each rank's value counted once. A train step's rules add
+``gather_weight`` (weight FSDP: a weight's data blocks all-gathered at
+use, its gradient reduce-scattered) and sequence parallelism's pair,
+``split_sequence`` and ``join_sequence`` (a slice of the residual stream
+and an all-gather along the sequence, each the other's transpose in
+backward). Where no gradient is taken
 (the engine's steps and graphs) they launch what the plain calls did: the
 psum in place, the gather's one all-gather, *f* nothing. Each point where the reference runs a collective also calls
 ``stand_in`` with that collective. Nothing listens unless a counter is
@@ -63,26 +68,32 @@ def stand_in(kind: str, each_bytes: int, n: int) -> None:
 # bytes of each real collective's result on this device, by kind, while a
 # dict is installed here (``count_traffic``); None: nothing is counted
 TRAFFIC: Optional[Dict[str, Tuple[int, int]]] = None
+BY_LEAF = False  # count_traffic(by_leaf=True): a note that names its leaf is counted under "<kind> <leaf>"
 
 
-def note(kind: str, each_bytes: int) -> None:
+def note(kind: str, each_bytes: int, leaf: Optional[str] = None) -> None:
     """A collective of ``kind`` ran across processes, giving this device a
-    result of ``each_bytes``."""
+    result of ``each_bytes`` (``leaf``: the weight it carried, if any)."""
     if TRAFFIC is not None:
+        if BY_LEAF and leaf is not None:
+            kind = f"{kind} {leaf}"
         calls, total = TRAFFIC.get(kind, (0, 0))
         TRAFFIC[kind] = (calls + 1, total + each_bytes)
 
 
 @contextmanager
-def count_traffic() -> Iterator[Dict[str, Tuple[int, int]]]:
+def count_traffic(by_leaf: bool = False) -> Iterator[Dict[str, Tuple[int, int]]]:
     """``with count_traffic() as t:`` t is {kind: (calls, bytes)} of the
-    collectives this process ran across the pool inside the block."""
-    global TRAFFIC
+    collectives this process ran across the pool inside the block; with
+    ``by_leaf`` the gathers of a weight and the reduce-scatters of its
+    gradient are counted leaf by leaf, as {"<kind> <leaf>": ...}."""
+    global TRAFFIC, BY_LEAF
     outer, TRAFFIC = TRAFFIC, {}
+    outer_by, BY_LEAF = BY_LEAF, by_leaf
     try:
         yield TRAFFIC
     finally:
-        TRAFFIC = outer
+        TRAFFIC, BY_LEAF = outer, outer_by
 
 
 # ---------------------------------------------------------------------------
@@ -487,32 +498,24 @@ def all_to_all(t: torch.Tensor, group: Group) -> torch.Tensor:
 
 
 class _GatherSum(torch.autograd.Function):
-    """All-gather along dim 0 forward; backward sums the members'
-    gradients of the whole and hands each its own rows (a reduce-scatter):
-    every member computes something of its own from the whole tensor
-    (the MoE at TP 1 routes the whole batch on each data rank, and each
-    one's objective holds the whole batch's aux losses)."""
+    """All-gather along ``dim`` forward; backward sums the members'
+    gradients of the whole and hands each its own slice (a reduce-scatter,
+    noted as ``kind``): every member computes something of its own from the
+    whole tensor (the MoE at TP 1 routes the whole batch on each data rank,
+    and each one's objective holds the whole batch's aux losses; under
+    weight FSDP each data rank's objective reads the whole weight)."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.conf = (group, t.shape[0])
-        return _gather_into(t, group)
+    def forward(ctx, t, group, dim, kind, leaf):
+        ctx.conf = (group, dim, kind, leaf)
+        return all_gather(t, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-
-        group, n = ctx.conf
-        g = g.contiguous()
-        if group.backend == "nccl":
-            out = torch.empty((n, *g.shape[1:]), dtype=g.dtype, device=g.device)
-            dist.reduce_scatter_tensor(out, g, group=group.handle)
-            note("reduce-scatter (backward)", nbytes(out))
-            return out, None
-        g = g.clone()  # gloo has no reduce-scatter: the sum whole, then this member's rows
-        dist.all_reduce(g, group=group.handle)
-        note("all-reduce (backward)", nbytes(g))
-        return g.narrow(0, group.index * n, n), None
+        group, dim, kind, leaf = ctx.conf
+        out = reduce_scatter(g, group, dim)
+        note(kind, nbytes(out), leaf)
+        return out, None, None, None, None
 
 
 def gather_summed(t: torch.Tensor, group: Group) -> torch.Tensor:
@@ -522,7 +525,76 @@ def gather_summed(t: torch.Tensor, group: Group) -> torch.Tensor:
     if group.size == 1:
         return t
     note("all-gather", nbytes(t) * group.size)
-    return _GatherSum.apply(t, group)
+    return _GatherSum.apply(t, group, 0, "reduce-scatter (backward)", None)
+
+
+def reduce_scatter(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The sum over ``group`` of its members' ``t``, cut in ``group.size``
+    equal slices along ``dim``: this member's slice, a tensor of its own."""
+    import torch.distributed as dist
+
+    moved = t.movedim(dim, 0).contiguous()
+    out = torch.empty((moved.shape[0] // group.size, *moved.shape[1:]), dtype=t.dtype, device=t.device)
+    # gloo and NCCL both take it; torch 2.13 renames it reduce_scatter_single (and warns), a name 2.11 lacks
+    dist.reduce_scatter_tensor(out, moved, group=group.handle)
+    return out.movedim(0, dim)
+
+
+def gather_weight(t: torch.Tensor, group: Group, dim: int, leaf: Optional[str] = None) -> torch.Tensor:
+    """A weight's blocks, which the rules shard over ``group`` (the data
+    group) along ``dim``, joined in group order: the reference's FSDP
+    all-gather at use. Under autograd the gradient of the whole is
+    reduce-scattered back to the blocks (``_GatherSum``: each data rank's
+    objective reads the whole weight, and a block's gradient is the sum of
+    theirs, the data-parallel sum of a leaf that FSDP shards). A group of
+    one rank gives ``t`` itself. ``leaf`` names the weight for
+    ``count_traffic(by_leaf=True)``."""
+    if group.size == 1:
+        return t
+    note("all-gather (weights)", nbytes(t) * group.size, leaf)
+    return _GatherSum.apply(t, group, dim, "reduce-scatter (gradients)", leaf)
+
+
+class _SplitRows(torch.autograd.Function):
+    """This rank's slice along ``dim`` of a tensor the model group holds
+    whole (a copy: the whole can be freed); backward, the slices'
+    gradients all-gathered, so that every rank holds the whole gradient of
+    the replicated tensor. The transpose of ``_Gather``."""
+
+    @staticmethod
+    def forward(ctx, y, group, dim):
+        ctx.conf = (group, dim)
+        n = y.shape[dim] // group.size
+        return y.narrow(dim, group.index * n, n).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.conf
+        whole = all_gather(g, group, dim)
+        note("all-gather (sequence, backward)", nbytes(whole))
+        return whole, None, None
+
+
+def split_sequence(h: torch.Tensor, level: Level, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism's cut at a period boundary (``seq_res ->
+    model``): the residual stream (B, S, D), whole on the model group, cut
+    to this rank's S/t positions. Its pair is ``join_sequence``; neither
+    changes a bit of the values or of their gradients."""
+    if level.tp == 1:
+        return h
+    if h.shape[dim] % level.tp:
+        raise ValueError(f"sequence parallelism: {h.shape[dim]} positions do not split over TP {level.tp}")
+    return _SplitRows.apply(h, level.model, dim)
+
+
+def join_sequence(h: torch.Tensor, level: Level, dim: int = 1) -> torch.Tensor:
+    """The model group's S/t-position slices of the residual stream joined
+    whole in rank order (an all-gather; backward, each rank's slice of the
+    whole gradient)."""
+    if level.tp == 1:
+        return h
+    note("all-gather (sequence)", nbytes(h) * level.tp)
+    return _Gather.apply(h, level.model, dim)
 
 
 def all_reduce(t: torch.Tensor, group: Group, op: str = "sum") -> torch.Tensor:
@@ -602,17 +674,18 @@ def check_replicated(tree, pool: "Pool", group: Optional[Group] = None) -> None:
                            f"of the pool")
 
 
-def all_reduce_leaves(leaves: Sequence[torch.Tensor], group: Group) -> None:
+def all_reduce_leaves(leaves: Sequence[torch.Tensor], group: Group, names: Optional[Sequence[str]] = None) -> None:
     """Sum each tensor over ``group`` in place, one collective a leaf (a
     model's leaves are stacked over its layers: a handful of large
-    tensors): the data-parallel gradient sum."""
+    tensors): the data-parallel gradient sum. ``names``: the leaves', for
+    ``count_traffic(by_leaf=True)``."""
     if group.size == 1:
         return
     import torch.distributed as dist
 
-    for t in leaves:
+    for i, t in enumerate(leaves):
         dist.all_reduce(t, group=group.handle)
-        note("all-reduce (gradients)", nbytes(t))
+        note("all-reduce (gradients)", nbytes(t), None if names is None else names[i])
 
 
 def gather_into(t: torch.Tensor, part: torch.Tensor, group: Group, dim: int) -> None:

@@ -11,7 +11,10 @@ table is which logical axes the "model" mesh axis shards (``MODEL_AXES``),
 and, across processes, that the slot cache's batch follows "data"
 (``core.migration.cache_shardings``); the whole table, ``pspec_for`` and ``local_shape`` serve
 the dry run (``launch.cells``), which sizes each device's share of a cell
-on a mesh that is only described: an ordered {axis name: size} dict.
+on a mesh that is only described: an ordered {axis name: size} dict. A
+train step across processes takes a table too (``check_train_rules``:
+the entries of TRAIN_RULE_AXES): the leaves it shards over "data" bind
+as ``DataShard``s, gathered at use (``gathered``).
 ``ShardView`` is how a TP-bound weight reaches the model code: each rank
 reads its own contiguous slice of a shared storage tensor at an offset.
 """
@@ -24,7 +27,7 @@ from typing import Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, ceil_to
-from repro_torch.parallel.collectives import Level
+from repro_torch.parallel.collectives import Level, gather_weight
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -150,6 +153,61 @@ def model_dim_of(axes: Tuple[Optional[str], ...]) -> Optional[int]:
     return dims[0] if dims else None
 
 
+# The entries of a rules table that a train step across processes acts on:
+# weight FSDP (``embed``, ``expert_embed`` -> data), sequence parallelism of
+# the residual stream at period boundaries (``seq_res`` -> model) and the
+# ZeRO-1 axis of the moments (``zero``), each to the one mesh axis it may
+# take. The serving presets' entries (``batch``, ``res_batch``, ``kv_seq``)
+# and every other entry must stay as DEFAULT_RULES have them.
+TRAIN_RULE_AXES = {"embed": "data", "expert_embed": "data", "seq_res": "model", "zero": "data"}
+
+
+def check_train_rules(rules: ShardingRules, mesh: Mapping[str, int]) -> None:
+    """Raise unless a train step across processes implements ``rules`` on
+    ``mesh``: every entry as DEFAULT_RULES have it, but those of
+    TRAIN_RULE_AXES, each either unsharded or on its one axis (axes the
+    mesh lacks, as "pod" on one host, dropped first)."""
+    bad = []
+    for ax in sorted(set(rules.table) | set(DEFAULT_RULES.table)):
+        got = _axes_in_mesh(mesh, rules.table.get(ax))
+        if ax in TRAIN_RULE_AXES:
+            if got not in (None, TRAIN_RULE_AXES[ax], (TRAIN_RULE_AXES[ax],)):
+                bad.append(f"{ax} -> {rules.table.get(ax)!r} (the step takes {ax} -> None or "
+                           f"{TRAIN_RULE_AXES[ax]!r})")
+        elif got != _axes_in_mesh(mesh, DEFAULT_RULES.table.get(ax)):
+            bad.append(f"{ax} -> {rules.table.get(ax)!r}")
+    if bad:
+        raise NotImplementedError("the train step across processes implements the rule entries "
+                                  f"{sorted(TRAIN_RULE_AXES)} only; not: {'; '.join(bad)}")
+
+
+def data_dim_of(axes: Sequence[Optional[str]], rules: ShardingRules, mesh: Mapping[str, int]) -> Optional[int]:
+    """The dim of a parameter that ``rules`` shard over "data" on ``mesh``
+    (its spec from ``pspec_for``: a mesh axis is used once), or None."""
+    for i, m in enumerate(pspec_for(axes, rules, mesh)):
+        if m is not None and "data" in ((m,) if isinstance(m, str) else m):
+            return i
+    return None
+
+
+def seq_parallel(rules: ShardingRules, mesh: Mapping[str, int]) -> bool:
+    """Whether ``rules`` cut the residual stream at period boundaries over
+    the model axis (``seq_res -> model``)."""
+    return pspec_for(("seq_res",), rules, mesh) == ("model",)
+
+
+def as_matrix(w: torch.Tensor, dim: int) -> Tuple[torch.Tensor, int]:
+    """2-D view of one layer's weight for the shard matmul, and the number
+    of matrix columns (dim > 0) or rows (dim == 0) per unit of the sharded
+    dim. Always a view: binding never copies."""
+    sh = w.shape
+    if w.dim() == 1:  # a 1-D leaf (mamba's A_log, D, dt_bias, norm): one row per unit
+        return w.view(sh[0], 1), 1
+    if dim == 0:  # row-parallel (wo, w_out), the vocab-sharded embedding, or experts (ShardView.block)
+        return w.view(math.prod(sh[:-1]), sh[-1]), math.prod(sh[1:-1])
+    return w.view(sh[0], math.prod(sh[1:])), math.prod(sh[dim + 1:])
+
+
 @dataclass(frozen=True)
 class ExecConfig:
     """An architecture resolved against a tensor-parallel degree.
@@ -273,3 +331,39 @@ def rules_for(cfg: ModelConfig, shape_kind: str, seq_len: int = 0, batch: int = 
     if shape_kind == "decode" and batch == 1:
         rules = rules.override(batch=None, kv_seq=("pod", "data"))
     return rules
+
+
+@dataclass(frozen=True)
+class DataShard:
+    """A weight the rules shard over the data group besides (FSDP), bound
+    across processes: this rank's block of its model shard, all-gathered at
+    use. ``gather()`` gives what the model code reads otherwise: the model
+    shard as a ``ShardView`` at ``level`` (``model_dim`` its model-sharded
+    dim, at storage TP = TP, so at offset 0), or the tensor itself for a
+    leaf the model group replicates. Under autograd the block's gradient
+    is the reduce-scatter of the whole's over the data group."""
+
+    block: torch.Tensor
+    dim: int  # the data-sharded dim of ``block``
+    model_dim: Optional[int]
+    level: Level
+    leaf: str  # the leaf's name, for ``collectives.count_traffic(by_leaf=True)``
+
+    def gather(self) -> Union[torch.Tensor, ShardView]:
+        whole = gather_weight(self.block, self.level.data, self.dim, self.leaf)
+        if self.model_dim is None:
+            return whole
+        mat, unit = as_matrix(whole.contiguous(), self.model_dim)
+        return ShardView((mat,), (0,), whole.shape[self.model_dim] * unit, self.level)
+
+
+def gathered(params):
+    """``params`` (one layer's bound weights, or the top of a bound tree)
+    with every ``DataShard`` in it gathered (``DataShard.gather``): a new
+    dict where one was gathered, else the tree itself."""
+    if isinstance(params, DataShard):
+        return params.gather()
+    if not isinstance(params, dict):
+        return params
+    out = {k: gathered(v) for k, v in params.items()}
+    return params if all(out[k] is v for k, v in params.items()) else out

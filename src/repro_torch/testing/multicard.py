@@ -80,6 +80,17 @@ default; ``--only`` / ``--skip`` take comma-separated names):
   train_mamba2  mamba2-2.7b at full width and depth (64 layers) in f32 at
        (data N/2, model 2), held to the one-card (TP 2, dp 2) run as
        train_moe's 4 layers.
+  train_rules_llama  train_llama's run under DEFAULT_RULES, then the same
+       under the reference's train rules (``rules_for(cfg, "train", 512,
+       8)``: weight FSDP over the data group, sequence parallelism): the
+       losses within 2e-4 relative, each leaf within UPDATE_RTOL of the
+       DEFAULT run's update (from each card's blocks, none gathered whole),
+       the peak a card below the DEFAULT run's; both timed as train_f32;
+  train_rules_moe  train_moe's 4 layers at (data N/2, model 2) as
+       train_rules_llama (expert-weight FSDP besides); then moonshot at 16
+       layers at (data N, model 1), which fits a card only under the train
+       rules (98 GB reckoned without them, 39.2 with), 20 steps at lr 1e-3:
+       the loss falls, the peak beside the reckoning.
 
 Prints one JSON line per leg prefixed with the card's name and power
 limit; writes everything to ``--out``, and each rank's legs so far to
@@ -106,7 +117,7 @@ from repro_torch.configs import get_config
 from repro_torch.models.model import model_param_defs
 from repro_torch.models.params import init_params, per_layer_fan_in, tree_leaves_with_path, tree_map
 from repro_torch.parallel.collectives import Pool, all_gather, checksums
-from repro_torch.parallel.sharding import make_exec_config
+from repro_torch.parallel.sharding import DEFAULT_RULES, ShardingRules, make_exec_config
 
 SCHEDULE = {3: 2, 7: 4, 13: 1, 19: 2}
 LOGIT_TOL = 2e-4
@@ -634,14 +645,6 @@ def _train_tcfg(lr: float = 1e-3, warmup: int = 100):
     return TrainStepConfig(opt=AdamWConfig(lr=lr, warmup_steps=warmup), seq_chunk=256, block_q=128, block_k=128)
 
 
-def _bytes(tree) -> int:
-    from repro_torch.checkpoint.checkpoint import tree_leaves
-    from repro_torch.training.optimizer import Zero1Shards
-
-    return sum(sum(p.numel() * p.element_size() for p in (x.parts if isinstance(x, Zero1Shards) else [x]))
-               for x in tree_leaves(tree))
-
-
 def _draw(cfg, dev):
     """The weights every training leg starts from: seed 0, each layer at its
     own fan-in where the model asks for it, as ``train_params`` takes
@@ -705,7 +708,8 @@ def _collective_share(pool: Pool, run) -> dict:
 
 
 def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[dict] = None,
-                   check_loss_falls: bool = False, held: tuple = (1, 1), measure: bool = True) -> dict:
+                   check_loss_falls: bool = False, held: tuple = (1, 1), measure: bool = True,
+                   rules: ShardingRules = DEFAULT_RULES, keep: Optional[dict] = None) -> dict:
     """``steps`` steps of ``cfg`` across the pool at (data N/tp, model tp)
     from ``_draw``'s weights (``multidev_checks.pool_train``, the
     replication checked after every step): losses, step seconds (the first
@@ -717,10 +721,13 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
     whole and held to the one-card runs' (``multidev_checks.held_to``; the
     one-card run at ``held``, (TP, dp), ``within`` its tolerances). With
     ``measure``, then one more step with the collectives' bytes counted and
-    one under the profiler (the NCCL kernels' share)."""
+    one under the profiler (the NCCL kernels' share). ``rules``: the
+    step's (``make_train_step``'s); ``keep``, a dict, gets this rank's
+    parameters after the steps on the host ("params", by path) and the
+    step's layout ("layout")."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.parallel.collectives import count_traffic
-    from repro_torch.testing.multidev_checks import held_to, pool_train, within
+    from repro_torch.testing.multidev_checks import held_to, pool_train, state_bytes, within
     from repro_torch.training.data import SyntheticDataset
     from repro_torch.training.train_step import gather_params
 
@@ -731,10 +738,11 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
     ds, times = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ), []
     tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
     losses, mine, step, opt = pool_train(pool, cfg, None, tcfg, tp, ds, steps, draw=_draw(cfg, dev),
-                                         on_step=times.append)
+                                         on_step=times.append, rules=rules)
     launches = {"forward": tp_shard_matmul.launches, "backward": tp_shard_matmul.backward_launches}
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    reckoned = {"params": _bytes(mine), "grads": _bytes(mine), "moments": _bytes({"mu": opt["mu"], "nu": opt["nu"]})}
+    reckoned = {"params": state_bytes(mine), "grads": state_bytes(mine),
+                "moments": state_bytes({"mu": opt["mu"], "nu": opt["nu"]})}
     reckoned["before_activations"] = sum(reckoned.values())
     med = statistics.median(times[1:]) if len(times) > 1 else times[0]
     rec = {"model": cfg.name, "layers": cfg.num_layers, "pattern": [f"{t.mixer}+{t.ffn}" for t in cfg.layer_pattern],
@@ -745,6 +753,8 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
            "moments_gb": reckoned["moments"] / 1e9, "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "replicated_after_every_step": True}
+    if keep is not None:
+        keep.update(params={path: t.detach().cpu() for path, t in tree_leaves_with_path(mine)}, layout=step.layout)
     failures = [] if all(np.isfinite(losses)) else [f"{cfg.name}: losses not finite: {losses}"]
     if check_loss_falls and not sum(losses[-3:]) / 3 < losses[0]:
         failures.append(f"{cfg.name}: the loss did not fall: {losses}")
@@ -914,7 +924,162 @@ def train_phase(pool: Pool, inputs: dict) -> dict:
     for cfg in phase16_families():
         out["families"][cfg.name] = rec = _held_to_one_card(pool, cfg, tcfg, tp, PHASE16_STEPS, measure=False)
         out["failures"] += rec["failures"]
+    out["rules"] = rec = rules_step(pool, phase16_families()[0], tcfg, tp)
+    out["failures"] += rec["failures"]
     return out
+
+
+def rules_step(pool: Pool, cfg, tcfg, tp: int) -> dict:
+    """One step of ``cfg`` from ``_draw``'s weights at (data N/tp, model
+    tp) under DEFAULT_RULES and then under the train rules (the kernel's
+    launches counted over each: set to 0 just before, read just after):
+    at world 1, where every group is one rank and the gathers give the
+    block itself, the loss and every parameter bit for bit equal; on more
+    ranks the losses within LOSS_RTOL. Both steps run with torch's
+    deterministic algorithms: on CUDA the MoE dispatch's backward (the
+    gradients of its gathers and ``index_select``) otherwise adds with
+    atomics, and two steps under DEFAULT_RULES alone differ in the last
+    bits (3.1e-6 at most on an H100)."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.parallel.sharding import rules_for
+    from repro_torch.testing.multidev_checks import LOSS_RTOL, pool_step
+    from repro_torch.training.data import SyntheticDataset
+
+    ds, runs = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ), {}
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "mesh": {"data": pool.world // tp, "model": tp}}
+    before = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label, rules in (("default", DEFAULT_RULES), ("rules", rules_for(cfg, "train", TRAIN_SEQ, TRAIN_BATCH))):
+            step, mine, opt = pool_step(pool, cfg, None, tcfg, tp, _draw(cfg, pool.device), rules)
+            _sync(pool)
+            tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
+            t0 = time.perf_counter()
+            loss = float(step(mine, opt, ds.at(0))[2]["loss"])
+            rec[f"{label}_step_s"] = time.perf_counter() - t0
+            rec[f"{label}_launches"] = {"forward": tp_shard_matmul.launches,
+                                        "backward": tp_shard_matmul.backward_launches}
+            runs[label] = (loss, {path: t.detach().cpu() for path, t in tree_leaves_with_path(mine)})
+            if label == "rules":
+                rec["data_sharded"] = sorted("/".join(p) for p in step.layout.data_dims)
+            del step, mine, opt
+            _free()
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    (a, pa), (b, pb) = runs["rules"], runs["default"]
+    rec["losses"] = {"rules": a, "default": b}
+    rec["failures"] = []
+    if pool.world == 1:
+        rec["bitwise"] = a == b and all(torch.equal(pa[k], pb[k]) for k in pb)
+        if not rec["bitwise"]:
+            rec["failures"].append(f"{cfg.name}: one step under the train rules is not DEFAULT_RULES' bit for bit")
+    elif not abs(a - b) / abs(b) < LOSS_RTOL:
+        rec["failures"].append(f"{cfg.name}: the train rules' loss {a} against DEFAULT_RULES' {b}")
+    del runs
+    return rec
+
+
+# the train rules' legs: rules_for(cfg, "train", TRAIN_SEQ, TRAIN_BATCH) (weight and expert-weight FSDP over the
+# data group, sequence parallelism at period boundaries) against the same pool under DEFAULT_RULES
+TRAIN_RULES_MOE_LAYERS, TRAIN_RULES_DEEP_LAYERS, TRAIN_RULES_DEEP_TP = 4, 16, 1
+# f32 parameters, gradients and moments a card under the train rules (a reckoning: 16 bytes a parameter over
+# the 4 cards): llama3-8b (8.03e9 parameters) at (2, 2), moonshot at 16 layers (9.80e9) at (4, 1)
+RULES_RECKONED_GB = {"llama3-8b": 32.1, "moonshot-v1-16b-a3b": 39.2}
+
+
+def _rules_distance(pool: Pool, got: dict, want: dict, start: dict, layout) -> dict:
+    """The rules' run's parameters (``got``: this rank's blocks) against the
+    DEFAULT_RULES run's (``want``: this rank's model shards) from the same
+    start (``start``: the rules' blocks before the steps), all on the
+    host: the greatest |got - want| and each leaf's ||got - want|| over
+    its update ||want - start||, both over the whole pool (each block
+    counted once), with no leaf gathered whole."""
+    sums, worst = [], 0.0
+    for path, g in got.items():
+        w, k = want[path], layout.data_dim(path)
+        if k is not None:  # this rank's data block of its model shard
+            n = w.shape[k] // layout.level.dp
+            w = w.narrow(k, layout.level.data_rank * n, n)
+        copies = pool.world // ((layout.level.dp if k is not None else 1)
+                                * (layout.level.tp if layout.model_dim(path) is not None else 1))
+        d = g.double() - w.double()
+        worst = max(worst, float(d.abs().max()))
+        sums.append([float(d.pow(2).sum()) / copies, float((w.double() - start[path].double()).pow(2).sum()) / copies])
+    tot = torch.tensor(sums, dtype=torch.float64, device=pool.device)
+    peak = torch.tensor([worst], dtype=torch.float64, device=pool.device)
+    import torch.distributed as dist
+
+    dist.all_reduce(tot, group=pool.world_group.handle)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=pool.world_group.handle)
+    rel = (tot[:, 0].sqrt() / tot[:, 1].sqrt().clamp_min(1e-30)).cpu()
+    i = int(rel.argmax())
+    return {"param_abs": float(peak[0]), "update_rel": float(rel[i]), "update_rel_leaf": "/".join(list(got)[i])}
+
+
+def rules_against_default(pool: Pool, cfg, tcfg, tp: int, steps: int, check_loss_falls: bool = False) -> dict:
+    """``cfg`` across the pool at (data N/tp, model tp) under DEFAULT_RULES
+    and then under the train rules (``pool_train_leg`` each, measured),
+    from ``_draw``'s weights: the rules' losses within LOSS_RTOL of the
+    DEFAULT run's, each leaf within UPDATE_RTOL of its update
+    (``_rules_distance``), and its peak a card below the DEFAULT run's."""
+    from repro_torch.parallel.sharding import rules_for
+    from repro_torch.testing.multidev_checks import LOSS_RTOL, UPDATE_RTOL
+    from repro_torch.training.train_step import train_params
+
+    rules, base, mine = rules_for(cfg, "train", TRAIN_SEQ, TRAIN_BATCH), {}, {}
+    default = pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=check_loss_falls, keep=base)
+    start = {path: t.detach().cpu() for path, t in tree_leaves_with_path(
+        train_params(cfg, make_exec_config(cfg, tp), pool, None, _draw(cfg, pool.device), rules))}
+    _free()
+    rec = pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=check_loss_falls, rules=rules, keep=mine)
+    dist = _rules_distance(pool, mine["params"], base["params"], start, mine["layout"])
+    dist["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], default["losses"]))
+    rec.update(default_rules=default, against_default=dist, rules={k: v for k, v in rules.table.items()
+                                                                     if v != DEFAULT_RULES.table.get(k)},
+               data_sharded=sorted("/".join(p) for p in mine["layout"].data_dims))
+    if not (dist["loss_rel"] < LOSS_RTOL and dist["update_rel"] < UPDATE_RTOL):
+        rec["failures"].append(f"{cfg.name}: the train rules against DEFAULT_RULES: {dist}")
+    if pool.device.type == "cuda" and not rec["peak_gb"] < default["peak_gb"]:
+        rec["failures"].append(f"{cfg.name}: peak {rec['peak_gb']:.2f} GB under the train rules, "
+                               f"{default['peak_gb']:.2f} under DEFAULT_RULES")
+    rec["failures"] += default["failures"]
+    del base, mine, start
+    _free()
+    return rec
+
+
+def train_rules_llama(pool: Pool, inputs: dict) -> dict:
+    """llama3-8b in f32 (``inputs["layers"]`` cuts its depth) at (data N/2,
+    model 2), train_llama's TRAIN_LLAMA_STEPS steps (lr 3e-4, warm-up 5),
+    under DEFAULT_RULES (train_llama itself) and then under the train rules
+    (``rules_against_default``); the reckoning beside the peak."""
+    cfg = model_cfg({"layers": inputs.get("layers")})
+    rec = rules_against_default(pool, cfg, _train_tcfg(lr=3e-4, warmup=5), 2 if pool.world % 2 == 0 else 1,
+                                TRAIN_LLAMA_STEPS, check_loss_falls=True)
+    rec["reckoned_gb_full_depth"] = RULES_RECKONED_GB[cfg.name]
+    return rec
+
+
+def train_rules_moe(pool: Pool, inputs: dict) -> dict:
+    """moonshot-v1-16b-a3b in f32 at its published capacity factor 1.25:
+    at TRAIN_RULES_MOE_LAYERS layers and (data N/2, model 2), train_moe's
+    held run (TRAIN_F32_STEPS steps of check_train_step's optimizer) under
+    DEFAULT_RULES and then under the train rules
+    (``rules_against_default``); then at TRAIN_RULES_DEEP_LAYERS layers and
+    (data N, model 1), which fits a card only under the train rules,
+    TRAIN_MOE_DEEP_STEPS steps at lr TRAIN_MOE_DEEP_LR (warm-up 5): finite
+    losses falling, the replication, the peak beside the reckoning."""
+    from repro_torch.parallel.sharding import rules_for
+
+    cfg = get_config(MOON)
+    held = rules_against_default(pool, dataclasses.replace(cfg, num_layers=TRAIN_RULES_MOE_LAYERS), _train_tcfg(),
+                                 2 if pool.world % 2 == 0 else 1, TRAIN_F32_STEPS)
+    deep_cfg = dataclasses.replace(cfg, num_layers=TRAIN_RULES_DEEP_LAYERS)
+    deep = pool_train_leg(pool, deep_cfg, _train_tcfg(lr=TRAIN_MOE_DEEP_LR, warmup=5), TRAIN_RULES_DEEP_TP,
+                          TRAIN_MOE_DEEP_STEPS, check_loss_falls=True,
+                          rules=rules_for(deep_cfg, "train", TRAIN_SEQ, TRAIN_BATCH))
+    deep["reckoned_gb_16_layers"] = RULES_RECKONED_GB[MOON]
+    return {"held": held, "deep": deep, "failures": held["failures"] + deep["failures"]}
 
 
 PHASE16_STEPS = 3  # the MoE and Mamba models' steps in phase 16
@@ -939,7 +1104,8 @@ LEGS = {"f32": llama_f32, "bf16": bf16_timings, "pages": pages, "moe": moe,
         "moonshot_bf16": lambda pool, inputs: family_bf16(pool, inputs, MOON),
         "jamba_bf16": lambda pool, inputs: family_bf16(pool, inputs, JAMBA),
         "train_f32": train_f32, "train_llama": train_llama,
-        "train_moe": train_moe, "train_jamba": train_jamba, "train_mamba2": train_mamba2}
+        "train_moe": train_moe, "train_jamba": train_jamba, "train_mamba2": train_mamba2,
+        "train_rules_llama": train_rules_llama, "train_rules_moe": train_rules_moe}
 
 
 def legs(pool: Pool, inputs: dict) -> dict:

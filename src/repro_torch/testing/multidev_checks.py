@@ -68,6 +68,18 @@ train_moe — the MoE and Mamba families trained across processes: reduced
     parameters), the replication checked after every step. With
     ``--inputs``: the reference's weights, and rank 0's gathered gradients
     and parameters for a caller that holds them to the reference's mesh.
+train_rules — the train step under the reference's train rules
+    (``rules_for(cfg, "train", 32, 4)``: weight and expert-weight FSDP over
+    the data group, sequence parallelism at period boundaries): reduced
+    h2o-danube-1.8b, moonshot-v1-16b-a3b and jamba-v0.1-52b at (data 2,
+    model 2), moonshot at (4, 1); resident bytes equal to the rules' local
+    shapes, the pool against itself under DEFAULT_RULES, the presets a
+    train step takes, one step's collectives leaf by leaf against the
+    design and the dry run's stand-ins, and the elastic checkpoint cut
+    under the rules and resumed under DEFAULT_RULES at (4, 1) and in one
+    process. With ``--inputs``: the reference's weights, and rank 0's
+    gathered gradients and parameters for a caller that holds them to the
+    reference's mesh under the same rules.
 train_step (one process, ``train_step [cpu|cuda]``) — the same (data 2 x
     model 2) step in one process: the two data groups run one after
     another and the two TP ranks read their shards of the same tensors.
@@ -75,6 +87,7 @@ train_step (one process, ``train_step [cpu|cuda]``) — the same (data 2 x
 from __future__ import annotations
 
 import json
+import math
 import multiprocessing as mp
 import os
 import pickle
@@ -95,7 +108,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import forward, init_cache_defs, logits_for, model_param_defs
 from repro_torch.models.params import init_params, tree_leaves_with_path, tree_map
 from repro_torch.parallel.collectives import Pool, all_gather, close_pool, init_pool, rendezvous_file
-from repro_torch.parallel.sharding import ShardView, make_exec_config
+from repro_torch.parallel.sharding import DEFAULT_RULES, ShardingRules, ShardView, make_exec_config
 from repro_torch.training.data import SyntheticDataset
 from repro_torch.training.optimizer import AdamWConfig, Zero1Shards
 from repro_torch.training.train_step import TrainStepConfig, init_opt_state, make_train_step
@@ -602,10 +615,12 @@ def _train_cfg(case: dict) -> TrainStepConfig:
 
 def _replicated(pool: Pool, params: dict, layout) -> None:
     """The replication a train step keeps: a rank's parameters bit-equal
-    across its data group, its replicated leaves across its model group."""
+    across its data group (but the blocks of the leaves the rules shard
+    over data), its replicated leaves across its model group."""
     from repro_torch.parallel.collectives import check_replicated
 
-    check_replicated(params, pool, layout.level.data)
+    check_replicated({"/".join(path): t for path, t in tree_leaves_with_path(params) if layout.data_dim(path) is None},
+                     pool, layout.level.data)
     check_replicated({"/".join(path): t for path, t in tree_leaves_with_path(params) if layout.model_dim(path) is None},
                      pool, layout.level.model)
 
@@ -649,15 +664,16 @@ def moved_from(params: dict, start: dict) -> dict:
     return {path: float((t.detach() - start[path].to(t.device)).norm()) for path, t in tree_leaves_with_path(params)}
 
 
-def pool_step(pool: Pool, cfg: ModelConfig, params0: Optional[dict], tcfg: TrainStepConfig, tp: int, draw=None):
-    """The pool's train step at TP ``tp`` and this rank's state, from the
-    canonical weights ``params0`` (or drawn: ``draw``, as ``train_params``
-    takes it): (step, params, optimizer state)."""
+def pool_step(pool: Pool, cfg: ModelConfig, params0: Optional[dict], tcfg: TrainStepConfig, tp: int, draw=None,
+              rules: ShardingRules = DEFAULT_RULES):
+    """The pool's train step at TP ``tp`` under ``rules`` and this rank's
+    state, from the canonical weights ``params0`` (or drawn: ``draw``, as
+    ``train_params`` takes it): (step, params, optimizer state)."""
     from repro_torch.training.train_step import train_params
 
     ec = make_exec_config(cfg, tp)
-    mine = train_params(cfg, ec, pool, params0, draw)
-    step, plan = make_train_step(cfg, ec, mine, tcfg, pool=pool)
+    mine = train_params(cfg, ec, pool, params0, draw, rules)
+    step, plan = make_train_step(cfg, ec, mine, tcfg, pool=pool, rules=rules)
     return step, mine, init_opt_state(mine, tcfg, plan, step)
 
 
@@ -681,8 +697,10 @@ def checked(pool: Pool, step, on_step=None):
 
 
 def pool_train(pool: Pool, cfg: ModelConfig, params0: Optional[dict], tcfg: TrainStepConfig, tp: int, ds,
-               steps: int, start: int = 0, loop_dir: Optional[str] = None, draw=None, on_step=None):
-    """``steps`` steps (from ``start``) of ``pool_step``'s step, the
+               steps: int, start: int = 0, loop_dir: Optional[str] = None, draw=None, on_step=None,
+               rules: ShardingRules = DEFAULT_RULES):
+    """``steps`` steps (from ``start``) of ``pool_step``'s step (under
+    ``rules``), the
     replication checked after every step (``checked``, which calls
     ``on_step``). With ``loop_dir`` the steps run through ``train_loop``,
     resuming from its newest checkpoint and writing one at the end.
@@ -690,7 +708,7 @@ def pool_train(pool: Pool, cfg: ModelConfig, params0: Optional[dict], tcfg: Trai
     state)."""
     from repro_torch.training.loop import LoopConfig, train_loop
 
-    step, mine, opt = pool_step(pool, cfg, params0, tcfg, tp, draw)
+    step, mine, opt = pool_step(pool, cfg, params0, tcfg, tp, draw, rules)
     run = checked(pool, step, on_step)
     if loop_dir is not None:
         total = start + steps
@@ -979,6 +997,295 @@ def check_train_moe(pool: Pool, inputs: Optional[dict] = None) -> dict:
     return {"summary": summary, "arrays": arrays}
 
 
+# check_train_rules' cases: name -> (model, TP, steps, weights at each layer's own fan-in); at world 4 the mesh
+# is (data 4/TP, model TP), the rules rules_for(cfg, "train", RULES_SEQ, RULES_BATCH)
+TRAIN_RULES_CASES = {
+    "danube_2x2": ("h2o-danube-1.8b", 2, 3, False),
+    "moonshot_2x2": ("moonshot-v1-16b-a3b", 2, 3, False),
+    "moonshot_4x1": ("moonshot-v1-16b-a3b", 1, 3, False),
+    "jamba_2x2": ("jamba-v0.1-52b", 2, 1, True),  # its 8-layer period, the Mamba leaves on "embed"
+}
+RULES_BATCH, RULES_SEQ = 4, 32
+PRESETS_CASE, ELASTIC_CASE, VARIANTS_CASE = "moonshot_2x2", "danube_2x2", "danube_2x2"
+TRAIN_PRESETS = ("no-fsdp", "zero-off", "fsdp-pod")  # the presets a train step takes (rules_presets.preset)
+# the train rules against DEFAULT_RULES at one layout, where only the sums' order differs: a gradient's greatest
+# |diff| over its leaf's greatest |g| (0 at (2, 2), 1.7e-7 at (4, 1) on this CPU), and a loss's relative
+# difference; each parameter leaf's ||diff|| over its update ||p - p0|| (1.0e-5 for moonshot on this CPU: a
+# one-ulp difference of the clip's global norm, through Adam's first steps; measured over each leaf's greatest
+# |p| it reads 2e-5 on the zero-initialised norm scales, whose greatest |p| is a few lr-sized steps)
+RULES_TOL, RULES_UPDATE_RTOL = 1e-6, 1e-4
+
+
+def variant_rtol(variant: str) -> float:
+    """The update distance a run of VARIANTS_CASE is held to against
+    DEFAULT_RULES: RULES_UPDATE_RTOL plain (``variant`` ""), UPDATE_RTOL
+    with accumulation or compression. Accumulation adds a leaf's
+    microbatches and data ranks in another order, (a0 + b0) + (a1 + b1)
+    reduce-scattered a microbatch at a time against (a0 + a1) + (b0 + b1)
+    all-reduced once: where an element's gradient sums to about its
+    rounding, Adam's first steps turn that into part of a step (1.28e-3 of
+    a leaf's update on an H100, 7.2e-6 under gloo on the CPU).
+    Compression's int8 rounding turns a last-bit difference of a later
+    step's gradient into a whole quantization step of its block (1.7e-4 on
+    the reference's weights on the CPU)."""
+    return UPDATE_RTOL if variant else RULES_UPDATE_RTOL
+
+
+def train_rules(cfg: ModelConfig) -> ShardingRules:
+    """The reference's train rules of check_train_rules' batches."""
+    from repro_torch.parallel.sharding import rules_for
+
+    return rules_for(cfg, "train", RULES_SEQ, RULES_BATCH)
+
+
+def state_bytes(tree) -> int:
+    """The bytes this process holds of a train state (a ZeRO-1 moment's
+    slices as they lie)."""
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+
+    return sum(sum(p.numel() * p.element_size() for p in (x.parts if isinstance(x, Zero1Shards) else [x]))
+               for x in tree_leaves(tree))
+
+
+def rules_local_bytes(defs: dict, rules: ShardingRules, mesh: dict, dtype_bytes: int = 4) -> dict:
+    """One rank's parameter and moment (mu and nu) bytes by the rules' local
+    shapes on ``mesh``: ``sharding.local_shape``, and for the moments the
+    reference's ``zero1_pspec`` (``launch.cells._zero1_spec``)."""
+    from repro_torch.launch.cells import _zero1_spec
+    from repro_torch.parallel.sharding import local_shape, spec_ways
+
+    p = m = 0
+    for _, d in tree_leaves_with_path(defs):
+        p += math.prod(local_shape(d.shape, d.axes, rules, mesh)) * dtype_bytes
+        ways = spec_ways(_zero1_spec(d, rules, mesh), mesh)
+        m += 2 * math.prod(-(-n // w) for n, w in zip(d.shape, ways)) * dtype_bytes
+    return {"params": p, "moments": m}
+
+
+def _rules_run(pool: Pool, cfg: ModelConfig, params0: dict, tcfg: TrainStepConfig, tp: int, ds, steps: int,
+               rules: ShardingRules, count: bool = False) -> dict:
+    """The pool's step under ``rules``: its resident bytes, its gradients of
+    batch 0 gathered whole, then ``steps`` steps (the replication checked
+    after each; with ``count`` the first counted leaf by leaf,
+    ``count_traffic(by_leaf=True)``), the losses and the parameters
+    gathered whole."""
+    from repro_torch.parallel.collectives import count_traffic
+    from repro_torch.training.train_step import gather_params
+
+    step, mine, opt = pool_step(pool, cfg, params0, tcfg, tp, rules=rules)
+    rec = {"resident": {"params": state_bytes(mine), "moments": state_bytes({"mu": opt["mu"], "nu": opt["nu"]})},
+           "zero1_split": sum(isinstance(m, Zero1Shards) for _, m in tree_leaves_with_path(opt["mu"])),
+           "data_sharded": sorted("/".join(path) for path in step.layout.data_dims), "layout": step.layout}
+    rec["grads"] = gather_params(step.gradients(ds.at(0))[2], step.layout)
+    run, losses = checked(pool, step), []
+    for i in range(steps):
+        if count and i == 0:
+            with count_traffic(by_leaf=True) as traffic:
+                losses.append(float(run(mine, opt, ds.at(i))[2]["loss"]))
+            rec["traffic"] = dict(traffic)
+        else:
+            losses.append(float(run(mine, opt, ds.at(i))[2]["loss"]))
+    rec.update(losses=losses, params=gather_params(mine, step.layout))
+    return rec
+
+
+def _against(got: dict, want: dict, params0: dict) -> dict:
+    """Two ``_rules_run``s from ``params0``: the gradients' greatest
+    relative error (``grad_distance``), the losses' greatest relative
+    difference and ``param_distance``'s "param_abs" and "update_rel"."""
+    g = grad_distance(got["grads"], want["grads"])
+    d = param_distance(got["params"], want["params"], moved_from(want["params"], dict(tree_leaves_with_path(params0))))
+    return {"grad_rel": g["rel"], "grad_leaf": g["leaf"],
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])),
+            "param_abs": d["param_abs"], "update_rel": d["update_rel"]}
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    """Two runs' losses and gathered parameters bit for bit."""
+    return a["losses"] == b["losses"] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(tree_leaves_with_path(a["params"]), tree_leaves_with_path(b["params"])))
+
+
+def traffic_held(cfg: ModelConfig, tp: int, rules: ShardingRules, run: dict, accum: int = 1) -> dict:
+    """The first step's collectives counted leaf by leaf (``_rules_run``'s
+    ``count``) against the design, one data rank's RULES_BATCH / dp rows in
+    ``accum`` microbatches: each data-sharded leaf gathered at its forward
+    and its recompute (a layer's; the embedding, final norm and head once)
+    and its gradient reduce-scattered once, each a microbatch, and never
+    all-reduced; the sequence-parallel joins and cuts at each period
+    boundary; and every kind's totals against ``cells.rules_traffic``, the
+    dry run's stand-ins for the same cell. Returns the record; raises where
+    one differs."""
+    from repro_torch.launch.cells import rules_traffic
+
+    layout, traffic = run["layout"], run["traffic"]
+    mesh = {"data": layout.level.dp, "model": tp}
+    failures, by_kind = [], {}
+    for key, (calls, nbytes) in traffic.items():
+        kind = key[:key.index(")") + 1] if ")" in key else key
+        c, b = by_kind.get(kind, (0, 0))
+        by_kind[kind] = (c + calls, b + nbytes)
+    names = []
+    for path in layout.data_dims:
+        name = "/".join(path)
+        inst = [f"{name}@{i}" for i in range(cfg.num_periods)] if path[0] == "periods" else [name]
+        for leaf in inst:
+            names.append(leaf)
+            want = (accum * (2 if path[0] == "periods" else 1), accum)
+            got = (traffic.get(f"all-gather (weights) {leaf}", (0, 0))[0],
+                   traffic.get(f"reduce-scatter (gradients) {leaf}", (0, 0))[0])
+            if got != want:
+                failures.append(f"{leaf}: gathered {got[0]} times (not {want[0]}), its gradient "
+                                f"reduce-scattered {got[1]} times (not {want[1]})")
+        if f"all-reduce (gradients) {name}" in traffic:
+            failures.append(f"{name}: its gradient all-reduced")
+    want = rules_traffic(cfg, make_exec_config(cfg, tp), rules, mesh, RULES_BATCH // layout.level.dp // accum,
+                         RULES_SEQ, accum)
+    for kind in set(want) | set(by_kind) & {"all-reduce (gradients)", "all-gather (parameters)"}:
+        if by_kind.get(kind, (0, 0)) != want.get(kind, (0, 0)):
+            failures.append(f"{kind}: {by_kind.get(kind)} counted, {want.get(kind)} by rules_traffic")
+    if failures:
+        raise AssertionError(f"train_rules traffic: {failures}")
+    return {"by_kind": by_kind, "rules_traffic": want, "data_sharded_instances": len(names),
+            "sequence_joins": by_kind.get("all-gather (sequence)", (0, 0))[0],
+            "sequence_cuts_backward": by_kind.get("all-gather (sequence, backward)", (0, 0))[0]}
+
+
+def check_train_rules(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """The pool's train step under the reference's train rules
+    (``rules_for(cfg, "train", 32, 4)``: weight FSDP over the data group,
+    expert-weight FSDP, sequence parallelism at period boundaries), each
+    case of TRAIN_RULES_CASES (``inputs["cases"]``: some of them), reduced
+    config at (data N/TP, model TP), check_train_moe's optimizer and
+    batches: each rank's resident parameter and moment bytes equal to the
+    rules' local shapes exactly; the gradients of batch 0 and the losses
+    within RULES_TOL, and the parameters within RULES_UPDATE_RTOL of their
+    update, of the same pool under DEFAULT_RULES (only the sums' order
+    differs), the replication checked after every step. PRESETS_CASE
+    also runs the presets a train step takes: "no-fsdp" bit for bit equal
+    to DEFAULT_RULES, "zero-off" (no moment split) and "fsdp-pod" ("pod"
+    absent on one host) bit for bit equal to the train rules. VARIANTS_CASE
+    also runs accumulation (2 microbatches) and compression (int8 blocks
+    of 256) under both tables, held as the plain runs but for the
+    parameters (``variant_rtol``). Every case's first step under the train
+    rules, and the accumulated one's, is counted (``traffic_held``).
+    ELASTIC_CASE's run is cut through ``train_loop``'s
+    checkpoint under the rules and resumed at (data N, model 1) under
+    DEFAULT_RULES and in one process (``_elastic_rules``). Weights:
+    ``inputs["params"][case]`` (the reference's), else seed 0 on this
+    rank's device. Rank 0's arrays: each case's gathered gradients, losses
+    and parameters under the train rules."""
+    from repro_torch.checkpoint.convert import to_torch
+    from repro_torch.launch.rules_presets import preset
+    from repro_torch.models.params import per_layer_fan_in
+
+    inputs = inputs or {}
+    dev, tcfg = pool.device, _train_cfg({"warmup_steps": 2})
+    summary, arrays = {}, {}
+    for name in inputs.get("cases", list(TRAIN_RULES_CASES)):
+        model, tp, steps, own = TRAIN_RULES_CASES[name]
+        cfg = reduced(get_config(model))
+        defs = model_param_defs(cfg, make_exec_config(cfg, tp))
+        if name in inputs.get("params", {}):
+            params0 = to_torch(inputs["params"][name], dev)
+        else:
+            params0 = init_params(per_layer_fan_in(defs) if own else defs, torch.Generator(dev).manual_seed(0))
+        ds = SyntheticDataset(cfg, batch=RULES_BATCH, seq=RULES_SEQ)
+        rules, mesh = train_rules(cfg), {"data": pool.world // tp, "model": tp}
+        tables = {"rules": (rules, tcfg), "default": (DEFAULT_RULES, tcfg)}
+        if name == PRESETS_CASE:
+            tables.update({p: (preset(p, rules), tcfg) for p in TRAIN_PRESETS})
+        if name == VARIANTS_CASE:  # accumulation and compression, each under both tables
+            for v, case in (("accum", {"accum_steps": 2}), ("compress", {"compress": True, "block": 256})):
+                t = _train_cfg({"warmup_steps": 2, **case})
+                tables.update({v: (rules, t), f"{v}_default": (DEFAULT_RULES, t)})
+        runs = {label: _rules_run(pool, cfg, params0, t, tp, ds, steps, r,
+                                  count=label in ("rules", "accum"))
+                for label, (r, t) in tables.items()}
+        rec = {"model": cfg.name, "mesh": mesh, "losses": runs["rules"]["losses"],
+               "data_sharded": runs["rules"]["data_sharded"], "zero1_split": runs["rules"]["zero1_split"],
+               "resident": runs["rules"]["resident"], "replicated_after_every_step": True}
+        failures = []
+        for label, (r, _) in tables.items():
+            want = rules_local_bytes(defs, r, mesh)
+            if runs[label]["resident"] != want:
+                failures.append(f"{label}: resident {runs[label]['resident']}, the local shapes {want}")
+        for v in ("", "accum", "compress") if name == VARIANTS_CASE else ("",):
+            got, base = runs[v or "rules"], runs[f"{v}_default" if v else "default"]
+            rec[f"{v}_against_default" if v else "against_default"] = d = _against(got, base, params0)
+            if d["grad_rel"] > RULES_TOL or d["loss_rel"] > RULES_TOL or not d["update_rel"] < variant_rtol(v):
+                failures.append(f"{v or 'plain'} against DEFAULT_RULES: {d}")
+        if name == PRESETS_CASE:
+            rec["presets"] = {"no-fsdp_bitwise_default": _bitwise(runs["no-fsdp"], runs["default"]),
+                              "zero-off_bitwise_rules": _bitwise(runs["zero-off"], runs["rules"]),
+                              "zero-off_split_leaves": runs["zero-off"]["zero1_split"],
+                              "fsdp-pod_bitwise_rules": _bitwise(runs["fsdp-pod"], runs["rules"])}
+            if not (rec["presets"]["no-fsdp_bitwise_default"] and rec["presets"]["zero-off_bitwise_rules"]
+                    and rec["presets"]["fsdp-pod_bitwise_rules"] and runs["zero-off"]["zero1_split"] == 0
+                    and runs["fsdp-pod"]["data_sharded"] == runs["rules"]["data_sharded"]):
+                failures.append(f"presets: {rec['presets']}")
+        rec["traffic"] = traffic_held(cfg, tp, rules, runs["rules"])
+        if name == VARIANTS_CASE:
+            rec["accum_traffic"] = traffic_held(cfg, tp, rules, runs["accum"], accum=2)
+        if failures:
+            raise AssertionError(f"train_rules {name}: {failures}")
+        if name == ELASTIC_CASE:
+            rec["elastic"] = _elastic_rules(pool, cfg, params0, tp, ds, rules, inputs)
+        if pool.rank == 0:
+            arrays[name] = {k: _numpy_tree(runs["rules"][k]) for k in ("grads", "params")}
+            arrays[name]["losses"] = runs["rules"]["losses"]
+        summary[name] = rec
+        del runs
+    return {"summary": summary, "arrays": arrays}
+
+
+def _elastic_rules(pool: Pool, cfg: ModelConfig, params0: dict, tp: int, ds, rules: ShardingRules,
+                   inputs: dict) -> dict:
+    """TRAIN_STEPS steps under ``rules`` at (data N/tp, model tp),
+    checkpointed at ELASTIC_CUT through ``train_loop``; the checkpoint
+    copied twice and resumed there at (data N, model 1) under
+    DEFAULT_RULES, and in one process on rank 0: the resumed losses within
+    LOSS_RTOL of the uncut run's. The checkpoints lie in
+    ``inputs["ckpt_dir"]`` (default: a directory of the system's temporary
+    one named after the parent process, which every rank shares)."""
+    from repro_torch.training.loop import LoopConfig, train_loop
+
+    cut, tcfg = ELASTIC_CUT, _train_cfg({"warmup_steps": 2})
+    root = inputs.get("ckpt_dir") or os.path.join(tempfile.gettempdir(), f"train-rules-{os.getppid()}")
+    if pool.rank == 0:
+        for d in (root, root + "-pool", root + "-one"):
+            shutil.rmtree(d, ignore_errors=True)
+    pool.barrier()
+    before, mine, step, opt = pool_train(pool, cfg, params0, tcfg, tp, ds, cut, loop_dir=root, rules=rules)
+    run = checked(pool, step)
+    uncut = [float(run(mine, opt, ds.at(i))[2]["loss"]) for i in range(cut, TRAIN_STEPS)]
+    del mine, step, opt, run
+    if pool.rank == 0:
+        shutil.copytree(root, root + "-pool")
+        shutil.copytree(root, root + "-one")
+    pool.barrier()
+    resumed, mine, _, _ = pool_train(pool, cfg, params0, tcfg, 1, ds, TRAIN_STEPS - cut, start=cut,
+                                     loop_dir=root + "-pool")
+    rec = {"cut": cut, "losses_before_cut": before, "uncut": uncut, "resumed_data_model": [pool.world, 1],
+           "resumed": resumed}
+    failures = [] if max(abs(a - b) / abs(b) for a, b in zip(resumed, uncut)) < LOSS_RTOL else [
+        f"resumed at (data {pool.world}, model 1) under DEFAULT_RULES: {resumed} against {uncut}"]
+    if pool.rank == 0:
+        params = tree_map(lambda t: t.detach().clone(), params0)
+        step, _ = make_train_step(cfg, make_exec_config(cfg, 1), params, tcfg)
+        st = train_loop(step, params, init_opt_state(params, tcfg), ds,
+                        LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=root + "-one"))
+        rec.update(one_process=st.losses, one_process_resumed_from=st.resumed_from)
+        if st.resumed_from != cut or max(abs(a - b) / abs(b) for a, b in zip(st.losses, uncut)) >= LOSS_RTOL:
+            failures.append(f"resumed in one process from {st.resumed_from}: {st.losses} against {uncut}")
+        for d in (root, root + "-pool", root + "-one"):
+            shutil.rmtree(d, ignore_errors=True)
+    pool.barrier()
+    if failures:
+        raise AssertionError(f"train_rules elastic: {failures}")
+    return rec
+
+
 def check_train_grads(pool: Pool, inputs: Optional[dict] = None) -> dict:
     """The collectives under autograd at TP 2 across the pool against the
     one process's TP 2 ranks: a vocab-parallel embedding, twice a norm
@@ -1179,6 +1486,7 @@ POOL_CHECKS = {
     "train_step": (check_train_step_pool, 4),
     "train_grads": (check_train_grads, 2),
     "train_moe": (check_train_moe, 4),
+    "train_rules": (check_train_rules, 4),
 }
 MODEL_CHECKS = ("engine", "migration")  # the checks ``--model`` gives a reduced config (``engine_cfg``)
 

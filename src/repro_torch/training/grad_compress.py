@@ -16,6 +16,9 @@ leaf's reduced gradient over the model group and its error over the data
 and model groups, quantizes the whole leaf (every rank the same), and keeps
 its own model shard of the result. The error lives as the reference shards
 it, like the first moment: each rank holds its model shard's ZeRO slice.
+A leaf the rules shard over data (weight FSDP) is this rank's block of its
+model shard, gradient and error alike: both are gathered over the data
+group as well, so each block's scale spans the whole logical leaf.
 """
 from __future__ import annotations
 
@@ -56,11 +59,13 @@ def init_error_feedback(params):
 
 
 def compress_grads(grads, err_state, cfg: CompressConfig, model_dims: Optional[Dict] = None,
-                   level: Optional[Level] = None):
+                   level: Optional[Level] = None, data_dims: Optional[Dict] = None):
     """Returns (the gradients as they would arrive after the sum, the new
     error-feedback state). Both trees are written in place (the port owns
     its gradient buffers) and returned. Across processes ``level`` is the
-    pool's level and ``model_dims`` {path: the model-sharded dim or None}."""
+    pool's level, ``model_dims`` {path: the model-sharded dim or None} and
+    ``data_dims`` {path: the data-sharded dim} of the leaves sharded over
+    data."""
     if not cfg.enabled:
         return grads, err_state
     errs = dict(tree_leaves_with_path(err_state))
@@ -72,15 +77,17 @@ def compress_grads(grads, err_state, cfg: CompressConfig, model_dims: Optional[D
                 g.copy_(deq)
                 e.copy_(new_err)
                 continue
-            dim = model_dims[path] if level.tp > 1 else None
-            e_shard = e.full() if isinstance(e, Zero1Shards) else e
-            if dim is None:
-                _, deq, new_err = quantize_leaf(g, e_shard, cfg.block)
-            else:  # the logical leaf, then this rank's shard of the results
-                _, deq, new_err = quantize_leaf(all_gather(g, level.model, dim),
-                                                all_gather(e_shard, level.model, dim), cfg.block)
-                w = g.shape[dim]
-                deq, new_err = (t.narrow(dim, level.model_rank * w, w) for t in (deq, new_err))
+            g_w, e_w = g, e.full() if isinstance(e, Zero1Shards) else e
+            cuts = []  # the logical leaf, then this rank's block of the results
+            for dim, group, index in (((data_dims or {}).get(path) if level.dp > 1 else None, level.data,
+                                       level.data_rank),
+                                      (model_dims[path] if level.tp > 1 else None, level.model, level.model_rank)):
+                if dim is not None:
+                    cuts.append((dim, index * g_w.shape[dim], g_w.shape[dim]))
+                    g_w, e_w = all_gather(g_w, group, dim), all_gather(e_w, group, dim)
+            _, deq, new_err = quantize_leaf(g_w, e_w, cfg.block)
+            for dim, start, n in cuts:
+                deq, new_err = deq.narrow(dim, start, n), new_err.narrow(dim, start, n)
             g.copy_(deq)
             if isinstance(e, Zero1Shards):
                 n = new_err.shape[e.dim] // e.n

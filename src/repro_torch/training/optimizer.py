@@ -9,7 +9,9 @@ reference computes them.
 
 ZeRO-1: each moment leaf is split over the dp data ranks along one dim,
 the first that the reference's rules leave unsharded and dp divides
-(``zero1_dim``, the reference's ``zero1_pspec`` under ``DEFAULT_RULES``).
+(``zero1_dim``, the reference's ``zero1_pspec``); a leaf the rules shard
+over data already (weight FSDP) is not split again: its moments are its
+block, as its parameter is, updated in place with no gather.
 On one card each rank's slice is a tensor of its own (``Zero1Shards``),
 updated one rank after another against the same slice of the gradient and
 of the parameter. Across processes (``adamw_init(..., group=)``, the data
@@ -28,12 +30,9 @@ import torch
 
 from repro_torch.models.params import ParamDef, tree_leaves_with_path, tree_map_with_path
 from repro_torch.parallel.collectives import Group, all_gather, gather_into
-from repro_torch.parallel.sharding import MODEL_AXES
+from repro_torch.parallel.sharding import DEFAULT_RULES, ShardingRules, pspec_for
 
 Path = Tuple[str, ...]
-
-# logical axes that DEFAULT_RULES place on the "data" mesh axis (activations only)
-DATA_AXES = frozenset({"batch", "res_batch"})
 
 
 @dataclass(frozen=True)
@@ -73,15 +72,20 @@ class Zero1Shards:
         return all_gather(self.parts[0], self.group, self.dim)
 
 
-def zero1_dim(d: ParamDef, dp: int) -> Optional[int]:
+def zero1_dim(d: ParamDef, dp: int, rules: ShardingRules = DEFAULT_RULES) -> Optional[int]:
     """The dim a leaf's moments split over ``dp`` data ranks, or None: the
     first dim that no rule shards, that dp divides and that is at least dp
-    long, on a (data, model) mesh under DEFAULT_RULES (the reference's
-    ``zero1_pspec``)."""
-    if any(ax in DATA_AXES for ax in d.axes):  # the data axis is taken already
+    long, on a (data, model) mesh under ``rules`` (the reference's
+    ``zero1_pspec``); None where the rules' ``zero`` axis is not "data" or
+    the leaf's spec uses the data axis already."""
+    mesh = {"data": dp, "model": 1}
+    if rules.get("zero") != "data":
         return None
-    for i, (n, ax) in enumerate(zip(d.shape, d.axes)):
-        if ax not in MODEL_AXES and n % dp == 0 and n >= dp:
+    spec = pspec_for(d.axes, rules, mesh)
+    if any(m is not None and "data" in ((m,) if isinstance(m, str) else m) for m in spec):
+        return None
+    for i, (n, m) in enumerate(zip(d.shape, spec)):
+        if m is None and n % dp == 0 and n >= dp:
             return i
     return None
 
@@ -92,9 +96,9 @@ class Zero1Plan:
     dims: Dict[Path, Optional[int]]
 
 
-def zero1_plan(defs, dp: int) -> Zero1Plan:
+def zero1_plan(defs, dp: int, rules: ShardingRules = DEFAULT_RULES) -> Zero1Plan:
     """``zero1_dim`` of every leaf of a ParamDef tree."""
-    return Zero1Plan(dp, {path: zero1_dim(d, dp) for path, d in tree_leaves_with_path(defs)})
+    return Zero1Plan(dp, {path: zero1_dim(d, dp, rules) for path, d in tree_leaves_with_path(defs)})
 
 
 def _split(t: torch.Tensor, dim: Optional[int], dp: int) -> List[Tuple[int, int]]:
@@ -187,31 +191,38 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     return params, state
 
 
-def global_norm(tree, sharded: Sequence[Path] = (), group: Optional[Group] = None) -> torch.Tensor:
+def global_norm(tree, sharded: Sequence[Path] = (), group: Optional[Group] = None,
+                data_sharded: Sequence[Path] = (), data_group: Optional[Group] = None) -> torch.Tensor:
     """The square root of every leaf's sum of squares. Across processes
     (``group``, the model group) the leaves at ``sharded`` paths are this
-    rank's model shards: their sums are summed over the group, and each
-    replicated leaf is counted once."""
+    rank's model shards, and those at ``data_sharded`` paths its blocks of
+    leaves that ``data_group`` shards besides (weight FSDP): each leaf's sum
+    is summed over the groups that split it, every leaf counted once."""
     if group is None:
         return torch.sqrt(sum(torch.sum(x.float() ** 2) for _, x in tree_leaves_with_path(tree)))
-    split = set(sharded)
-    parts = {True: [], False: []}
+    import torch.distributed as dist
+
+    model, data = set(sharded), set(data_sharded)
+    sums = {(m, d): [] for m in (False, True) for d in (False, True)}
     for path, x in tree_leaves_with_path(tree):
-        parts[path in split].append(torch.sum(x.float() ** 2))
+        sums[(path in model, path in data)].append(torch.sum(x.float() ** 2))
     dev = _device_of(tree)
-    shards, whole = (torch.stack(parts[k]).sum() if parts[k] else torch.zeros((), device=dev) for k in (True, False))
+    total = {k: torch.stack(v).sum() if v else torch.zeros((), device=dev) for k, v in sums.items()}
+    over_data = torch.stack([total[(False, True)], total[(True, True)]])
+    if data and data_group.size > 1:
+        dist.all_reduce(over_data, group=data_group.handle)
+    over_model = total[(True, False)] + over_data[1]
     if group.size > 1:
-        import torch.distributed as dist
-
-        dist.all_reduce(shards, group=group.handle)
-    return torch.sqrt(shards + whole)
+        dist.all_reduce(over_model, group=group.handle)
+    return torch.sqrt(total[(False, False)] + over_data[0] + over_model)
 
 
-def clip_by_global_norm(grads, max_norm: float, sharded: Sequence[Path] = (), group: Optional[Group] = None):
+def clip_by_global_norm(grads, max_norm: float, sharded: Sequence[Path] = (), group: Optional[Group] = None,
+                        data_sharded: Sequence[Path] = (), data_group: Optional[Group] = None):
     """Scales ``grads`` in place to a global norm of at most ``max_norm``;
-    returns (grads, the norm before). ``sharded`` and ``group``: as
-    ``global_norm``'s."""
-    norm = global_norm(grads, sharded, group)
+    returns (grads, the norm before). ``sharded``, ``group``,
+    ``data_sharded`` and ``data_group``: as ``global_norm``'s."""
+    norm = global_norm(grads, sharded, group, data_sharded, data_group)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     with torch.no_grad():
         for _, g in tree_leaves_with_path(grads):

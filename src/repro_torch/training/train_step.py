@@ -28,6 +28,21 @@ across the model group (``parallel.collectives``). ZeRO-1 keeps each data
 rank's slice of the moments alone and all-gathers the updated slices;
 clipping sums the model shards' squares over the model group. The loss
 metric is summed over the data group: every rank reports the global loss.
+
+``rules`` (across processes; the reference's ``ShardingRules``, e.g.
+``rules_for(cfg, "train", S, B)``) place each leaf as the reference's
+``param_shardings`` does on the mesh (data N/t, model t): a leaf with an
+axis the rules send to "data" (``embed``, ``expert_embed``: weight FSDP)
+lies on each rank as its (model, data) block (``sharding.local_shape``),
+is gathered over the data group at use inside each recomputed layer
+(``sharding.DataShard``), and its gradient arrives reduce-scattered: it
+leaves the once-a-step all-reduce, and ZeRO-1 does not split its moments
+again (the reference's ``zero1_pspec``). ``seq_res -> model`` cuts the
+residual stream saved at each period boundary to this rank's S/t
+positions (``models.model.forward``'s ``seq_parallel``); ``zero -> None``
+keeps the moments whole on every data rank. Any other entry that differs
+from ``DEFAULT_RULES`` raises (``sharding.check_train_rules``). In one
+process the rules place nothing, as the reference's with no mesh.
 """
 from __future__ import annotations
 
@@ -41,8 +56,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.weight_store import WeightStore
 from repro_torch.models.model import loss_fn, model_param_defs
 from repro_torch.models.params import tree_leaves_with_path, tree_map, tree_map_with_path
-from repro_torch.parallel.collectives import Level, Pool, all_reduce, all_reduce_leaves
-from repro_torch.parallel.sharding import ExecConfig
+from repro_torch.parallel.collectives import Level, Pool, all_gather, all_reduce, all_reduce_leaves
+from repro_torch.parallel.sharding import DEFAULT_RULES, ExecConfig, ShardingRules, local_shape, seq_parallel
 from repro_torch.training.grad_compress import CompressConfig, compress_grads, init_error_feedback
 from repro_torch.training.optimizer import (
     AdamWConfig, Zero1Plan, adamw_init, adamw_update, clip_by_global_norm, moment_zeros, zero1_plan,
@@ -73,44 +88,60 @@ def batch_to(batch: Dict[str, np.ndarray], device: torch.device, dtype: torch.dt
 @dataclass(frozen=True)
 class PoolLayout:
     """How a train state lies over a pool at one TP level: each parameter
-    path's model-sharded dim (None: replicated), the level's groups. A
-    moment leaf of a ZeRO-split parameter is a ``Zero1Shards`` over the
-    data group besides."""
+    path's model-sharded dim (None: replicated), the data-sharded dim of
+    each leaf the rules shard over data, the level's groups. A moment leaf
+    of a ZeRO-split parameter is a ``Zero1Shards`` over the data group
+    besides; a data-sharded leaf's moments are its block, as it is."""
 
     pool: Pool
     level: Level
     model_dims: Dict[Tuple[str, ...], Optional[int]]
+    data_dims: Dict[Tuple[str, ...], int] = field(default_factory=dict)
 
-    def model_dim(self, path: Tuple) -> Optional[int]:
-        """The model-sharded dim of a leaf of a state tree, by its path:
-        that of the parameter path its path ends in (a moment's or an
-        error's key leads), None for any other leaf (the step count)."""
-        if self.level.tp == 1:
-            return None
+    @staticmethod
+    def _of(dims: dict, path: Tuple) -> Optional[int]:
+        """The dim that ``dims`` give the parameter path ``path`` ends in (a
+        moment's or an error's key leads), None for any other leaf (the
+        step count)."""
         for i in range(len(path)):
-            if tuple(path[i:]) in self.model_dims:
-                return self.model_dims[tuple(path[i:])]
+            if tuple(path[i:]) in dims:
+                return dims[tuple(path[i:])]
         return None
 
+    def model_dim(self, path: Tuple) -> Optional[int]:
+        """The model-sharded dim of a leaf of a state tree, by its path
+        (None at TP 1)."""
+        return None if self.level.tp == 1 else self._of(self.model_dims, path)
 
-def train_store(cfg: ModelConfig, ec: ExecConfig, pool: Pool, defs: Optional[dict] = None) -> WeightStore:
+    def data_dim(self, path: Tuple) -> Optional[int]:
+        """The data-sharded dim of a leaf of a state tree, by its path (None
+        where the data group is one rank)."""
+        return None if self.level.dp == 1 else self._of(self.data_dims, path)
+
+
+def train_store(cfg: ModelConfig, ec: ExecConfig, pool: Pool, defs: Optional[dict] = None,
+                rules: ShardingRules = DEFAULT_RULES) -> WeightStore:
     """The store a train step across ``pool`` binds: storage TP ``ec.tp``,
     so a card holds its model shard of every model-sharded leaf (the
-    reference's ``param_shardings``) and every replicated leaf whole."""
-    return WeightStore(cfg, defs or model_param_defs(cfg, ec), pool.devices, storage_tp=ec.tp, pool=pool)
+    reference's ``param_shardings``) and every replicated leaf whole; under
+    ``rules`` that shard over data, its data block of those."""
+    return WeightStore(cfg, defs or model_param_defs(cfg, ec), pool.devices, storage_tp=ec.tp, pool=pool,
+                       rules=rules)
 
 
 def train_params(cfg: ModelConfig, ec: ExecConfig, pool: Pool, params: Optional[dict] = None,
-                 draw: Optional[Tuple[dict, torch.Generator, torch.dtype]] = None) -> dict:
-    """This rank's parameters for ``make_train_step(..., pool=)``, tensors
-    of their own: the canonical tree ``params`` (left as it is) laid out at
-    storage TP ``ec.tp``, or drawn leaf by leaf, ``draw`` = (defs,
+                 draw: Optional[Tuple[dict, torch.Generator, torch.dtype]] = None,
+                 rules: ShardingRules = DEFAULT_RULES) -> dict:
+    """This rank's parameters for ``make_train_step(..., pool=, rules=)``,
+    tensors of their own: the canonical tree ``params`` (left as it is)
+    laid out at storage TP ``ec.tp``, each leaf this rank's (model, data)
+    block under ``rules``, or drawn leaf by leaf, ``draw`` = (defs,
     generator, dtype) as ``init_params`` draws them, each leaf cut to this
-    rank's shard as it comes (the whole tree is never held: llama3-8b's f32
+    rank's block as it comes (the whole tree is never held: llama3-8b's f32
     leaves take 32 GB)."""
     from repro_torch.models.params import init_params
 
-    store = train_store(cfg, ec, pool)
+    store = train_store(cfg, ec, pool, rules=rules)
     if params is not None:
         return tree_map_with_path(lambda path, t: store.lay(path, t.detach().clone(), pool.rank), params)
     defs, gen, dtype = draw
@@ -119,14 +150,17 @@ def train_params(cfg: ModelConfig, ec: ExecConfig, pool: Pool, params: Optional[
 
 def gather_params(params: dict, layout: PoolLayout) -> dict:
     """The canonical tree of a pool's parameters, in tensors of its own
-    (later steps leave it as it is): every model-sharded leaf gathered over
-    the model group (a collective: every rank calls it), a replicated leaf
-    copied."""
-    from repro_torch.parallel.collectives import all_gather
-
+    (later steps leave it as it is): every data-sharded leaf gathered over
+    the data group, every model-sharded leaf over the model group
+    (collectives: every rank calls it), a replicated leaf copied."""
     def whole(path, t):
-        dim = layout.model_dim(path)
-        return t.detach().clone() if dim is None else all_gather(t.detach(), layout.level.model, dim)
+        t = t.detach()
+        if layout.data_dim(path) is None and layout.model_dim(path) is None:
+            return t.clone()
+        for dim, group in ((layout.data_dim(path), layout.level.data), (layout.model_dim(path), layout.level.model)):
+            if dim is not None:
+                t = all_gather(t, group, dim)
+        return t
 
     return tree_map_with_path(whole, params)  # every rank's tree, made by train_params, has one order
 
@@ -139,6 +173,7 @@ def make_train_step(
     *,
     dp: int = 1,
     pool: Optional[Pool] = None,
+    rules: ShardingRules = DEFAULT_RULES,
 ) -> Tuple[Callable, Zero1Plan]:
     """Returns (step_fn, the ZeRO-1 plan over the dp data ranks).
 
@@ -147,7 +182,8 @@ def make_train_step(
     set to require grad and bound at TP ``ec.tp`` (a ``WeightStore`` of
     ``ec.tp`` ranks on that device, at storage TP 1, keeps the tensors
     themselves). Across ``pool`` it is this rank's tree
-    (``train_params``), dp is the level's data size, and ``step_fn.layout``
+    (``train_params``, under the same ``rules``), dp is the level's data
+    size, and ``step_fn.layout``
     is the state's ``PoolLayout`` (``train_loop``'s checkpoints read it),
     and ``step_fn.gradients(batch)`` the step's (loss, metrics, grads)
     without the update.
@@ -160,29 +196,30 @@ def make_train_step(
     defs = model_param_defs(cfg, ec)
     leaves = [t for _, t in tree_leaves_with_path(params)]
     device, dtype = leaves[0].device, leaves[0].dtype
-    level, layout = None, None
+    level, layout, seq_level = None, None, None
     if pool is None:
         store = WeightStore(cfg, defs, [device] * ec.tp)
         storage = store.build(params)
+        rules = DEFAULT_RULES  # one process: the rules place nothing
     else:
         level = pool.level(ec.tp)
         if dp not in (1, level.dp):
             raise ValueError(f"dp {dp} on a pool of {pool.world} at TP {ec.tp}: the data size is {level.dp}")
         dp = level.dp
-        store = train_store(cfg, ec, pool, defs)
+        mesh = {"data": dp, "model": ec.tp}
+        store = train_store(cfg, ec, pool, defs, rules)
         for (path, t), (_, d) in zip(tree_leaves_with_path(params), tree_leaves_with_path(defs)):
-            want = list(d.shape)
-            if store.plans[path].dim is not None:
-                want[store.plans[path].dim] //= ec.tp
-            if list(t.shape) != want:
-                raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)}, not this rank's shard {tuple(want)} "
-                                 f"(train_params lays them out)")
+            want = local_shape(d.shape, d.axes, rules, mesh)
+            if tuple(t.shape) != want:
+                raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)}, not this rank's block {want} "
+                                 f"(train_params lays them out under the same rules)")
         storage = store.storage_of(params)
-        layout = PoolLayout(pool, level, {path: plan.dim for path, plan in store.plans.items()})
+        layout = PoolLayout(pool, level, {path: plan.dim for path, plan in store.plans.items()}, store.data_dims)
+        seq_level = level if seq_parallel(rules, mesh) else None
     for t in leaves:
         t.requires_grad_(True)
     bound = store.rebind(storage, ec.tp)
-    plan = zero1_plan(defs, dp)
+    plan = zero1_plan(defs, dp, rules)
     k = tcfg.accum_steps
     mine = range(dp) if level is None else (level.data_rank,)
 
@@ -200,7 +237,7 @@ def make_train_step(
         for g in mine:
             part = {key: v[g * rows:(g + 1) * rows] for key, v in mb.items()}
             loss_g, met = loss_fn(bound, cfg, ec, part, seq_chunk=tcfg.seq_chunk, block_q=tcfg.block_q,
-                                  block_k=tcfg.block_k)
+                                  block_k=tcfg.block_k, seq_parallel=seq_level)
             if dp == 1:
                 obj, share = loss_g, 1.0
             else:  # this group's share of the global loss
@@ -247,9 +284,10 @@ def make_train_step(
             loss = torch.stack(losses).mean()
             metrics = {key: torch.stack([torch.as_tensor(m[key], device=device) for m in mets]).mean()
                        for key in mets[0]}
-        if level is not None:  # the data-parallel gradient sum, once a step
+        if level is not None:  # the data-parallel gradient sum, once a step (data-sharded leaves' came reduce-scattered)
             with torch.no_grad():
-                all_reduce_leaves([g for _, g in tree_leaves_with_path(grads)], level.data)
+                summed = [(path, g) for path, g in tree_leaves_with_path(grads) if layout.data_dim(path) is None]
+                all_reduce_leaves([g for _, g in summed], level.data, ["/".join(path) for path, _ in summed])
         return loss, metrics, grads
 
     def step(p, opt_state, batch):
@@ -259,10 +297,12 @@ def make_train_step(
         split = {}
         if level is not None:
             split = dict(sharded=[path for path, d in layout.model_dims.items() if d is not None and level.tp > 1],
-                         group=level.model)
+                         group=level.model, data_sharded=[path for path in layout.data_dims if level.dp > 1],
+                         data_group=level.data)
         err = opt_state.get("err")
         if tcfg.compress.enabled:
-            grads, err = compress_grads(grads, err, tcfg.compress, None if layout is None else layout.model_dims, level)
+            grads, err = compress_grads(grads, err, tcfg.compress, None if layout is None else layout.model_dims, level,
+                                        None if layout is None else layout.data_dims)
         grads, gnorm = clip_by_global_norm(grads, tcfg.opt.grad_clip, **split)
         inner = {key: opt_state[key] for key in ("mu", "nu", "count")}
         adamw_update(grads, inner, params, tcfg.opt)
