@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--layers N] [--skip-timed]
     python3 chip_smoke.py --timings-of build/parent/src   # host cost, f32 matmul, attention, bf16 engine timings and f32 profiles of another tree
+    python3 chip_smoke.py --timings-of src --serving-only   # phase 5's bf16 engine timings alone (TTFT, decode step per TP, tokens/s)
 
 Phases; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit, then every CUDA
@@ -153,6 +154,7 @@ Phases; any failure raises and the script exits non-zero:
      the matmul's launches per step (forward with the recompute, backward
      dX) and one step under torch.profiler split into the matmul kernel,
      the attention, the optimizer, the library's other GEMMs and the rest;
+     then the same in bf16 with f32 moments (12 steps), beside the f32 run;
      (d) train_loop at 2 layers: 8 steps with a checkpoint every 4, a run
      failing at step 6 and a resumed run; step 4's checkpoint loads back
      onto the card bit for bit, the resumed losses within 2e-4 of the
@@ -203,7 +205,17 @@ Phases; any failure raises and the script exits non-zero:
      2e-4 relative, and its parameters within rtol 5e-3, atol 5e-4 and
      within 1e-2 of their update, of the one-process step (run first on
      card 0); after every step the parameters bit-equal across each data
-     group and the replicated leaves across each model group.
+     group and the replicated leaves across each model group. Then
+     moonshot (2 layers) and jamba (one layer) the same way for 3 steps,
+     moonshot's step under the train rules, and h2o-danube (2 layers),
+     moonshot and jamba for 3 steps in bf16 with f32 moments, each held to
+     the one-process bf16 step as the f32 runs are (a pool that never
+     applies its update reads 1.0 of its update) and read for bit for bit
+     (the MoE and Mamba runs, f32 and bf16, all under torch's
+     deterministic algorithms); last,
+     llama3-8b's decoder layers in f32 through the pipeline schedule, a
+     stage a card (on one card pipe 1, world 1; 2 layers a stage), held to
+     the sequential stack within 2e-5 and timed.
 Each kernel's launch count is set to 0 just before the path that runs it
 (phase 3 for kv_gather / kv_scatter; phase 4 in f32, phase 5's bf16
 serving runs, each model's f32 runs in phases 6-9 and the bf16 runs of
@@ -216,7 +228,9 @@ backward" the backward's dX launches) and 13 (each launcher's and
 example's run, warm-up included), with the split in
 ``launches_by_path``; ``instances`` holds the new instances' rows. Phases 15
 and 16's launches are made in their processes and added as their own
-paths (16: the round trip's three runs, forward and backward). The full
+paths (16: the round trip's three runs, each family's steps in f32 and in
+bf16, the rules' step and the pipeline's timed steps, forward and
+backward). The full
 record goes to chiprun_out/chip_smoke.json. The last lines are the kernels
 line, the card line and the contract line.
 """
@@ -2501,8 +2515,6 @@ def jamba_phase(torch, dev, log, skip_timed):
 # ---------------------------------------------------------------------------
 TABLES = ROOT / "src" / "repro_torch" / "profiles" / "tables"
 PROFILE_BATCHES, PROFILE_CTXS = (1, 4, 8), (64,)
-PLAN_DEMANDS = {"strict": 2.0, "relaxed": 6.0}  # req/s, prompt 64, output 24
-PLAN_CHIPS = 8
 
 
 def h100_fields(torch, dev, cfg, decode_row, flush, log):
@@ -2557,7 +2569,7 @@ def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
     from repro_torch.profiles.slo import derive_tiers
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
-    from repro_torch.testing.multicard import weight_defs
+    from repro_torch.testing.multicard import PLAN_CHIPS, PLAN_DEMANDS, weight_defs
 
     t0 = time.perf_counter()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -2880,14 +2892,14 @@ class PlainMatmul:
         self.layers.tp_shard_matmul = self.kernel
 
 
-def train_params(torch, dev, cfg):
-    """f32 weights from seed 0, each layer's leaves at its own fan-in, and the
-    bytes they take."""
+def train_params(torch, dev, cfg, dtype=None):
+    """Weights from seed 0 (f32, or ``dtype``), each layer's leaves at its
+    own fan-in."""
     from repro_torch.models import init_params
     from repro_torch.testing.multicard import weight_defs
 
-    params = init_params(weight_defs(cfg, own_fan_in=True), torch.Generator(device=dev).manual_seed(0))
-    return params
+    return init_params(weight_defs(cfg, own_fan_in=True), torch.Generator(device=dev).manual_seed(0),
+                       dtype or torch.float32)
 
 
 def tree_bytes(tree):
@@ -3065,13 +3077,13 @@ def profile_train_step(torch, dev, run):
     return out
 
 
-def train_full(torch, dev, cfg, log, steps=20, batch=8, seq=512):
+def train_full(torch, dev, cfg, log, steps=20, batch=8, seq=512, dtype=None):
     """(c) ``cfg`` trained for ``steps`` steps of SyntheticDataset(batch, seq)
-    in f32 through make_train_step (the layer recompute; seq_chunk 256,
-    blocks 128): finite losses, the mean of the last 5 below the first;
-    step times, tokens/s, peak memory against the reckoning, the matmul's
-    launches per step (counts set to 0 just before the steps, read just
-    after), then one step profiled."""
+    in f32 (or ``dtype``, the moments f32) through make_train_step (the
+    layer recompute; seq_chunk 256, blocks 128): finite losses, the mean of
+    the last 5 below the first; step times, tokens/s, peak memory against
+    the reckoning, the matmul's launches per step (counts set to 0 just
+    before the steps, read just after), then one step profiled."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.models.params import count_params
     from repro_torch.parallel.sharding import make_exec_config
@@ -3082,7 +3094,8 @@ def train_full(torch, dev, cfg, log, steps=20, batch=8, seq=512):
 
     t0 = time.perf_counter()
     n_params = count_params(weight_defs(cfg, own_fan_in=True))
-    params = train_params(torch, dev, cfg)
+    dtype = dtype or torch.float32
+    params = train_params(torch, dev, cfg, dtype)
     tcfg = TrainStepConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=5), seq_chunk=min(256, seq), block_q=128,
                            block_k=128)
     step, _ = make_train_step(cfg, make_exec_config(cfg, 1), params, tcfg)
@@ -3109,13 +3122,15 @@ def train_full(torch, dev, cfg, log, steps=20, batch=8, seq=512):
     split = profile_train_step(torch, dev, lambda: float(step(params, opt, ds.at(steps))[2]["loss"]))
     st = sorted(times[1:]) if len(times) > 1 else times
     med = st[len(st) // 2]
-    rec = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params, "steps": steps, "batch": [batch, seq],
+    name = str(dtype).replace("torch.", "")
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": name, "params": n_params, "steps": steps,
+           "batch": [batch, seq],
            "losses": losses, "step_s": times, "step_s_median": med, "step_s_min": st[0], "step_s_max": st[-1],
            "first_step_s": times[0], "tokens_per_s": batch * seq / med, "peak_bytes": peak,
            "reckoned_bytes": reckoned, "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()}, "profiled_step": split,
            "setup_s": made_s}
-    log(f"phase 12 (c) {cfg.name} f32, {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters, batch {batch} x "
+    log(f"phase 12 (c) {cfg.name} {name}, {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters, batch {batch} x "
         f"{seq}, {steps} steps: losses {[round(x, 4) for x in losses]}; step {med:.3f} s median (min {st[0]:.3f}, max "
         f"{st[-1]:.3f}; first {times[0]:.3f}), {batch * seq / med:.0f} tokens/s; peak "
         f"{(peak or 0) / 1e9:.2f} GB (reckoned before activations {reckoned['before_activations'] / 1e9:.2f}: params "
@@ -3170,11 +3185,16 @@ def checkpoint_round_trip(torch, dev, cfg, log, batch=8, seq=512):
     return rec
 
 
+BF16_TRAIN_STEPS = 12
+
+
 def training_phase(torch, dev, log, cfg=None, steps=20, batch=8, seq=512, small_batch=(4, 256)):
     """Phase 12: (a) grad_check on ``cfg`` cut to 2 layers, (b)
-    check_train_step, (c) train_full at ``cfg``'s depth, (d)
-    checkpoint_round_trip at 2 layers. Returns ({"train": forward launches,
-    "train backward": backward launches} of (c), the record)."""
+    check_train_step, (c) train_full at ``cfg``'s depth in f32, then in
+    bf16 (BF16_TRAIN_STEPS steps; f32 moments), (d) checkpoint_round_trip
+    at 2 layers. Returns ({"train": forward launches, "train backward":
+    backward launches} of (c) in f32, and "train bf16", "train bf16
+    backward" of the bf16 run, the record)."""
     from repro_torch.configs import get_config
     from repro_torch.testing.multidev_checks import check_train_step
 
@@ -3193,10 +3213,19 @@ def training_phase(torch, dev, log, cfg=None, steps=20, batch=8, seq=512, small_
     launches, rec["train"] = train_full(torch, dev, cfg, log, steps, batch, seq)
     rec["train"]["wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    bf16, rec["train_bf16"] = train_full(torch, dev, cfg, log, BF16_TRAIN_STEPS, batch, seq, torch.bfloat16)
+    rec["train_bf16"]["wall_s"] = time.perf_counter() - t0
+    f32_peak = rec["train"]["peak_bytes"]
+    log(f"phase 12 (c) {cfg.name} bf16 against f32: peak {(rec['train_bf16']['peak_bytes'] or 0) / 1e9:.2f} GB against "
+        f"{(f32_peak or 0) / 1e9:.2f}; step {rec['train_bf16']['step_s_median']:.3f} s against "
+        f"{rec['train']['step_s_median']:.3f}; losses over the first {BF16_TRAIN_STEPS} steps "
+        f"{[round(x, 4) for x in rec['train_bf16']['losses']]} against {[round(x, 4) for x in rec['train']['losses'][:BF16_TRAIN_STEPS]]}")
+    t0 = time.perf_counter()
     rec["checkpoint"] = checkpoint_round_trip(torch, dev, cut(cfg, 2), log, batch=batch, seq=seq)
     rec["checkpoint"]["wall_s"] = time.perf_counter() - t0
     rec["wall_s"] = time.perf_counter() - t_phase
-    return {"train": launches["forward"], "train backward": launches["backward"]}, rec
+    return {"train": launches["forward"], "train backward": launches["backward"], "train bf16": bf16["forward"],
+            "train bf16 backward": bf16["backward"]}, rec
 
 
 # ---------------------------------------------------------------------------
@@ -3358,14 +3387,21 @@ def pool_train_phase(torch, card, log):
     (``multicard.rules_step``: weight and expert-weight FSDP, sequence
     parallelism), at world 1 its loss and parameters bit for bit those of
     the same step under DEFAULT_RULES, both under torch's deterministic
-    algorithms (the MoE's backward adds with atomics otherwise). Returns ({path: {"tp_shard_matmul":
-    n}} of rank 0, the record)."""
+    algorithms (the MoE's backward adds with atomics otherwise). Then
+    h2o-danube (POOL_TRAIN_LAYERS layers), moonshot and jamba as above in
+    bf16 with f32 moments, each held to the one-process bf16 step; and
+    llama3-8b's decoder layers in f32 through the pipeline schedule across
+    the pool, a stage a card (``multicard.pipeline_llama``: on one card
+    pipe 1, world 1), against the sequential stack, timed, its launches
+    counted. Returns ({path: {"tp_shard_matmul": n}} of rank 0, the
+    record)."""
     from repro_torch.testing.multidev_checks import spawn
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import TrainStepConfig
 
     world = torch.cuda.device_count()
     tcfg = TrainStepConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=5), seq_chunk=256, block_q=128, block_k=128)
+    log(f"[{card}] phase 16 on {world} card(s): the pipeline runs a stage a card, here pipe {world}, world {world}")
     t0 = time.perf_counter()
     ranks = spawn(world, "cuda", task="repro_torch.testing.multicard:train_phase", timeout=600,
                   inputs={"layers": POOL_TRAIN_LAYERS, "tcfg": tcfg, "ckpt_dir": str(ROOT / "build" / "pool_train_ckpt")})
@@ -3417,6 +3453,36 @@ def pool_train_phase(torch, card, log):
     path = f"{rules['model']} f32 train step under the train rules ({rules['layers']} layers, world {world})"
     paths[path] = {"tp_shard_matmul": rules["rules_launches"]["forward"]}
     paths[f"{path} backward"] = {"tp_shard_matmul": rules["rules_launches"]["backward"]}
+    for name, fam in rec["families_bf16"].items():
+        what = f"phase 16 {name} bf16 ({fam['layers']} layers: {', '.join(fam['pattern'])}) across {world} process(es)"
+        for r in res:
+            check(r["families_bf16"][name]["launches"]["forward"] > 0
+                  and r["families_bf16"][name]["launches"]["backward"] > 0,
+                  f"{what}: tp_shard_matmul launched: {r['families_bf16'][name]['launches']}")
+        tp, dp = fam["mesh"]["model"], fam["mesh"]["data"]
+        one = fam[f"one_card_tp{tp}_dp{dp}"]["distance"]
+        log(f"[{card}] {what}: losses {[round(x, 4) for x in fam['losses']]} within {one['loss_rel']:.2e} (relative) "
+            f"of the one-process bf16 step's (TP {tp}, dp {dp}), parameters within {one['param_abs']:.2e} "
+            f"(update distance {one['update_rel']:.2e}; bit for bit: {one['bitwise']}); peak "
+            f"{fam['peak_gb']:.2f} GB; tp_shard_matmul launches (rank 0) "
+            f"{fam['launches']}; steps {sum(fam['step_s']):.1f} s")
+        path = f"{name} bf16 train across processes ({fam['layers']} layers, world {world})"
+        paths[path] = {"tp_shard_matmul": fam["launches"]["forward"]}
+        paths[f"{path} backward"] = {"tp_shard_matmul": fam["launches"]["backward"]}
+    pipe = rec["pipeline"]
+    what = (f"phase 16 {pipe['model']} f32 pipeline, {pipe['stages']} stage(s) of {pipe['layers_per_card']} layers, "
+            f"a stage a card")
+    for r in res:
+        check(r["pipeline"]["launches"]["forward"] > 0 and r["pipeline"]["launches"]["backward"] > 0,
+              f"{what}: tp_shard_matmul launched: {r['pipeline']['launches']}")
+    log(f"[{card}] {what}: against the sequential stack {json.dumps(pipe['held'])}; {pipe['micro'][0]} microbatches "
+        f"of {pipe['micro'][1:]}, step {pipe['step_ms']:.1f} ms (first {pipe['first_step_ms']:.1f}), the stage alone "
+        f"{pipe['stage_alone_ms']:.1f} ms, bubble share {pipe['bubble_share']:.3f} (schedule "
+        f"{pipe['bubble_share_expected']:.3f}); peak {pipe['peak_gb']:.2f} GB; tp_shard_matmul launches (rank 0, "
+        f"{pipe['steps']} steps) {pipe['launches']}")
+    path = f"{pipe['model']} f32 pipeline ({pipe['layers']} layers, {pipe['stages']} stage(s), world {world})"
+    paths[path] = {"tp_shard_matmul": pipe["launches"]["forward"]}
+    paths[f"{path} backward"] = {"tp_shard_matmul": pipe["launches"]["backward"]}
     return paths, rec
 
 
@@ -3657,6 +3723,9 @@ def main() -> int:
                          "f32 decode step's and one f32 prefill's profile of all three models, importing repro_torch "
                          "from SRC (e.g. the src/ of an unpacked earlier commit, to compare two commits in one "
                          "call); print them as one JSON line")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="with --timings-of: only phase 5's bf16 engine timings of llama3-8b (TTFT, decode step "
+                         "per TP level, tokens/s)")
     args = ap.parse_args()
 
     import torch
@@ -3677,6 +3746,12 @@ def main() -> int:
 
         dev, cfg = torch.device("cuda", 0), get_config("llama3-8b")
         print(card_line())
+        if args.serving_only:
+            _build.build_all()
+            r = engine_bf16_timed(torch, dev, cfg, print)
+            print(json.dumps({"src": args.timings_of, "card": card_line(), "engine_bf16": {
+                k: r[k] for k in ("ttft_ms", "decode_step_ms", "tokens_per_s")}}))
+            return 0
         us = host_us_per_call(torch, dev, cfg, print, tp_shard_matmul)
         flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
         f32 = {"matmul": measure_matmul(torch, dev, cfg, flush, print, f32_only=True),

@@ -146,8 +146,10 @@ class _ShardMatmul(torch.autograd.Function):
     here dX of a row call is a col_t launch over the same rows and dX of a
     col_t call a row launch (``tp_shard_matmul.backward_launches`` counts
     them), and the rest are ``torch.matmul`` on the shard's view, which
-    needs TF32 off for f32. Sums are in f32; each gradient is cast to its
-    input's dtype.
+    needs TF32 off for f32, and dX of a col_t call on bf16 x, which reads
+    the f32 logits' gradient unrounded, as the reference's transpose does
+    (a launch would round it to bf16 first). Sums are in f32; each gradient
+    is cast to its input's dtype.
     """
 
     @staticmethod
@@ -171,6 +173,8 @@ class _ShardMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             if mode == "col":  # gy (M, N) @ columns.T
                 dx = torch.matmul(gy.float(), shard.float().t())
+            elif mode == "col_t" and gy.dtype != x.dtype:  # the f32 logits' gradient, unrounded, as the reference reads it
+                dx = torch.matmul(gy.float(), shard.float())
             else:  # gy @ rows.T (row) or gy @ rows (col_t): the same rows read the other way
                 dx = _launch(gy.to(x.dtype), w_store, offset, k, "col_t" if mode == "row" else "row",
                              torch.float32 if mode == "row" else x.dtype)

@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models.layers import apply_rope, col_parallel, row_parallel
 from repro_torch.models.params import ParamDef
+from repro_torch.models.rounding import shared
 from repro_torch.parallel.collectives import enter_model_group
 from repro_torch.parallel.sharding import ExecConfig
 
@@ -190,10 +191,11 @@ def attn_apply(
     H, KV, G = ec.heads_exec * n_held // wq.tp, ec.kv_exec * n_held // wq.tp, ec.q_per_kv
     cap = cfg.attn.logit_softcap
     x2 = enter_model_group(x.reshape(B * S, d), wq.level)  # q, k and v share one gradient all-reduce
-    qs = col_parallel(x2, wq, entered=True)
+    xq, xk, xv = shared(x2, 3, wq.mats[0].dtype)
+    qs = col_parallel(xq, wq, entered=True)
     q = torch.cat(qs, dim=-1).view(B, S, -1, hd)
-    k = torch.cat(col_parallel(x2, p["wk"], entered=True), dim=-1).view(B, S, -1, hd)
-    v = torch.cat(col_parallel(x2, p["wv"], entered=True), dim=-1).view(B, S, -1, hd)
+    k = torch.cat(col_parallel(xk, p["wk"], entered=True), dim=-1).view(B, S, -1, hd)
+    v = torch.cat(col_parallel(xv, p["wv"], entered=True), dim=-1).view(B, S, -1, hd)
     if q.shape[2] != H or k.shape[2] != KV:
         raise ValueError(f"bound weights give {q.shape[2]} q / {k.shape[2]} kv heads; {ec} expects "
                          f"{H} / {KV} on {n_held} of {wq.tp} ranks")
@@ -207,7 +209,7 @@ def attn_apply(
 
     if mode in ("train", "prefill"):
         o = _blockwise(q.view(B, S, KV, G, hd), k, v, positions, live, window=window, cap=cap,
-                       block_q=block_q, block_k=block_k, differentiable=mode == "train").to(x.dtype)
+                       block_q=block_q, block_k=block_k, differentiable=mode == "train").to(q.dtype)
         if mode == "train":
             new_cache = None
         elif window is not None and S > window:  # the rotating buffer of the last window positions

@@ -18,16 +18,18 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 from repro_torch.models.params import ParamDef
+from repro_torch.models.rounding import shared, silu
 from repro_torch.parallel.collectives import enter_model_group, reduce_ranks, reduce_shared
 from repro_torch.parallel.sharding import ShardView
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    dt = x.dtype
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """In f32, cast to ``dtype`` (x's by default; a train-mode layer's
+    norms take theirs from ``rounding.norm_dtype``)."""
+    dt = dtype or x.dtype
     x = x.float()
     y = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps)
     return (y * (1.0 + scale.float())).to(dt)
@@ -121,6 +123,7 @@ def mlp_param_defs(d_model: int, d_ff: int) -> dict:
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = enter_model_group(x.reshape(-1, x.shape[-1]), p["w_gate"].level)
-    hs = [F.silu(g) * u for g, u in zip(col_parallel(x2, p["w_gate"], entered=True),
-                                        col_parallel(x2, p["w_in"], entered=True))]
+    xg, xi = shared(x2, 2, p["w_gate"].mats[0].dtype)
+    hs = [silu(g) * u for g, u in zip(col_parallel(xg, p["w_gate"], entered=True),
+                                        col_parallel(xi, p["w_in"], entered=True))]
     return row_parallel(hs, p["w_out"]).reshape(*lead, -1)

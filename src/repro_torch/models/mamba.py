@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
 from repro_torch.models.layers import col_parallel, row_parallel
+from repro_torch.models.rounding import silu
 from repro_torch.models.params import ParamDef
 from repro_torch.parallel.collectives import Level, enter_model_group, reduce_shared
 from repro_torch.parallel.sharding import ShardView
@@ -201,8 +202,8 @@ def mamba2_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
         if cache is None:
             raise ValueError("decode needs the cache")
         win = torch.cat([cache["conv"], torch.cat([xs[:, 0], BC[:, 0]], -1)[:, None]], 1)  # (B,K,conv_dim)
-        xs1 = F.silu((win[..., :d_in] * conv_x).sum(1)).view(B, H, P)
-        BC1 = F.silu((win[..., d_in:] * conv_BC).sum(1))
+        xs1 = silu((win[..., :d_in] * conv_x).sum(1)).view(B, H, P)
+        BC1 = silu((win[..., d_in:] * conv_BC).sum(1))
         cache["conv"].copy_(win[:, 1:])  # the shifted window; win was read first
         B1 = BC1[:, :G * N].reshape(B, G, N).repeat_interleave(H // G, dim=1)
         C1 = BC1[:, G * N:].reshape(B, G, N).repeat_interleave(H // G, dim=1)
@@ -218,8 +219,8 @@ def mamba2_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     elif mode == "prefill":
         xs, conv_tail_x = causal_conv(xs, conv_x)
         BC, conv_tail_bc = causal_conv(BC, conv_BC)
-        xs = F.silu(xs)
-        BC = F.silu(BC)
+        xs = silu(xs)
+        BC = silu(BC)
         xh = xs.reshape(B, S, H, P)
         Bh = BC[..., :G * N].reshape(B, S, G, N)[:, :, g0:g1]
         Ch = BC[..., G * N:].reshape(B, S, G, N)[:, :, g0:g1]
@@ -336,11 +337,11 @@ def mamba1_apply(p: dict, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
         if cache is None:
             raise ValueError("decode needs the cache")
         win = torch.cat([cache["conv"], xs[:, 0][:, None]], 1)  # (B,K,C)
-        u = F.silu((win * conv).sum(1))  # (B,C)
+        u = silu((win * conv).sum(1))  # (B,C)
         cache["conv"].copy_(win[:, 1:])  # the shifted window; win was read first
     elif mode == "prefill":
         u, conv_tail = causal_conv(xs, conv)
-        u = F.silu(u)
+        u = silu(u)
     else:
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
 

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerTemplate, ModelConfig
 from repro_torch.models.attention import attn_apply, attn_cache_defs, attn_param_defs, live_blocks
 from repro_torch.models.layers import (
     col_parallel, mlp_apply, mlp_param_defs, norm_def, rmsnorm, softcap, tied_head, vocab_parallel_embed,
@@ -29,6 +29,7 @@ from repro_torch.models.mamba import (
 )
 from repro_torch.models.moe import moe_apply, moe_param_defs
 from repro_torch.models.params import ParamDef, stack_defs
+from repro_torch.models.rounding import norm_dtype, residual_sum, train_rounding
 from repro_torch.parallel.collectives import Level, gather_ranks, join_sequence, split_sequence
 from repro_torch.parallel.sharding import ExecConfig, gathered
 
@@ -109,6 +110,57 @@ def init_cache_defs(cfg: ModelConfig, ec: ExecConfig, batch: int, seq_len: int) 
     return [attn_cache_defs(cfg, ec, batch, seq_len, w) if t.mixer.startswith("attn")
             else _mamba_defs(cfg)[1](cfg, batch)
             for t, w in zip(layer_templates(cfg), layer_windows(cfg))]
+
+
+def decoder_layer(
+    h: torch.Tensor,
+    lp: dict,
+    t: LayerTemplate,
+    window: Optional[int],
+    *,
+    cfg: ModelConfig,
+    ec: ExecConfig,
+    mode: str,
+    positions: torch.Tensor,
+    live: Optional[torch.Tensor] = None,
+    cache: Optional[dict] = None,
+    block_table: Optional[torch.Tensor] = None,
+    seq_len: Optional[torch.Tensor] = None,
+    block_q: int = 512,
+    block_k: int = 512,
+    pool: Optional[int] = None,
+    moe_drops: Optional[torch.Tensor] = None,
+    moe_mask: Optional[torch.Tensor] = None,
+    moe_replicated: bool = False,
+):
+    """One layer of template ``t`` (its mixer, attention over ``window`` or
+    Mamba, and its FFN) on the residual stream ``h`` (B,S,D), from its
+    bound weights ``lp`` (gathered): (h, the layer's cache, its MoE aux or
+    None). The arguments are ``forward``'s for this layer (``live``: its
+    window's live block pairs; ``cache``, ``block_table``, ``seq_len``: its
+    own). Train mode runs prefill's arithmetic at the reference's train-step
+    rounding points (``rounding.train_rounding``), set here so that the
+    layer's recompute in backward sets them too."""
+    train = mode == "train"
+    with train_rounding(train):
+        hn = rmsnorm(h, lp["norm1"], cfg.norm_eps, norm_dtype(t.mixer, h.dtype))
+        if t.mixer.startswith("attn"):
+            y, nc = attn_apply(lp["mixer"], hn, cfg=cfg, ec=ec, positions=positions, window=window, mode=mode,
+                               cache=cache, block_tables=block_table, seq_lens=seq_len, live=live, block_q=block_q,
+                               block_k=block_k)
+        else:  # train runs prefill's scan; its cache is dropped
+            y, nc = _mamba_defs(cfg)[2](lp["mixer"], hn, cfg=cfg, mode="prefill" if train else mode, cache=cache)
+        h, s = residual_sum(h, y)  # s: the sum the second norm reads (unrounded at the rounding points)
+        a = None
+        if t.ffn != "none":
+            hn = rmsnorm(s, lp["norm2"], cfg.norm_eps, norm_dtype(t.ffn, h.dtype))
+            if t.ffn == "moe":
+                y, a = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=train, drops=moe_drops, mask=moe_mask,
+                                 replicated=moe_replicated)
+            else:
+                y = mlp_apply(lp["ffn"], hn)
+            h = h + y
+    return h, nc, a
 
 
 def forward(
@@ -194,7 +246,6 @@ def forward(
                              f"{len(block_tables)} and {len(seq_lens)}")
     if positions is None:
         positions = torch.arange(S, device=h.device)
-    mamba_apply = _mamba_defs(cfg)[2] if cfg.mamba is not None else None
     train = mode == "train"
     period = len(cfg.layer_pattern)
 
@@ -202,28 +253,14 @@ def forward(
         """One layer: (h, its cache, its MoE aux or None)."""
         if seq_parallel is not None and i % period == 0:  # a period's first layer: the residual stream whole
             h = join_sequence(h, seq_parallel)
-        lp = gathered(lp)
-        hn = rmsnorm(h, lp["norm1"], cfg.norm_eps)
-        lc = cache[i] if cache is not None else None
-        if t.mixer.startswith("attn"):
-            y, nc = attn_apply(
-                lp["mixer"], hn, cfg=cfg, ec=ec, positions=positions, window=window, mode=mode, cache=lc,
-                block_tables=block_tables[i] if mode == "decode" else None,
-                seq_lens=seq_lens[i] if mode == "decode" else None,
-                live=live.get(window), block_q=block_q, block_k=block_k,
-            )
-        else:  # train runs prefill's scan; its cache is dropped
-            y, nc = mamba_apply(lp["mixer"], hn, cfg=cfg, mode="prefill" if train else mode, cache=lc)
-        h = h + y
-        a = None
-        if t.ffn != "none":
-            hn = rmsnorm(h, lp["norm2"], cfg.norm_eps)
-            if t.ffn == "moe":
-                y, a = moe_apply(lp["ffn"], hn, cfg, pool, with_aux=train, drops=moe_drops, mask=moe_mask,
-                                 replicated=moe_replicated)
-            else:
-                y = mlp_apply(lp["ffn"], hn)
-            h = h + y
+        h, nc, a = decoder_layer(
+            h, gathered(lp), t, window, cfg=cfg, ec=ec, mode=mode, positions=positions, live=live.get(window),
+            cache=cache[i] if cache is not None else None,
+            block_table=block_tables[i] if mode == "decode" and t.mixer.startswith("attn") else None,
+            seq_len=seq_lens[i] if mode == "decode" and t.mixer.startswith("attn") else None,
+            block_q=block_q, block_k=block_k, pool=pool,
+            moe_drops=moe_drops, moe_mask=moe_mask, moe_replicated=moe_replicated,
+        )
         if seq_parallel is not None and i % period == period - 1:  # a period boundary: this rank's positions
             h = split_sequence(h, seq_parallel)
         return h, (None if train else nc), a

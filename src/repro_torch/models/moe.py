@@ -85,6 +85,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoESpec
 from repro_torch.models.layers import mlp_apply
+from repro_torch.models.rounding import silu
 from repro_torch.models.params import ParamDef
 from repro_torch.parallel.collectives import (
     all_gather, all_to_all, enter_model_group, gather_ranks, gather_summed, pool_mean, reduce_ranks, stand_in,
@@ -164,7 +165,7 @@ def _expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor, w_o
     _full_f32(buf)
     g = torch.bmm(buf, w_gate)
     u = torch.bmm(buf, w_in)
-    return torch.bmm(F.silu(g) * u, w_out)
+    return torch.bmm(silu(g) * u, w_out)
 
 
 def _capacity(T: int, m: MoESpec, floor: int = 8) -> int:

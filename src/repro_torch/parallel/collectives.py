@@ -323,14 +323,17 @@ class _EnterModelGroup(torch.autograd.Function):
 def reduce_ranks(parts: Sequence[torch.Tensor], level: Optional[Level], n: int) -> torch.Tensor:
     """The sum of a row-parallel product's partials over a TP group of ``n``
     ranks (the reference's psum): the parts this process holds, summed in
-    rank order, then over the level's model group when there is one (under
-    autograd into a new tensor, the gradient passed through unchanged)."""
+    rank order, then over the level's model group when it has more than
+    one rank (under autograd into a new tensor, the gradient passed through
+    unchanged)."""
     y = parts[0]
     for part in parts[1:]:
         y = y + part
     stand_in("all-reduce", nbytes(y), n)
     if level is not None:
         note("all-reduce", nbytes(y))
+        if level.model.size == 1:
+            return y
         if torch.is_grad_enabled() and y.requires_grad:  # into a new tensor, which autograd sees
             return _AllReduce.apply(y, level.model.handle)
         import torch.distributed as dist
@@ -440,12 +443,17 @@ class _Gather(torch.autograd.Function):
 
 def gather_ranks(parts: Sequence[torch.Tensor], level: Optional[Level], dim: int = -1) -> torch.Tensor:
     """Column-parallel outputs joined in rank order along ``dim``: the parts
-    this process holds, then the model group's when there is one (under
-    autograd, each rank's slice of the gradient goes back to its part)."""
+    this process holds, then the model group's when it has more than one
+    rank (under autograd, each rank's slice of the gradient goes back to its
+    part). A group of one leaves the parts as one process joins them, so
+    that a pool of one process computes what one process does, bit for
+    bit."""
     y = torch.cat(list(parts), dim) if len(parts) > 1 else parts[0]
     if level is None:
         return y
     note("all-gather", nbytes(y) * level.tp)
+    if level.model.size == 1:  # y itself, laid out as one process holds it (a gather along -1 comes back transposed)
+        return y
     return _Gather.apply(y, level.model, dim % y.dim())
 
 
@@ -598,10 +606,11 @@ def join_sequence(h: torch.Tensor, level: Level, dim: int = 1) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, group: Group, op: str = "sum") -> torch.Tensor:
-    """In place over ``group``: "sum" or "min"."""
+    """In place over ``group``: "sum", "min" or "max"."""
     import torch.distributed as dist
 
-    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op], group=group.handle)
+    ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+    dist.all_reduce(t, op=ops[op], group=group.handle)
     return t
 
 

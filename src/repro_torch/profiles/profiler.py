@@ -10,7 +10,12 @@ analytic model. On the CPU the engine calls its step functions directly and
 the table characterises the host (the tests use it for the machinery).
 
 On one card the t ranks of TP t run one after another, so a TP t > 1 row
-is their summed work on one card, not the step time of t cards.
+is their summed work on one card, not the step time of t cards. Over a
+pool of processes (``ServingEngine(pool=...)``, a card each) a TP t row is
+the step of t cards: every rank replays the same graphs in lockstep (each
+replay holds its NCCL collectives), and the time written for a key is the
+slowest rank's, all-reduced with max, so every rank returns the same
+table.
 """
 from __future__ import annotations
 
@@ -105,7 +110,9 @@ def profile_engine(engine, batches: Sequence[int] = (1, 4), ctxs: Sequence[int] 
     either way). The engine is warmed up first if an executable is missing.
     The replays write KV rows, so this is refused while a request holds a
     slot, and for a position past the cache; the MoE drop counters are
-    restored after them.
+    restored after them (each rank's). Over a pool every rank calls this
+    together and gets the same table: each key's time is the greatest of
+    the ranks' (a collective over the pool).
     """
     if any(r is not None for r in engine.slot_req):
         raise RuntimeError("profile_engine() writes the KV cache: call it while no request holds a slot")
@@ -133,7 +140,21 @@ def profile_engine(engine, batches: Sequence[int] = (1, 4), ctxs: Sequence[int] 
             table.prefill_s[(tp, L)] = time_fn(engine.cache.get(tp, L), *args)
     for key, count in drops.items():
         engine._drops[key].copy_(count)
+    if engine.pool is not None:
+        _slowest_rank(table, engine.pool)
     return table
+
+
+def _slowest_rank(table: ProfileTable, pool) -> None:
+    """Every value of ``table`` replaced by its greatest over the pool's
+    ranks (whose tables have the same keys, made in the same order)."""
+    from repro_torch.parallel.collectives import all_reduce
+
+    keys = [("decode", k) for k in table.decode_s] + [("prefill", k) for k in table.prefill_s]
+    vals = torch.tensor([table.decode_s[k] if kind == "decode" else table.prefill_s[k] for kind, k in keys],
+                        dtype=torch.float64, device=pool.device)
+    for (kind, k), v in zip(keys, all_reduce(vals, pool.world_group, "max").tolist()):
+        (table.decode_s if kind == "decode" else table.prefill_s)[k] = v
 
 
 class TabulatedPerfModel(PerfModel):

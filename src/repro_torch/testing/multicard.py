@@ -91,6 +91,18 @@ default; ``--only`` / ``--skip`` take comma-separated names):
        layers at (data N, model 1), which fits a card only under the train
        rules (98 GB reckoned without them, 39.2 with), 20 steps at lr 1e-3:
        the loss falls, the peak beside the reckoning.
+  train_bf16_llama  train_llama's run in f32 and then from the same seed in
+       bf16 with f32 moments: the bf16 losses within 2e-2 relative of the
+       f32 ones, both falling; peaks against the reckonings, step seconds.
+  pipeline_llama  llama3-8b's decoder layers in f32 through the pipeline
+       schedule, a stage a card: at 2 layers a stage held to the
+       sequential stack within 2e-5, then at full depth the step, the
+       bubble share against (S-1)/(n_micro+S-1), a handoff's bytes and the
+       link's GB/s, the peak a card.
+  profile_pool  llama3-8b bf16 served across the pool at TP 1/2/4,
+       ``profile_engine`` over it (the slowest rank's time a key): the
+       table (chiprun_out/llama3-8b_h100x4.json) and the plans for phase
+       10's workload from it and from the one-card table.
 
 Prints one JSON line per leg prefixed with the card's name and power
 limit; writes everything to ``--out``, and each rank's legs so far to
@@ -108,6 +120,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -645,21 +658,21 @@ def _train_tcfg(lr: float = 1e-3, warmup: int = 100):
     return TrainStepConfig(opt=AdamWConfig(lr=lr, warmup_steps=warmup), seq_chunk=256, block_q=128, block_k=128)
 
 
-def _draw(cfg, dev):
+def _draw(cfg, dev, dtype=torch.float32):
     """The weights every training leg starts from: seed 0, each layer at its
     own fan-in where the model asks for it, as ``train_params`` takes
-    them."""
-    return weight_defs(cfg, own_fan_in=True), torch.Generator(device=dev).manual_seed(0), torch.float32
+    them, in ``dtype``."""
+    return weight_defs(cfg, own_fan_in=True), torch.Generator(device=dev).manual_seed(0), dtype
 
 
-def one_card_train(cfg, dev, tp: int, dp: int, tcfg, steps: int) -> dict:
+def one_card_train(cfg, dev, tp: int, dp: int, tcfg, steps: int, dtype: torch.dtype = torch.float32) -> dict:
     """The one-process train step on one card at (TP ``tp``, dp ``dp``) from
-    ``_draw``'s weights: losses, step seconds, peak memory, the parameters
-    on the host and each leaf's update ||p - p0||."""
+    ``_draw``'s weights in ``dtype``: losses, step seconds, peak memory, the
+    parameters on the host and each leaf's update ||p - p0||."""
     from repro_torch.testing.multidev_checks import moved_from, single_train
     from repro_torch.training.data import SyntheticDataset
 
-    defs, gen, dtype = _draw(cfg, dev)
+    defs, gen, dtype = _draw(cfg, dev, dtype)
     params = init_params(defs, gen, dtype)
     start = {path: t.detach().to("cpu", copy=True) for path, t in tree_leaves_with_path(params)}
     if dev.type == "cuda":
@@ -709,7 +722,8 @@ def _collective_share(pool: Pool, run) -> dict:
 
 def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[dict] = None,
                    check_loss_falls: bool = False, held: tuple = (1, 1), measure: bool = True,
-                   rules: ShardingRules = DEFAULT_RULES, keep: Optional[dict] = None) -> dict:
+                   rules: ShardingRules = DEFAULT_RULES, keep: Optional[dict] = None,
+                   dtype: torch.dtype = torch.float32) -> dict:
     """``steps`` steps of ``cfg`` across the pool at (data N/tp, model tp)
     from ``_draw``'s weights (``multidev_checks.pool_train``, the
     replication checked after every step): losses, step seconds (the first
@@ -719,12 +733,13 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
     moments' bytes. With ``ones`` (rank 0's one-card runs by (TP, dp),
     empty on the other ranks) the parameters after the steps are gathered
     whole and held to the one-card runs' (``multidev_checks.held_to``; the
-    one-card run at ``held``, (TP, dp), ``within`` its tolerances). With
-    ``measure``, then one more step with the collectives' bytes counted and
+    one-card run at ``held``, (TP, dp), ``within`` its tolerances, in bf16
+    as in f32). With ``measure``, then one more step with the collectives' bytes counted and
     one under the profiler (the NCCL kernels' share). ``rules``: the
     step's (``make_train_step``'s); ``keep``, a dict, gets this rank's
     parameters after the steps on the host ("params", by path) and the
-    step's layout ("layout")."""
+    step's layout ("layout"); ``dtype``: the parameters' (the moments stay
+    f32)."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.parallel.collectives import count_traffic
     from repro_torch.testing.multidev_checks import held_to, pool_train, state_bytes, within
@@ -737,7 +752,7 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
         torch.cuda.reset_peak_memory_stats(dev)
     ds, times = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ), []
     tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
-    losses, mine, step, opt = pool_train(pool, cfg, None, tcfg, tp, ds, steps, draw=_draw(cfg, dev),
+    losses, mine, step, opt = pool_train(pool, cfg, None, tcfg, tp, ds, steps, draw=_draw(cfg, dev, dtype),
                                          on_step=times.append, rules=rules)
     launches = {"forward": tp_shard_matmul.launches, "backward": tp_shard_matmul.backward_launches}
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -745,7 +760,8 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
                 "moments": state_bytes({"mu": opt["mu"], "nu": opt["nu"]})}
     reckoned["before_activations"] = sum(reckoned.values())
     med = statistics.median(times[1:]) if len(times) > 1 else times[0]
-    rec = {"model": cfg.name, "layers": cfg.num_layers, "pattern": [f"{t.mixer}+{t.ffn}" for t in cfg.layer_pattern],
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": str(dtype).replace("torch.", ""),
+           "pattern": [f"{t.mixer}+{t.ffn}" for t in cfg.layer_pattern],
            "mesh": {"data": pool.world // tp, "model": tp},
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": tcfg.opt.lr, "warmup": tcfg.opt.warmup_steps, "losses": losses,
            "step_s": times, "first_step_s": times[0], "step_s_median": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
@@ -819,16 +835,37 @@ TRAIN_MOE_DEEP_STEPS, TRAIN_MOE_DEEP_LR = 20, 1e-3
 MAMBA2 = "mamba2-2.7b"
 
 
-def _held_to_one_card(pool: Pool, cfg, tcfg, tp: int, steps: int, measure: bool = True) -> dict:
+@contextmanager
+def deterministic():
+    """torch's deterministic algorithms inside the block (warnings, not
+    errors, where none exists): on CUDA the backward of an index op (the
+    MoE dispatch's gathers and ``index_select``, the embedding's lookup)
+    otherwise adds with atomics, in an order that changes the last bits
+    from run to run."""
+    before = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _held_to_one_card(pool: Pool, cfg, tcfg, tp: int, steps: int, measure: bool = True,
+                      dtype: torch.dtype = torch.float32, exact: bool = False) -> dict:
     """``cfg`` across the pool at (data N/tp, model tp) (``pool_train_leg``,
-    ``measure`` passed on), held to the one-process step at the same (TP,
-    dp) on one card (rank 0 on card 0 first): the layout whose arithmetic
-    the pool's is, blocks and capacities included."""
+    ``measure`` and ``dtype`` passed on), held to the one-process step at
+    the same (TP, dp) on one card (rank 0 on card 0 first): the layout
+    whose arithmetic the pool's is, blocks and capacities included. With
+    ``exact`` both run under ``deterministic()``: an atomic add's last bit
+    (the MoE's backward) can turn a rounding, and Adam's first steps make a
+    whole step of it (moonshot's f32 run at world 1 read 2.5e-5 to 6.1e-3
+    of its update apart without)."""
     dp, ones = pool.world // tp, {}
-    if pool.rank == 0:
-        ones[(tp, dp)] = one_card_train(cfg, pool.device, tp, dp, tcfg, steps)
-    pool.barrier()
-    rec = pool_train_leg(pool, cfg, tcfg, tp, steps, ones=ones, held=(tp, dp), measure=measure)
+    with deterministic() if exact else nullcontext():
+        if pool.rank == 0:
+            ones[(tp, dp)] = one_card_train(cfg, pool.device, tp, dp, tcfg, steps, dtype)
+        pool.barrier()
+        rec = pool_train_leg(pool, cfg, tcfg, tp, steps, ones=ones, held=(tp, dp), measure=measure, dtype=dtype)
     del ones
     _free()
     return rec
@@ -884,7 +921,11 @@ def train_phase(pool: Pool, inputs: dict) -> dict:
     check_train_step's tolerances and UPDATE_RTOL. Then each model of
     ``phase16_families`` under "families": PHASE16_STEPS steps held to the
     one-process step at the same (TP, dp) (``_held_to_one_card``, without
-    the traffic and profiler steps)."""
+    the traffic and profiler steps); moonshot's step under the train rules
+    ("rules", ``rules_step``); under "families_bf16" h2o-danube and
+    ``phase16_families`` the same way in bf16 (f32 moments); and under
+    "pipeline" ``pipeline_llama`` at PHASE16_PIPE_LAYERS layers a stage, a
+    stage a card (on one card: pipe 1, world 1)."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.testing.multidev_checks import (
         CKPT_STEPS, checked, checkpoint_round_trip, held_to, pool_step, within,
@@ -922,9 +963,17 @@ def train_phase(pool: Pool, inputs: dict) -> dict:
     _free()
     out["families"] = {}
     for cfg in phase16_families():
-        out["families"][cfg.name] = rec = _held_to_one_card(pool, cfg, tcfg, tp, PHASE16_STEPS, measure=False)
+        out["families"][cfg.name] = rec = _held_to_one_card(pool, cfg, tcfg, tp, PHASE16_STEPS, measure=False,
+                                                            exact=True)
         out["failures"] += rec["failures"]
     out["rules"] = rec = rules_step(pool, phase16_families()[0], tcfg, tp)
+    out["failures"] += rec["failures"]
+    out["families_bf16"] = {}
+    for cfg in [dataclasses.replace(get_config(TRAIN_MODEL), num_layers=inputs["layers"])] + phase16_families():
+        out["families_bf16"][cfg.name] = rec = _held_to_one_card(pool, cfg, tcfg, tp, PHASE16_STEPS, measure=False,
+                                                                 dtype=torch.bfloat16, exact=True)
+        out["failures"] += rec["failures"]
+    out["pipeline"] = rec = pipeline_llama(pool, {"layers": PHASE16_PIPE_LAYERS * pool.world})
     out["failures"] += rec["failures"]
     return out
 
@@ -947,9 +996,7 @@ def rules_step(pool: Pool, cfg, tcfg, tp: int) -> dict:
 
     ds, runs = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ), {}
     rec = {"model": cfg.name, "layers": cfg.num_layers, "mesh": {"data": pool.world // tp, "model": tp}}
-    before = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with deterministic():
         for label, rules in (("default", DEFAULT_RULES), ("rules", rules_for(cfg, "train", TRAIN_SEQ, TRAIN_BATCH))):
             step, mine, opt = pool_step(pool, cfg, None, tcfg, tp, _draw(cfg, pool.device), rules)
             _sync(pool)
@@ -964,8 +1011,6 @@ def rules_step(pool: Pool, cfg, tcfg, tp: int) -> dict:
                 rec["data_sharded"] = sorted("/".join(p) for p in step.layout.data_dims)
             del step, mine, opt
             _free()
-    finally:
-        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
     (a, pa), (b, pb) = runs["rules"], runs["default"]
     rec["losses"] = {"rules": a, "default": b}
     rec["failures"] = []
@@ -1083,6 +1128,225 @@ def train_rules_moe(pool: Pool, inputs: dict) -> dict:
 
 
 PHASE16_STEPS = 3  # the MoE and Mamba models' steps in phase 16
+PHASE16_PIPE_LAYERS = 2  # llama3-8b's layers a stage in phase 16's pipeline
+
+
+# ---------------------------------------------------------------------------
+# bf16 training, the pipeline across cards, the profile over the pool
+# ---------------------------------------------------------------------------
+BF16_VS_F32_RTOL = 2e-2  # bf16 against f32 losses over 10 steps (a bf16 ulp is 7.8e-3 relative)
+
+
+def train_bf16_llama(pool: Pool, inputs: dict) -> dict:
+    """llama3-8b (``inputs["layers"]`` cuts its depth) at (data N/2, model
+    2), TRAIN_LLAMA_STEPS steps of phase 12's optimizer: in f32, then from
+    the same seed's weights in bf16 with f32 moments (the reference's
+    default) on the same batches. Reports the bf16 losses against the f32
+    ones (held within BF16_VS_F32_RTOL), each run's peak against its
+    reckoning, step seconds; the loss falls in both."""
+    cfg = model_cfg({"layers": inputs.get("layers")})
+    tcfg, tp = _train_tcfg(lr=3e-4, warmup=5), 2 if pool.world % 2 == 0 else 1
+    rec = {"f32": pool_train_leg(pool, cfg, tcfg, tp, TRAIN_LLAMA_STEPS, check_loss_falls=True, measure=False)}
+    rec["bf16"] = pool_train_leg(pool, cfg, tcfg, tp, TRAIN_LLAMA_STEPS, check_loss_falls=True, measure=False,
+                                 dtype=torch.bfloat16)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec["bf16"]["losses"], rec["f32"]["losses"])]
+    rec["loss_rel_to_f32"] = rel
+    rec["failures"] = rec["f32"]["failures"] + rec["bf16"]["failures"]
+    if not max(rel) < BF16_VS_F32_RTOL:
+        rec["failures"].append(f"bf16 losses against f32: {rel}")
+    return rec
+
+
+PIPE_MICRO, PIPE_ROWS, PIPE_SEQ, PIPE_STEPS = 8, 1, 512, 4
+
+
+def _pipe_step(mesh, body, params: dict, h0: torch.Tensor, n_periods: int):
+    """One forward and backward of ``pipeline_apply`` (loss: the sum of
+    squares of the result), the gradients left in ``params``' .grad."""
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    for _, x in tree_leaves_with_path(params):
+        x.grad = None
+    out = pipeline_apply(body, params, h0, mesh, n_periods)
+    (out.float() ** 2).sum().backward()
+
+
+def _stage_alone(body, params: dict, h0: torch.Tensor):
+    """The stage's compute alone: every period of ``params`` over every
+    microbatch, forward and backward, with no handoff."""
+    for _, x in tree_leaves_with_path(params):
+        x.grad = None
+    per = next(iter(tree_leaves_with_path(params)))[1].shape[0]
+    for m in range(h0.shape[0]):
+        h = h0[m]
+        for k in range(per):
+            h = body(h, tree_map(lambda x: x[k], params), k)
+        (h.float() ** 2).sum().backward()
+
+
+def pipeline_llama(pool: Pool, inputs: dict) -> dict:
+    """llama3-8b's decoder layers in f32 through the pipeline across the
+    pool's cards, one stage a card (pipe N, data 1, model 1), PIPE_MICRO
+    microbatches of (PIPE_ROWS, PIPE_SEQ) hidden states, forward and
+    backward (the sum of squares of the result). First at 2 layers a stage
+    against the sequential stack on each card (``multidev_checks.
+    pipe_run`` / ``sequential_stack``: output, dh0 and the stage's
+    gradients within PIPE_TOL); then at full depth (``inputs["layers"]``
+    cuts it; 8 layers a card on 4): step ms on the host clock, the
+    slowest rank's (the first apart: NCCL connects each pair at its first
+    send), the bubble share
+    (1 - the stage's compute alone over the step, against (S-1)/(n_micro +
+    S - 1)), the bytes a handoff sends and the link's GB/s (a send and
+    receive of that size between neighbours, timed alone), peak GB a
+    card, and the kernel's launches over the PIPE_STEPS timed steps (set
+    to 0 just before, read just after)."""
+    from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
+    from repro_torch.parallel.collectives import all_reduce
+    from repro_torch.parallel.pipeline import _exchange, make_pipe_mesh
+    from repro_torch.testing.multidev_checks import (
+        PIPE_TOL, decoder_body, pipe_errs, pipe_run, sequential_stack, stack_params,
+    )
+
+    dev, S = pool.device, pool.world
+    cfg = model_cfg({"layers": inputs.get("layers")})
+    mesh = make_pipe_mesh(pool.devices, S, 1, pool=pool)
+    body = decoder_body(cfg, PIPE_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h0 = torch.randn(PIPE_MICRO, PIPE_ROWS, PIPE_SEQ, cfg.d_model, generator=gen, device=dev)
+    rec = {"model": cfg.name, "stages": S, "micro": [PIPE_MICRO, PIPE_ROWS, PIPE_SEQ], "failures": []}
+    # held: 2 layers a stage, every card holding the whole stack too
+    whole = stack_params(cfg, 2 * S, dev, seed=7)
+    want = sequential_stack(body, whole, h0, 2 * S)
+    got = pipe_run(mesh, body, whole, h0, 2 * S)
+    rec["held"] = errs = pipe_errs(got, want)
+    if max(errs.values()) > PIPE_TOL:
+        rec["failures"].append(f"pipeline against the sequential stack on card {pool.rank}: {errs}")
+    del whole, want, got
+    _free()
+    # full depth
+    layers = cfg.num_layers
+    if layers % S:
+        raise ValueError(f"{layers} layers do not split over {S} stages")
+    per = layers // S
+    # this stage's periods, drawn on its card from a seed of the stage's own
+    params = tree_map(lambda x: x.requires_grad_(True), stack_params(cfg, per, dev, seed=100 + mesh.coords["pipe"]))
+    _sync(pool)
+    pool.barrier()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    tp_shard_matmul.launches = tp_shard_matmul.backward_launches = 0
+    for _ in range(PIPE_STEPS):
+        t0 = time.perf_counter()
+        _pipe_step(mesh, body, params, h0, layers)
+        _sync(pool)
+        times.append(time.perf_counter() - t0)
+        pool.barrier()
+    launches = {"forward": tp_shard_matmul.launches, "backward": tp_shard_matmul.backward_launches}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    # a step ends when its last rank does (stage 0: the backward reaches it last)
+    times = all_reduce(torch.tensor(times, dtype=torch.float64, device=dev), pool.world_group, "max").tolist()
+    t0 = time.perf_counter()
+    _stage_alone(body, params, h0)
+    _sync(pool)
+    alone = time.perf_counter() - t0
+    step_s = statistics.median(times[1:])
+    pool.barrier()
+    # the link: a handoff's bytes between neighbours, timed alone
+    x = h0[0].contiguous()
+    nxt = pool.members[pool.rank + 1] if pool.rank + 1 < S else None
+    prev = pool.members[pool.rank - 1] if pool.rank > 0 else None
+    buf = torch.empty_like(x)
+    _exchange(x if nxt is not None else None, nxt, buf if prev is not None else None, prev)
+    _sync(pool)
+    pool.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _exchange(x if nxt is not None else None, nxt, buf if prev is not None else None, prev)
+    _sync(pool)
+    link_s = (time.perf_counter() - t0) / 20
+    nb = x.numel() * x.element_size()
+    rec.update(layers=layers, layers_per_card=per, steps=PIPE_STEPS, launches=launches,
+               first_step_ms=times[0] * 1e3, step_ms=step_s * 1e3,
+               step_ms_all=[t * 1e3 for t in times], stage_alone_ms=alone * 1e3,
+               bubble_share=1 - alone / step_s, bubble_share_expected=(S - 1) / (PIPE_MICRO + S - 1),
+               handoff_bytes=nb, link_ms=link_s * 1e3, link_gbps=nb / link_s / 1e9 if S > 1 else None,
+               peak_gb=peak / 1e9, weights_gb=sum(x.numel() * x.element_size()
+                                                  for _, x in tree_leaves_with_path(params)) / 1e9)
+    del params
+    _free()
+    return rec
+
+
+PLAN_DEMANDS = {"strict": 2.0, "relaxed": 6.0}  # phase 10's workload: req/s, prompt 64, output 24
+PLAN_CHIPS = 8
+PROFILE_TABLE = "llama3-8b_h100x4.json"
+
+
+def plan_of(cfg, table, tiers) -> dict:
+    """The planner's plan for PLAN_DEMANDS on PLAN_CHIPS chips under
+    ``tiers`` from a ``TabulatedPerfModel`` of ``table`` at the H100 spec
+    (analytic where the table has no row)."""
+    from repro_torch.core.planner import Planner, PlannerInputs, TierDemand
+    from repro_torch.profiles.perf_model import H100, clear_perf_caches
+    from repro_torch.profiles.profiler import TabulatedPerfModel
+
+    clear_perf_caches()  # tabulated models of one config share the memo (ROADMAP, Reference notes)
+    perf = TabulatedPerfModel(cfg, table, hw=H100)
+    plan = Planner(perf, tiers).plan(PlannerInputs(
+        {name: TierDemand(rps, 64, 24) for name, rps in PLAN_DEMANDS.items()}, total_chips=PLAN_CHIPS))
+    return {"leftover_chips": plan.leftover_chips,
+            "plan": {n: {"prefill": [t.prefill.tp, t.prefill.chips], "decode": [t.decode.tp, t.decode.chips],
+                         "mixed": None if t.mixed is None else [t.mixed.tp, t.mixed.chips], "served_rps": t.served_rps}
+                     for n, t in plan.tiers.items()},
+            "decode_ms_tp_1_2_4": [perf.decode_step_time_s(8, 64, tp) * 1e3 for tp in (1, 2, 4)],
+            "prefill128_ms_tp_1_2_4": [perf.prefill_time_s(128, tp) * 1e3 for tp in (1, 2, 4)]}
+
+
+def profile_pool(pool: Pool, inputs: dict) -> dict:
+    """llama3-8b (``inputs["layers"]`` cuts its depth) at full width in bf16
+    served by ``ServingEngine(pool=...)`` at TP 1, 2 and 4 (as the pool
+    divides), 8 slots, profiled by ``profile_engine``: decode batches 1/4/8
+    at ctx 64 and prefill buckets 32/64/128, each key the slowest rank's
+    time. Rank 0 writes the table to chiprun_out/PROFILE_TABLE (at full
+    depth; ``-<n>l`` in the name when cut) and prints the planner's plan
+    for phase 10's workload from it, beside the plan from the one-card
+    table (TP 1 measured, the rest analytic), both under phase 10's tiers
+    (``derive_tiers`` of the one-card table)."""
+    from repro_torch.profiles.perf_model import H100, clear_perf_caches
+    from repro_torch.profiles.profiler import ProfileTable, TabulatedPerfModel, profile_engine
+    from repro_torch.profiles.slo import derive_tiers
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    cfg = model_cfg({"layers": inputs.get("layers")})
+    eng = ServingEngine(cfg, _weights(cfg, pool.device, torch.bfloat16),
+                        EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128),
+                                     dtype=torch.bfloat16), pool=pool)
+    rec = {"warmup_s": eng.warmup(), "tps": eng.tps}
+    t0 = time.perf_counter()
+    table = profile_engine(eng, batches=(1, 4, 8), ctxs=(64,))
+    rec["profile_s"] = time.perf_counter() - t0
+    rec["decode_ms"] = {f"{tp}/{b}/{c}": v * 1e3 for (tp, b, c), v in table.decode_s.items()}
+    rec["prefill_ms"] = {f"{tp}/{L}": v * 1e3 for (tp, L), v in table.prefill_s.items()}
+    del eng
+    _free()
+    if pool.rank == 0:
+        full = cfg.num_layers == get_config(cfg.name).num_layers
+        name = PROFILE_TABLE if full else PROFILE_TABLE.replace("_h100", f"-{cfg.num_layers}l_h100")
+        path = os.path.join(inputs.get("out_dir", "chiprun_out"), name)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        table.save(path)
+        rec["table_file"] = path
+        one_card = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "profiles", "tables",
+                                "llama3-8b_h100.json")
+        one = ProfileTable.load(one_card)
+        clear_perf_caches()
+        tiers = derive_tiers(TabulatedPerfModel(cfg, one, hw=H100), 64)
+        rec["tiers"] = [dataclasses.asdict(t) for t in tiers]
+        rec["plan_from_pool_table"] = plan_of(cfg, table, tiers)
+        rec["plan_from_one_card_table"] = plan_of(cfg, one, tiers)
+    rec["failures"] = []
+    return rec
 
 
 def phase16_families() -> list:
@@ -1105,7 +1369,8 @@ LEGS = {"f32": llama_f32, "bf16": bf16_timings, "pages": pages, "moe": moe,
         "jamba_bf16": lambda pool, inputs: family_bf16(pool, inputs, JAMBA),
         "train_f32": train_f32, "train_llama": train_llama,
         "train_moe": train_moe, "train_jamba": train_jamba, "train_mamba2": train_mamba2,
-        "train_rules_llama": train_rules_llama, "train_rules_moe": train_rules_moe}
+        "train_rules_llama": train_rules_llama, "train_rules_moe": train_rules_moe,
+        "train_bf16_llama": train_bf16_llama, "pipeline_llama": pipeline_llama, "profile_pool": profile_pool}
 
 
 def legs(pool: Pool, inputs: dict) -> dict:

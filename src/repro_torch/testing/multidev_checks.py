@@ -80,6 +80,17 @@ train_rules — the train step under the reference's train rules
     process. With ``--inputs``: the reference's weights, and rank 0's
     gathered gradients and parameters for a caller that holds them to the
     reference's mesh under the same rules.
+pipeline — the pipeline schedule across processes (``parallel.pipeline``
+    over a pool: a stage per process, a send and receive per tick under
+    autograd) at (pipe 4), (pipe 2, data 2) and (pipe 2, model 2) on 4
+    ranks (every rank a stage on another pool): the reference's toy body and
+    a reduced llama3-8b decoder layer, output and gradients against the
+    sequential stack in one process within 2e-5. With ``--inputs``: the
+    toy's arrays, and every rank's pieces for a caller that holds them to
+    the reference.
+profile — ``profile_engine`` over ``ServingEngine(pool=...)`` (reduced
+    llama3-8b, 4 KV heads): the same table on every rank, the slowest
+    rank's time for each key.
 train_step (one process, ``train_step [cpu|cuda]``) — the same (data 2 x
     model 2) step in one process: the two data groups run one after
     another and the two TP ranks read their shards of the same tensors.
@@ -106,7 +117,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import forward, init_cache_defs, logits_for, model_param_defs
-from repro_torch.models.params import init_params, tree_leaves_with_path, tree_map
+from repro_torch.models.params import init_params, tree_leaves_with_path, tree_map, tree_map_with_path
 from repro_torch.parallel.collectives import Pool, all_gather, close_pool, init_pool, rendezvous_file
 from repro_torch.parallel.sharding import DEFAULT_RULES, ShardingRules, ShardView, make_exec_config
 from repro_torch.training.data import SyntheticDataset
@@ -647,12 +658,15 @@ def param_distance(got: dict, want: dict, moved: dict) -> dict:
     |got - want| ("param_abs"), the first leaf outside PARAM_TOL ("outside",
     None: every leaf within), and the greatest ||got - want|| / ||want -
     start|| ("update_rel"; ``moved``: each path's ||want - start||): a
-    tree left where it started reads 1.0."""
+    tree left where it started reads 1.0. A leaf ``want`` left where it
+    started (a bf16 leaf whose steps all round away) reads 0 if ``got``
+    equals it, else infinity."""
     worst, outside, update = 0.0, None, 0.0
     for (path, a), (_, b) in zip(tree_leaves_with_path(got), tree_leaves_with_path(want)):
         a, b = a.detach().double(), b.detach().to(a.device).double()
         worst = max(worst, float((a - b).abs().max()))
-        update = max(update, float((a - b).norm()) / moved[path])
+        d = float((a - b).norm())
+        update = max(update, d / moved[path] if moved[path] > 0 else (0.0 if d == 0 else math.inf))
         if outside is None and not torch.allclose(a, b, **PARAM_TOL):
             outside = "/".join(path)
     return {"param_abs": worst, "outside": outside, "update_rel": update}
@@ -936,13 +950,17 @@ def held_to(losses: list, whole: dict, one: dict) -> dict:
     greatest relative difference ("loss_rel") and ``param_distance``'s
     "param_abs", "outside" (the first leaf outside PARAM_TOL) and
     "update_rel" (1.0 for a pool that left its parameters where they
-    started)."""
-    return {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])),
-            **param_distance(whole, one["params"], one["moved"])}
+    started), and "bitwise" (losses and parameters bit for bit)."""
+    d = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])),
+         **param_distance(whole, one["params"], one["moved"])}
+    d["bitwise"] = d["loss_rel"] == 0 and d["param_abs"] == 0
+    return d
 
 
 def within(d: dict) -> bool:
-    """``held_to``'s distances within LOSS_RTOL, PARAM_TOL and UPDATE_RTOL."""
+    """``held_to``'s distances within LOSS_RTOL, PARAM_TOL and UPDATE_RTOL,
+    f32 and bf16 runs alike (a pool that never applies its update reads
+    update_rel 1.0)."""
     return d["loss_rel"] < LOSS_RTOL and d["outside"] is None and d["update_rel"] < UPDATE_RTOL
 
 
@@ -1476,6 +1494,310 @@ def _layer_grads(pool: Pool) -> dict:
     return errs
 
 
+# check_train_bf16's cases: name -> (model, TP, steps); at world 4 the mesh is (data 4/TP, model TP)
+TRAIN_BF16_CASES = {"danube_2x2": ("h2o-danube-1.8b", 2, 3)}
+
+
+def check_train_bf16(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """The pool's train step on bf16 parameters with f32 moments (the
+    reference's ``AdamWConfig.dtype``), each case of TRAIN_BF16_CASES,
+    reduced config at (data N/TP, model TP) under DEFAULT_RULES,
+    check_train_moe's optimizer and batches: the gradients of batch 0
+    (bf16, summed over the data group in bf16 as the reference's psum of
+    the parameter-dtype gradient), then the case's steps (the ZeRO-1
+    slices gathered in bf16), the replication checked after every step.
+    Weights: ``inputs["params"][case]`` (the reference's bf16 values as
+    f32 arrays), else seed 0 on this rank's device, cast to bf16. Rank 0's
+    arrays: each case's gathered gradients, losses and parameters, as f32;
+    a caller holds them to the reference's bf16 mesh step."""
+    from repro_torch.checkpoint.convert import to_numpy, to_torch
+    from repro_torch.training.train_step import gather_params
+
+    inputs = inputs or {}
+    dev, tcfg = pool.device, _train_cfg({"warmup_steps": 2})
+    summary, arrays = {}, {}
+    for name in inputs.get("cases", list(TRAIN_BF16_CASES)):
+        model, tp, steps = TRAIN_BF16_CASES[name]
+        cfg = reduced(get_config(model))
+        if name in inputs.get("params", {}):
+            params0 = to_torch(inputs["params"][name], dev, torch.bfloat16)
+        else:
+            defs = model_param_defs(cfg, make_exec_config(cfg, tp))
+            params0 = init_params(defs, torch.Generator(dev).manual_seed(0), torch.bfloat16)
+        ds = SyntheticDataset(cfg, batch=4, seq=32)
+        step, mine, opt = pool_step(pool, cfg, params0, tcfg, tp)
+        grads = gather_params(step.gradients(ds.at(0))[2], step.layout)
+        run = checked(pool, step)
+        losses = [float(run(mine, opt, ds.at(i))[2]["loss"]) for i in range(steps)]
+        whole = gather_params(mine, step.layout)
+        dtypes = sorted({str(t.dtype) for _, t in tree_leaves_with_path(whole)} | {str(t.dtype) for _, t in
+                                                                                   tree_leaves_with_path(grads)})
+        summary[name] = {"model": cfg.name, "mesh": {"data": pool.world // tp, "model": tp}, "losses": losses,
+                         "dtypes": dtypes, "replicated_after_every_step": True}
+        if pool.rank == 0:
+            arrays[name] = {"grads": to_numpy(grads), "losses": losses, "params": to_numpy(whole)}
+        del step, mine, opt, grads, whole
+    return {"summary": summary, "arrays": arrays}
+
+
+# check_train_one's cases: name -> (model, dtype, layers or None for the reduced config's)
+TRAIN_ONE_CASES = {"danube_f32": ("h2o-danube-1.8b", torch.float32, None),
+                   "danube_bf16": ("h2o-danube-1.8b", torch.bfloat16, None),
+                   "jamba_bf16": ("jamba-v0.1-52b", torch.bfloat16, 1)}
+
+
+def _bitwise_trees(a: dict, b: dict) -> List[str]:
+    """The leaves of two trees (of one order) that differ in any bit."""
+    return ["/".join(path) for (path, x), (_, y) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b))
+            if not torch.equal(x.detach(), y.detach().to(x.device))]
+
+
+def check_train_one(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """A pool of one process against the one-process train step, each case
+    of TRAIN_ONE_CASES (reduced config, jamba cut to its first layer,
+    check_train_moe's optimizer and batches, weights from seed 0 in the
+    case's dtype): the gradients of batch 0, then three steps' losses and
+    parameters, bit for bit (under torch's deterministic algorithms, as a
+    card runs them). Raises where a bit differs; returns each case's
+    losses."""
+    from repro_torch.testing.multicard import deterministic
+    from repro_torch.training.train_step import gather_params
+
+    if pool.world != 1:
+        raise ValueError(f"check_train_one runs on a pool of one process, not {pool.world}")
+    dev, tcfg = pool.device, _train_cfg({"warmup_steps": 2})
+    summary = {}
+    for name, (model, dtype, layers) in TRAIN_ONE_CASES.items():
+        cfg = reduced(get_config(model))
+        if layers is not None:
+            cfg = replace(cfg, num_layers=layers, pattern=cfg.layer_pattern[:layers])
+        defs = model_param_defs(cfg, make_exec_config(cfg, 1))
+        params0 = init_params(defs, torch.Generator(dev).manual_seed(0), dtype)
+        ds = SyntheticDataset(cfg, batch=4, seq=32)
+        with deterministic():
+            one = tree_map(lambda t: t.detach().clone(), params0)
+            one_step, _ = make_train_step(cfg, make_exec_config(cfg, 1), one, tcfg)
+            one_opt = init_opt_state(one, tcfg)
+            step, mine, opt = pool_step(pool, cfg, params0, tcfg, 1)
+            g_one = tree_map(lambda g: g.detach().clone(), one_step.gradients(ds.at(0))[2])
+            g_pool = gather_params(step.gradients(ds.at(0))[2], step.layout)
+            failures = [f"gradient {leaf}" for leaf in _bitwise_trees(g_pool, g_one)]
+            losses = []
+            for i in range(3):
+                a = float(one_step(one, one_opt, ds.at(i))[2]["loss"])
+                b = float(step(mine, opt, ds.at(i))[2]["loss"])
+                losses.append((a, b))
+            failures += [f"losses {losses}"] if any(a != b for a, b in losses) else []
+            failures += [f"parameter {leaf}" for leaf in _bitwise_trees(gather_params(mine, step.layout), one)]
+        if failures:
+            raise AssertionError(f"train_one {name}: the pool of one against one process: {failures}")
+        summary[name] = {"model": cfg.name, "dtype": str(dtype), "layers": cfg.num_layers,
+                         "losses": [a for a, _ in losses], "bitwise": True}
+    return {"summary": summary}
+
+
+# ---------------------------------------------------------------------------
+# the pipeline schedule across processes
+# ---------------------------------------------------------------------------
+PIPE_TOL = 2e-5  # tests/test_pipeline.py's bound; gradients over each leaf's max |g|
+PIPE_MESHES = {4: [("pipe4", 4, 1), ("pipe2_data2", 2, 1), ("pipe2_model2", 2, 2)]}  # (name, stages, tp)
+
+
+def pipe_meshes(world: int) -> list:
+    """The (name, stages, tp) meshes the pipeline check runs on a pool of
+    ``world``: at 4 the reference's three, else every rank a stage."""
+    return PIPE_MESHES.get(world, [(f"pipe{world}", world, 1)])
+
+
+def toy_body(h: torch.Tensor, p: dict, k: int) -> torch.Tensor:
+    """tests/test_pipeline.py's period: tanh(h @ w)."""
+    return torch.tanh(h @ p["w"])
+
+
+def toy_arrays() -> dict:
+    """tests/test_pipeline.py's shapes (its draws are jax's), from a seed:
+    w (8 periods, 32, 32) at std 0.3, h0 (4 microbatches, 2, 8, 32)."""
+    rng = np.random.RandomState(0)
+    return {"w": (rng.randn(8, 32, 32) * 0.3).astype(np.float32),
+            "h0": rng.randn(4, 2, 8, 32).astype(np.float32)}
+
+
+def decoder_body(cfg: ModelConfig, S: int, block: int = 512):
+    """pipeline_apply's body of one dense decoder layer of ``cfg`` in train
+    mode (``model.decoder_layer``, the layer ``forward`` runs), recomputed
+    in backward as a train step's layers are: one period
+    of ``model_param_defs``' canonical "periods"/"pos0" leaves, bound at
+    TP 1 in this process (every model-sharded leaf a ``ShardView`` of its
+    whole matrix), over hidden states (B, S, D) at positions 0..S-1."""
+    import functools
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.attention import live_blocks
+    from repro_torch.models.model import decoder_layer, layer_templates, layer_windows
+    from repro_torch.parallel.sharding import as_matrix, model_dim_of
+
+    ec = make_exec_config(cfg, 1)
+    defs = model_param_defs(cfg, ec)["periods"]["pos0"]
+    t, window = layer_templates(cfg)[0], layer_windows(cfg)[0]
+    if not t.mixer.startswith("attn") or t.ffn != "dense":
+        raise ValueError(f"{cfg.name}: a dense decoder layer, not {t}")
+    live = live_blocks(torch.arange(S), window, block, block)
+
+    def bind(path, x):
+        d = functools.reduce(lambda tree, key: tree[key], path, defs)
+        k = model_dim_of(d.axes)
+        if k is None:
+            return x
+        mat, unit = as_matrix(x, k - 1)  # the period's slice: one dim fewer
+        return ShardView((mat,), (0,), d.shape[k] * unit)
+
+    def layer(h, lp):
+        pos = torch.arange(S, device=h.device)
+        return decoder_layer(h, lp, t, window, cfg=cfg, ec=ec, mode="train", positions=pos, live=live, block_q=block,
+                             block_k=block)[0]
+
+    def body(h, p, k):
+        return checkpoint(layer, h, tree_map_with_path(bind, p), use_reentrant=False, preserve_rng_state=False)
+
+    return body
+
+
+def stack_params(cfg: ModelConfig, n_periods: int, dev: torch.device, seed: int = 0) -> dict:
+    """``n_periods`` periods of ``cfg``'s "periods"/"pos0" leaves drawn as
+    ``init_params`` draws them (at each layer's own fan-in), on ``dev``."""
+    from repro_torch.models.params import per_layer_fan_in
+
+    defs = model_param_defs(replace(cfg, num_layers=n_periods * len(cfg.layer_pattern)), make_exec_config(cfg, 1))
+    return init_params(per_layer_fan_in(defs)["periods"]["pos0"], torch.Generator(dev).manual_seed(seed),
+                       torch.float32)
+
+
+def sequential_stack(body, params: dict, h0: torch.Tensor, n_periods: int) -> dict:
+    """One process: every period over every microbatch in turn, and the
+    gradient of the sum of squares of the result; {"out", "dh0", "grads"}."""
+    params = tree_map(lambda x: x.detach().clone().requires_grad_(True), params)
+    h0 = h0.detach().clone().requires_grad_(True)
+    outs = []
+    for m in range(h0.shape[0]):
+        h = h0[m]
+        for i in range(n_periods):
+            h = body(h, tree_map(lambda x: x[i], params), i)
+        outs.append(h)
+    out = torch.stack(outs)
+    (out.float() ** 2).sum().backward()
+    return {"out": out.detach(), "dh0": h0.grad, "grads": tree_map(lambda x: x.grad, params)}
+
+
+def pipe_run(mesh, body, params: dict, h0: torch.Tensor, n_periods: int) -> dict:
+    """``pipeline_apply`` on this process's part of the whole ``params`` and
+    ``h0`` (its stage's periods, its data rank's rows), then the gradient
+    of the sum of squares of its result (each process's share of the whole
+    result's), its stage's gradients summed over the mesh's data group:
+    {"out", "dh0", "grads", "periods" (first, last + 1), "rows"}."""
+    from repro_torch.parallel.collectives import all_reduce
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    c, shape = mesh.coords, mesh.shape
+    per = n_periods // shape["pipe"]
+    periods = (c["pipe"] * per, (c["pipe"] + 1) * per)
+    n = h0.shape[1] // shape["data"]
+    rows = (c["data"] * n, (c["data"] + 1) * n)
+    mine = tree_map(lambda x: x[periods[0]:periods[1]].detach().clone().requires_grad_(True), params)
+    h = h0[:, rows[0]:rows[1]].detach().clone().requires_grad_(True)
+    out = pipeline_apply(body, mine, h, mesh, n_periods)
+    (out.float() ** 2).sum().backward()
+    grads = tree_map(lambda x: x.grad, mine)
+    if shape["data"] > 1:
+        for _, g in tree_leaves_with_path(grads):
+            all_reduce(g, mesh.groups["data"])
+    return {"out": out.detach(), "dh0": h.grad, "grads": grads, "periods": periods, "rows": rows}
+
+
+def pipe_errs(got: dict, want: dict) -> dict:
+    """A pipe_run's result against the sequential stack's, each over its
+    greatest element: the output, the worst gradient leaf and (stage 0)
+    dh0."""
+    r0, r1 = got["rows"]
+    p0, p1 = got["periods"]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+    gw = {path: g for path, g in tree_leaves_with_path(want["grads"])}
+    errs = {"out": rel(got["out"], want["out"][:, r0:r1]),
+            "grads": max(rel(g, gw[path][p0:p1]) for path, g in tree_leaves_with_path(got["grads"]))}
+    if got["dh0"] is not None:  # stage 0's: the others do not read h0
+        errs["dh0"] = rel(got["dh0"], want["dh0"][:, r0:r1])
+    return errs
+
+
+def check_pipeline(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """The pipeline schedule across processes at each mesh of
+    ``pipe_meshes`` against the sequential stack in one process: the
+    reference's toy body (tanh(h @ w), 8 periods, 4 microbatches) and a
+    reduced llama3-8b decoder layer (8 periods, 4 microbatches of (2, 16)),
+    the output, dh0 and each stage's gradients summed over its data group
+    within PIPE_TOL of their greatest element; the gradient is the
+    sequential stack's, not a multiple of it. With ``inputs`` {"toy": {"w",
+    "h0"}}: those arrays; every rank's toy pieces are returned for a caller
+    that holds them to the reference."""
+    from repro_torch.parallel.pipeline import make_pipe_mesh
+
+    dev = pool.device
+    toy = (inputs or {}).get("toy") or toy_arrays()
+    cfg = reduced(get_config("llama3-8b"))
+    cases = {
+        "toy": (toy_body, {"w": torch.as_tensor(toy["w"], device=dev)}, torch.as_tensor(toy["h0"], device=dev),
+                toy["w"].shape[0]),
+        "llama": (decoder_body(cfg, 16, block=8), stack_params(cfg, 8, dev),
+                  torch.randn(4, 2, 16, cfg.d_model, generator=torch.Generator(dev).manual_seed(1), device=dev), 8),
+    }
+    want = {which: sequential_stack(body, params, h0, n) for which, (body, params, h0, n) in cases.items()}
+    summary, pieces = {}, {}
+    for name, stages, tp in pipe_meshes(pool.world):
+        mesh = make_pipe_mesh(pool.devices, stages, tp, pool=pool)
+        for which, (body, params, h0, n) in cases.items():
+            got = pipe_run(mesh, body, params, h0, n)
+            errs = pipe_errs(got, want[which])
+            if max(errs.values()) > PIPE_TOL:
+                raise AssertionError(f"pipeline {name} {which} on rank {pool.rank} {mesh.coords}: {errs}")
+            summary[f"{name}/{which}"] = errs
+            if which == "toy":
+                pieces[name] = {"coords": mesh.coords, "periods": got["periods"], "rows": got["rows"],
+                                "out": got["out"].cpu().numpy(),
+                                "dh0": None if got["dh0"] is None else got["dh0"].cpu().numpy(),
+                                "dw": got["grads"]["w"].cpu().numpy()}
+        pool.barrier()
+    return {"summary": summary, "toy": pieces}
+
+
+def check_profile(pool: Pool, inputs: Optional[dict] = None) -> dict:
+    """``profile_engine`` over ``ServingEngine(pool=...)``: reduced
+    llama3-8b with 4 KV heads (``engine_cfg``), every TP level the pool
+    runs, decode batches (1, 4, 8) of 8 slots at ctx 64 and prefill buckets
+    16/32; every rank's table equal (the values' bits all-gathered), the
+    engine's TP level unchanged, every value positive. Returns the table as
+    the reference's JSON lists."""
+    from repro_torch.profiles.profiler import profile_engine
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    cfg = engine_cfg("llama3-8b")
+    eng = ServingEngine(cfg, engine_params(cfg, pool.device, inputs),
+                        EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=96, prefill_buckets=(16, 32),
+                                     dtype=torch.float32), pool=pool)
+    table = profile_engine(eng, batches=(1, 4, 8), ctxs=(64,))
+    vals = torch.tensor([*table.decode_s.values(), *table.prefill_s.values()], dtype=torch.float64,
+                        device=pool.device)
+    every = all_gather(vals[None], pool.world_group, 0)
+    if not bool((every == every[:1]).all()) or not bool((vals > 0).all()) or eng.tp != eng.tps[0]:
+        raise AssertionError(f"profile over the pool: rank {pool.rank}'s table differs, or a value is not positive")
+    decode = [[*k, v] for k, v in table.decode_s.items()]
+    prefill = [[*k, v] for k, v in table.prefill_s.items()]
+    return {"summary": {"tps": eng.tps, "decode": len(decode), "prefill": len(prefill)},
+            "table": {"decode": decode, "prefill": prefill}}
+
+
 POOL_CHECKS = {
     "collectives": (check_collectives, 4),
     "weight_store": (check_weight_store, 8),
@@ -1487,6 +1809,10 @@ POOL_CHECKS = {
     "train_grads": (check_train_grads, 2),
     "train_moe": (check_train_moe, 4),
     "train_rules": (check_train_rules, 4),
+    "train_bf16": (check_train_bf16, 4),
+    "train_one": (check_train_one, 1),
+    "pipeline": (check_pipeline, 4),
+    "profile": (check_profile, 2),
 }
 MODEL_CHECKS = ("engine", "migration")  # the checks ``--model`` gives a reduced config (``engine_cfg``)
 

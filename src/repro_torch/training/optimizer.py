@@ -197,8 +197,11 @@ def global_norm(tree, sharded: Sequence[Path] = (), group: Optional[Group] = Non
     (``group``, the model group) the leaves at ``sharded`` paths are this
     rank's model shards, and those at ``data_sharded`` paths its blocks of
     leaves that ``data_group`` shards besides (weight FSDP): each leaf's sum
-    is summed over the groups that split it, every leaf counted once."""
-    if group is None:
+    is summed over the groups that split it, every leaf counted once. Where
+    no group has more than one rank (a pool of one process) the sums are
+    added in one process's order, leaf by leaf, so that its clip scale is
+    one process's to the bit."""
+    if group is None or (group.size == 1 and (data_group is None or data_group.size == 1)):
         return torch.sqrt(sum(torch.sum(x.float() ** 2) for _, x in tree_leaves_with_path(tree)))
     import torch.distributed as dist
 
@@ -229,5 +232,5 @@ def clip_by_global_norm(grads, max_norm: float, sharded: Sequence[Path] = (), gr
             if g.dtype == scale.dtype:
                 g.mul_(scale)
             else:
-                g.copy_((g * scale).to(g.dtype))
+                g.copy_((g.float() * scale).to(g.dtype))  # the scale in f32, as the reference's
     return grads, norm

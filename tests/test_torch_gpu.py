@@ -1424,3 +1424,46 @@ def test_moe_and_mamba_train_step_across_four_cards(cuda):
     for s in ranks[0]["train_moe"].values():
         one = s["one_process"]
         assert one["outside"] is None and one["update_rel"] < UPDATE_RTOL and one["loss_rel"] < 2e-4
+
+
+def test_tp_shard_matmul_col_t_bf16_backward_reads_the_f32_gradient(cuda):
+    """The tied head in bf16 (col_t, f32 logits): dX is a product of the
+    f32 logits' gradient, unrounded, as the plain version's autograd (and
+    the reference's transpose) takes it, and the shard read; dW the
+    shard's. Against the plain version's autograd within 1e-2 of each
+    gradient's greatest element (bf16 outputs: two ulps)."""
+    m, k, n, tp, rank = 16, 256, 512, 2, 1
+    width = n // tp
+    grads = {}
+    for which in ("kernel", "plain"):
+        gen = lambda s: torch.Generator(device=cuda).manual_seed(s)  # noqa: E731
+        x = torch.randn(m, k, generator=gen(1), device=cuda).bfloat16().requires_grad_()
+        w = torch.randn(n, k, generator=gen(2), device=cuda).bfloat16().requires_grad_()
+        gy = torch.randn(m, width, generator=gen(3), device=cuda)
+        fn = tp_shard_matmul if which == "kernel" else (
+            lambda x, w, off, **kw: tp_shard_matmul_ref(x, w, off, mode=kw["mode"], n_out=kw["n_out"],
+                                                        out_dtype=kw["out_dtype"]))
+        y = fn(x, w, rank * width, n_out=width, mode="col_t", out_dtype=torch.float32)
+        (y * gy).sum().backward()
+        grads[which] = (x.grad.float(), w.grad.float())
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+def test_pipeline_and_profile_across_cards(cuda):
+    """The pipeline schedule across cards (check_pipeline: at 4 cards
+    (pipe 4), (pipe 2, data 2), (pipe 2, model 2); the toy body and a
+    reduced llama3-8b decoder layer against the sequential stack within
+    2e-5: it raises otherwise) and profile_engine over the pool
+    (check_profile: every rank's table equal, each key the slowest rank's
+    time)."""
+    from repro_torch.testing.multidev_checks import PIPE_TOL, pipe_meshes
+
+    _cards(2)
+    world = min(torch.cuda.device_count(), 4)
+    ranks = _pool(world, ["pipeline", "profile"])
+    names = [name for name, _, _ in pipe_meshes(world)]
+    for r in ranks:
+        assert sorted(r["pipeline"]) == sorted(f"{n}/{w}" for n in names for w in ("toy", "llama"))
+        assert max(max(e.values()) for e in r["pipeline"].values()) <= PIPE_TOL
+        assert r["profile"]["tps"] == [t for t in (1, 2, 4, 8) if world % t == 0]
