@@ -158,7 +158,14 @@ Phases; any failure raises and the script exits non-zero:
      (d) train_loop at 2 layers: 8 steps with a checkpoint every 4, a run
      failing at step 6 and a resumed run; step 4's checkpoint loads back
      onto the card bit for bit, the resumed losses within 2e-4 of the
-     uninterrupted run's; save and load seconds.
+     uninterrupted run's; save and load seconds; (e) train mode's
+     attention (``models.attention.train_attention``, whose backward sums
+     each block pair's gradients as the reference does) at h2o-danube's
+     and gemma2-2b's attention geometry, S 2048, blocks of 512, a window
+     of 1024 (dead pairs), f32 and bf16, on the card against the same
+     Function on the CPU (in host workers, started before phase 6): f32
+     within 1e-5 of each gradient's max |g|, bf16 within one bf16 ulp of
+     its max |g| with fewer than 1% of the elements differing.
  13. the launchers and examples on the card, each module's ``main(argv)`` called
      in-process: (a) ``launch.serve`` with the demo defaults, then
      llama3-8b in bf16 at full width and depth (TP 1/2/4/8, 24 requests,
@@ -188,7 +195,10 @@ Phases; any failure raises and the script exits non-zero:
      replay, no storage data_ptr moved; then, in the same processes,
      moonshot-v1-16b-a3b (4 layers) and jamba-v0.1-52b (8 layers, weights
      at each layer's own fan-in) in f32 at capacity factor 8.0, phases 8
-     and 9's 14 requests at fixed TP 1: the tokens must equal those phases'
+     and 9's 14 requests at fixed TP 1, and gemma2-2b and h2o-danube-1.8b
+     at full width and depth with phase 6's engine and 10 requests (the
+     4160-token prompt wraps the window in prefill, the 4090-token one in
+     decode) at fixed TP 1: the tokens must equal those phases'
      one-process engine's (MoE drops printed), with the same checks. The
      four-card legs are ``python -m repro_torch.testing.multicard`` and
      ``python -m repro_torch.testing.multidev_checks all 4 cuda``.
@@ -1080,6 +1090,7 @@ def measure_windowed(torch, dev, flush, log):
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+    from repro_torch.testing.multicard import WINDOWED_PROMPTS
 
     att = []
     engine_lens = [min(n + 12, 4096) for n in WINDOWED_PROMPTS[:8]]
@@ -1708,10 +1719,10 @@ def profile_requests(cfg):
 def engine_conf(torch, cfg, dtype):
     """The engine configuration phases 4-6 serve ``cfg`` with."""
     from repro_torch.serving.engine import EngineConfig
+    from repro_torch.testing.multicard import WINDOWED_ENGINE
 
-    if cfg.name in WINDOWED:
-        return EngineConfig(candidate_tps=WINDOWED_TPS[cfg.name], n_slots=8, max_len=4224,
-                            prefill_buckets=(32, 64, 128, 4096, 4160), dtype=dtype)
+    if cfg.name in WINDOWED:  # max_len 4224, buckets to 4160
+        return EngineConfig(candidate_tps=WINDOWED_TPS[cfg.name], n_slots=8, dtype=dtype, **WINDOWED_ENGINE)
     return EngineConfig(candidate_tps=(1, 2, 4, 8), n_slots=8, max_len=256, prefill_buckets=(32, 64, 128), dtype=dtype)
 
 
@@ -2004,22 +2015,18 @@ def replay_ms(torch, eng, keys):
 # ---------------------------------------------------------------------------
 # phase 6: the windowed models served at full width and depth
 # ---------------------------------------------------------------------------
-# 4160 fills its bucket past the 4096-token window (prefill builds the
-# rotating buffer); 4090 wraps it after 6 decode steps; 17, 100, 45, 77 and
-# 31 are shorter than their buckets
-WINDOWED_PROMPTS = (4160, 17, 100, 4090, 64, 3, 128, 45, 31, 77)
+# the requests: multicard.WINDOWED_PROMPTS' lengths (4160 fills its bucket past the 4096-token window, so
+# prefill builds the rotating buffer; 4090 wraps it after 6 decode steps; 17, 100, 45, 77 and 31 are shorter
+# than their buckets)
 WINDOWED_TPS = {"gemma2-2b": (1, 2, 4), "h2o-danube-1.8b": (1, 2, 4, 8)}
 WINDOWED_SCHEDULES = {"gemma2-2b": {3: 2, 7: 4, 13: 1, 19: 2}, "h2o-danube-1.8b": {3: 2, 7: 4, 13: 8, 19: 1}}
 
 
 def windowed_requests(cfg, base_id=0, new_tokens=24):
-    import numpy as np
-
     from repro_torch.serving.request import Request
+    from repro_torch.testing.multicard import windowed_prompts
 
-    rng = np.random.RandomState(0)
-    return [Request(base_id + i, "strict", rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), new_tokens)
-            for i, n in enumerate(WINDOWED_PROMPTS)]
+    return [Request(base_id + i, "strict", p, new_tokens) for i, p in enumerate(windowed_prompts(cfg))]
 
 
 def engine_windowed_f32(torch, dev, cfg, log):
@@ -2044,7 +2051,8 @@ def engine_windowed_f32(torch, dev, cfg, log):
     log(f"engine {cfg.name} f32: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
         f"{time.perf_counter() - t0:.1f} s")
     window = cfg.attn.window
-    check(max(WINDOWED_PROMPTS) > window and any(n < window < n + 24 for n in WINDOWED_PROMPTS),
+    lens = [len(r.prompt) for r in windowed_requests(cfg)]
+    check(max(lens) > window and any(n < window < n + 24 for n in lens),
           "the requests wrap the window in prefill and in decode")
     def counted_run(eng, **kw):  # counts set to 0 after the warm-up, just before the run, read just after
         eng.warmup()
@@ -2093,7 +2101,8 @@ def engine_windowed_f32(torch, dev, cfg, log):
     del eng_b, params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, {"tps": list(tps), "schedule": {str(k): v for k, v in schedule.items()}, "fixed_run_s": t_a,
+    return launches, {"tps": list(tps), "schedule": {str(k): v for k, v in schedule.items()}, "trajectories": base,
+                      "fixed_run_s": t_a,
                       "switch_run_s": t_b, "cache_rows": sizes, "rebind_s_total": st.rebind_s,
                       "migrate_s_total": st.migrate_s, "graphs": graphs, "graphs_equal_to_eager": n_graphs,
                       "matmul_launches_by_stage": by_stage, "profile": profile, "prefill_profile": prefill_profile}
@@ -3003,8 +3012,8 @@ def sync(torch, dev):
 def profile_train_step(torch, dev, run):
     """One train step under torch.profiler (CPU and CUDA activity): device ms
     by what ran: the matmul kernel (forward, recompute and backward dX
-    launches), the attention (``_blockwise``'s ops in the forward and the
-    recompute and their backward nodes, its einsums included), the
+    launches), the attention (``train_attention``'s ops in the forward and
+    the recompute and its backward node, its einsums included), the
     optimizer (clip and AdamW), the library's other GEMMs (the backward's
     dW and col dX products, the CE head's) and the rest."""
     from torch.autograd import DeviceType
@@ -3024,7 +3033,7 @@ def profile_train_step(torch, dev, run):
                 return fn(*a, **k)
         setattr(mod, name, wrapped)
 
-    label(attention, "_blockwise", "train.attention")
+    label(attention, "train_attention", "train.attention")  # the Function: its forward, and its backward node
     label(train_step, "clip_by_global_norm", "train.optimizer")
     label(train_step, "adamw_update", "train.optimizer")
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
@@ -3188,13 +3197,105 @@ def checkpoint_round_trip(torch, dev, cfg, log, batch=8, seq=512):
 BF16_TRAIN_STEPS = 12
 
 
-def training_phase(torch, dev, log, cfg=None, steps=20, batch=8, seq=512, small_batch=(4, 256)):
+# the train attention check: each windowed model's attention geometry at S 2048, blocks of 512 and a window of
+# 1024 (which leaves the pairs of Q block 3 and KV block 0 dead), batch 1
+TRAIN_ATTENTION = {"S": 2048, "block": 512, "window": 1024}
+TRAIN_ATTENTION_CASES = [(name, dtype) for name in WINDOWED for dtype in ("float32", "bfloat16")]
+
+
+def train_attention_grads(name, dtype, device):
+    """``models.attention.train_attention`` at ``name``'s attention geometry
+    (TRAIN_ATTENTION) on ``device``: inputs and the output's cotangent
+    drawn with numpy from seed 0, in ``dtype``; returns the output, dq, dk
+    and dv as f32 numpy arrays, and the seconds of the backward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import live_blocks, train_attention
+
+    KV, G, hd, cap = attention_geometry(get_config(name))
+    S, block, window = TRAIN_ATTENTION["S"], TRAIN_ATTENTION["block"], TRAIN_ATTENTION["window"]
+    r = np.random.RandomState(0)
+    dt = getattr(torch, dtype)
+    q, c = (torch.from_numpy(r.randn(1, S, KV, G, hd).astype(np.float32)).to(device, dt) for _ in range(2))
+    k, v = (torch.from_numpy(r.randn(1, S, KV, hd).astype(np.float32)).to(device, dt) for _ in range(2))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    pos = torch.arange(S, device=device)
+    live = live_blocks(pos.cpu(), window, block, block)
+    out = train_attention(q, k, v, pos, live, window=window, cap=cap, block_q=block, block_k=block).to(dt)
+    t0 = time.perf_counter()
+    out.backward(c)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return [t.detach().float().cpu().numpy() for t in (out, q.grad, k.grad, v.grad)], seconds, int((~live).sum())
+
+
+def train_attention_cpu(name, dtype):
+    """In a host worker: ``train_attention_grads`` on the CPU."""
+    import torch
+
+    torch.set_num_threads(2)
+    return train_attention_grads(name, dtype, torch.device("cpu"))
+
+
+def bf16_ulp(x):
+    import numpy as np
+
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+def check_train_attention(torch, dev, futures, log):
+    """Train mode's attention (``models.attention._TrainAttention``, plain
+    torch: no kernel of its own) on the card against the same Function on
+    the CPU (run in a host worker) on the same inputs, at each
+    TRAIN_ATTENTION_CASES case: in f32 the output and each gradient within
+    1e-5 of its max |g|; in bf16 every element within one bf16 ulp of the
+    tensor's max |g|, fewer than 1% of the elements differing (a gradient
+    element is a bf16 sum of its block pairs' rounded gradients, so where
+    one pair's f32 value lies an f32 ulp or so apart and rounds the other
+    way, the element moves by an ulp of that addend, which cancellation can
+    leave far above the element itself; the share differing, and the count
+    past two ulps of the larger of the element and 1e-3 of max |g|, are
+    printed)."""
+    import numpy as np
+
+    rec = {}
+    for name, dtype in TRAIN_ATTENTION_CASES:
+        got, seconds, dead = train_attention_grads(name, dtype, dev)
+        want, cpu_s, _ = futures[(name, dtype)].get(timeout=900)
+        check(dead > 0, f"the train attention case leaves dead pairs: {dead}")
+        row = {"cuda_backward_s": seconds, "cpu_backward_s": cpu_s, "dead_pairs": dead}
+        for what, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+            check(np.isfinite(g).all(), f"train attention {name} {dtype} {what}: finite")
+            top, diff = float(np.abs(w).max()), np.abs(g - w)
+            r = {"max_abs_err_over_max": float(diff.max()) / top, "share_differing": float(np.mean(g != w))}
+            if dtype == "float32":
+                check(diff.max() <= 1e-5 * top, f"train attention {name} f32 {what}: {r} (tolerance 1e-5 of max |g|)")
+            else:
+                floor = bf16_ulp(np.maximum(np.abs(w), 1e-3 * top))
+                r["past_two_ulps_of_max_self_or_1e-3_max"] = int((diff > 2 * floor).sum())
+                r["ulps_of_max"] = float(diff.max() / bf16_ulp(top))
+                check(diff.max() <= bf16_ulp(top) and r["share_differing"] < 1e-2,
+                      f"train attention {name} bf16 {what}: {r} (tolerance: one bf16 ulp of max |g|, < 1% differing)")
+            row[what] = r
+        rec[f"{name} {dtype}"] = row
+        log(f"phase 12 (e) train attention {name} {dtype} (S {TRAIN_ATTENTION['S']}, blocks {TRAIN_ATTENTION['block']}, "
+            f"window {TRAIN_ATTENTION['window']}, {dead} dead pairs) on the card against the CPU: {json.dumps(row)}")
+    return rec
+
+
+def training_phase(torch, dev, log, cfg=None, steps=20, batch=8, seq=512, small_batch=(4, 256), attention=None):
     """Phase 12: (a) grad_check on ``cfg`` cut to 2 layers, (b)
     check_train_step, (c) train_full at ``cfg``'s depth in f32, then in
     bf16 (BF16_TRAIN_STEPS steps; f32 moments), (d) checkpoint_round_trip
     at 2 layers. Returns ({"train": forward launches, "train backward":
     backward launches} of (c) in f32, and "train bf16", "train bf16
-    backward" of the bf16 run, the record)."""
+    backward" of the bf16 run, the record). With ``attention`` (the host
+    workers' futures of ``train_attention_cpu``), last, the train
+    attention check (``check_train_attention``)."""
     from repro_torch.configs import get_config
     from repro_torch.testing.multidev_checks import check_train_step
 
@@ -3223,6 +3324,10 @@ def training_phase(torch, dev, log, cfg=None, steps=20, batch=8, seq=512, small_
     t0 = time.perf_counter()
     rec["checkpoint"] = checkpoint_round_trip(torch, dev, cut(cfg, 2), log, batch=batch, seq=seq)
     rec["checkpoint"]["wall_s"] = time.perf_counter() - t0
+    if attention is not None:
+        t0 = time.perf_counter()
+        rec["train_attention"] = check_train_attention(torch, dev, attention, log)
+        rec["train_attention"]["wall_s"] = time.perf_counter() - t0
     rec["wall_s"] = time.perf_counter() - t_phase
     return {"train": launches["forward"], "train backward": launches["backward"], "train bf16": bf16["forward"],
             "train bf16 backward": bf16["backward"]}, rec
@@ -3316,12 +3421,13 @@ def start_host_work(pool):
 def pool_phase(torch, cfg, phase4, families, card, log):
     """Phase 4's f32 engine through the process-group path, one process per
     card (on one card, world 1): tokens equal to phase 4's; then moonshot
-    (4 layers) and jamba (8 layers) in f32 at capacity factor 8.0 at fixed
-    TP 1, tokens equal to phases 8 and 9's one-process engine's
-    (``families``: {name: (config, that run's record)}). One spawn serves
-    every run. Returns the ranks' launches ({path: {kernel: n}}, rank 0's)
-    and the record."""
-    from repro_torch.testing.multicard import MOE_NEW_TOKENS
+    (4 layers) and jamba (8 layers) in f32 at capacity factor 8.0, and
+    gemma2-2b and h2o-danube-1.8b at full depth with phase 6's engine and
+    requests, at fixed TP 1, tokens equal to phases 8, 9 and 6's
+    one-process engine's (``families``: {name: (config, that run's
+    trajectories, its phase, the run's serve_f32 inputs)}). One spawn
+    serves every run. Returns the ranks' launches ({path: {kernel: n}},
+    rank 0's) and the record."""
     from repro_torch.testing.multidev_checks import spawn
 
     world = torch.cuda.device_count()
@@ -3330,12 +3436,11 @@ def pool_phase(torch, cfg, phase4, families, card, log):
     if world > 1:
         runs["schedule"] = {"layers": cfg.num_layers, "prompts": prompts, "tps": (1, 2, 4, 8), "schedule": F32_SCHEDULE}
     want = {name: {int(k): v for k, v in phase4["trajectories"].items()} for name in runs}
-    for name, (fcfg, frec) in families.items():
-        reqs = make_requests(fcfg, new_tokens=MOE_NEW_TOKENS)
-        runs[f"{name} fixed TP 1"] = {"model": name, "layers": fcfg.num_layers, "capacity_factor": 8.0,
-                                      "prompts": [r.prompt for r in reqs],
-                                      "new_tokens": [r.max_new_tokens for r in reqs], "tps": (1,)}
-        want[f"{name} fixed TP 1"] = {int(k): v for k, v in frec["trajectories"].items()}
+    phase = {name: 4 for name in runs}
+    for name, (fcfg, trajectories, phase_of, inputs) in families.items():
+        runs[f"{name} fixed TP 1"] = {"model": name, "layers": fcfg.num_layers, "tps": (1,), **inputs}
+        want[f"{name} fixed TP 1"] = {int(k): v for k, v in trajectories.items()}
+        phase[f"{name} fixed TP 1"] = phase_of
     t0 = time.perf_counter()
     ranks = spawn(world, "cuda", task="repro_torch.testing.multicard:serve_runs", inputs={"runs": runs}, timeout=900)
     wall = time.perf_counter() - t0
@@ -3345,7 +3450,7 @@ def pool_phase(torch, cfg, phase4, families, card, log):
         model, run = res[0]["model"], name.removeprefix(res[0]["model"] + " ")
         what = f"phase 15 {model} f32 ({res[0]['layers']} layers) {run}"
         check(all(r["trajectories"] == want[name] for r in res),
-              f"{what}: every rank's tokens equal the one-process engine's (phase {4 if name in ('fixed TP 1', 'schedule') else '8/9'})")
+              f"{what}: every rank's tokens equal the one-process engine's (phase {phase[name]})")
         check(all(r["backend"] == "nccl" and r["world"] == world for r in res), f"{what}: NCCL, world {world}")
         check(all(r["launches"] == r["replayed"] and r["launches"].get("tp_shard_matmul", 0) > 0
                   and r["launches"].get("paged_decode_attention", 0) > 0 for r in res),
@@ -3854,6 +3959,7 @@ def main() -> int:
     # the gates (phase 13) and the dry run's grid (phase 14) are host code: they run from here on in
     # HOST_WORKERS spawned processes at the lowest priority, beside phases 6-13
     with host_pool(HOST_WORKERS) as pool:
+        attention = {case: pool.apply_async(train_attention_cpu, case) for case in TRAIN_ATTENTION_CASES}  # first
         futures, t_submit = start_host_work(pool)
         # ---- phase 6: the windowed models (counts reset just before each f32 model's runs, read just after) ----
         record["windowed"] = {}
@@ -3900,7 +4006,7 @@ def main() -> int:
         record["simulator"] = simulator_phase(cfg, table, tiers, record["profile_plan"]["served"], card, log)
 
         # ---- phase 12: training (counts reset just before (c)'s steps, read just after) ----
-        got, record["training"] = training_phase(torch, dev, log)
+        got, record["training"] = training_phase(torch, dev, log, attention=attention)
         add_paths({name: {"tp_shard_matmul": n} for name, n in got.items()})
         log(f"phase 12: {record['training']['wall_s']:.1f} s")
 
@@ -3926,11 +4032,20 @@ def main() -> int:
 
     # ---- phase 15: the engine across processes, one per card (counts in the ranks, after their warm-up) ----
     t0 = time.perf_counter()
+    from repro_torch.testing.multicard import MOE_NEW_TOKENS, WINDOWED_ENGINE
+
     families = {}
-    for name, rec_of, layers in (("moonshot-v1-16b-a3b", "moe", F32_CHECK_LAYERS["moonshot-v1-16b-a3b"]),
-                                 ("jamba-v0.1-52b", "jamba", JAMBA_F32_LAYERS)):
+    for name, rec_of, layers, phase in (("moonshot-v1-16b-a3b", "moe", F32_CHECK_LAYERS["moonshot-v1-16b-a3b"], 8),
+                                        ("jamba-v0.1-52b", "jamba", JAMBA_F32_LAYERS, 9)):
         fcfg = with_capacity(cut(get_config(name), layers), 8.0)
-        families[name] = (fcfg, record[rec_of][f"{name} f32 cf 8.0 ({fcfg.num_layers} layers)"])
+        reqs = make_requests(fcfg, new_tokens=MOE_NEW_TOKENS)
+        families[name] = (fcfg, record[rec_of][f"{name} f32 cf 8.0 ({fcfg.num_layers} layers)"]["trajectories"], phase,
+                          {"capacity_factor": 8.0, "prompts": [r.prompt for r in reqs],
+                           "new_tokens": [r.max_new_tokens for r in reqs]})
+    for name in WINDOWED[::-1]:  # at full depth, phase 6's engine and requests
+        wcfg = get_config(name)
+        families[name] = (wcfg, record["windowed"][name]["trajectories"], 6,
+                          {"prompts": [r.prompt for r in windowed_requests(wcfg)], "engine": WINDOWED_ENGINE})
     got, record["pool"] = pool_phase(torch, cfg, record["engine_f32"], families, card, log)
     add_paths(got)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")

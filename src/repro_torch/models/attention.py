@@ -3,8 +3,9 @@ optional qk-norm (mirrors repro/models/attention.py).
 
 Prefill runs the reference's blockwise streaming softmax as plain torch ops,
 every Q block of the sequence at once against one KV block at a time; train
-mode runs the same loop without writing into a tensor that autograd saved,
-and builds no cache.
+mode runs the same loop inside an autograd Function whose backward is the
+reference's autodiff of that loop (each block pair's gradients cast to the
+inputs' dtype and summed in it), and builds no cache.
 Decode writes the new token's K/V into the dense slot cache (at its
 position, or at position % window in a windowed layer's rotating buffer),
 views that cache as pages, and runs the ``paged_decode_attention`` kernel
@@ -81,29 +82,35 @@ def live_blocks(positions: torch.Tensor, window: Optional[int], block_q: int, bl
     return live
 
 
-def _with_rows(t: torch.Tensor, dim: int, i0: int, i1: int, rows: torch.Tensor) -> torch.Tensor:
-    """``t`` with its Q blocks i0:i1 along ``dim`` replaced by ``rows``, as a
-    new tensor: the train path's update, which leaves every tensor that
-    autograd saved as it was."""
-    return torch.cat([t.narrow(dim, 0, i0), rows, t.narrow(dim, i1, t.shape[dim] - i1)], dim)
+def _scores(q_i, k_j, mask, scale, cap):
+    """One (Q block, KV block) pair's scores, softcapped and masked: the
+    reference's ``kv_step`` up to its max. q_i (..., bq, hd) and k_j
+    (B,bk,KV,hd) in f32. Returns (s, tanh(s / cap) or None)."""
+    s = torch.einsum("bkgnqh,bskh->bkgnqs", q_i, k_j) * scale
+    t = None
+    if cap is not None:
+        t = torch.tanh(s / cap)
+        s = cap * t
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), t
 
 
-def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k, differentiable=False):
+def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k, keep=None):
     """q: (B,S,KV,G,hd); k,v: (B,S,KV,hd); positions (S,); ``live`` from
     ``live_blocks`` over the same positions, window and blocks.
 
     Returns (B,S,KV,G,hd) in f32: the reference's flash-style loop, each Q
     block carrying a running max, sum and accumulator over the KV blocks in
-    order. All Q blocks go through one KV block together. A (Q block, KV
-    block) pair whose every score is masked is skipped: the reference adds
-    exactly nothing for it (p = 0 and the rescale is 1 once a row has a live
-    key; before that its sums are zeroed by the first live block's rescale,
-    exp(-1e30 - m) = 0, and every row's own position is a live key).
-
-    Prefill writes the running max, sum and accumulator of the Q blocks a
-    KV block reaches in place. ``differentiable`` (train mode) makes new
-    tensors instead (``_with_rows``), so that backward finds what it saved:
-    the same arithmetic in the same order, so the same bits.
+    order. All Q blocks go through one KV block together, and the running
+    max, sum and accumulator of the Q blocks a KV block reaches are written
+    in place. A (Q block, KV block) pair whose every score is masked is
+    skipped: the reference adds exactly nothing for it (p = 0 and the
+    rescale is 1 once a row has a live key; before that its sums are zeroed
+    by the first live block's rescale, exp(-1e30 - m) = 0, and every row's
+    own position is a live key). Not differentiable: train mode goes
+    through ``train_attention``, whose backward runs this loop again with
+    ``keep``, a list that takes each step's inputs and what its
+    vector-Jacobian product reads (``_step_backward``), and then takes the
+    final sum and accumulator, (B,KV,G,nq,bq[,hd]).
     """
     B, S, KV, G, hd = q.shape
     bq, bk = _block_sizes(S, block_q, block_k)
@@ -113,10 +120,7 @@ def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k, differentia
     scale = hd ** -0.5
     qf = q.float().view(B, nq, bq, KV, G, hd).permute(0, 3, 4, 1, 2, 5)  # (B,KV,G,nq,bq,hd)
     kf, vf = k.float(), v.float()
-    mask = pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < window
-    mask = mask.view(nq, bq, nk, bk)
+    mask = _mask(pos, window).view(nq, bq, nk, bk)
     m = torch.full((B, KV, G, nq, bq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, KV, G, nq, bq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, nq, bq, hd), dtype=torch.float32, device=q.device)
@@ -125,26 +129,121 @@ def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k, differentia
         if not len(rows):
             continue
         i0, i1 = int(rows[0]), int(rows[-1]) + 1  # the Q blocks this KV block reaches
-        k_j, v_j = kf[:, j * bk:(j + 1) * bk], vf[:, j * bk:(j + 1) * bk]
-        s = torch.einsum("bkgnqh,bskh->bkgnqs", qf[:, :, :, i0:i1], k_j) * scale
-        if cap is not None:
-            s = cap * torch.tanh(s / cap)
-        s = torch.where(mask[i0:i1, :, j], s, torch.full_like(s, NEG_INF))
-        m_i = m[..., i0:i1, :]
-        m_new = torch.maximum(m_i, s.amax(-1))
+        q_i, k_j, v_j = qf[:, :, :, i0:i1], kf[:, j * bk:(j + 1) * bk], vf[:, j * bk:(j + 1) * bk]
+        s, t = _scores(q_i, k_j, mask[i0:i1, :, j], scale, cap)
+        m_i, l_i, acc_i = m[..., i0:i1, :], l[..., i0:i1, :], acc[..., i0:i1, :, :]
+        smax = s.amax(-1)
+        m_new = torch.maximum(m_i, smax)
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_i - m_new)
-        l_new = l[..., i0:i1, :] * corr + p.sum(-1)
-        acc_new = acc[..., i0:i1, :, :] * corr[..., None] + torch.einsum("bkgnqs,bskh->bkgnqh", p, v_j)
-        if differentiable:
-            m, l = _with_rows(m, -2, i0, i1, m_new), _with_rows(l, -2, i0, i1, l_new)
-            acc = _with_rows(acc, -3, i0, i1, acc_new)
-        else:
-            l[..., i0:i1, :] = l_new
-            acc[..., i0:i1, :, :] = acc_new
-            m[..., i0:i1, :] = m_new
+        if keep is not None:  # the input carry is copied: the writes below overwrite it
+            keep.append(((i0, i1, j * bk, (j + 1) * bk), (q_i, k_j, v_j, mask[i0:i1, :, j], scale, cap),
+                         (m_i.clone(), l_i.clone(), acc_i.clone(), p, smax, s == smax[..., None], t, m_new, corr)))
+        l[..., i0:i1, :] = l_i * corr + p.sum(-1)
+        acc[..., i0:i1, :, :] = acc_i * corr[..., None] + torch.einsum("bkgnqs,bskh->bkgnqh", p, v_j)
+        m[..., i0:i1, :] = m_new
+    if keep is not None:
+        keep.append((l, acc))
     out = acc / l.clamp_min(1e-30)[..., None]  # (B,KV,G,nq,bq,hd)
     return out.permute(0, 3, 4, 1, 2, 5).reshape(B, S, KV, G, hd)
+
+
+def _mask(pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """(S, S) bool: key k is visible from query q."""
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    return mask
+
+
+def _step_backward(q_i, k_j, v_j, mask, scale, cap, saved, grads):
+    """The vector-Jacobian product of one step of ``_blockwise``'s
+    recurrence for the Q blocks ``q_i`` (B,KV,G,n,bq,hd) against one KV
+    block, in the order the reference's autodiff of its ``kv_step`` takes
+    it: from what the step computed (``saved``: its input carry m, l, acc,
+    p, the row max of the scores and where they reach it, tanh(s / cap),
+    m_new and the rescale) and the cotangents (dm, dl, dacc) of its output
+    carry, the cotangents of its input carry and the pairs' dq
+    (B,KV,G,n,bq,hd), dk and dv (B,n,bk,KV,hd), all in f32. max's cotangent
+    is split evenly between ties, as jax's is."""
+    m, l, acc, p, smax, at_max, t, m_new, corr = saved
+    dm, dl, dacc = grads
+    dv = torch.einsum("bkgnqh,bkgnqs->bnskh", dacc, p)
+    dp = torch.einsum("bkgnqh,bskh->bkgnqs", dacc, v_j).add_(dl[..., None])
+    dcorr = (acc * dacc).sum(-1) + l * dl
+    dl_in = dl * corr
+    ko = dcorr * corr
+    dacc_in = dacc * corr[..., None]
+    kr = dp.mul_(p)  # the cotangent of s - m_new
+    kw = (dm + -ko) + (-kr).sum(-1)  # of m_new
+    at_s, at_m = smax == m_new, m == m_new
+    dm_in = ko + kw * (at_m.float() / torch.where(at_s, 2.0, 1.0))
+    ds = kr.add_((kw * (at_s.float() / torch.where(at_m, 2.0, 1.0)) / at_max.sum(-1))[..., None] * at_max)
+    ds.masked_fill_(~mask, 0.0)
+    if cap is not None:  # cap * tanh(s / cap), as jax's tanh rule transposes
+        g = ds.mul_(cap).mul_(1.0 - t)
+        ds = g.add_(g * t).div_(cap)
+    ds.mul_(scale)
+    dq = torch.einsum("bkgnqs,bskh->bkgnqh", ds, k_j)
+    dk = torch.einsum("bkgnqs,bkgnqh->bnskh", ds, q_i)
+    return (dm_in, dl_in, dacc_in), dq, dk, dv
+
+
+class _TrainAttention(torch.autograd.Function):
+    """``_blockwise`` whose backward is the reference's: the transpose of
+    its scan over Q blocks around a checkpointed scan over KV blocks. The
+    backward runs the forward loop again, keeping what each step's
+    vector-Jacobian product reads (the reference's checkpointed
+    ``kv_step``), then takes the steps in reverse, each KV block with every
+    Q block it reaches at once (``_step_backward``): each Q block meets its
+    live KV blocks in descending order, as in the reference's inner
+    transpose. Each pair's dq, dk and dv is cast to q's, k's and v's dtype
+    and added in that dtype: dq into its Q block's sum over KV blocks, dk
+    and dv into their KV block's sum over Q blocks, the Q blocks in
+    descending order (the reference's cotangent carries; in bf16 each add
+    rounds). A dead pair adds nothing: the reference adds exact zeros for
+    it. Nothing per pair is saved by the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos, live, window, cap, block_q, block_k):
+        ctx.save_for_backward(q, k, v, pos)
+        ctx.args = dict(live=live, window=window, cap=cap, block_q=block_q, block_k=block_k)
+        return _blockwise(q, k, v, pos, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, pos = ctx.saved_tensors
+        steps = []
+        _blockwise(q, k, v, pos, **ctx.args, keep=steps)
+        l, acc = steps.pop()
+        B, S, KV, G, hd = q.shape
+        nq, bq = l.shape[-2:]
+        # out = acc / max(l, 1e-30)
+        lm = l.clamp_min(1e-30)
+        g = dout.float().view(B, nq, bq, KV, G, hd).permute(0, 3, 4, 1, 2, 5)
+        share = (l == lm).float() / torch.where(lm == 1e-30, 2.0, 1.0)
+        dm, dl, dacc = torch.zeros_like(l), -(g * lm[..., None].pow(-2) * acc).sum(-1) * share, g / lm[..., None]
+        del l, acc, lm, g
+        dq = torch.zeros((B, KV, G, nq, bq, hd), dtype=q.dtype, device=q.device)
+        dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+        while steps:
+            (i0, i1, k0, k1), inputs, saved = steps.pop()
+            (dm_i, dl_i, dacc_i), dq_j, dk_j, dv_j = _step_backward(
+                *inputs, saved, (dm[..., i0:i1, :], dl[..., i0:i1, :], dacc[..., i0:i1, :, :]))
+            del inputs, saved
+            dm[..., i0:i1, :], dl[..., i0:i1, :], dacc[..., i0:i1, :, :] = dm_i, dl_i, dacc_i
+            dq[..., i0:i1, :, :] += dq_j.to(q.dtype)
+            dk_j, dv_j = dk_j.to(k.dtype), dv_j.to(v.dtype)
+            for n in reversed(range(i1 - i0)):  # the Q blocks in descending order
+                dk[:, k0:k1] += dk_j[:, n]
+                dv[:, k0:k1] += dv_j[:, n]
+        return dq.permute(0, 3, 4, 1, 2, 5).reshape(q.shape), dk, dv, None, None, None, None, None, None
+
+
+def train_attention(q, k, v, pos, live, *, window, cap, block_q, block_k):
+    """``_blockwise`` under autograd, with the reference's backward
+    (``_TrainAttention``)."""
+    return _TrainAttention.apply(q, k, v, pos, live, window, cap, block_q, block_k)
 
 
 def swa_cache_slots(window: int, seq_len: int, device=None) -> torch.Tensor:
@@ -208,8 +307,9 @@ def attn_apply(
     k = apply_rope(k, rope_pos, cfg.attn.rope_theta)
 
     if mode in ("train", "prefill"):
-        o = _blockwise(q.view(B, S, KV, G, hd), k, v, positions, live, window=window, cap=cap,
-                       block_q=block_q, block_k=block_k, differentiable=mode == "train").to(q.dtype)
+        attend = train_attention if mode == "train" else _blockwise
+        o = attend(q.view(B, S, KV, G, hd), k, v, positions, live, window=window, cap=cap,
+                   block_q=block_q, block_k=block_k).to(q.dtype)
         if mode == "train":
             new_cache = None
         elif window is not None and S > window:  # the rotating buffer of the last window positions

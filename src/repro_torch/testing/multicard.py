@@ -49,6 +49,14 @@ default; ``--only`` / ``--skip`` take comma-separated names):
        periods (16 layers) in bf16 at the published capacity factor 1.25:
        the bf16 leg's timings (TTFT at 128 tokens), the drops per (TP level,
        stage), and the reshard's bytes of K/V and of the Mamba state.
+  gemma2_f32, danube_f32  gemma2-2b and h2o-danube-1.8b at full width and
+       depth in f32 with chip_smoke.py phase 6's engine (max_len 4224,
+       buckets to 4160) and requests (a 4160-token prompt and a 4090-token
+       one that wraps the 4096 window after 6 decode steps, and short
+       ones): the f32 leg's checks on tokens, storage and launches, the
+       switches (WINDOWED_SCHEDULE) all after the wrap;
+  gemma2_bf16, danube_bf16  the same in bf16: the bf16 leg's timings
+       (TTFT at buckets 128 and 4096) and the rings' reshard.
 
   train_f32  h2o-danube-1.8b at full width and depth (``--layers`` cuts it)
        in f32, SyntheticDataset(8, 512), trained at (data N/2, model 2)
@@ -145,6 +153,12 @@ MOE_NEW_TOKENS = (5, 5, 9, 9, 15, 15) + (24,) * 8
 # factor (nothing drops, so tokens do not depend on the TP level's capacities) and bf16 (published)
 FAMILY_LEGS = {"moonshot-v1-16b-a3b": {"f32_layers": 4, "bf16_layers": None},
                "jamba-v0.1-52b": {"f32_layers": 8, "bf16_layers": 16}}
+# the windowed models' legs, at full width and depth, with the engine and requests chip_smoke.py phase 6 serves
+# them with (a 4160-token prompt wraps the 4096 window in prefill, a 4090-token one in its 7th token's decode
+# step), and switches that all fall after the wrap
+WINDOWED_ENGINE = {"max_len": 4224, "prefill_buckets": (32, 64, 128, 4096, 4160)}
+WINDOWED_PROMPTS = (4160, 17, 100, 4090, 64, 3, 128, 45, 31, 77)
+WINDOWED_SCHEDULE = {8: 2, 12: 4, 16: 1, 20: 2}
 
 
 def card_line() -> str:
@@ -230,12 +244,20 @@ def _reset_counts() -> None:
         w.launches = 0
 
 
+def engine_settings(inputs: dict, **over) -> dict:
+    """The legs' EngineConfig fields: 8 slots, max_len 256, buckets
+    32/64/128, with ``inputs["engine"]`` over them (the windowed models'
+    WINDOWED_ENGINE), then ``over``."""
+    return {"n_slots": 8, "max_len": 256, "prefill_buckets": (32, 64, 128), **inputs.get("engine", {}), **over}
+
+
 def serve_f32(pool: Pool, inputs: dict) -> dict:
     """The engine across the pool: ``model_cfg(inputs)`` (llama3-8b by
-    default) in ``inputs["dtype"]`` (default f32), candidate TP levels
-    ``inputs["tps"]`` (those the pool divides), the given prompts with
-    ``inputs["new_tokens"]`` each (default 24; an MoE model's
-    MOE_NEW_TOKENS), at the lowest level or under ``inputs["schedule"]``.
+    default) in ``inputs["dtype"]`` (default f32), at ``engine_settings``,
+    candidate TP levels ``inputs["tps"]`` (those the pool divides), the
+    given prompts with ``inputs["new_tokens"]`` each (default 24; an MoE
+    model's MOE_NEW_TOKENS), at the lowest level or under
+    ``inputs["schedule"]``.
     Returns the trajectories, the launches of the run (counts set to 0 after
     the warm-up: every one by a graph replay), whether every storage
     data_ptr stayed, and an MoE model's drops per (TP level, stage)."""
@@ -244,8 +266,8 @@ def serve_f32(pool: Pool, inputs: dict) -> dict:
     cfg, dev = model_cfg(inputs), pool.device
     dtype = inputs.get("dtype", torch.float32)
     params = _weights(cfg, dev, dtype)
-    econf = EngineConfig(candidate_tps=inputs.get("tps", (1, 2, 4, 8)), n_slots=8, max_len=256,
-                         prefill_buckets=(32, 64, 128), dtype=dtype, record_logits=inputs.get("record_logits", False))
+    econf = EngineConfig(**engine_settings(inputs, candidate_tps=inputs.get("tps", (1, 2, 4, 8))), dtype=dtype,
+                         record_logits=inputs.get("record_logits", False))
     eng = ServingEngine(cfg, params, econf, pool=pool)
     warm = eng.warmup()
     ptrs = _ptrs(eng)
@@ -287,17 +309,18 @@ def _flip(got: dict, want: dict, want_logits: dict) -> Optional[dict]:
     return None
 
 
-def one_card(cfg, params, dev, tp: int, n_slots: int) -> dict:
+def one_card(cfg, params, dev, tp: int, n_slots: int, inputs: dict) -> dict:
     """The one-process engine on one card at fixed TP ``tp`` (its ranks one
-    after another on the card) with ``n_slots`` slots: trajectories and f32
-    logits of the leg's requests."""
+    after another on the card) with ``n_slots`` slots, at the leg's
+    ``engine_settings``: trajectories and f32 logits of the leg's requests
+    (``inputs["prompts"]``, or ``requests``' own)."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
-    econf = EngineConfig(candidate_tps=(tp,), n_slots=n_slots, max_len=256, prefill_buckets=(32, 64, 128),
-                         dtype=torch.float32, record_logits=True)
+    econf = EngineConfig(**engine_settings(inputs, candidate_tps=(tp,), n_slots=n_slots), dtype=torch.float32,
+                         record_logits=True)
     eng = ServingEngine(cfg, params, econf, device=dev)
     eng.warmup()
-    done = eng.run(requests(cfg.vocab_size, new_tokens=_new_tokens(cfg)))
+    done = eng.run(requests(cfg.vocab_size, prompts=inputs.get("prompts"), new_tokens=_new_tokens(cfg)))
     out = {"trajectories": {r.req_id: list(r.generated) for r in done},
            "logits": {k: np.stack(v) for k, v in eng.logit_trace.items()},
            "moe_dropped": {f"{t}/{st}": n for (t, st), n in eng.moe_dropped().items()}}
@@ -312,7 +335,9 @@ def _max_diff(a: dict, b: dict) -> float:
 
 def f32_check(pool: Pool, inputs: dict) -> dict:
     """f32: the pool's tokens at fixed TP 1/2/4 and under the switch
-    schedule against the one-card engine's at TP 1 (``model_cfg(inputs)``).
+    schedule (``inputs["schedule"]``, default SCHEDULE) against the
+    one-card engine's at TP 1 (``model_cfg(inputs)``, at the leg's
+    ``engine_settings`` and prompts).
     With ``inputs["isolate"]`` (llama3-8b) the logits too: the one-card
     engine also runs at each pool level's (TP t, per-card batch) and at TP
     1 with 2 and 4 slots; the pool's TP t logits are held within LOGIT_TOL
@@ -325,18 +350,18 @@ def f32_check(pool: Pool, inputs: dict) -> dict:
     per_card = {t: n_slots * t // pool.world for t in tps}  # slots a card decodes at TP t
     if pool.rank == 0:  # the one-card port: every rank in this process, on card 0
         params = _weights(cfg, dev, torch.float32)
-        ref = one_card(cfg, params, dev, 1, n_slots)
+        ref = one_card(cfg, params, dev, 1, n_slots, inputs)
         if inputs.get("isolate"):
             configs = {(1, 2), (1, 4), (2, n_slots)} | {(t, per_card[t]) for t in tps}
             for tp, slots in sorted(configs - {(1, n_slots)}):
-                iso[(tp, slots)] = one_card(cfg, params, dev, tp, slots)
+                iso[(tp, slots)] = one_card(cfg, params, dev, tp, slots, inputs)
         del params
         _free()
     pool.barrier()
     runs = {}
     for tp in tps:
-        runs[f"fixed TP {tp}"] = serve_f32(pool, {**inputs, "tps": (tp,), "record_logits": True})
-    runs["switch schedule"] = serve_f32(pool, {**inputs, "tps": tuple(tps), "schedule": SCHEDULE})
+        runs[f"fixed TP {tp}"] = serve_f32(pool, {**inputs, "tps": (tp,), "schedule": None, "record_logits": True})
+    runs["switch schedule"] = serve_f32(pool, {**inputs, "tps": tuple(tps), "schedule": inputs.get("schedule", SCHEDULE)})
     out = {"model": cfg.name, "layers": cfg.num_layers, "tolerance": {"rtol": LOGIT_TOL, "atol": LOGIT_TOL}}
     if cfg.moe is not None:
         out["capacity_factor"] = cfg.moe.capacity_factor
@@ -397,6 +422,30 @@ def family_f32(pool: Pool, inputs: dict, name: str) -> dict:
     8.0: tokens against one card, storage and launches."""
     return f32_check(pool, {**inputs, "model": name, "layers": FAMILY_LEGS[name]["f32_layers"],
                             "capacity_factor": 8.0})
+
+
+def windowed_prompts(cfg) -> List[np.ndarray]:
+    """The windowed legs' and chip_smoke.py phase 6's prompts: WINDOWED_PROMPTS' lengths drawn from seed 0."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in WINDOWED_PROMPTS]
+
+
+def windowed_f32(pool: Pool, inputs: dict, name: str) -> dict:
+    """gemma2-2b or h2o-danube-1.8b in f32 at full width and depth, phase
+    6's engine and requests, WINDOWED_SCHEDULE's switches after the wrap:
+    tokens against one card's at TP 1, storage and launches."""
+    cfg = get_config(name)
+    return f32_check(pool, {**inputs, "model": name, "layers": None, "engine": WINDOWED_ENGINE,
+                            "prompts": windowed_prompts(cfg), "schedule": WINDOWED_SCHEDULE})
+
+
+def windowed_bf16(pool: Pool, inputs: dict, name: str) -> dict:
+    """gemma2-2b or h2o-danube-1.8b in bf16 at full width and depth and
+    phase 6's engine: TTFT at buckets 128 and 4096, the decode step per TP
+    level, the NCCL share, the reshard of the rings (K/V of max_len rows in
+    a global layer, of the window's in a windowed one)."""
+    return bf16_timings(pool, {**inputs, "model": name, "layers": None, "engine": WINDOWED_ENGINE,
+                               "ttft_buckets": (128, 4096)})
 
 
 def rms_batch_variance(dev) -> dict:
@@ -460,10 +509,10 @@ def _nccl_share(pool: Pool, step, n: int = 6, warm: int = 2) -> dict:
 
 def bf16_timings(pool: Pool, inputs: dict) -> dict:
     """bf16 timings per TP level and the switch's cost, of
-    ``model_cfg(inputs)`` (llama3-8b by default): TTFT at
-    ``inputs["ttft_buckets"]`` (default every bucket), an MoE model's drops
-    per (TP level, stage), and the reshard's bytes of K/V and of a Mamba
-    state apart."""
+    ``model_cfg(inputs)`` (llama3-8b by default) at max_len 2048 or
+    ``inputs["engine"]``: TTFT at ``inputs["ttft_buckets"]`` (default every
+    bucket), an MoE model's drops per (TP level, stage), and the reshard's
+    bytes of K/V and of a Mamba state apart."""
     from repro_torch.core.migration import cache_shardings, moved_bytes
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.request import Request
@@ -471,8 +520,8 @@ def bf16_timings(pool: Pool, inputs: dict) -> dict:
     cfg, dev = model_cfg(inputs), pool.device
     params = _weights(cfg, dev, torch.bfloat16)
     tps = [t for t in (1, 2, 4) if pool.world % t == 0]
-    econf = EngineConfig(candidate_tps=tps, n_slots=8, max_len=2048, prefill_buckets=(32, 64, 128),
-                         dtype=torch.bfloat16)
+    econf = EngineConfig(**engine_settings({"engine": {"max_len": 2048, **inputs.get("engine", {})}},
+                                           candidate_tps=tps), dtype=torch.bfloat16)
     eng = ServingEngine(cfg, params, econf, pool=pool)
     warm = eng.warmup()
     rng = np.random.RandomState(3)
@@ -1361,12 +1410,16 @@ def phase16_families() -> list:
             dataclasses.replace(jamba, pattern=jamba.layer_pattern[:1], num_layers=1)]
 
 
-MOON, JAMBA = "moonshot-v1-16b-a3b", "jamba-v0.1-52b"
+MOON, JAMBA, GEMMA, DANUBE = "moonshot-v1-16b-a3b", "jamba-v0.1-52b", "gemma2-2b", "h2o-danube-1.8b"
 LEGS = {"f32": llama_f32, "bf16": bf16_timings, "pages": pages, "moe": moe,
         "moonshot_f32": lambda pool, inputs: family_f32(pool, inputs, MOON),
         "jamba_f32": lambda pool, inputs: family_f32(pool, inputs, JAMBA),
         "moonshot_bf16": lambda pool, inputs: family_bf16(pool, inputs, MOON),
         "jamba_bf16": lambda pool, inputs: family_bf16(pool, inputs, JAMBA),
+        "gemma2_f32": lambda pool, inputs: windowed_f32(pool, inputs, GEMMA),
+        "danube_f32": lambda pool, inputs: windowed_f32(pool, inputs, DANUBE),
+        "gemma2_bf16": lambda pool, inputs: windowed_bf16(pool, inputs, GEMMA),
+        "danube_bf16": lambda pool, inputs: windowed_bf16(pool, inputs, DANUBE),
         "train_f32": train_f32, "train_llama": train_llama,
         "train_moe": train_moe, "train_jamba": train_jamba, "train_mamba2": train_mamba2,
         "train_rules_llama": train_rules_llama, "train_rules_moe": train_rules_moe,

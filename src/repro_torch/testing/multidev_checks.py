@@ -323,7 +323,8 @@ def check_migration(pool: Pool, inputs: Optional[dict] = None) -> dict:
         if any(not torch.equal(a[k], b[k]) for a, b in zip(cache, before) for k in a):
             raise AssertionError("the reshard wrote its source")
         steps.append({"from": layout.tp, "to": tp, "ms": seconds * 1e3, "bytes_between_ranks": moved_bytes(layout, target, 4),
-                      "blocks": {k: list(t.shape) for layer in moved for k, t in layer.items()}})  # a shape per kind
+                      "blocks": {k: list(t.shape) for layer in moved for k, t in layer.items()},  # a shape per kind
+                      "rows": [layer["k"].shape[1] for layer in moved if "k" in layer]})  # an attention layer's (a ring's)
         cache, layout = moved, target
     return {"summary": {"reshards": steps, "pages": _pages_between_ranks(pool, migrate_pages)}, "arrays": {}}
 

@@ -1372,6 +1372,27 @@ def test_family_engine_across_four_cards_equals_one_card(cuda, model):
         assert r["engine"]["arrays"]["moe_dropped"]["switched"] == dropped
 
 
+@pytest.mark.parametrize("model", ["gemma2-2b", "h2o-danube-1.8b"])
+def test_windowed_engine_across_four_cards_equals_one_card(cuda, model):
+    """check_engine on reduced gemma2-2b and h2o-danube-1.8b (windows of
+    16, 4 KV heads) at world 4, at tests/test_torch_windowed_multidev.py's
+    engine settings (8 slots, max_len 64, buckets 8/16/32, so that the
+    rings wrap before the switches): on every card the one-process
+    engine's tokens at fixed TP 1 and under the reference's switch
+    schedule."""
+    from repro_torch.testing.multidev_checks import SCHEDULE, engine_cfg, engine_params, engine_requests, spawn
+
+    _cards(4)
+    settings = dict(candidate_tps=(1, 2, 4), n_slots=8, max_len=64, prefill_buckets=(8, 16, 32))
+    four = spawn(4, "cuda", ["engine"], inputs={"engine": {"model": model, "engine": settings}})
+    cfg = engine_cfg(model)
+    eng = ServingEngine(cfg, engine_params(cfg, cuda), EngineConfig(**settings), device=cuda)
+    base = {r.req_id: list(r.generated) for r in eng.run(engine_requests(Request), switch_schedule=SCHEDULE)}
+    for r in four:
+        assert r["engine"]["summary"]["switches"] == 4
+        assert r["engine"]["arrays"]["trajectories"] == base
+
+
 def test_train_step_across_four_cards(cuda):
     """Training across cards: check_train_step's pool check at world 4 on
     NCCL (reduced h2o-danube-1.8b at data 2 x model 2 against a single-rank
