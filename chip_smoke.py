@@ -193,9 +193,12 @@ Phases; any failure raises and the script exits non-zero:
      under phase 4's schedule over the TP levels the pool divides: the
      tokens must equal phase 4's one-process engine's, every launch a graph
      replay, no storage data_ptr moved; then, in the same processes,
-     moonshot-v1-16b-a3b (4 layers) and jamba-v0.1-52b (8 layers, weights
-     at each layer's own fan-in) in f32 at capacity factor 8.0, phases 8
-     and 9's 14 requests at fixed TP 1, and gemma2-2b and h2o-danube-1.8b
+     moonshot-v1-16b-a3b (4 layers), dbrx-132b (2) and jamba-v0.1-52b (8
+     layers, weights at each layer's own fan-in) in f32 at capacity factor
+     8.0, phases 8 and 9's 14 requests at fixed TP 1, yi-34b,
+     chameleon-34b (4 layers each), mistral-large-123b (2) and
+     musicgen-large (48) with phase 7's 10 requests at fixed TP 1, and
+     gemma2-2b and h2o-danube-1.8b
      at full width and depth with phase 6's engine and 10 requests (the
      4160-token prompt wraps the window in prefill, the 4090-token one in
      decode) at fixed TP 1: the tokens must equal those phases'
@@ -1757,14 +1760,13 @@ def engine_f32(torch, dev, cfg, log, must_match=True, extras=True):
     and one prefill under the profiler."""
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.models import init_params
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.testing.multicard import MOE_NEW_TOKENS, weight_defs
+    from repro_torch.testing.multicard import MOE_NEW_TOKENS, draw_weights
 
     econf = engine_conf(torch, cfg, torch.float32)
     what = f"engine {cfg.name} f32 ({cfg.num_layers} layers)"
     t0 = time.perf_counter()
-    params = init_params(weight_defs(cfg), torch.Generator(device=dev).manual_seed(0))
+    params = draw_weights(cfg, dev, torch.float32)
     torch.cuda.synchronize()
     log(f"{what}: weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1867,13 +1869,12 @@ def engine_bf16_timed(torch, dev, cfg, log):
 
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.models import init_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
-    from repro_torch.testing.multicard import weight_defs
+    from repro_torch.testing.multicard import draw_weights
 
     econf = engine_conf(torch, cfg, torch.bfloat16)
-    params = init_params(weight_defs(cfg), torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    params = draw_weights(cfg, dev, torch.bfloat16)
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2200,9 +2201,15 @@ def engine_windowed_bf16_timed(torch, dev, cfg, log):
 # ---------------------------------------------------------------------------
 # phases 7 and 8: the dense family's remainder and MoE
 # ---------------------------------------------------------------------------
-# depth of each f32 switch check (None: full depth); widths stay the published ones
-F32_CHECK_LAYERS = {"yi-34b": 4, "chameleon-34b": 4, "mistral-large-123b": 2, "musicgen-large": None,
-                    "moonshot-v1-16b-a3b": 4, "dbrx-132b": 2}
+DENSE_REMAINDER = ("yi-34b", "chameleon-34b", "mistral-large-123b", "musicgen-large")  # phase 7's f32 checks
+
+
+def family_layers(name, dtype="f32"):
+    """A model's depth in its f32 switch check or its bf16 timing (None: full depth), the four-card
+    legs' (``multicard.FAMILY_LEGS``); widths stay the published ones."""
+    from repro_torch.testing.multicard import FAMILY_LEGS
+
+    return FAMILY_LEGS[name][f"{dtype}_layers"]
 
 
 def cut(cfg, layers):
@@ -2217,8 +2224,9 @@ def dense_remainder_phase(torch, dev, log, skip_timed):
     """Phase 7: yi-34b in bf16 at full depth (engine_bf16_timed: TTFT per
     bucket, decode step per TP level, capture, pool, peak memory, profiles),
     then the f32 switch check (engine_f32) of yi-34b and chameleon-34b at 4
-    layers, mistral-large-123b at 2 and musicgen-large at full depth, all at
-    full width. Returns ({path: launches}, record)."""
+    layers (chameleon's q_norm / k_norm drawn nonzero: ``draw_weights``),
+    mistral-large-123b at 2 and musicgen-large at full depth, all at full
+    width. Returns ({path: launches}, record)."""
     from repro_torch.configs import get_config
 
     by_path, rec = {}, {}
@@ -2227,9 +2235,9 @@ def dense_remainder_phase(torch, dev, log, skip_timed):
         rec["yi-34b bf16"] = engine_bf16_timed(torch, dev, get_config("yi-34b"), log)
         by_path["yi-34b bf16"] = rec["yi-34b bf16"]["launches"]
         log(f"phase 7 yi-34b bf16 (60 layers): {time.perf_counter() - t0:.1f} s")
-    for name in ("yi-34b", "chameleon-34b", "mistral-large-123b", "musicgen-large"):
+    for name in DENSE_REMAINDER:
         t0 = time.perf_counter()
-        cfg = cut(get_config(name), F32_CHECK_LAYERS[name])
+        cfg = cut(get_config(name), family_layers(name))
         key = f"{name} f32 ({cfg.num_layers} layers)"
         by_path[key], rec[key] = engine_f32(torch, dev, cfg, log)
         rec[key]["wall_s"] = time.perf_counter() - t0
@@ -2263,7 +2271,7 @@ def moe_phase(torch, dev, log, skip_timed):
                 "own greedy trajectory, may change with the TP level: trajectories and drops printed, not asserted")
         for name in ("moonshot-v1-16b-a3b", "dbrx-132b"):
             t0 = time.perf_counter()
-            cfg = with_capacity(cut(get_config(name), F32_CHECK_LAYERS[name]), factor)
+            cfg = with_capacity(cut(get_config(name), family_layers(name)), factor)
             key = f"{name} f32 cf {factor} ({cfg.num_layers} layers)"
             by_path[key], rec[key] = engine_f32(torch, dev, cfg, log, must_match=factor == 8.0, extras=factor == 8.0)
             if factor == 8.0:
@@ -2481,9 +2489,6 @@ def mamba2_phase(torch, dev, log, skip_timed):
     return launches, rec
 
 
-JAMBA_F32_LAYERS, JAMBA_BF16_LAYERS = 8, 16  # one and two periods; the full 32 layers are 103 GB in bf16
-
-
 def jamba_phase(torch, dev, log, skip_timed):
     """Phase 9, jamba-v0.1-52b at full width through the engine: the f32
     switch check (engine_f32) at one period, 8 layers (7 mamba1, 1
@@ -2500,7 +2505,7 @@ def jamba_phase(torch, dev, log, skip_timed):
     cfg = get_config("jamba-v0.1-52b")
     by_path, rec = {}, {}
     t0 = time.perf_counter()
-    f32 = with_capacity(cut(cfg, JAMBA_F32_LAYERS), 8.0)
+    f32 = with_capacity(cut(cfg, family_layers(cfg.name)), 8.0)  # one period
     key = f"{cfg.name} f32 cf 8.0 ({f32.num_layers} layers)"
     by_path[key], rec[key] = engine_f32(torch, dev, f32, log)
     dropped = rec[key]["moe_dropped"]
@@ -2510,7 +2515,7 @@ def jamba_phase(torch, dev, log, skip_timed):
     log(f"phase 9 {key}: {rec[key]['wall_s']:.1f} s")
     if not skip_timed:
         t0 = time.perf_counter()
-        bf16 = cut(cfg, JAMBA_BF16_LAYERS)
+        bf16 = cut(cfg, family_layers(cfg.name, "bf16"))  # two; the full 32 layers are 103 GB in bf16
         key = f"{cfg.name} bf16 ({bf16.num_layers} layers)"
         rec[key] = engine_bf16_timed(torch, dev, bf16, log)
         by_path[key] = rec[key]["launches"]
@@ -2572,13 +2577,12 @@ def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
     from repro_torch.core.planner import Planner, PlannerInputs, TierDemand
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
-    from repro_torch.models import init_params
     from repro_torch.profiles.perf_model import H100, PerfModel, clear_perf_caches
     from repro_torch.profiles.profiler import ProfileTable, TabulatedPerfModel, profile_engine
     from repro_torch.profiles.slo import derive_tiers
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
-    from repro_torch.testing.multicard import PLAN_CHIPS, PLAN_DEMANDS, weight_defs
+    from repro_torch.testing.multicard import PLAN_CHIPS, PLAN_DEMANDS, draw_weights
 
     t0 = time.perf_counter()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -2591,7 +2595,7 @@ def profile_plan_phase(torch, dev, cfg, log, decode_row, migration):
         f"rows {json.dumps(measured['rows'])}")
 
     econf = engine_conf(torch, cfg, torch.bfloat16)
-    params = init_params(weight_defs(cfg), torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    params = draw_weights(cfg, dev, torch.bfloat16)
     eng = ServingEngine(cfg, params, econf, device=dev)
     rec["warmup_s"] = eng.warmup()
     tp_shard_matmul.launches = paged_decode_attention.launches = 0
@@ -3418,16 +3422,44 @@ def start_host_work(pool):
 # ---------------------------------------------------------------------------
 # phase 15: the engine across processes
 # ---------------------------------------------------------------------------
+def pool_families(record):
+    """Phase 15's runs of the other models: {name: (config, the one-process
+    engine's fixed TP 1 trajectories in ``record``, their phase, the run's
+    serve_f32 inputs)}, each at its phase's depth, engine and requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.testing.multicard import MOE_NEW_TOKENS, WINDOWED_ENGINE
+
+    families = {}
+    for name, rec_of, layers, phase in (("moonshot-v1-16b-a3b", "moe", family_layers("moonshot-v1-16b-a3b"), 8),
+                                        ("jamba-v0.1-52b", "jamba", family_layers("jamba-v0.1-52b"), 9),
+                                        ("dbrx-132b", "moe", family_layers("dbrx-132b"), 8)):
+        fcfg = with_capacity(cut(get_config(name), layers), 8.0)
+        reqs = make_requests(fcfg, new_tokens=MOE_NEW_TOKENS)
+        families[name] = (fcfg, record[rec_of][f"{name} f32 cf 8.0 ({fcfg.num_layers} layers)"]["trajectories"], phase,
+                          {"capacity_factor": 8.0, "prompts": [r.prompt for r in reqs],
+                           "new_tokens": [r.max_new_tokens for r in reqs]})
+    for name in DENSE_REMAINDER:  # at phase 7's depths, engine and requests
+        dcfg = cut(get_config(name), family_layers(name))
+        families[name] = (dcfg, record["dense_remainder"][f"{name} f32 ({dcfg.num_layers} layers)"]["trajectories"], 7,
+                          {"prompts": [r.prompt for r in make_requests(dcfg)]})
+    for name in WINDOWED[::-1]:  # at full depth, phase 6's engine and requests
+        wcfg = get_config(name)
+        families[name] = (wcfg, record["windowed"][name]["trajectories"], 6,
+                          {"prompts": [r.prompt for r in windowed_requests(wcfg)], "engine": WINDOWED_ENGINE})
+    return families
+
+
 def pool_phase(torch, cfg, phase4, families, card, log):
     """Phase 4's f32 engine through the process-group path, one process per
     card (on one card, world 1): tokens equal to phase 4's; then moonshot
-    (4 layers) and jamba (8 layers) in f32 at capacity factor 8.0, and
-    gemma2-2b and h2o-danube-1.8b at full depth with phase 6's engine and
-    requests, at fixed TP 1, tokens equal to phases 8, 9 and 6's
-    one-process engine's (``families``: {name: (config, that run's
-    trajectories, its phase, the run's serve_f32 inputs)}). One spawn
-    serves every run. Returns the ranks' launches ({path: {kernel: n}},
-    rank 0's) and the record."""
+    (4 layers), dbrx (2) and jamba (8) in f32 at capacity factor 8.0,
+    yi-34b, chameleon-34b (4 layers each), mistral-large-123b (2) and
+    musicgen-large (48) with phase 7's engine and requests, and gemma2-2b
+    and h2o-danube-1.8b at full depth with phase 6's, at fixed TP 1, tokens
+    equal to phases 8, 9, 7 and 6's one-process engine's (``families``:
+    {name: (config, that run's trajectories, its phase, the run's
+    serve_f32 inputs)}). One spawn serves every run. Returns the ranks'
+    launches ({path: {kernel: n}}, rank 0's) and the record."""
     from repro_torch.testing.multidev_checks import spawn
 
     world = torch.cuda.device_count()
@@ -4032,20 +4064,7 @@ def main() -> int:
 
     # ---- phase 15: the engine across processes, one per card (counts in the ranks, after their warm-up) ----
     t0 = time.perf_counter()
-    from repro_torch.testing.multicard import MOE_NEW_TOKENS, WINDOWED_ENGINE
-
-    families = {}
-    for name, rec_of, layers, phase in (("moonshot-v1-16b-a3b", "moe", F32_CHECK_LAYERS["moonshot-v1-16b-a3b"], 8),
-                                        ("jamba-v0.1-52b", "jamba", JAMBA_F32_LAYERS, 9)):
-        fcfg = with_capacity(cut(get_config(name), layers), 8.0)
-        reqs = make_requests(fcfg, new_tokens=MOE_NEW_TOKENS)
-        families[name] = (fcfg, record[rec_of][f"{name} f32 cf 8.0 ({fcfg.num_layers} layers)"]["trajectories"], phase,
-                          {"capacity_factor": 8.0, "prompts": [r.prompt for r in reqs],
-                           "new_tokens": [r.max_new_tokens for r in reqs]})
-    for name in WINDOWED[::-1]:  # at full depth, phase 6's engine and requests
-        wcfg = get_config(name)
-        families[name] = (wcfg, record["windowed"][name]["trajectories"], 6,
-                          {"prompts": [r.prompt for r in windowed_requests(wcfg)], "engine": WINDOWED_ENGINE})
+    families = pool_families(record)
     got, record["pool"] = pool_phase(torch, cfg, record["engine_f32"], families, card, log)
     add_paths(got)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")

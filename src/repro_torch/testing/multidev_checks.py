@@ -1,7 +1,7 @@
 """The reference's multi-device checks, run by the port across processes
 (mirrors repro/testing/multidev_checks.py).
 
-    PYTHONPATH=src python -m repro_torch.testing.multidev_checks <check|all> <nproc> [cpu|cuda] \
+    PYTHONPATH=src python -m repro_torch.testing.multidev_checks <check[,check...]|all> <nproc> [cpu|cuda] \
         [--inputs IN.pkl] [--out OUT.pkl] [--model NAME]
     PYTHONPATH=src python -m repro_torch.testing.multidev_checks train_step [cpu|cuda]
 
@@ -9,7 +9,8 @@ A pool check spawns ``nproc`` processes, one rank each (``collectives.
 init_pool``: NCCL on cuda:0..nproc-1, gloo when ``cpu`` is given), which
 meet through a ``file://`` rendezvous in a temporary directory (no port, so
 runs side by side do not collide). Each rank runs the check; the parent
-prints one line per check, ``OK <check>: <JSON summary>``, and with
+prints one line per check (several, comma-separated, run in one pool),
+``OK <check>: <JSON summary>``, and with
 ``--out`` pickles every rank's result (summaries and numpy arrays) for a
 caller that holds them against the reference. ``--inputs`` is a pickle of
 numpy arrays (weights as the reference's trees, carried by
@@ -43,9 +44,10 @@ fault_abort — the reference's three parts: a switch whose migration
 engine — the reference's check_engine: greedy trajectories under the
     switch schedule {3: 2, 7: 4, 13: 1, 19: 2} equal to fixed TP 1, no
     storage data_ptr moved; on the reference's tiny dense model, or with
-    ``--model`` on a reduced config of the port (moonshot-v1-16b-a3b,
-    jamba-v0.1-52b: ``engine_cfg``); an MoE model's drops per (TP level,
-    stage) reported.
+    ``--model`` on a reduced config of the port (``engine_cfg``: e.g.
+    moonshot-v1-16b-a3b, jamba-v0.1-52b, or yi-34b at G 7 and dbrx-132b's
+    16 experts, top 4, by ENGINE_FIELDS); an MoE model's drops per (TP
+    level, stage) reported.
 train_step — the reference's check_train_step across processes: reduced
     h2o-danube-1.8b at (data N/2 x model 2), each rank holding its model
     shard of the weights and its data rank's ZeRO-1 slice of the moments,
@@ -301,7 +303,10 @@ def _blocks(full: List[dict], layout, rank: int) -> List[dict]:
 def check_migration(pool: Pool, inputs: Optional[dict] = None) -> dict:
     """``inputs["model"]``: the cache of ``engine_cfg(model)`` (e.g. reduced
     jamba: K/V and each Mamba layer's state and conv tail) in place of the
-    tiny dense model's."""
+    tiny dense model's; ``inputs["cases"]`` ({name: inputs}): each in turn."""
+    if inputs and "cases" in inputs:
+        out = {name: check_migration(pool, case) for name, case in inputs["cases"].items()}
+        return {"summary": {name: r["summary"] for name, r in out.items()}, "arrays": {}}
     from repro_torch.core.migration import cache_shardings, migrate_cache, migrate_pages, moved_bytes
 
     model = (inputs or {}).get("model")
@@ -462,15 +467,29 @@ def check_fault_abort(pool: Pool, inputs: Optional[dict] = None) -> dict:
                         "source_cache_intact": True, "failing_rank": failing, "shrunk": shrunk}, "arrays": arrays}
 
 
+# the fields over reduced() (and its 4 KV heads, engine_cfg's) that keep a model's published shape at CPU width:
+# its query heads a KV head (yi-34b G 7, mistral-large-123b G 12, dbrx-132b G 6, musicgen-large's MHA) and dbrx's
+# experts (16, top 4; reduced()'s d_ff_expert 64 and capacity factor 8.0). reduced() keeps chameleon-34b's qk-norm.
+ENGINE_FIELDS = {"yi-34b": {"num_heads": 28},
+                 "mistral-large-123b": {"num_heads": 48},
+                 "dbrx-132b": {"num_heads": 24, "moe": {"num_experts": 16, "top_k": 4}},
+                 "musicgen-large": {"num_heads": 8, "num_kv_heads": 8}}
+
+
+def with_fields(cfg, fields: dict):
+    """``cfg`` (a config of either package) with ``fields`` replaced; a dict
+    value replaces fields of the nested spec (``moe``, ``attn``)."""
+    return replace(cfg, **{k: replace(getattr(cfg, k), **v) if isinstance(v, dict) else v for k, v in fields.items()})
+
+
 def engine_cfg(model: Optional[str] = None, capacity_factor: Optional[float] = None) -> ModelConfig:
     """check_engine's model: the reference's tiny dense one (``serve_cfg``),
-    or a config of the port by name reduced with ``reduced()`` and given 4
-    KV heads (so that the engine takes TP 4), as the port's CPU tests serve
-    moonshot-v1-16b-a3b and jamba-v0.1-52b; ``capacity_factor`` replaces
-    an MoE model's."""
+    or a config of the port by name reduced with ``reduced()``, given 4 KV
+    heads (so that the engine takes TP 4) and its ENGINE_FIELDS, as the
+    port's CPU tests serve it; ``capacity_factor`` replaces an MoE model's."""
     if model is None:
         return serve_cfg()
-    cfg = replace(reduced(get_config(model)), num_kv_heads=4)
+    cfg = with_fields(replace(reduced(get_config(model)), num_kv_heads=4), ENGINE_FIELDS.get(model, {}))
     if capacity_factor is not None:
         cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=capacity_factor))
     return cfg
@@ -478,12 +497,13 @@ def engine_cfg(model: Optional[str] = None, capacity_factor: Optional[float] = N
 
 def engine_params(cfg: ModelConfig, dev: torch.device, inputs: Optional[dict] = None) -> dict:
     """check_engine's weights: the reference's (``inputs["params"]``), or
-    drawn from seed 0 on ``dev`` from ``multicard.weight_defs`` (jamba at
-    each layer's own fan-in, where reduced jamba is well conditioned in
-    f32), as the full-width legs draw them."""
-    from repro_torch.testing.multicard import weight_defs
+    drawn on ``dev`` by ``multicard.draw_weights`` as the full-width legs
+    draw them (a qk-norm model's scales nonzero)."""
+    from repro_torch.testing.multicard import draw_weights
 
-    return _weights(inputs, "params", weight_defs(cfg), dev)
+    if inputs is not None and "params" in inputs:
+        return _weights(inputs, "params", {}, dev)
+    return draw_weights(cfg, dev, torch.float32)
 
 
 def _engine_case(pool: Pool, inputs: dict) -> dict:
@@ -1953,7 +1973,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             i = argv.index(flag)
             opts[flag] = argv[i + 1]
             del argv[i:i + 2]
-    names = list(POOL_CHECKS) if name == "all" else [name]
+    names = list(POOL_CHECKS) if name == "all" else name.split(",")
     world = int(argv[1]) if len(argv) > 1 else POOL_CHECKS[names[0]][1]
     device = argv[2] if len(argv) > 2 else "cuda"
     inputs = None

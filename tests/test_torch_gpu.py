@@ -1393,6 +1393,34 @@ def test_windowed_engine_across_four_cards_equals_one_card(cuda, model):
         assert r["engine"]["arrays"]["trajectories"] == base
 
 
+@pytest.mark.parametrize("model", ["yi-34b", "chameleon-34b", "musicgen-large", "mistral-large-123b", "dbrx-132b"])
+def test_remainder_engine_across_four_cards_equals_one_card(cuda, model):
+    """check_engine on the last five served models at
+    tests/test_torch_remainder_multidev.py's shapes (``engine_cfg``: yi G
+    7, mistral G 12, dbrx G 6 with 16 experts, top 4, musicgen's MHA over 8
+    KV heads, chameleon's qk-norm with nonzero scales) at world 4 (TP
+    1/2/4): on every card the one-process engine's tokens at fixed TP 1
+    and under the reference's switch schedule, and dbrx's drops per (TP
+    level, stage) equal to the one-process engine's."""
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.testing.multidev_checks import SCHEDULE, engine_cfg, engine_params, engine_requests, spawn
+
+    _cards(4)
+    four = spawn(4, "cuda", ["engine"], inputs={"engine": {"model": model}})
+    cfg = engine_cfg(model)
+    params = engine_params(cfg, cuda)
+    scales = [t for path, t in tree_leaves_with_path(params) if path[-1] in ("q_norm", "k_norm")]
+    assert len(scales) == (2 if cfg.attn.qk_norm else 0) and all(bool((t != 0).all()) for t in scales)
+    eng = ServingEngine(cfg, params, EngineConfig(candidate_tps=(1, 2, 4), n_slots=8, max_len=96,
+                                                  prefill_buckets=(16, 32)), device=cuda)
+    base = {r.req_id: list(r.generated) for r in eng.run(engine_requests(Request), switch_schedule=SCHEDULE)}
+    dropped = {f"{tp}/{stage}": n for (tp, stage), n in eng.moe_dropped().items()}
+    for r in four:
+        assert r["engine"]["summary"]["switches"] == 4
+        assert r["engine"]["arrays"]["trajectories"] == base
+        assert r["engine"]["arrays"]["moe_dropped"]["switched"] == dropped
+
+
 def test_train_step_across_four_cards(cuda):
     """Training across cards: check_train_step's pool check at world 4 on
     NCCL (reduced h2o-danube-1.8b at data 2 x model 2 against a single-rank
