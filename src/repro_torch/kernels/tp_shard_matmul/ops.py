@@ -63,13 +63,16 @@ def tp_shard_matmul(
     row: w_store (K_store, n_out), takes rows offset..offset+K. col_t:
     w_store (N_store, K), takes rows offset..offset+n_out, transposed. Sums
     in f32; the output is ``out_dtype``, x's dtype by default (f32 for
-    logits).
+    logits). On a plain device (the CPU) f64 is taken too, summed in f64:
+    an f64 evaluation of the model; the kernel has no f64 instance.
     """
     out_dtype = out_dtype or x.dtype
     if x.dim() != 2 or w_store.dim() != 2:
         raise ValueError(f"x and w_store must be 2-D, got {tuple(x.shape)} and {tuple(w_store.shape)}")
-    if x.dtype not in _DTYPES or w_store.dtype != x.dtype:
-        raise TypeError(f"x and w_store must share a dtype in {list(_DTYPES)}, got {x.dtype}, {w_store.dtype}")
+    plain = x.device.type in _build.PLAIN_DEVICES and w_store.device == x.device
+    dtypes = list(_DTYPES) + ([torch.float64] if plain else [])
+    if x.dtype not in dtypes or w_store.dtype != x.dtype:
+        raise TypeError(f"x and w_store must share a dtype in {dtypes}, got {x.dtype}, {w_store.dtype}")
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"out_dtype must be {x.dtype} or float32, got {out_dtype}")
     m, k = x.shape
@@ -88,7 +91,7 @@ def tp_shard_matmul(
     else:
         raise ValueError(f"mode must be 'col', 'row' or 'col_t', got {mode!r}")
 
-    if x.device.type in _build.PLAIN_DEVICES and w_store.device == x.device:
+    if plain:
         return tp_shard_matmul_ref(x, w_store, offset, mode=mode, n_out=n_out, out_dtype=out_dtype)
     if x.device.type != "cuda" or w_store.device != x.device:
         raise ValueError(f"x and w_store must lie on one CUDA device, got {x.device} and {w_store.device}")

@@ -20,8 +20,9 @@ def tp_shard_matmul_ref(
     col_t: x @ w_store[offset:offset+n_out, :].T (w_store holds the weight's
     columns as rows, as a tied head reads the (vocab, d) embedding).
 
-    Products are taken in f32; the result is cast to ``out_dtype`` (x's dtype
-    by default).
+    Products are taken in f32 (in f64 for f64 operands, an f64 evaluation
+    on a plain device); the result is cast to ``out_dtype`` (x's dtype by
+    default).
     """
     if mode == "col":
         w = w_store[:, offset:offset + n_out]
@@ -31,4 +32,5 @@ def tp_shard_matmul_ref(
         w = w_store[offset:offset + n_out, :].t()
     else:
         raise ValueError(mode)
-    return (x.float() @ w.float()).to(out_dtype or x.dtype)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    return (x.to(ct) @ w.to(ct)).to(out_dtype or x.dtype)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-from repro_torch.models.layers import apply_rope, col_parallel, row_parallel
+from repro_torch.models.layers import apply_rope, col_parallel, row_parallel, wide
 from repro_torch.models.params import ParamDef
 from repro_torch.models.rounding import shared
 from repro_torch.parallel.collectives import enter_model_group
@@ -98,7 +98,7 @@ def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k, keep=None):
     """q: (B,S,KV,G,hd); k,v: (B,S,KV,hd); positions (S,); ``live`` from
     ``live_blocks`` over the same positions, window and blocks.
 
-    Returns (B,S,KV,G,hd) in f32: the reference's flash-style loop, each Q
+    Returns (B,S,KV,G,hd) in f32 (``layers.wide``): the reference's flash-style loop, each Q
     block carrying a running max, sum and accumulator over the KV blocks in
     order. All Q blocks go through one KV block together, and the running
     max, sum and accumulator of the Q blocks a KV block reaches are written
@@ -118,12 +118,13 @@ def _blockwise(q, k, v, pos, live, *, window, cap, block_q, block_k, keep=None):
     if tuple(live.shape) != (nq, nk):
         raise ValueError(f"live blocks {tuple(live.shape)} do not match {S} positions in blocks of {bq} x {bk}")
     scale = hd ** -0.5
-    qf = q.float().view(B, nq, bq, KV, G, hd).permute(0, 3, 4, 1, 2, 5)  # (B,KV,G,nq,bq,hd)
-    kf, vf = k.float(), v.float()
+    ct = wide(q.dtype)
+    qf = q.to(ct).view(B, nq, bq, KV, G, hd).permute(0, 3, 4, 1, 2, 5)  # (B,KV,G,nq,bq,hd)
+    kf, vf = k.to(ct), v.to(ct)
     mask = _mask(pos, window).view(nq, bq, nk, bk)
-    m = torch.full((B, KV, G, nq, bq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KV, G, nq, bq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, G, nq, bq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, KV, G, nq, bq), NEG_INF, dtype=ct, device=q.device)
+    l = torch.zeros((B, KV, G, nq, bq), dtype=ct, device=q.device)
+    acc = torch.zeros((B, KV, G, nq, bq, hd), dtype=ct, device=q.device)
     for j in range(nk):
         rows = live[:, j].nonzero()
         if not len(rows):

@@ -26,13 +26,20 @@ from repro_torch.parallel.collectives import enter_model_group, reduce_ranks, re
 from repro_torch.parallel.sharding import ShardView
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a norm, RoPE, softmax, router or head computes in: f32, or
+    f64 for f64 inputs (an f64 evaluation of the model keeps its precision
+    end to end; bf16 and f32 are computed as before, in f32)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """In f32, cast to ``dtype`` (x's by default; a train-mode layer's
-    norms take theirs from ``rounding.norm_dtype``)."""
+    """In f32 (``wide``), cast to ``dtype`` (x's by default; a train-mode
+    layer's norms take theirs from ``rounding.norm_dtype``)."""
     dt = dtype or x.dtype
-    x = x.float()
+    x = x.to(wide(x.dtype))
     y = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps)
-    return (y * (1.0 + scale.float())).to(dt)
+    return (y * (1.0 + scale.to(x.dtype))).to(dt)
 
 
 def norm_def(d_model: int) -> ParamDef:
@@ -40,19 +47,20 @@ def norm_def(d_model: int) -> ParamDef:
     return ParamDef((d_model,), ("embed",), init="zeros")
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device=None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+    return 1.0 / (theta ** (torch.arange(half, dtype=dtype, device=device) / half))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions broadcastable to (..., S). Rotates the
-    two halves of hd (not interleaved pairs), angles in f32."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * freqs  # (..., S, hd/2)
+    two halves of hd (not interleaved pairs), angles in f32 (``wide``)."""
+    ct = wide(x.dtype)
+    freqs = rope_freqs(x.shape[-1], theta, x.device, ct)
+    ang = positions[..., None].to(ct) * freqs  # (..., S, hd/2)
     cos = ang.cos()[..., None, :]
     sin = ang.sin()[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = x.to(ct).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 

@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerTemplate, ModelConfig
 from repro_torch.models.attention import attn_apply, attn_cache_defs, attn_param_defs, live_blocks
 from repro_torch.models.layers import (
-    col_parallel, mlp_apply, mlp_param_defs, norm_def, rmsnorm, softcap, tied_head, vocab_parallel_embed,
+    col_parallel, mlp_apply, mlp_param_defs, norm_def, rmsnorm, softcap, tied_head, vocab_parallel_embed, wide,
 )
 from repro_torch.models.mamba import (
     mamba1_apply, mamba1_cache_defs, mamba1_param_defs, mamba2_apply, mamba2_cache_defs, mamba2_param_defs,
@@ -163,6 +163,15 @@ def decoder_layer(
     return h, nc, a
 
 
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The first hidden state of ``tokens`` (B,S): their rows of the
+    embedding, scaled by sqrt(d_model) where the embeddings are tied."""
+    h = vocab_parallel_embed(tokens, params["embed"])
+    if cfg.tie_embeddings:  # gemma convention: scale tied embeddings
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()  # the factor rounded to h's dtype
+    return h
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -224,12 +233,7 @@ def forward(
     if seq_parallel is not None and mode != "train":
         raise ValueError("sequence parallelism is a train mode's")
     params = gathered(params)
-    if embeds is None:
-        h = vocab_parallel_embed(tokens, params["embed"])
-        if cfg.tie_embeddings:  # gemma convention: scale tied embeddings
-            h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()  # the factor rounded to h's dtype
-    else:
-        h = embeds
+    h = embed_tokens(params, cfg, tokens) if embeds is None else embeds
     S = h.shape[1]
     windows = layer_windows(cfg)
     templates = layer_templates(cfg)
@@ -284,7 +288,8 @@ def forward(
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x (M, D) -> logits (M, V_padded) in f32 (+ final softcap). A tied
+    """x (M, D) -> logits (M, V_padded) in f32 (``wide``: f64 for f64 x;
+    + final softcap). A tied
     head is the embedding read transposed: rank r's logits are
     x @ embed[r's vocab rows].T. The ranks' vocab shards are joined in rank
     order; across processes they are gathered over the model group, so
@@ -293,7 +298,7 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         parts = tied_head(x, w)
     else:
-        parts = col_parallel(x, w, out_dtype=torch.float32)
+        parts = col_parallel(x, w, out_dtype=wide(x.dtype))
     return softcap(gather_ranks(parts, w.level, -1), cfg.final_logit_softcap)
 
 

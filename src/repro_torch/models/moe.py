@@ -78,13 +78,14 @@ data: its expert weights lie whole on each card.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from contextlib import contextmanager
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoESpec
-from repro_torch.models.layers import mlp_apply
+from repro_torch.models.layers import mlp_apply, wide
 from repro_torch.models.rounding import silu
 from repro_torch.models.params import ParamDef
 from repro_torch.parallel.collectives import (
@@ -116,14 +117,39 @@ def _full_f32(t: torch.Tensor) -> None:
         raise RuntimeError("MoE f32 products run in full f32: set torch.backends.cuda.matmul.allow_tf32 = False")
 
 
+_TRACE: Optional[List[dict]] = None
+
+
+@contextmanager
+def routing_trace():
+    """Inside the block every dispatch records its routing into the list
+    it yields, one dict a dispatch in call order: "experts", the K experts
+    each row picks (rows, K); "margin", the router logits' margin between
+    its K-th and (K+1)-th pick (rows,); "dropped", its assignments over
+    capacity (a 0-d tensor). Rows are in the dispatch's order, which is
+    token order for one sequence in one process. For eager runs: a CUDA
+    graph's replay records nothing."""
+    global _TRACE
+    before, _TRACE = _TRACE, []
+    try:
+        yield _TRACE
+    finally:
+        _TRACE = before
+
+
 def _route(x2d: torch.Tensor, router_w: torch.Tensor, m: MoESpec, with_aux: bool = True):
     """x2d: (..., T, D) -> (probs (..., T, K), idx (..., T, K), aux dict);
-    with leading dims, aux is the mean of each group's losses."""
-    xf = x2d.float()
+    with leading dims, aux is the mean of each group's losses. In f32
+    (``layers.wide``)."""
+    xf = x2d.to(wide(x2d.dtype))
     _full_f32(xf)
-    logits = xf @ router_w.float()
+    logits = xf @ router_w.to(xf.dtype)
     probs_all = torch.softmax(logits, -1)
     top_p, top_i = torch.topk(probs_all, m.top_k, dim=-1)
+    if _TRACE is not None:
+        v = torch.topk(logits, min(m.top_k + 1, m.num_experts), dim=-1).values
+        _TRACE.append({"experts": top_i.reshape(-1, m.top_k).detach().clone(),
+                       "margin": (v[..., m.top_k - 1] - v[..., -1]).reshape(-1).detach().clone()})
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     if not with_aux:
         return top_p, top_i, {}
@@ -263,6 +289,8 @@ def _moe_groups(xg: torch.Tensor, p: dict, m: MoESpec, C: int, *, with_aux: bool
     y = contrib[..., 0, :]
     for j in range(1, K):
         y = y + contrib[..., j, :]
+    if _TRACE is not None:
+        _TRACE[-1]["dropped"] = (~kept).sum().detach()
     if drops is not None:
         lost = ~kept.view(G, Tg, K)
         if mask is not None:

@@ -281,19 +281,30 @@ def close_pool() -> None:
 # ---------------------------------------------------------------------------
 # The collectives
 # ---------------------------------------------------------------------------
+def _summed(t: torch.Tensor, handle) -> torch.Tensor:
+    """``t`` summed over the group into a new tensor, a bf16 one in f32 and
+    rounded once: where a train step sums across ranks (the collectives
+    under autograd and their transposes, the data group's gradient sum),
+    as the reference's compiled step sums (XLA on the CPU promotes a bf16
+    all-reduce or reduce-scatter to f32, one rounding of the whole sum;
+    NCCL's ring and gloo round after every add, which at more than two
+    ranks moves bf16 sums by an ulp). In f32 the sum itself."""
+    import torch.distributed as dist
+
+    w = t.float() if t.dtype == torch.bfloat16 else t.contiguous().clone()
+    dist.all_reduce(w, group=handle)
+    return w.to(t.dtype)
+
+
 class _AllReduce(torch.autograd.Function):
-    """All-reduce forward (into a new tensor), identity backward: the
-    reference's psum of a row-parallel product, whose every input rank
-    gets the same gradient of the sum (every model rank computes the same
-    loss)."""
+    """All-reduce forward (into a new tensor, ``_summed``), identity
+    backward: the reference's psum of a row-parallel product, whose every
+    input rank gets the same gradient of the sum (every model rank computes
+    the same loss)."""
 
     @staticmethod
     def forward(ctx, y, handle):
-        import torch.distributed as dist
-
-        y = y.clone()
-        dist.all_reduce(y, group=handle)
-        return y
+        return _summed(y, handle)
 
     @staticmethod
     def backward(ctx, g):
@@ -312,10 +323,7 @@ class _EnterModelGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.handle)
+        g = _summed(g, ctx.handle)
         note("all-reduce (backward)", nbytes(g))
         return g, None
 
@@ -521,7 +529,8 @@ class _GatherSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         group, dim, kind, leaf = ctx.conf
-        out = reduce_scatter(g, group, dim)
+        out = reduce_scatter(g.float(), group, dim).to(g.dtype) if g.dtype == torch.bfloat16 else \
+            reduce_scatter(g, group, dim)  # a bf16 gradient summed in f32, as ``_summed``
         note(kind, nbytes(out), leaf)
         return out, None, None, None, None
 
@@ -686,14 +695,18 @@ def check_replicated(tree, pool: "Pool", group: Optional[Group] = None) -> None:
 def all_reduce_leaves(leaves: Sequence[torch.Tensor], group: Group, names: Optional[Sequence[str]] = None) -> None:
     """Sum each tensor over ``group`` in place, one collective a leaf (a
     model's leaves are stacked over its layers: a handful of large
-    tensors): the data-parallel gradient sum. ``names``: the leaves', for
+    tensors): the data-parallel gradient sum, a bf16 one in f32
+    (``_summed``). ``names``: the leaves', for
     ``count_traffic(by_leaf=True)``."""
     if group.size == 1:
         return
     import torch.distributed as dist
 
     for i, t in enumerate(leaves):
-        dist.all_reduce(t, group=group.handle)
+        if t.dtype == torch.bfloat16:
+            t.copy_(_summed(t, group.handle))
+        else:
+            dist.all_reduce(t, group=group.handle)
         note("all-reduce (gradients)", nbytes(t), None if names is None else names[i])
 
 

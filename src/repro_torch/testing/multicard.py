@@ -154,7 +154,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models.model import model_param_defs
 from repro_torch.models.params import init_params, per_layer_fan_in, tree_leaves_with_path, tree_map
-from repro_torch.parallel.collectives import Pool, all_gather, checksums
+from repro_torch.parallel.collectives import Pool, all_gather, all_reduce, checksums
 from repro_torch.parallel.sharding import DEFAULT_RULES, ShardingRules, make_exec_config
 
 SCHEDULE = {3: 2, 7: 4, 13: 1, 19: 2}
@@ -165,7 +165,10 @@ PER_LAYER_FAN_IN = ("jamba-v0.1-52b",)
 QK_NORM_STD = 0.5  # a qk-norm model's drawn q_norm / k_norm (``draw_weights``)
 # f32_check's one exception to equal tokens, a TP t split's own f32 rounding: the most that split may move a logit
 # before the flip, as a share of the largest |logit| (measured up to 1.6e-3 on full-width models); the top-2
-# margin at the flip, against that gap: two logits that each move by the gap close a margin of twice it
+# margin at the flip, against that gap: two logits that each move by the gap close a margin of twice it. The
+# rule's ground: dbrx_witness's f64 evaluation of dbrx-132b's flip at TP 4 (the f32 legs' one flip; one NVIDIA
+# H100 80GB HBM3 and its host) put the f64 TP 4 and TP 1 logits 2.0e-13 of the largest |logit| apart, every token
+# routed alike, each f32 engine within 3.7e-3 of them, and the exact token at the flip the TP 4 engine's
 SPLIT_GAP_LIMIT = 1e-2
 FLIP_MARGIN_MULTIPLE = 2.0
 # an MoE model's f32 runs: 14 requests, of which the first 8 fill the slots and two each end after 5, 9 and
@@ -411,7 +414,9 @@ def f32_check(pool: Pool, inputs: dict) -> dict:
     first flip of each request the pool's logits lie within
     SPLIT_GAP_LIMIT of the largest |logit| from the one-card TP 1 engine's
     (the gap); and the one-card TP 1 logits' top-2 margin at every such
-    flip is at most FLIP_MARGIN_MULTIPLE times the gap."""
+    flip is at most FLIP_MARGIN_MULTIPLE times the gap. Such a flip is the
+    split's f32 rounding, not a fault of the split: ``dbrx_witness`` holds
+    one to an f64 evaluation of both splits."""
     cfg, dev = model_cfg(inputs), pool.device
     failures = []
     ref, iso = None, {}
@@ -783,6 +788,194 @@ def moe(pool: Pool, inputs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# an f64 witness of an f32 flip at a TP split
+# ---------------------------------------------------------------------------
+WITNESS_MODEL, WITNESS_LAYERS, WITNESS_REQUEST, WITNESS_STEPS, WITNESS_TPS = "dbrx-132b", 2, 7, 13, (1, 4)
+WITNESS_F64_RTOL = 1e-9  # f64 TP 4 against f64 TP 1, a share of the greatest |logit|
+# how far each f32 run's logits may lie from f64: the gap seen before the flip between one card's TP 4 and TP 1
+# runs (1.19e-2 against a greatest |logit| of 5.44, f32, four NVIDIA H100 80GB HBM3)
+WITNESS_F32_GAP = 1.2e-2
+
+
+def witness_run(cfg, shared: dict, period_at, n_periods: int, tokens) -> dict:
+    """The port's model over one sequence ``tokens`` (S,) in prefill
+    (attention blocks of 64, the engine's), in one process at each TP level
+    of WITNESS_TPS (its t ranks one after another on
+    the weights' device, an MoE layer in a pool of t ranks, as the one-card
+    engine at TP t), one period's weights at a time: ``shared`` holds the
+    embedding, the final norm and the head, ``period_at(p)`` period p's
+    stacked leaves (a tree of ``periods``' shape, leading dim 1). In the
+    weights' dtype on their device: f64 on the CPU runs the plain versions
+    in f64. Returns per TP level the logits (S, vocab) as f64 numpy, each
+    MoE layer's routing (the K experts each token picks, sorted, (S, K))
+    and router margin (S,), and the assignments dropped."""
+    from repro_torch.core.weight_store import WeightStore
+    from repro_torch.models.attention import live_blocks
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import decoder_layer, embed_tokens, layer_templates, layer_windows, logits_for
+    from repro_torch.models.moe import routing_trace
+    from repro_torch.parallel.sharding import gathered
+
+    one = dataclasses.replace(cfg, num_layers=len(cfg.layer_pattern))  # a period
+    defs = model_param_defs(one, make_exec_config(one, 1))
+    dev = shared["embed"].device
+    toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev).view(1, -1)
+    S = toks.shape[1]
+    pos, host = torch.arange(S, device=dev), torch.arange(S)
+    tps, block = WITNESS_TPS, 64
+    out = {t: {"routing": [], "margins": []} for t in tps}
+    h, drops = {}, {t: torch.zeros((1,), dtype=torch.int64, device=dev) for t in tps}
+    with torch.no_grad():
+        for p in range(n_periods):
+            tree = {**shared, "periods": period_at(p)}
+            for t in tps:
+                store = WeightStore(one, defs, [dev] * t, storage_tp=1)
+                bound = store.rebind(store.build(tree), t)
+                ec = make_exec_config(cfg, t)
+                if p == 0:
+                    h[t] = embed_tokens(bound, cfg, toks)
+                for lp, tmpl, w in zip(bound["layers"], layer_templates(one), layer_windows(one)):
+                    with routing_trace() as trace:
+                        h[t], _, _ = decoder_layer(h[t], gathered(lp), tmpl, w, cfg=cfg, ec=ec, mode="prefill",
+                                                   positions=pos, live=live_blocks(host, w, block, block),
+                                                   block_q=block, block_k=block, pool=t, moe_drops=drops[t])
+                    if trace:
+                        idx, margin = torch.cat([d["experts"] for d in trace]), torch.cat([d["margin"] for d in trace])
+                        if idx.shape[0] != S:
+                            raise ValueError(f"{idx.shape[0]} routed rows for {S} tokens")
+                        out[t]["routing"].append(idx.sort(-1).values.cpu().numpy())
+                        out[t]["margins"].append(margin.double().cpu().numpy())
+                if p == n_periods - 1:
+                    hn = rmsnorm(h[t], bound["final_norm"], cfg.norm_eps)
+                    out[t]["logits"] = logits_for(bound, cfg, hn)[0, :, :cfg.vocab_size].double().cpu().numpy()
+                del store, bound
+            del tree
+    for t in tps:
+        out[t]["dropped"] = int(drops[t])
+    return out
+
+
+def _host_f64(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", torch.float64)
+
+
+def witness_verdict(f64: dict, f32: dict, engine: dict, prompt_len: int, tokens: dict) -> dict:
+    """The witness's rule (``dbrx_witness``) over its runs: ``f64`` and
+    ``f32`` (``witness_run`` of the same sequence on the host in f64 and on
+    the card in f32), ``engine`` ({t: the one-card engine's logits of the
+    request, one row a step}) and ``tokens`` ({t: its tokens}). The rows
+    of step k are the sequence's position prompt_len - 1 + k."""
+    n = len(engine[1])
+    rows = np.arange(prompt_len - 1, prompt_len - 1 + n)
+    l1, l4 = f64[1]["logits"][rows], f64[4]["logits"][rows]
+    scale = float(np.abs(l1).max())
+    rec = {"max_abs_logit": scale, "f64_tp4_vs_tp1": float(np.abs(l4 - l1).max()) / scale,
+           "f64_routing_equal": all(np.array_equal(a, b) for a, b in zip(f64[1]["routing"], f64[4]["routing"])),
+           "f64_dropped": {t: f64[t]["dropped"] for t in f64},
+           "f32_engine_vs_f64": {t: float(np.abs(engine[t] - l1).max()) for t in engine},
+           "f32_prefill_vs_f64": {t: float(np.abs(f32[t]["logits"][rows] - l1).max()) for t in f32},
+           "f32_prefill_vs_engine": {t: float(np.abs(f32[t]["logits"][rows] - engine[t]).max()) for t in engine}}
+    rec["f32_rounding"] = (rec["f64_tp4_vs_tp1"] <= WITNESS_F64_RTOL and rec["f64_routing_equal"]
+                           and max(rec["f32_engine_vs_f64"].values()) <= WITNESS_F32_GAP)
+    flip = next((k for k, (a, b) in enumerate(zip(tokens[1], tokens[4])) if a != b), None)
+    rec["flip_step"] = flip
+    if flip is not None and flip < n:
+        a, b = tokens[1][flip], tokens[4][flip]
+        top = np.argsort(l1[flip])[-2:][::-1]
+        rec["at_flip"] = {"tp1_token": a, "tp4_token": b, "f64_margin_tp1_minus_tp4": float(l1[flip][a] - l1[flip][b]),
+                          "f64_top2": [int(top[0]), int(top[1])],
+                          "f64_top2_margin": float(l1[flip][top[0]] - l1[flip][top[1]]),
+                          "f64_side": "TP 1" if l1[flip][a] > l1[flip][b] else "TP 4",
+                          "f32_engine_margin_tp1_minus_tp4": {t: float(engine[t][flip][a] - engine[t][flip][b])
+                                                              for t in engine}}
+    # the tokens whose routing reaches the logits up to the flip: every position up to the flip's
+    last = prompt_len - 1 + (flip if flip is not None else n - 1)
+    differ = []
+    for layer, (r1, r4) in enumerate(zip(f32[1]["routing"], f32[4]["routing"])):
+        for pos in np.nonzero((r1[:last + 1] != r4[:last + 1]).any(-1))[0]:
+            differ.append({"layer": layer, "position": int(pos), "tp1": r1[pos].tolist(), "tp4": r4[pos].tolist(),
+                           "f32_router_margin": min(float(f32[1]["margins"][layer][pos]),
+                                                    float(f32[4]["margins"][layer][pos])),
+                           "f64_router_margin": float(f64[1]["margins"][layer][pos])})
+    rec["f32_routing_differs_before_flip"] = differ
+    rec["f32_least_router_margin"] = {t: float(min(m[:last + 1].min() for m in f32[t]["margins"])) for t in f32}
+    rec["f64_least_router_margin"] = float(min(m[:last + 1].min() for m in f64[1]["margins"]))
+    return rec
+
+
+def dbrx_witness(pool: Pool, inputs: dict) -> dict:
+    """An f64 witness of dbrx-132b's f32 flip at TP 4 (rank 0; the other
+    ranks wait). dbrx-132b at full width, WITNESS_LAYERS layers, capacity
+    factor 8.0, drawn by ``draw_weights`` on card 0 in f32:
+
+    1. the one-card engine in f32 at TP 1 and at TP 4, 8 slots each, serves
+       MOE_NEW_TOKENS' 14 requests, recording request WITNESS_REQUEST's
+       logits at every step; and on the card in f32 the same weights run
+       that request's prompt and the first WITNESS_STEPS tokens TP 1 gave
+       as one prefill at TP 1 and TP 4 (``witness_run``), recording each
+       layer's routing (the engine replays CUDA graphs, which record none);
+    2. the same draws, copied to the host in f64 one layer at a time,
+       run that sequence through the port's model on the CPU at TP 1 and
+       TP 4 (every rank in this process, the plain versions in f64): the
+       exact logits at each of those positions, and the routing.
+
+    The verdict (``witness_verdict``): f32 rounding if (a) the f64 TP 4
+    logits lie within WITNESS_F64_RTOL of the greatest |logit| from the f64
+    TP 1 logits at every step, (b) both f64 runs route every token to the
+    same experts in every layer, and (c) each f32 engine's logits lie
+    within WITNESS_F32_GAP of the f64 ones at every step. Then it records
+    which f32 run's token at the flip is on the f64 side, the f64 margin
+    there, and whether the f32 runs at TP 1 and TP 4 route any token up to
+    the flip differently, at what router margin. Otherwise a fault in the
+    split, which fails the leg. No assignment may drop (f32 engines and
+    f64 runs)."""
+    if pool.rank != 0:
+        pool.barrier()
+        return {"failures": []}
+    cfg, dev = model_cfg({"model": WITNESS_MODEL, "layers": WITNESS_LAYERS, "capacity_factor": 8.0}), pool.device
+    failures = []
+    params = draw_weights(cfg, dev, torch.float32)
+    t0 = time.perf_counter()
+    runs = {t: one_card(cfg, params, dev, t, 8, inputs) for t in WITNESS_TPS}
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "capacity_factor": cfg.moe.capacity_factor,
+           "request": WITNESS_REQUEST, "engine_s": time.perf_counter() - t0,
+           "engine_dropped": {t: r["moe_dropped"] for t, r in runs.items()}}
+    tokens = {t: r["trajectories"][WITNESS_REQUEST] for t, r in runs.items()}
+    engine = {t: r["logits"][WITNESS_REQUEST][:WITNESS_STEPS + 1] for t, r in runs.items()}
+    rec["tokens"] = tokens
+    prompt = requests(cfg.vocab_size, new_tokens=_new_tokens(cfg))[WITNESS_REQUEST].prompt
+    seq = np.concatenate([prompt, np.asarray(tokens[1][:WITNESS_STEPS], np.int32)])
+    del runs
+    _free()
+    shared = {k: v for k, v in params.items() if k != "periods"}
+    t0 = time.perf_counter()
+    f32 = witness_run(cfg, shared, lambda p: tree_map(lambda x: x[p:p + 1], params["periods"]), cfg.num_periods, seq)
+    rec["f32_prefill_s"] = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)  # the spawned ranks run on one thread
+    try:
+        t0 = time.perf_counter()
+        host = {k: _host_f64(v) for k, v in shared.items()}
+        f64 = witness_run(cfg, host, lambda p: tree_map(lambda x: _host_f64(x[p:p + 1]), params["periods"]),
+                          cfg.num_periods, seq)
+        rec.update(f64_s=time.perf_counter() - t0, host_threads=torch.get_num_threads())
+    finally:
+        torch.set_num_threads(threads)
+    del params, shared, host
+    _free()
+    rec.update(witness_verdict(f64, f32, engine, len(prompt), tokens))
+    rec["verdict"] = "f32 rounding" if rec["f32_rounding"] else "a fault in the split"
+    if any(n for d in rec["engine_dropped"].values() for n in d.values()) or any(rec["f64_dropped"].values()):
+        failures.append(f"assignments dropped at capacity factor 8.0: {rec['engine_dropped']} {rec['f64_dropped']}")
+    if not rec["f32_rounding"]:
+        failures.append(f"dbrx_witness: {rec['verdict']}: f64 TP 4 vs TP 1 {rec['f64_tp4_vs_tp1']}, routing equal "
+                        f"{rec['f64_routing_equal']}, f32 engines vs f64 {rec['f32_engine_vs_f64']}")
+    rec["failures"] = failures
+    pool.barrier()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # training across cards
 # ---------------------------------------------------------------------------
 TRAIN_MODEL = "h2o-danube-1.8b"
@@ -865,7 +1058,7 @@ def _collective_share(pool: Pool, run) -> dict:
 def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[dict] = None,
                    check_loss_falls: bool = False, held: tuple = (1, 1), measure: bool = True,
                    rules: ShardingRules = DEFAULT_RULES, keep: Optional[dict] = None,
-                   dtype: torch.dtype = torch.float32) -> dict:
+                   dtype: torch.dtype = torch.float32, count_drops: bool = False) -> dict:
     """``steps`` steps of ``cfg`` across the pool at (data N/tp, model tp)
     from ``_draw``'s weights (``multidev_checks.pool_train``, the
     replication checked after every step): losses, step seconds (the first
@@ -881,7 +1074,10 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
     step's (``make_train_step``'s); ``keep``, a dict, gets this rank's
     parameters after the steps on the host ("params", by path) and the
     step's layout ("layout"); ``dtype``: the parameters' (the moments stay
-    f32)."""
+    f32). ``count_drops``: then one more batch's gradients with every MoE
+    dispatch traced (``moe.routing_trace``): the pool's assignments dropped
+    over capacity in each MoE layer's forward (its recompute in backward
+    dispatches again, alike) against the batch's assignments."""
     from repro_torch.kernels.tp_shard_matmul.ops import tp_shard_matmul
     from repro_torch.parallel.collectives import count_traffic
     from repro_torch.testing.multidev_checks import held_to, pool_train, state_bytes, within
@@ -931,10 +1127,34 @@ def pool_train_leg(pool: Pool, cfg, tcfg, tp: int, steps: int, ones: Optional[di
             float(step(mine, opt, ds.at(steps))[2]["loss"])
         rec["collectives_per_step"] = {k: {"calls": c, "bytes": b} for k, (c, b) in traffic.items()}
         rec["collective_share"] = _collective_share(pool, lambda: float(step(mine, opt, ds.at(steps + 1))[2]["loss"]))
+    if count_drops:
+        rec["moe_dropped"] = moe_drops_of_a_step(pool, cfg, step, ds.at(steps + 2))
     rec["failures"] = failures
     del mine, opt, step
     _free()
     return rec
+
+
+def moe_drops_of_a_step(pool: Pool, cfg, step, batch) -> dict:
+    """One batch's gradients (``step.gradients``, no update) with every MoE
+    dispatch traced: the assignments dropped over capacity in the forward
+    (the first dispatch of each MoE layer; the recompute in backward
+    dispatches again, alike), summed over the pool, against the batch's
+    assignments. For a layout where each rank dispatches its own block
+    (the sharded path: S % t == 0 and B % dp == 0)."""
+    from repro_torch.models.model import layer_templates
+    from repro_torch.models.moe import routing_trace
+
+    n = sum(t.ffn == "moe" for t in layer_templates(cfg))
+    with routing_trace() as trace:
+        step.gradients(batch)
+    dropped = torch.stack([d["dropped"] for d in trace[:n]]).to(torch.float64)
+    if pool.world > 1:
+        all_reduce(dropped, pool.world_group)
+    B, S = batch["targets"].shape
+    each = B * S * cfg.moe.top_k
+    return {"per_layer": [int(x) for x in dropped.tolist()], "assignments_per_layer": each,
+            "share": float(dropped.sum()) / (n * each)}
 
 
 def train_f32(pool: Pool, inputs: dict) -> dict:
@@ -1170,8 +1390,10 @@ def rules_step(pool: Pool, cfg, tcfg, tp: int) -> dict:
 # data group, sequence parallelism at period boundaries) against the same pool under DEFAULT_RULES
 TRAIN_RULES_MOE_LAYERS, TRAIN_RULES_DEEP_LAYERS, TRAIN_RULES_DEEP_TP = 4, 16, 1
 # f32 parameters, gradients and moments a card under the train rules (a reckoning: 16 bytes a parameter over
-# the 4 cards): llama3-8b (8.03e9 parameters) at (2, 2), moonshot at 16 layers (9.80e9) at (4, 1)
-RULES_RECKONED_GB = {"llama3-8b": 32.1, "moonshot-v1-16b-a3b": 39.2}
+# the 4 cards): llama3-8b (8.03e9 parameters) at (2, 2), moonshot at 16 layers (9.80e9) at (4, 1); dbrx-132b at
+# its deep part's 4 layers (3.26e9 a layer, 1.23e9 of embedding and head) at (2, 2), plus one layer gathered
+# over the data group at use (its model half, 6.5 GB)
+RULES_RECKONED_GB = {"llama3-8b": 32.1, "moonshot-v1-16b-a3b": 39.2, "dbrx-132b": 63.6}
 
 
 def _rules_distance(pool: Pool, got: dict, want: dict, start: dict, layout) -> dict:
@@ -1203,22 +1425,26 @@ def _rules_distance(pool: Pool, got: dict, want: dict, start: dict, layout) -> d
     return {"param_abs": float(peak[0]), "update_rel": float(rel[i]), "update_rel_leaf": "/".join(list(got)[i])}
 
 
-def rules_against_default(pool: Pool, cfg, tcfg, tp: int, steps: int, check_loss_falls: bool = False) -> dict:
+def rules_against_default(pool: Pool, cfg, tcfg, tp: int, steps: int, check_loss_falls: bool = False,
+                          count_drops: bool = False) -> dict:
     """``cfg`` across the pool at (data N/tp, model tp) under DEFAULT_RULES
-    and then under the train rules (``pool_train_leg`` each, measured),
-    from ``_draw``'s weights: the rules' losses within LOSS_RTOL of the
-    DEFAULT run's, each leaf within UPDATE_RTOL of its update
-    (``_rules_distance``), and its peak a card below the DEFAULT run's."""
+    and then under the train rules (``pool_train_leg`` each, measured,
+    ``count_drops`` passed on), from ``_draw``'s weights: the rules' losses
+    within LOSS_RTOL of the DEFAULT run's, each leaf within UPDATE_RTOL of
+    its update (``_rules_distance``), and its peak a card below the
+    DEFAULT run's."""
     from repro_torch.parallel.sharding import rules_for
     from repro_torch.testing.multidev_checks import LOSS_RTOL, UPDATE_RTOL
     from repro_torch.training.train_step import train_params
 
     rules, base, mine = rules_for(cfg, "train", TRAIN_SEQ, TRAIN_BATCH), {}, {}
-    default = pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=check_loss_falls, keep=base)
+    default = pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=check_loss_falls, keep=base,
+                             count_drops=count_drops)
     start = {path: t.detach().cpu() for path, t in tree_leaves_with_path(
         train_params(cfg, make_exec_config(cfg, tp), pool, None, _draw(cfg, pool.device), rules))}
     _free()
-    rec = pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=check_loss_falls, rules=rules, keep=mine)
+    rec = pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=check_loss_falls, rules=rules, keep=mine,
+                         count_drops=count_drops)
     dist = _rules_distance(pool, mine["params"], base["params"], start, mine["layout"])
     dist["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], default["losses"]))
     rec.update(default_rules=default, against_default=dist, rules={k: v for k, v in rules.table.items()
@@ -1269,6 +1495,40 @@ def train_rules_moe(pool: Pool, inputs: dict) -> dict:
     return {"held": held, "deep": deep, "failures": held["failures"] + deep["failures"]}
 
 
+DBRX = "dbrx-132b"
+# dbrx-132b under the train rules at (data N/2, model 2): the held part (DEFAULT_RULES against the rules) and the
+# deep part, which DEFAULT_RULES cannot hold on an 80 GB card (~85 GB reckoned at 4 layers)
+TRAIN_RULES_DBRX_LAYERS, TRAIN_RULES_DBRX_DEEP_LAYERS = 2, 4
+PEAK_LIMIT_GB = 80.0  # an H100's memory
+
+
+def train_rules_dbrx(pool: Pool, inputs: dict) -> dict:
+    """dbrx-132b in f32 at its published capacity factor 1.25, 16 experts,
+    top 4, at (data N/2, model 2), SyntheticDataset(8, 512): at
+    TRAIN_RULES_DBRX_LAYERS layers, TRAIN_F32_STEPS steps of
+    check_train_step's optimizer under DEFAULT_RULES and then under the
+    train rules (``rules_against_default``); then at
+    TRAIN_RULES_DBRX_DEEP_LAYERS layers under the train rules only,
+    TRAIN_MOE_DEEP_STEPS steps at lr TRAIN_MOE_DEEP_LR (warm-up 5): finite
+    losses falling, the replication, the peak under PEAK_LIMIT_GB beside
+    the reckoning. Each part reports step seconds, the weight gathers and
+    reduce-scatters a step (``collectives_per_step``) and the MoE's
+    assignments dropped in one step's forward."""
+    from repro_torch.parallel.sharding import rules_for
+
+    cfg, tp = get_config(DBRX), 2 if pool.world % 2 == 0 else 1
+    held_cfg = dataclasses.replace(cfg, num_layers=TRAIN_RULES_DBRX_LAYERS)
+    held = rules_against_default(pool, held_cfg, _train_tcfg(), tp, TRAIN_F32_STEPS, count_drops=True)
+    deep_cfg = dataclasses.replace(cfg, num_layers=TRAIN_RULES_DBRX_DEEP_LAYERS)
+    deep = pool_train_leg(pool, deep_cfg, _train_tcfg(lr=TRAIN_MOE_DEEP_LR, warmup=5), tp, TRAIN_MOE_DEEP_STEPS,
+                          check_loss_falls=True, rules=rules_for(deep_cfg, "train", TRAIN_SEQ, TRAIN_BATCH),
+                          count_drops=True)
+    deep["reckoned_gb_with_a_gathered_layer"] = RULES_RECKONED_GB[DBRX]
+    if pool.device.type == "cuda" and not deep["peak_gb"] < PEAK_LIMIT_GB:
+        deep["failures"].append(f"{DBRX}: peak {deep['peak_gb']:.2f} GB a card at {deep_cfg.num_layers} layers")
+    return {"held": held, "deep": deep, "failures": held["failures"] + deep["failures"]}
+
+
 PHASE16_STEPS = 3  # the MoE and Mamba models' steps in phase 16
 PHASE16_PIPE_LAYERS = 2  # llama3-8b's layers a stage in phase 16's pipeline
 
@@ -1279,24 +1539,67 @@ PHASE16_PIPE_LAYERS = 2  # llama3-8b's layers a stage in phase 16's pipeline
 BF16_VS_F32_RTOL = 2e-2  # bf16 against f32 losses over 10 steps (a bf16 ulp is 7.8e-3 relative)
 
 
-def train_bf16_llama(pool: Pool, inputs: dict) -> dict:
-    """llama3-8b (``inputs["layers"]`` cuts its depth) at (data N/2, model
-    2), TRAIN_LLAMA_STEPS steps of phase 12's optimizer: in f32, then from
-    the same seed's weights in bf16 with f32 moments (the reference's
-    default) on the same batches. Reports the bf16 losses against the f32
-    ones (held within BF16_VS_F32_RTOL), each run's peak against its
-    reckoning, step seconds; the loss falls in both."""
-    cfg = model_cfg({"layers": inputs.get("layers")})
-    tcfg, tp = _train_tcfg(lr=3e-4, warmup=5), 2 if pool.world % 2 == 0 else 1
-    rec = {"f32": pool_train_leg(pool, cfg, tcfg, tp, TRAIN_LLAMA_STEPS, check_loss_falls=True, measure=False)}
-    rec["bf16"] = pool_train_leg(pool, cfg, tcfg, tp, TRAIN_LLAMA_STEPS, check_loss_falls=True, measure=False,
+def bf16_against_f32(pool: Pool, cfg, tcfg, tp: int, steps: int, measure: bool = False) -> dict:
+    """``cfg`` at (data N/tp, model tp), ``steps`` steps of ``tcfg``
+    (``pool_train_leg``, ``measure`` passed on): in f32, then from the same
+    seed's weights in bf16 with f32 moments (the reference's default) on
+    the same batches. The bf16 losses held within BF16_VS_F32_RTOL of the
+    f32 ones; the loss falls in both."""
+    rec = {"f32": pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=True, measure=measure)}
+    rec["bf16"] = pool_train_leg(pool, cfg, tcfg, tp, steps, check_loss_falls=True, measure=measure,
                                  dtype=torch.bfloat16)
     rel = [abs(a - b) / abs(b) for a, b in zip(rec["bf16"]["losses"], rec["f32"]["losses"])]
     rec["loss_rel_to_f32"] = rel
     rec["failures"] = rec["f32"]["failures"] + rec["bf16"]["failures"]
     if not max(rel) < BF16_VS_F32_RTOL:
-        rec["failures"].append(f"bf16 losses against f32: {rel}")
+        rec["failures"].append(f"{cfg.name}: bf16 losses against f32: {rel}")
     return rec
+
+
+def train_bf16_llama(pool: Pool, inputs: dict) -> dict:
+    """llama3-8b (``inputs["layers"]`` cuts its depth) at (data N/2, model
+    2), TRAIN_LLAMA_STEPS steps of phase 12's optimizer, f32 and then bf16
+    (``bf16_against_f32``); each run's peak against its reckoning, step
+    seconds."""
+    cfg = model_cfg({"layers": inputs.get("layers")})
+    return bf16_against_f32(pool, cfg, _train_tcfg(lr=3e-4, warmup=5), 2 if pool.world % 2 == 0 else 1,
+                            TRAIN_LLAMA_STEPS)
+
+
+def train_bf16_moe(pool: Pool, inputs: dict) -> dict:
+    """moonshot-v1-16b-a3b at train_moe's layout and depth (TRAIN_MOE_LAYERS
+    layers, (data N/2, model 2), the published capacity factor 1.25),
+    TRAIN_MOE_DEEP_STEPS steps at lr TRAIN_MOE_DEEP_LR (warm-up 5; the
+    rate at which its loss falls within 20 steps), f32 and then bf16
+    (``bf16_against_f32``), each measured: step seconds, peak against the
+    reckoning, the NCCL share by kind (the bf16 all-to-all), the kernel's
+    launches a step."""
+    cfg = dataclasses.replace(get_config(MOON), num_layers=TRAIN_MOE_LAYERS)
+    return bf16_against_f32(pool, cfg, _train_tcfg(lr=TRAIN_MOE_DEEP_LR, warmup=5), 2 if pool.world % 2 == 0 else 1,
+                            TRAIN_MOE_DEEP_STEPS, measure=True)
+
+
+def train_bf16_jamba(pool: Pool, inputs: dict) -> dict:
+    """jamba-v0.1-52b at train_jamba's layout and depth (one period,
+    TRAIN_JAMBA_LAYERS layers at their own fan-in, (data 1, model N)) and
+    optimizer (TRAIN_LLAMA_STEPS steps, lr 3e-4, warm-up 5), f32 and then
+    bf16 (``bf16_against_f32``), each measured as train_bf16_moe."""
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=TRAIN_JAMBA_LAYERS)
+    return bf16_against_f32(pool, cfg, _train_tcfg(lr=3e-4, warmup=5), pool.world, TRAIN_LLAMA_STEPS, measure=True)
+
+
+# mamba2's bf16 leg takes train_llama's and train_jamba's rate over more steps: at lr 1e-3 (warm-up 5) its loss
+# stayed flat for 13 steps and then rose, in f32 and bf16 (``--nproc 1``, one NVIDIA H100 80GB HBM3)
+TRAIN_BF16_MAMBA2_STEPS, TRAIN_BF16_MAMBA2_LR = 30, 3e-4
+
+
+def train_bf16_mamba2(pool: Pool, inputs: dict) -> dict:
+    """mamba2-2.7b at train_mamba2's layout and depth (full, (data N/2,
+    model 2)), TRAIN_BF16_MAMBA2_STEPS steps at lr TRAIN_BF16_MAMBA2_LR
+    (warm-up 5), f32 and then bf16 (``bf16_against_f32``), each measured as
+    train_bf16_moe."""
+    return bf16_against_f32(pool, get_config(MAMBA2), _train_tcfg(lr=TRAIN_BF16_MAMBA2_LR, warmup=5),
+                            2 if pool.world % 2 == 0 else 1, TRAIN_BF16_MAMBA2_STEPS, measure=True)
 
 
 PIPE_MICRO, PIPE_ROWS, PIPE_SEQ, PIPE_STEPS = 8, 1, 512, 4
@@ -1514,7 +1817,9 @@ LEGS = {"f32": llama_f32, "bf16": bf16_timings, "pages": pages, "moe": moe,
         "train_f32": train_f32, "train_llama": train_llama,
         "train_moe": train_moe, "train_jamba": train_jamba, "train_mamba2": train_mamba2,
         "train_rules_llama": train_rules_llama, "train_rules_moe": train_rules_moe,
-        "train_bf16_llama": train_bf16_llama, "pipeline_llama": pipeline_llama, "profile_pool": profile_pool}
+        "train_bf16_llama": train_bf16_llama, "pipeline_llama": pipeline_llama, "profile_pool": profile_pool,
+        "dbrx_witness": dbrx_witness, "train_bf16_moe": train_bf16_moe, "train_bf16_jamba": train_bf16_jamba,
+        "train_bf16_mamba2": train_bf16_mamba2, "train_rules_dbrx": train_rules_dbrx}
 
 
 def legs(pool: Pool, inputs: dict) -> dict:

@@ -1037,13 +1037,23 @@ def check_train_moe(pool: Pool, inputs: Optional[dict] = None) -> dict:
 
 
 # check_train_rules' cases: name -> (model, TP, steps, weights at each layer's own fan-in); at world 4 the mesh
-# is (data 4/TP, model TP), the rules rules_for(cfg, "train", RULES_SEQ, RULES_BATCH)
+# is (data 4/TP, model TP), the rules rules_for(cfg, "train", RULES_SEQ, RULES_BATCH), the config
+# ``train_case_cfg``'s
 TRAIN_RULES_CASES = {
     "danube_2x2": ("h2o-danube-1.8b", 2, 3, False),
     "moonshot_2x2": ("moonshot-v1-16b-a3b", 2, 3, False),
     "moonshot_4x1": ("moonshot-v1-16b-a3b", 1, 3, False),
     "jamba_2x2": ("jamba-v0.1-52b", 2, 1, True),  # its 8-layer period, the Mamba leaves on "embed"
+    "dbrx_2x2": ("dbrx-132b", 2, 3, False),  # the paper-scale MoE the rules' expert-weight FSDP was written for
 }
+# the fields over reduced() a train case's model takes (a config of either package, ``with_fields``): dbrx-132b's
+# published 16 experts, top 4, and 6 query heads a KV head over reduced()'s 2 KV heads
+TRAIN_FIELDS = {"dbrx-132b": {"num_heads": 12, "moe": {"num_experts": 16, "top_k": 4}}}
+
+
+def train_case_cfg(model: str) -> ModelConfig:
+    """A train case's model: ``reduced()`` with its TRAIN_FIELDS."""
+    return with_fields(reduced(get_config(model)), TRAIN_FIELDS.get(model, {}))
 RULES_BATCH, RULES_SEQ = 4, 32
 PRESETS_CASE, ELASTIC_CASE, VARIANTS_CASE = "moonshot_2x2", "danube_2x2", "danube_2x2"
 TRAIN_PRESETS = ("no-fsdp", "zero-off", "fsdp-pod")  # the presets a train step takes (rules_presets.preset)
@@ -1223,7 +1233,7 @@ def check_train_rules(pool: Pool, inputs: Optional[dict] = None) -> dict:
     summary, arrays = {}, {}
     for name in inputs.get("cases", list(TRAIN_RULES_CASES)):
         model, tp, steps, own = TRAIN_RULES_CASES[name]
-        cfg = reduced(get_config(model))
+        cfg = train_case_cfg(model)
         defs = model_param_defs(cfg, make_exec_config(cfg, tp))
         if name in inputs.get("params", {}):
             params0 = to_torch(inputs["params"][name], dev)
@@ -1515,8 +1525,15 @@ def _layer_grads(pool: Pool) -> dict:
     return errs
 
 
-# check_train_bf16's cases: name -> (model, TP, steps); at world 4 the mesh is (data 4/TP, model TP)
-TRAIN_BF16_CASES = {"danube_2x2": ("h2o-danube-1.8b", 2, 3)}
+# check_train_bf16's cases: name -> (model, TP, steps); at world 4 the mesh is (data 4/TP, model TP). Beyond the
+# dense layers, the MoE's sharded path and its decode path's psum (moonshot at (2, 2)), its bf16 all-to-all over 4
+# ranks (1, 4), the aux losses' pmean, and Mamba's shared reductions (jamba: Mamba-1 and MoE; mamba2)
+TRAIN_BF16_CASES = {"danube_2x2": ("h2o-danube-1.8b", 2, 3),
+                    "moonshot_2x2": ("moonshot-v1-16b-a3b", 2, 3),
+                    "moonshot_1x4": ("moonshot-v1-16b-a3b", 4, 3),
+                    "jamba_2x2": ("jamba-v0.1-52b", 2, 3),
+                    "mamba2_2x2": ("mamba2-2.7b", 2, 3)}
+BF16_OWN_FAN_IN = ("jamba-v0.1-52b",)  # drawn at each layer's own fan-in (TRAIN_MOE_CASES' jamba_2x2)
 
 
 def check_train_bf16(pool: Pool, inputs: Optional[dict] = None) -> dict:
@@ -1524,14 +1541,16 @@ def check_train_bf16(pool: Pool, inputs: Optional[dict] = None) -> dict:
     reference's ``AdamWConfig.dtype``), each case of TRAIN_BF16_CASES,
     reduced config at (data N/TP, model TP) under DEFAULT_RULES,
     check_train_moe's optimizer and batches: the gradients of batch 0
-    (bf16, summed over the data group in bf16 as the reference's psum of
-    the parameter-dtype gradient), then the case's steps (the ZeRO-1
+    (bf16, summed over the data group in f32 and rounded once, as the
+    reference's compiled psum of the parameter-dtype gradient; every bf16
+    sum across ranks so, ``collectives._summed``), then the case's steps (the ZeRO-1
     slices gathered in bf16), the replication checked after every step.
     Weights: ``inputs["params"][case]`` (the reference's bf16 values as
     f32 arrays), else seed 0 on this rank's device, cast to bf16. Rank 0's
     arrays: each case's gathered gradients, losses and parameters, as f32;
     a caller holds them to the reference's bf16 mesh step."""
     from repro_torch.checkpoint.convert import to_numpy, to_torch
+    from repro_torch.models.params import per_layer_fan_in
     from repro_torch.training.train_step import gather_params
 
     inputs = inputs or {}
@@ -1544,6 +1563,7 @@ def check_train_bf16(pool: Pool, inputs: Optional[dict] = None) -> dict:
             params0 = to_torch(inputs["params"][name], dev, torch.bfloat16)
         else:
             defs = model_param_defs(cfg, make_exec_config(cfg, tp))
+            defs = per_layer_fan_in(defs) if model in BF16_OWN_FAN_IN else defs
             params0 = init_params(defs, torch.Generator(dev).manual_seed(0), torch.bfloat16)
         ds = SyntheticDataset(cfg, batch=4, seq=32)
         step, mine, opt = pool_step(pool, cfg, params0, tcfg, tp)

@@ -14,8 +14,9 @@ that mesh. Both start together.
 The case (``multidev_checks.TRAIN_BF16_CASES``): reduced h2o-danube-1.8b
 at (data 2, model 2), three steps, lr 1e-3, warm-up 2,
 SyntheticDataset(4, 32), chunks and blocks of 16. What it holds: the
-gradients of batch 0 summed over the data group in bf16 (the reference's
-psum of the parameter-dtype gradient), the ZeRO-1 slices gathered in bf16,
+gradients of batch 0 summed over the data group (the reference's psum of
+the parameter-dtype gradient, in f32 and rounded once to bf16 as XLA
+compiles it), the ZeRO-1 slices gathered in bf16,
 and the rounding points of a bf16 train step (``models.rounding``) across
 processes.
 
@@ -128,7 +129,7 @@ def run_both(tmp: Path):
     with open(tmp / "weights.pkl", "wb") as f:
         pickle.dump(weights, f)
     with open(tmp / "in.pkl", "wb") as f:
-        pickle.dump({"train_bf16": {"params": {CASE: weights}}}, f)
+        pickle.dump({"train_bf16": {"params": {CASE: weights}, "cases": [CASE]}}, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = {
         "reference": subprocess.Popen(

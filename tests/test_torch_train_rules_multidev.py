@@ -21,8 +21,11 @@ The cases (``multidev_checks.TRAIN_RULES_CASES``): reduced h2o-danube-1.8b
 at (data 2, model 2), reduced moonshot-v1-16b-a3b at (2, 2) and (4, 1),
 three steps each; reduced jamba-v0.1-52b at (2, 2), one step on weights
 drawn at each layer's own fan-in (its 8-layer period, the Mamba
-projections on ``embed``). lr 1e-3, warm-up 2, SyntheticDataset(4, 32),
-chunks and blocks of 16.
+projections on ``embed``); reduced dbrx-132b at (2, 2), three steps, at its
+published 16 experts, top 4 and 6 query heads a KV head
+(``multidev_checks.TRAIN_FIELDS``, on both packages' configs), the MoE the
+rules' expert-weight FSDP was written for. lr 1e-3, warm-up 2,
+SyntheticDataset(4, 32), chunks and blocks of 16.
 
 Held against the reference's mesh, with test_torch_train_moe_multidev.py's
 tolerances: every leaf's gradient of batch 0 within GRAD_TOL of its greatest
@@ -68,23 +71,29 @@ from repro_torch.launch.rules_presets import preset  # noqa: E402
 from repro_torch.models.params import tree_leaves_with_path  # noqa: E402
 from repro_torch.parallel.sharding import DEFAULT_RULES, check_train_rules, make_exec_config  # noqa: E402
 from repro_torch.testing.multidev_checks import (  # noqa: E402
-    GRAD_TOL, LOSS_RTOL, PARAM_TOL, RULES_BATCH, RULES_SEQ, RULES_TOL, RULES_UPDATE_RTOL, TRAIN_RULES_CASES,
-    VARIANTS_CASE, _train_cfg, train_rules, variant_rtol,
+    GRAD_TOL, LOSS_RTOL, PARAM_TOL, RULES_BATCH, RULES_SEQ, RULES_TOL, RULES_UPDATE_RTOL, TRAIN_FIELDS,
+    TRAIN_RULES_CASES, VARIANTS_CASE, _train_cfg, train_case_cfg, train_rules, variant_rtol, with_fields,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
 N_POOL = 4
 # the most parameter elements a case may hold outside PARAM_TOL, each one whose step-1 gradient lies within the
 # gradient tolerance of zero (measured on this CPU: 1 of jamba, as under DEFAULT_RULES in
-# test_torch_train_moe_multidev.py; none elsewhere); about twice that
-UNSIGNED_OFF = {"jamba_2x2": 2}
+# test_torch_train_moe_multidev.py, and 1 of dbrx; none elsewhere); about twice that
+UNSIGNED_OFF = {"jamba_2x2": 2, "dbrx_2x2": 2}
+
+
+def _jax_cfg(model: str):
+    """The reference's config of a case: reduced() with the case's
+    TRAIN_FIELDS, as ``train_case_cfg`` gives the port's."""
+    return with_fields(j_reduced(j_get_config(model)), TRAIN_FIELDS.get(model, {}))
 
 
 def _jax_params(case: str) -> dict:
     """The reference's weights of a case, numpy; at each stacked leaf's own
     fan-in where the case says so (test_torch_training.py's rule)."""
     model, tp, _, own = TRAIN_RULES_CASES[case]
-    jcfg = j_reduced(j_get_config(model))
+    jcfg = _jax_cfg(model)
     defs = j_param_defs(jcfg, j_make_exec_config(jcfg, tp))
     if own:
         rule = (lambda d: replace(d, scale=d.shape[-2] ** -0.5)
@@ -112,7 +121,7 @@ def _reference(weights: str, out: str) -> None:
         params = pickle.load(f)
     res = {}
     for case, (model, tp, steps, _) in TRAIN_RULES_CASES.items():
-        jcfg = j_reduced(j_get_config(model))
+        jcfg = _jax_cfg(model)
         ec = j_make_exec_config(jcfg, tp)
         rules = j_rules_for(jcfg, "train", RULES_SEQ, RULES_BATCH)
         mesh = Mesh(np.array(jax.devices()[:N_POOL]).reshape(N_POOL // tp, tp), ("data", "model"))
@@ -238,7 +247,7 @@ def test_resident_bytes_equal_rules_local_shapes(case, runs):
     ZeRO split where the rules shard over data."""
     _, summaries, _ = runs
     model, tp, _, _ = TRAIN_RULES_CASES[case]
-    cfg = reduced(get_config(model))
+    cfg = train_case_cfg(model)
     for s in summaries:
         rec = s[case]
         assert rec["mesh"] == {"data": N_POOL // tp, "model": tp} and rec["replicated_after_every_step"]
@@ -316,7 +325,7 @@ def test_traffic_counted_leaf_by_leaf(case, record, runs):
     (moonshot's and danube's every leaf lies on embed: none all-reduced)."""
     _, summaries, _ = runs
     model, tp, _, _ = TRAIN_RULES_CASES[case]
-    cfg = reduced(get_config(model))
+    cfg = train_case_cfg(model)
     k = 2 if record == "accum_traffic" else 1
     for s in summaries:
         t = s[case][record]
@@ -338,7 +347,7 @@ def test_dry_run_stands_in_the_counted_traffic(case, runs, monkeypatch):
     collectives the pool counted: the same calls by kind, at half the f32
     bytes."""
     _, summaries, _ = runs
-    cfg = reduced(get_config(TRAIN_RULES_CASES[case][0]))
+    cfg = train_case_cfg(TRAIN_RULES_CASES[case][0])
     mesh = {"data": 2, "model": 2}
     monkeypatch.setattr(cells, "get_config", lambda arch: cfg)
     monkeypatch.setitem(cells.SHAPES, "reduced", ShapeSpec("reduced", RULES_SEQ, RULES_BATCH, "train"))
